@@ -1,0 +1,191 @@
+"""Port parity for the slice as a whole: ``geomesa_tpu_torch``'s resident
+``DeviceIndex`` against ``geomesa_tpu``'s, on the same data.
+
+The same numpy columns go into both packages' ``BatchStore`` and a
+``DeviceIndex(z_planes=True)`` (the port's on ``device="cpu"``, where its
+kernel wrappers run their plain versions). Coordinates and query bounds
+are exact in float32, so the JAX package's float64 planes on the CPU and
+the port's float32 planes decide every compare alike. Checked: the staged
+key planes, and for bbox+during queries on a Z3 and a Z2 schema the loose
+count, the exact count and the query fid sets -- also for an index built
+from the JAX package's own planes with ``convert.planes_from_numpy``.
+Tolerance: bit-exact.
+"""
+
+import numpy as np
+import pytest
+
+from geomesa_tpu.device_cache import DeviceIndex as JIndex
+from geomesa_tpu.features.batch import FeatureBatch as JBatch
+from geomesa_tpu.store.direct import BatchStore as JStore
+from geomesa_tpu_torch import kernels
+from geomesa_tpu_torch.convert import planes_from_numpy
+from geomesa_tpu_torch.device_cache import Z_BT, Z_NX, Z_NY, DeviceIndex
+from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
+from geomesa_tpu_torch.store.direct import BatchStore
+
+DAY = 86_400_000
+T0 = 1_577_836_800_000  # 2020-01-01
+Z3_SPEC = "count:Int,dtg:Date,name:String,*geom:Point:srid=4326"
+Z2_SPEC = "count:Int,*geom:Point:srid=4326"
+
+
+def _columns(n, seed, with_dtg=True):
+    rng = np.random.default_rng(seed)
+    # 90% in a few clusters, the rest uniform; every value exact in float32
+    centers = rng.uniform([-170, -80], [170, 80], (8, 2))
+    cid = rng.integers(0, 8, n)
+    xy = centers[cid] + rng.normal(0, 2.0, (n, 2))
+    uni = rng.uniform([-180, -90], [180, 90], (n, 2))
+    xy = np.where(rng.uniform(size=(n, 1)) < 0.9, xy, uni)
+    xy[:, 0] = np.clip(xy[:, 0], -180, 180)
+    xy[:, 1] = np.clip(xy[:, 1], -90, 90)
+    xy = xy.astype(np.float32).astype(np.float64)
+    xy[:4] = [[-10.0, 35.0], [30.0, 60.0], [180.0, 90.0], [-180.0, -90.0]]
+    cols = {"count": rng.integers(0, 1000, n), "geom": xy}
+    if with_dtg:
+        cols["dtg"] = rng.integers(T0, T0 + 60 * DAY, n)
+        cols["dtg"][:2] = [T0 + 9 * DAY, T0 + 14 * DAY]  # on window edges
+        cols["name"] = np.array(["a", "b", "c"] * (n // 3) + ["a"] * (n % 3), dtype=object)
+    return cols
+
+
+def _w(d0, d1):
+    return f"2020-01-{d0:02d}T00:00:00Z/2020-{d1}Z"
+
+
+Z3_QUERIES = [
+    "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z",
+    "BBOX(geom, -180, -90, 180, 90) AND dtg DURING 2020-01-01T00:00:00Z/2020-01-02T00:00:00Z",
+    "BBOX(geom, 2.25, 48.5, 2.75, 49) AND dtg DURING 2020-01-05T00:00:00Z/2020-02-02T00:00:00Z",
+    "BBOX(geom, -130, 20, -60, 55) AND dtg DURING 2020-02-01T06:30:00Z/2020-02-03T18:00:00Z",
+    "BBOX(geom, 100, -50, 160, 0) AND dtg DURING 2020-01-20T00:00:00Z/2020-02-17T00:00:00Z",
+    "BBOX(geom, 179.5, 89.5, 180, 90) AND dtg DURING 2019-12-01T00:00:00Z/2020-04-01T00:00:00Z",
+    "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2021-01-01T00:00:00Z/2021-02-01T00:00:00Z",
+    "BBOX(geom, 10, 10, 5, 5) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z",
+    "BBOX(geom, -60, -30, 60, 30)",
+    "dtg DURING 2020-01-28T00:00:00Z/2020-02-04T12:00:00Z",
+    "dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z AND BBOX(geom, -10, 35, 30, 60)",
+    "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z "
+    "AND count > 500",
+    "BBOX(geom, -10, 35, 30, 60) AND name LIKE 'a%'",
+    "INCLUDE",
+]
+Z2_QUERIES = [
+    "BBOX(geom, -10, 35, 30, 60)",
+    "BBOX(geom, -180, -90, 180, 90)",
+    "BBOX(geom, 2.25, 48.5, 2.75, 49)",
+    "BBOX(geom, 179.5, 89.5, 180, 90)",
+    "BBOX(geom, -130, 20, -60, 55) AND count < 100",
+    "BBOX(geom, 10, 10, 5, 5)",
+]
+
+
+def _pair(spec, cols):
+    from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
+
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+
+    jsft, sft = JSFT.create("t", spec), SimpleFeatureType.create("t", spec)
+    jdi = JIndex(JStore(JBatch.from_columns(jsft, cols)), "t", z_planes=True)
+    batch = FeatureBatch.from_columns(sft, cols)
+    tdi = DeviceIndex(BatchStore(batch), "t", z_planes=True, device="cpu")
+    return jdi, tdi, sft, batch
+
+
+@pytest.fixture(scope="module")
+def z3():
+    return _pair(Z3_SPEC, _columns(20011, seed=1))
+
+
+@pytest.fixture(scope="module")
+def z2():
+    return _pair(Z2_SPEC, _columns(20011, seed=2, with_dtg=False))
+
+
+def _assert_same(jdi, tdi, ecql):
+    assert tdi.count(ecql, loose=True) == jdi.count(ecql, loose=True)
+    assert tdi.count(ecql, loose=False) == jdi.count(ecql, loose=False)
+    for loose in (False, True):
+        np.testing.assert_array_equal(
+            np.sort(tdi.query(ecql, loose=loose).fids),
+            np.sort(jdi.query(ecql, loose=loose).fids),
+        )
+
+
+def test_staged_planes_match(z3, z2):
+    for jdi, tdi, _, _ in (z3, z2):
+        names = [Z_NX, Z_NY] + ([Z_BT] if tdi._z_kind == "z3" else [])
+        assert tdi._z_kind == jdi._z_kind and jdi._dim_mode
+        for k in names:
+            np.testing.assert_array_equal(tdi._cols[k].numpy(), np.asarray(jdi._cols[k]))
+        assert tdi._bt_base == jdi._bt_base and tdi._bin_range == jdi._bin_range
+
+
+@pytest.mark.parametrize("ecql", Z3_QUERIES, ids=lambda s: s[:50])
+def test_z3_counts_and_fids_match(z3, ecql):
+    jdi, tdi, _, _ = z3
+    _assert_same(jdi, tdi, ecql)
+
+
+@pytest.mark.parametrize("ecql", Z2_QUERIES)
+def test_z2_counts_and_fids_match(z2, ecql):
+    jdi, tdi, _, _ = z2
+    _assert_same(jdi, tdi, ecql)
+
+
+@pytest.mark.parametrize("which", ["z3", "z2"])
+def test_index_from_jax_planes_answers_identically(z3, z2, which):
+    jdi, _, sft, batch = z3 if which == "z3" else z2
+    planes = planes_from_numpy(
+        {k: np.asarray(v) for k, v in jdi._cols.items()}, "cpu"
+    )
+    tdi = DeviceIndex.from_planes(
+        sft, batch, planes, jdi._bt_base, jdi._bin_range, device="cpu"
+    )
+    for ecql in (Z3_QUERIES if which == "z3" else Z2_QUERIES)[:6]:
+        _assert_same(jdi, tdi, ecql)
+
+
+def test_main_path_goes_through_the_kernel_wrappers(z3, z2):
+    """On CPU tensors the wrappers run the plain versions and count no
+    launches; the exact bbox+during path never takes device_fn."""
+    _, t3, _, _ = z3
+    _, t2, _, _ = z2
+    kernels.reset_counts()
+    t3.count(Z3_QUERIES[0], loose=True)
+    t3.count(Z3_QUERIES[0], loose=False)
+    t3.query(Z3_QUERIES[0])
+    t2.count(Z2_QUERIES[0], loose=True)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    assert kernels.DEVICE_FN_CALLS == {"count": 0, "mask": 0}
+
+
+def test_loose_is_superset_of_exact(z3):
+    _, tdi, _, _ = z3
+    for ecql in Z3_QUERIES[:8]:
+        loose = tdi.mask(ecql, loose=True)
+        exact = tdi.mask(ecql, loose=False)
+        assert not np.any(exact & ~loose)
+
+
+def test_later_slices_raise():
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+
+    sft = SimpleFeatureType.create("t", Z3_SPEC)
+    cols = _columns(64, seed=3)
+    store = BatchStore(FeatureBatch.from_columns(sft, cols))
+    with pytest.raises(NotImplementedError, match="interleaved"):
+        DeviceIndex(store, "t", dim_planes=False, device="cpu")
+    labeled = dict(cols)
+    labeled[VIS_COLUMN] = ["", "admin"] * 32
+    with pytest.raises(NotImplementedError, match="visibility"):
+        DeviceIndex(BatchStore(FeatureBatch.from_columns(sft, labeled)), "t", device="cpu")
+    di = DeviceIndex(store, "t", device="cpu")
+    with pytest.raises(NotImplementedError, match="fused"):
+        di.fused_loose_counts([Z3_QUERIES[0]])
+    with pytest.raises(NotImplementedError, match="density"):
+        di.density()
+    poly = SimpleFeatureType.create("p", "*geom:Polygon:srid=4326")
+    with pytest.raises(NotImplementedError, match="xz"):
+        FeatureBatch.from_columns(poly, {"geom": ["POLYGON((0 0, 1 0, 1 1, 0 0))"]})
