@@ -6,19 +6,31 @@
 Phases:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
-  2. every kernel against its plain PyTorch version on the card, bit-exact,
-     at ragged sizes with edge rows (dim scans at R in {1,2,4,8} and z2;
-     the filter scan over a fixed filter list);
+  2. every kernel against its plain PyTorch version on the card, at ragged
+     sizes with edge rows (dim scans at R in {1,2,4,8} and z2; the filter
+     scan over a fixed filter list; the density kernel at n in {0, 1, 1000,
+     2^20+17} on six grids from 16x16 to 2048x1024, clustered and uniform
+     points, with and without a mask): bit-exact, weighted density grids
+     within rtol 1e-6;
   3. the main path at full size: a GDELT-shaped resident Z3 point type
      (count:Int,dtg:Date,*geom:Point, 2^26 rows from a fixed seed: 90% of
      points in 64 city clusters, coordinates float32, dtg over 60 days from
      2020-01-01) and its date-less Z2 sibling, staged through
      DeviceIndex(BatchStore(batch)) and queried with 32 bbox+during
      filters through count(loose=True), count(loose=False), query() and
-     query(loose=True); every answer is checked on the host with numpy,
-     and the launch counts show which kernels carried the queries;
+     query(loose=True); then 9 density calls (INCLUDE over the world at
+     512x256 and 128x128, the Europe 5-day query exact, loose and weighted,
+     a city viewport, grids up to 2048x1024, one on Z2) and 4 Count/MinMax/Histogram stats calls;
+     every answer is checked on the host with numpy, and the launch counts
+     of each drive show which kernels carried it;
+  3b. a labeled Z3 index of 2^24 rows (labels from a fixed seed over six
+     visibility expressions): counts, fid sets, density grids and a
+     Count() stat under three auth sets, checked against numpy with a
+     per-label verdict table;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
-     bound and its plain version's time.
+     bound, its plain version's time and, for density, torch.bincount;
+     the density kernel's shared-memory and global engines on a counted
+     128x128 grid.
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -31,6 +43,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -40,8 +53,12 @@ T0 = 1_577_836_800_000  # 2020-01-01T00:00:00Z
 DAY = 86_400_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
 GDELT_SPEC = "count:Int,dtg:Date,*geom:Point:srid=4326"
 Z2_SPEC = "count:Int,*geom:Point:srid=4326"
+
+
+CARD = ""  # "name, power limit" from nvidia-smi, set in main(); beside every time
 
 
 def log(*a):
@@ -75,6 +92,21 @@ class Errs:
         err = int((g - w).abs().max()) if g.numel() else 0
         self.err[name] = max(self.err.get(name, 0), err)
         if err:
+            raise AssertionError(f"{name} {what}: kernel != plain (max abs err {err})")
+
+    def check_grid(self, name, got, want, rtol, what):
+        """Float grids: equal when ``rtol`` is 0, else |got - want| <=
+        rtol * |want| cell by cell."""
+        import torch
+
+        if got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        ok = torch.equal(got, want) if rtol == 0 else bool(
+            (diff <= rtol * want.to(torch.float64).abs()).all())
+        if not ok:
             raise AssertionError(f"{name} {what}: kernel != plain (max abs err {err})")
 
 
@@ -166,6 +198,56 @@ def check_filter_scans(dev, errs: Errs):
     torch.cuda.synchronize()
 
 
+DENSITY_ENV = (-60.0, -45.0, 100.0, 60.0)
+DENSITY_GRIDS = [(16, 16), (100, 37), (256, 256), (512, 512), (1024, 1024), (2048, 1024)]
+
+
+def density_case(n, width, height, clustered, seed):
+    """float32 points: clustered (8 centres, sigma 0.2 degrees) or uniform
+    over a box wider than the viewport; the first rows sit on cell edges,
+    on the viewport border and just outside it."""
+    rng = np.random.default_rng(seed)
+    x0, y0, x1, y1 = DENSITY_ENV
+    if clustered:
+        centres = rng.uniform([x0 + 5, y0 + 5], [x1 - 5, y1 - 5], (8, 2))
+        xy = centres[rng.integers(0, 8, n)] + rng.normal(0.0, 0.2, (n, 2))
+    else:
+        xy = rng.uniform([x0 - 10, y0 - 10], [x1 + 10, y1 + 10], (n, 2))
+    k = min(n, 64)
+    xy[:k, 0] = x0 + rng.integers(0, width + 1, k) * (x1 - x0) / width
+    xy[:k, 1] = y0 + rng.integers(0, height + 1, k) * (y1 - y0) / height
+    if n >= 4:
+        xy[:4] = [[x0, y0], [x1, y1], [x0 - 1e-3, 0.0], [0.0, y1 + 1e-3]]
+    x = np.ascontiguousarray(xy[:, 0], np.float32)
+    y = np.ascontiguousarray(xy[:, 1], np.float32)
+    return x, y, rng.random(n) < 0.6, rng.uniform(0.5, 2.0, n).astype(np.float32)
+
+
+def check_density(dev, errs: Errs):
+    import torch
+
+    from geomesa_tpu_torch.ops.density import _launch, density_grid, density_plain
+
+    for n in (0, 1, 1000, (1 << 20) + 17):
+        for width, height in DENSITY_GRIDS:
+            for clustered in (True, False):
+                x, y, m, w = (torch.from_numpy(a).to(dev) for a in
+                              density_case(n, width, height, clustered, SEED + n + width))
+                for mask in (None, m):
+                    what = (f"n={n} {width}x{height} {'clustered' if clustered else 'uniform'}"
+                            f"{' masked' if mask is not None else ''}")
+                    args = (x, y, DENSITY_ENV, width, height)
+                    want = density_plain(*args, mask=mask)
+                    want_w = density_plain(*args, mask=mask, weights=w)
+                    errs.check_grid("density_count", density_grid(*args, mask=mask), want, 0.0, what)
+                    errs.check_grid("density_weighted", density_grid(*args, mask=mask, weights=w),
+                                    want_w, 1e-6, what)
+                    # the global engine on the counted grids that take shared memory
+                    errs.check_grid("density_count", _launch(*args, mask, None, shared=False),
+                                    want, 0.0, what + " global engine")
+    torch.cuda.synchronize()
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 
@@ -238,6 +320,23 @@ def pct(v, p):
     return float(np.percentile(np.asarray(v) * 1e3, p))
 
 
+def read_launches(tag: str, calls: dict) -> dict:
+    """The launch counts since the last reset_counts(), held against the
+    calls the drive made (every other kernel: 0); device_fn must serve
+    nothing."""
+    from geomesa_tpu_torch import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    fallbacks = dict(kernels.DEVICE_FN_CALLS)
+    want = {k: calls.get(k, 0) for k in kernels.KERNEL_NAMES}
+    log(f"{tag} launches:", json.dumps(launches), "device_fn calls:", json.dumps(fallbacks))
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches} != the calls made {want}")
+    if any(fallbacks.values()):
+        raise AssertionError(f"{tag}: device_fn served scans: {fallbacks}")
+    return launches
+
+
 def run_main_path(dev, cols):
     """Stage both indexes, then run every query through the public entry
     points; return timings and the state the checks need."""
@@ -293,47 +392,69 @@ def run_main_path(dev, cols):
             "query_exact": di2.query(ecql),
             "query_loose": di2.query(ecql, loose=True),
         })
-    launches = dict(kernels.LAUNCHES)
-    fallbacks = dict(kernels.DEVICE_FN_CALLS)
     q3, q2 = len(queries), len(z2_queries)
-    want = {
+    launches = read_launches("main path (count/query)", {
         "dimscan_z3_count": q3, "dimscan_z3_mask": q3,
         "dimscan_z2_count": q2, "dimscan_z2_mask": q2,
         "filter_scan_count": q3 + q2, "filter_scan_mask": q3 + q2,
-    }
-    log("main-path launches:", json.dumps(launches), "device_fn calls:", json.dumps(fallbacks))
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != the calls made {want}")
-    if any(fallbacks.values()):
-        raise AssertionError(f"device_fn served main-path scans: {fallbacks}")
+    })
     for key, v in lat.items():
         log(f"latency z3 {key}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms  "
-            f"({n / np.median(v) / 1e9:.2f} G rows/s at p50)")
+            f"({n / np.median(v) / 1e9:.2f} G rows/s at p50) [{CARD}]")
     return di3, di2, queries, z2_queries, res3, res2, launches
 
 
-def check_main_path(cols, di3, di2, queries, z2_queries, res3, res2):
-    """Every main-path answer against numpy over the same float32 rows."""
+def np_exact(x, y, dtg, b, w=None):
+    """numpy bbox(+during) over float32 rows: bounds rounded to float32 as
+    the filter compiles them."""
+    m = (x >= np.float32(b[0])) & (x <= np.float32(b[2]))
+    m &= (y >= np.float32(b[1])) & (y <= np.float32(b[3]))
+    if w is not None:
+        m &= (dtg >= T0 + int(w[0] * DAY)) & (dtg <= T0 + int(w[1] * DAY))
+    return m
+
+
+def np_loose(q, planes):
+    """numpy dim scan over host dim planes (nx, ny[, bt])."""
+    m = (planes[0] >= q[0]) & (planes[0] <= q[1]) & (planes[1] >= q[2]) & (planes[1] <= q[3])
+    if len(planes) == 3:
+        tm = np.zeros(len(m), bool)
+        for k in range((len(q) - 4) // 2):
+            tm |= (planes[2] >= q[4 + 2 * k]) & (planes[2] <= q[5 + 2 * k])
+        m &= tm
+    return m
+
+
+def host_z3_planes(cols):
+    """(nx, ny, bt) uint32 dim planes from the host quantizer."""
     from geomesa_tpu_torch.curves.binnedtime import to_binned_time
-    from geomesa_tpu_torch.curves.z2 import Z2SFC
     from geomesa_tpu_torch.curves.z3 import Z3SFC
+    from geomesa_tpu_torch.ops import zscan
+
+    s3 = Z3SFC()
+    bins, off = to_binned_time(cols["dtg"], s3.period)
+    rel = (bins - int(bins.min())).astype(np.uint32)
+    hx = s3.lon.normalize(cols["geom"][:, 0]).astype(np.uint32)
+    hy = s3.lat.normalize(cols["geom"][:, 1]).astype(np.uint32)
+    hbt = (rel << np.uint32(21)) | s3.time.normalize(off).astype(np.uint32)
+    hbt[rel >= zscan.BT_BIN_SPAN - 1] = 0xFFFFFFFF
+    return hx, hy, hbt
+
+
+def check_main_path(cols, di3, di2, queries, z2_queries, res3, res2):
+    """Every main-path answer against numpy over the same float32 rows.
+    Returns the host dim planes (z3, z2) for the later checks."""
+    from geomesa_tpu_torch.curves.z2 import Z2SFC
     from geomesa_tpu_torch.device_cache import Z_BT, Z_NX, Z_NY
     from geomesa_tpu_torch.filter.ecql import parse_ecql
-    from geomesa_tpu_torch.ops import zscan
 
     t = time.time()
     x = cols["geom"][:, 0].astype(np.float32)
     y = cols["geom"][:, 1].astype(np.float32)
     dtg = cols["dtg"]
     # host dim planes from the host quantizer, held against the staged ones
-    s3, s2 = Z3SFC(), Z2SFC()
-    bins, off = to_binned_time(dtg, s3.period)
-    base = int(bins.min())
-    rel = (bins - base).astype(np.uint32)
-    hx = s3.lon.normalize(cols["geom"][:, 0]).astype(np.uint32)
-    hy = s3.lat.normalize(cols["geom"][:, 1]).astype(np.uint32)
-    hbt = (rel << np.uint32(21)) | s3.time.normalize(off).astype(np.uint32)
-    hbt[rel >= zscan.BT_BIN_SPAN - 1] = 0xFFFFFFFF
+    hx, hy, hbt = host_z3_planes(cols)
+    s2 = Z2SFC()
     for name, h in ((Z_NX, hx), (Z_NY, hy), (Z_BT, hbt)):
         if not np.array_equal(di3._cols[name].cpu().numpy(), h):
             raise AssertionError(f"staged z3 plane {name} != the host quantizer")
@@ -344,20 +465,7 @@ def check_main_path(cols, di3, di2, queries, z2_queries, res3, res2):
             raise AssertionError(f"staged z2 plane {name} != the host quantizer")
 
     def exact(b, w=None):
-        m = (x >= np.float32(b[0])) & (x <= np.float32(b[2]))
-        m &= (y >= np.float32(b[1])) & (y <= np.float32(b[3]))
-        if w is not None:
-            m &= (dtg >= T0 + int(w[0] * DAY)) & (dtg <= T0 + int(w[1] * DAY))
-        return m
-
-    def loose(q, planes):
-        m = (planes[0] >= q[0]) & (planes[0] <= q[1]) & (planes[1] >= q[2]) & (planes[1] <= q[3])
-        if len(planes) == 3:
-            tm = np.zeros(len(m), bool)
-            for k in range((len(q) - 4) // 2):
-                tm |= (planes[2] >= q[4 + 2 * k]) & (planes[2] <= q[5 + 2 * k])
-            m &= tm
-        return m
+        return np_exact(x, y, dtg, b, w)
 
     def verify(di, ecql, b, w, out, planes, tag):
         em = exact(b, w)
@@ -369,7 +477,7 @@ def check_main_path(cols, di3, di2, queries, z2_queries, res3, res2):
         lb = di._loose_bounds(parse_ecql(ecql))
         if lb is None:
             raise AssertionError(f"{tag} {ecql}: the key planes could not answer")
-        lm = loose(lb[0], planes)
+        lm = np_loose(lb[0], planes)
         if out["count_loose"] != int(lm.sum()) or out["count_loose"] < n_exact:
             raise AssertionError(
                 f"{tag} {ecql}: loose count {out['count_loose']} vs numpy {int(lm.sum())}, "
@@ -381,17 +489,250 @@ def check_main_path(cols, di3, di2, queries, z2_queries, res3, res2):
             raise AssertionError(f"{tag} {ecql}: loose is not a superset of exact")
         return n_exact, int(lm.sum())
 
-    hits = []
-    for (ecql, b, w), out in zip(queries, res3):
-        hits.append(verify(di3, ecql, b, w, out, (hx, hy, hbt), "z3"))
-    for ecql, (_, b, _), out in zip(z2_queries, queries[: len(z2_queries)], res2):
-        verify(di2, ecql, b, None, out, (h2x, h2y), "z2")
+    # one query per thread: numpy's elementwise passes release the GIL,
+    # so the host's cores share the 40 full-size checks
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        hits = list(pool.map(
+            lambda a: verify(di3, *a, (hx, hy, hbt), "z3"),
+            [(ecql, b, w, out) for (ecql, b, w), out in zip(queries, res3)],
+        ))
+        list(pool.map(
+            lambda a: verify(di2, *a, (h2x, h2y), "z2"),
+            [(ecql, b, None, out) for ecql, (_, b, _), out
+             in zip(z2_queries, queries[: len(z2_queries)], res2)],
+        ))
     ex = [h[0] for h in hits]
     lo = [h[1] for h in hits]
     log(f"checked {len(queries)} z3 + {len(z2_queries)} z2 queries against numpy in "
         f"{time.time() - t:.1f} s; z3 exact hits min/median/max "
         f"{min(ex)}/{int(np.median(ex))}/{max(ex)}, loose/exact overscan median "
         f"{np.median([l / max(e, 1) for e, l in zip(ex, lo)]):.3f}")
+    return (hx, hy, hbt), (h2x, h2y)
+
+
+# -- phase 3: density and stats on the same indexes ---------------------------
+
+WORLD = (-180.0, -90.0, 180.0, 90.0)
+EUROPE = (-10.0, 35.0, 30.0, 60.0)
+STATS_SPEC = 'Count();MinMax("count");MinMax("dtg");Histogram("count",20,0,1000)'
+
+
+def _bbox(b) -> str:
+    return f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+
+
+def density_calls(queries) -> list:
+    """(tag, index, filter, loose, envelope, (width, height), weight, box,
+    window): the density drive; ``box``/``window`` give the exact rows
+    (None: all rows), loose calls take their rows from the dim planes."""
+    europe, eb, ew = queries[0]  # the bench's Europe 5-day query
+    city, cb, cw = queries[12]
+    na = REGIONS[1][1]
+    return [
+        ("world include", "z3", "INCLUDE", None, WORLD, (512, 256), None, None, None),
+        ("world overview", "z3", "INCLUDE", None, WORLD, (128, 128), None, None, None),
+        ("europe exact", "z3", europe, False, EUROPE, (256, 256), None, eb, ew),
+        ("europe loose", "z3", europe, True, EUROPE, (256, 256), None, eb, ew),
+        ("europe weighted", "z3", europe, False, EUROPE, (256, 256), "count", eb, ew),
+        ("city", "z3", city, False, cb, (512, 512), None, cb, cw),
+        ("north america", "z3", _bbox(na), False, na, (1024, 1024), None, na, None),
+        ("world days 20-34 loose weighted", "z3", f"dtg DURING {_day(20)}/{_day(34)}",
+         True, WORLD, (2048, 1024), "count", WORLD, (20, 34)),
+        ("europe z2", "z2", _bbox(EUROPE), False, EUROPE, (256, 256), None, EUROPE, None),
+    ]
+
+
+def stats_calls(queries) -> list:
+    """(tag, filter, loose, box, window, min count exclusive)."""
+    europe, eb, ew = queries[0]
+    asia = REGIONS[4][1]
+    return [
+        ("include", "INCLUDE", None, None, None, None),
+        ("europe exact", europe, False, eb, ew, None),
+        ("europe loose", europe, True, eb, ew, None),
+        ("asia count>500", f"count > 500 AND {_bbox(asia)}", False, asia, None, 500),
+    ]
+
+
+def run_density_path(di3, di2, queries):
+    """Every density and stats call through the public entry points, with
+    the launch counts of the drive."""
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.geom import Envelope
+
+    dcalls, scalls = density_calls(queries), stats_calls(queries)
+    kernels.reset_counts()
+    grids, lat = [], []
+    for _, idx, ecql, loose, env, (w, h), weight, _, _ in dcalls:
+        di = di3 if idx == "z3" else di2
+        t = time.perf_counter()
+        grids.append(di.density(ecql, Envelope(*env), w, h, weight_attr=weight, loose=loose))
+        lat.append(time.perf_counter() - t)
+    seqs = [di3.stats(ecql, STATS_SPEC, loose=loose).to_json()
+            for _, ecql, loose, _, _, _ in scalls]
+    launches = read_launches("main path (density/stats)", {
+        "density_count": 7, "density_weighted": 2,
+        "filter_scan_mask": 5 + 2, "dimscan_z3_mask": 2 + 1,
+    })
+    log(f"latency density ({len(lat)} calls, 2^{int(np.log2(len(di3)))} rows): "
+        f"p50 {pct(lat, 50):.3f} ms  p99 {pct(lat, 99):.3f} ms; per call "
+        + ", ".join(f"{c[0]} {v * 1e3:.2f}" for c, v in zip(dcalls, lat)) + f" [{CARD}]")
+    return dcalls, grids, scalls, seqs, launches
+
+
+def np_density(x, y, sel, env, wh, weights=None) -> np.ndarray:
+    """numpy density over float32 rows: float64 pixel math, then
+    np.bincount (float64 sums for weights)."""
+    w, h = wh
+    idx = None if sel is None else np.nonzero(sel)[0]
+    xs = (x if idx is None else x[idx]).astype(np.float64)
+    ys = (y if idx is None else y[idx]).astype(np.float64)
+    xmin, ymin, xmax, ymax = (float(v) for v in env)
+    sx, sy = w / (xmax - xmin), h / (ymax - ymin)
+    inside = (xs >= xmin) & (xs <= xmax) & (ys >= ymin) & (ys <= ymax)
+    px = np.clip(np.floor((xs - xmin) * sx), 0, w - 1).astype(np.int64)
+    py = np.clip(np.floor((ys - ymin) * sy), 0, h - 1).astype(np.int64)
+    wt = None
+    if weights is not None:
+        wt = (weights if idx is None else weights[idx]).astype(np.float32).astype(np.float64)[inside]
+    grid = np.bincount((py * w + px)[inside], weights=wt, minlength=w * h)
+    return grid.reshape(h, w).astype(np.float32)
+
+
+def same_grid(got, want, weighted) -> bool:
+    if got is None or got.shape != want.shape or got.dtype != np.float32:
+        return False
+    if not weighted:
+        return np.array_equal(got, want)
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    return bool(np.all(np.abs(g - w) <= 1e-6 * np.abs(w)))
+
+
+def np_stats(cols, sel) -> list:
+    """The to_json() of STATS_SPEC over the selected rows, from numpy."""
+    c = cols["count"] if sel is None else cols["count"][sel]
+    d = cols["dtg"] if sel is None else cols["dtg"][sel]
+    n = len(c)
+    bins = np.clip(np.floor((c.astype(np.float64) - 0.0) * (20 / (1000.0 - 0.0))), 0, 19)
+    mm = lambda a, v: {"type": "minmax", "attr": a, "min": int(v.min()) if n else None,  # noqa: E731
+                       "max": int(v.max()) if n else None, "count": n}
+    return [
+        {"type": "count", "count": n}, mm("count", c), mm("dtg", d),
+        {"type": "histogram", "attr": "count", "bins": 20, "lo": 0.0, "hi": 1000.0,
+         "counts": np.bincount(bins.astype(np.int64), minlength=20).tolist()},
+    ]
+
+
+def check_density_path(cols, di3, di2, planes3, planes2, dcalls, grids, scalls, seqs):
+    """Every grid and stat against numpy over the same float32 rows."""
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+
+    t = time.time()
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    dtg = cols["dtg"]
+
+    def rows(di, planes, ecql, loose, box, window):
+        if box is None:
+            return None
+        if loose:
+            return np_loose(di._loose_bounds(parse_ecql(ecql))[0], planes)
+        return np_exact(x, y, dtg, box, window)
+
+    for (tag, idx, ecql, loose, env, wh, weight, box, window), got in zip(dcalls, grids):
+        di, planes = (di3, planes3) if idx == "z3" else (di2, planes2)
+        sel = rows(di, planes, ecql, loose, box, window)
+        want = np_density(x, y, sel, env, wh, cols["count"] if weight else None)
+        if not same_grid(got, want, weight is not None):
+            raise AssertionError(f"density {tag}: grid != numpy")
+        if not weight and want.sum() == 0:
+            raise AssertionError(f"density {tag}: an empty grid checks nothing")
+    for (tag, ecql, loose, box, window, cmin), got in zip(scalls, seqs):
+        sel = rows(di3, planes3, ecql, loose, box, window)
+        if cmin is not None:
+            sel &= cols["count"] > cmin
+        if got != np_stats(cols, sel):
+            raise AssertionError(f"stats {tag}: {got} != numpy {np_stats(cols, sel)}")
+    log(f"checked {len(dcalls)} density grids and {len(scalls)} stats against numpy "
+        f"in {time.time() - t:.1f} s")
+
+
+# -- phase 3b: per-request visibility -----------------------------------------
+
+LABELS = ["", "A", "B", "A&B", "A|C", "(A|B)&C"]
+VERDICTS = {  # auths -> whether each of LABELS is visible, written out by hand
+    None: [True, False, False, False, False, False],
+    ("A",): [True, True, False, False, True, False],
+    ("A", "B", "C"): [True, True, True, True, True, True],
+}
+N_LABELED = 1 << 24
+
+
+def run_labeled_path(dev, queries):
+    """Stage a labeled Z3 index and drive count, query, density and a
+    Count() stat under each auth set of VERDICTS; check with numpy."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.device_cache import VIS_ID, DeviceIndex
+    from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    t = time.time()
+    cols = make_columns(N_LABELED, SEED + 3)
+    lab = np.random.default_rng(SEED + 4).integers(0, len(LABELS), N_LABELED)
+    data = {k: cols[k] for k in ("count", "dtg", "geom")}
+    data[VIS_COLUMN] = np.array(LABELS, dtype=object)[lab]
+    batch = FeatureBatch.from_columns(SimpleFeatureType.create("gdelt", GDELT_SPEC), data)
+    gen = time.time() - t
+    t = time.time()
+    di = DeviceIndex(BatchStore(batch), "gdelt", z_planes=True, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 3b: generated {N_LABELED:,} labeled rows in {gen:.1f} s; staged in "
+        f"{time.time() - t:.1f} s (label vocabulary {len(di._vis_vocab)}, "
+        f"{di.nbytes / 1e9:.3f} GB resident)")
+    if VIS_ID not in di._cols:
+        raise AssertionError("the labeled index staged no label-id plane")
+    europe, eb, ew = queries[0]
+    kernels.reset_counts()
+    res = {}
+    for auths in VERDICTS:
+        res[auths] = (
+            di.count(europe, loose=True, auths=auths),
+            di.count(europe, auths=auths),
+            di.query(europe, auths=auths).fids,
+            di.query(europe, loose=True, auths=auths).fids,
+            di.density(europe, Envelope(*EUROPE), 256, 256, auths=auths),
+            di.density("INCLUDE", Envelope(*WORLD), 512, 256, auths=auths),
+            di.stats(europe, "Count()", auths=auths).to_json()[0]["count"],
+        )
+    k = len(VERDICTS)
+    launches = read_launches("labeled path", {
+        "dimscan_z3_mask": 2 * k, "filter_scan_mask": 4 * k, "density_count": 2 * k,
+    })
+    t = time.time()
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    em = np_exact(x, y, cols["dtg"], eb, ew)
+    lm = np_loose(di._loose_bounds(parse_ecql(europe))[0], host_z3_planes(cols))
+    for auths, (c_loose, c_exact, f_exact, f_loose, g_eu, g_all, n_stat) in res.items():
+        seen = np.asarray(VERDICTS[auths])[lab]
+        ex, lo = em & seen, lm & seen
+        if c_exact != int(ex.sum()) or n_stat != c_exact or c_loose != int(lo.sum()):
+            raise AssertionError(f"labeled {auths}: counts {c_exact}/{n_stat}/{c_loose} != numpy")
+        if not (np.array_equal(np.sort(f_exact), np.nonzero(ex)[0])
+                and np.array_equal(np.sort(f_loose), np.nonzero(lo)[0])):
+            raise AssertionError(f"labeled {auths}: fid sets != numpy")
+        if not (same_grid(g_eu, np_density(x, y, ex, EUROPE, (256, 256)), False)
+                and same_grid(g_all, np_density(x, y, seen, WORLD, (512, 256)), False)):
+            raise AssertionError(f"labeled {auths}: density grid != numpy")
+        log(f"labeled auths={auths}: exact {c_exact}, loose {c_loose}, "
+            f"visible rows {int(seen.sum())}")
+    log(f"checked the labeled path against numpy in {time.time() - t:.1f} s")
+    return launches
 
 
 # -- phase 4: kernel timings --------------------------------------------------
@@ -460,7 +801,7 @@ def kernel_table(dev, di3, di2, queries, z2_queries, launches, errs: Errs) -> li
         })
         log(f"{name}: {ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms, "
             f"{(in_bytes + out_bytes) / ms / 1e6:.1f} GB/s, {n / ms / 1e6:.2f} G rows/s); "
-            f"plain version {plain_ms:.3f} ms (not a yardstick)")
+            f"plain version {plain_ms:.3f} ms (not a yardstick) [{CARD}]")
 
     dim_src = "geomesa_tpu_torch/csrc/dimscan.cu"
     fs_src = "geomesa_tpu_torch/csrc/filter_scan.cu"
@@ -493,6 +834,81 @@ def kernel_table(dev, di3, di2, queries, z2_queries, launches, errs: Errs) -> li
     return rows
 
 
+def density_rows(dev, di3, launches, errs: Errs) -> list:
+    """Time the density kernel on the main path's 2^26 rows with every row
+    masked in (the heaviest case: each row adds to the grid) over the world
+    viewport: the main path's clustered points and uniform points, at
+    256x256 and 1024x1024, counted and weighted (float32 weights, cast
+    before timing). Beside it: the plain version and one torch.bincount
+    over precomputed flat ids (computes less: ids precomputed). The kernel
+    table's row is the clustered 256x256 case. Then a counted 128x128
+    grid on each of the kernel's two engines."""
+    import torch
+
+    from geomesa_tpu_torch.ops.density import _launch, density_grid, density_plain, pixel_ids
+
+    n = len(di3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    uni = [(torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * s - s / 2)
+           .to(torch.float32) for s in (360.0, 180.0)]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    wts = di3._cols["count"].to(torch.float32)
+    found = {}
+    for data, (px, py) in (("clustered", (di3._cols["geom__x"], di3._cols["geom__y"])),
+                           ("uniform", uni)):
+        for width, height in ((256, 256), (1024, 1024)):
+            ix, iy, inside = pixel_ids(px, py, WORLD, width, height)
+            flat = (iy.to(torch.int64) * width + ix.to(torch.int64))[inside]
+            del ix, iy
+            for w in (None, wts):
+                name = "density_count" if w is None else "density_weighted"
+                args = (px, py, WORLD, width, height)
+                kern = lambda a=args, w=w: density_grid(*a, mask=ones, weights=w)  # noqa: E731
+                plain = lambda a=args, w=w: density_plain(*a, mask=ones, weights=w)  # noqa: E731
+                wf = None if w is None else w[inside]
+                lib = lambda f=flat, wf=wf, c=width * height: torch.bincount(  # noqa: E731
+                    f, weights=wf, minlength=c)
+                what = f"{data} {width}x{height} main-path shapes"
+                errs.check_grid(name, kern(), plain(), 0.0 if w is None else 1e-6, what)
+                ms, plain_ms, lib_ms = time_ms(kern, 20), time_ms(plain, 2), time_ms(lib, 10)
+                nbytes = (9 if w is None else 13) * n + 4 * width * height
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = 12 * n / F64_OPS_PER_S * 1e3  # float64 pixel math per row
+                bound = max(t_bytes, t_ops)
+                found[(data, width, name)] = (ms, plain_ms, lib_ms, bound,
+                                              "bytes" if t_bytes >= t_ops else "operations")
+                log(f"{name} {data} {width}x{height}: {ms:.4f} ms (bound {bound:.4f} ms, "
+                    f"{100 * bound / ms:.1f}% of it, {n / ms / 1e6:.2f} G rows/s); "
+                    f"torch.bincount {lib_ms:.4f} ms (computes less: ids precomputed); "
+                    f"plain version {plain_ms:.3f} ms (not a yardstick) [{CARD}]")
+            del flat, inside
+        # a counted grid that takes the shared-memory engine, timed on it
+        # and on the global engine: the measurement behind the split
+        args = (px, py, WORLD, 128, 128, ones, None)
+        want = density_plain(*args[:5], mask=ones)
+        t = {}
+        for shared in (True, False):
+            kern = lambda s=shared: _launch(*args, shared=s)  # noqa: E731
+            errs.check_grid("density_count", kern(), want, 0.0,
+                            f"{data} 128x128 {'shared-memory' if shared else 'global'} engine")
+            t[shared] = time_ms(kern, 20)
+        log(f"density_count {data} 128x128: shared-memory engine {t[True]:.4f} ms, "
+            f"global engine {t[False]:.4f} ms [{CARD}]")
+    src = "geomesa_tpu_torch/csrc/density.cu"
+    rep = "geomesa_tpu/ops/density_pallas.py:42 build_density_pallas (pallas_call :124)"
+    rows = []
+    for name in ("density_count", "density_weighted"):
+        ms, plain_ms, lib_ms, bound, bound_by = found[("clustered", 256, name)]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[name], "max_abs_err": errs.err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -504,10 +920,11 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the geomesa_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
+    global CARD
     t_all = time.time()
     dev = torch.device("cuda:0")
-    card = card_line()
-    log(f"phase 0: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    CARD = card_line()
+    log(f"phase 0: {CARD}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
 
     t = time.time()
@@ -522,17 +939,25 @@ def main() -> int:
     errs = Errs()
     check_dimscans(dev, errs)
     check_filter_scans(dev, errs)
-    log(f"phase 2: kernels == plain versions, bit-exact ({time.time() - t:.1f} s)")
+    check_density(dev, errs)
+    log(f"phase 2: kernels == plain versions, bit-exact (weighted density: rtol 1e-6) "
+        f"({time.time() - t:.1f} s)")
 
     t = time.time()
     cols = make_columns(N_ROWS, SEED)
     log(f"phase 3: generated {N_ROWS:,} rows in {time.time() - t:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    di3, di2, queries, z2q, res3, res2, launches = run_main_path(dev, cols)
-    check_main_path(cols, di3, di2, queries, z2q, res3, res2)
+    di3, di2, queries, z2q, res3, res2, main_launches = run_main_path(dev, cols)
+    planes3, planes2 = check_main_path(cols, di3, di2, queries, z2q, res3, res2)
+    dcalls, grids, scalls, seqs, dens_launches = run_density_path(di3, di2, queries)
+    check_density_path(cols, di3, di2, planes3, planes2, dcalls, grids, scalls, seqs)
+    del planes3, planes2, grids
+    lab_launches = run_labeled_path(dev, queries)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    launches = {k: main_launches[k] + dens_launches[k] + lab_launches[k] for k in main_launches}
 
     rows = kernel_table(dev, di3, di2, queries, z2q, launches, errs)
+    rows += density_rows(dev, di3, launches, errs)
     log(json.dumps({"kernels": rows}))
     log(f"total {time.time() - t_all:.1f} s")
     log(card_line())

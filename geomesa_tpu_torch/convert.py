@@ -7,8 +7,10 @@ the port's resident planes, bit for bit, so that
 planes keep their bits and dtype. A float64 plane (the counterpart stages
 float64 off a TPU) becomes float32 only when every value survives the
 round trip; otherwise it raises, since the port's kernels read float32
-lanes and a rounded plane would change answers. The interleaved key
-planes and the visibility plane are not in this slice and raise.
+lanes and a rounded plane would change answers. The visibility label-id
+plane ``__visid`` is an int32 plane like any other; pass the counterpart's
+``_vis_vocab`` to ``from_planes`` with it. The interleaved key planes are
+not in the port yet and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ _LATER = {
     "__zbin": "the interleaved masked-compare layout",
     "__zhi": "the interleaved masked-compare layout",
     "__zlo": "the interleaved masked-compare layout",
-    "__visid": "visibility/auths",
 }
 
 

@@ -1,26 +1,33 @@
 """Device-resident index: a type's scan planes pinned in GPU memory,
-serving bbox+during count and query through the dim-scan and filter-scan
-kernels.
+serving bbox+during count and query, density grids and stats, under
+per-request authorizations.
 
 Counterpart of ``DeviceIndex`` in ``geomesa_tpu/device_cache.py``, trimmed
-to this slice: full staging (attribute planes plus the de-interleaved
-key planes ``__znx/__zny/__zbt`` of z3/z2 point schemas), the loose
-key-only count and mask, the exact fused count and mask, and the host
-take. Uploads are plain per-plane copies (the counterpart's packed
-transfer and thin-transfer tricks exist for its remote link).
+to what the port has so far: full staging (attribute planes, the
+de-interleaved key planes ``__znx/__zny/__zbt`` of z3/z2 point schemas,
+and the visibility label-id plane ``__visid``), the loose key-only count
+and mask, the exact fused count and mask, the host take, and the
+pushdown-aggregation hook ``_fused_agg`` with its two consumers,
+``density`` (the density kernel) and ``stats`` (Count/MinMax/Histogram as
+torch reductions). Uploads are plain per-plane copies (the counterpart's
+packed transfer and thin-transfer tricks exist for its remote link).
 
-Not in this slice; each raises ``NotImplementedError`` naming its ROADMAP
-item: visibility/auths staging (labeled rows are refused, never served
-unlabeled), the interleaved masked-compare layout (``dim_planes=False``,
-or a z3 bin span too wide to pack), the xz kinds, the Q-batched fused
-loose paths, streaming and sharded indexes, density, knn, stats and joins.
+Not in the port yet; each raises ``NotImplementedError`` naming its
+ROADMAP item: the interleaved masked-compare layout (``dim_planes=False``
+with key planes, or a z3 bin span too wide to pack), the xz kinds, the
+Q-batched fused loose paths, streaming and sharded indexes, knn, joins,
+and the stats the host sketches serve (Cardinality, TopK, Frequency,
+Z3Histogram).
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
+from geomesa_tpu_torch.bucketing import bucket_cap
 from geomesa_tpu_torch.curves.binnedtime import (
     bin_to_millis,
     max_offset,
@@ -31,12 +38,25 @@ from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.keyplanes import encode_inputs, schema_kind
 from geomesa_tpu_torch.ops import zscan
+from geomesa_tpu_torch.ops.density import density_grid
+from geomesa_tpu_torch.ops.int64lanes import widen_u32
 from geomesa_tpu_torch.ops.scan import stage_columns_host, to_tensor
-from geomesa_tpu_torch.store.direct import has_labels
+from geomesa_tpu_torch.security import VisibilityEvaluator
+from geomesa_tpu_torch.stats.dsl import _observe_on_batch, parse_stat
+from geomesa_tpu_torch.stats.sketches import CountStat, Histogram, MinMax
 
 # reserved names of the de-interleaved key planes (a leading underscore
 # cannot clash with attribute planes "<attr>" / "<attr>__suffix")
 Z_NX, Z_NY, Z_BT = "__znx", "__zny", "__zbt"
+# reserved name of the visibility label-id plane: each row carries the id
+# of its label expression in a small vocabulary; a per-request auth table
+# gathers to a bool mask on the device
+VIS_ID = "__visid"
+_AUTH_TABLES_MAX = 256  # cached auth sets (request input: bounded)
+
+
+class _VisOverflow(Exception):
+    """The label vocabulary exceeded VIS_VOCAB_MAX."""
 
 
 def _later(item: str) -> str:
@@ -62,26 +82,43 @@ def _stageable_planes(sft: SimpleFeatureType) -> list:
 class DeviceIndex:
     """Resident scan cache over one store type.
 
-    >>> di = DeviceIndex(BatchStore(batch), "gdelt")
+    >>> di = DeviceIndex(BatchStore(batch), "gdelt", z_planes=True)
     >>> di.count("BBOX(geom, -10, 35, 30, 60) AND dtg DURING ...")
     >>> di.count(..., loose=True)   # key planes only, cell granularity
     >>> batch = di.query(...)        # mask on device, take on host
+    >>> grid = di.density(..., Envelope(-180, -90, 180, 90), 512, 256)
+    >>> seq = di.stats(..., 'Count();MinMax("count")')
 
-    ``loose=True`` answers bbox(+during) filters from the key planes at
-    cell granularity: a superset of the exact answer (GeoMesa's loose-bbox
-    mode). Runs on ``cuda:0`` unless ``device`` says otherwise;
+    With ``z_planes=True`` the key planes stay resident too, and
+    ``loose=True`` answers bbox(+during) filters from them at cell
+    granularity: a superset of the exact answer (GeoMesa's loose-bbox
+    mode). Without key planes ``loose=True`` answers exactly, as in the
+    counterpart. Runs on ``cuda:0`` unless ``device`` says otherwise;
     ``device="cpu"`` runs the kernels' plain versions on the host.
+
+    Visibility (per-auth resident serving, ref Accumulo cell visibility):
+    staging keeps EVERY row plus a compact label-id plane (the distinct
+    label expressions form a vocabulary capped at ``VIS_VOCAB_MAX``). Each
+    request's auths evaluate the vocabulary once on the host into a bool
+    table; the device gathers it by label id and ANDs it into the hit
+    mask. No auths (the default) hides labeled rows: fail closed, the
+    store semantics. If the vocabulary overflows the cap, labeled rows are
+    dropped from the resident copy (served by the store path only) with a
+    warning.
     """
+
+    #: distinct visibility expressions the resident cache will track
+    VIS_VOCAB_MAX = 4096
 
     def __init__(
         self,
         store,
         type_name: str,
-        z_planes: bool = True,
+        z_planes: bool = False,
         dim_planes: "bool | None" = None,
         device=None,
     ):
-        if dim_planes is False:
+        if z_planes and dim_planes is False:
             raise NotImplementedError(
                 _later("interleaved-layout and xz scans")
                 + " (dim_planes=False, the masked-compare layout)"
@@ -93,6 +130,7 @@ class DeviceIndex:
         self._planes = _stageable_planes(self.sft)
         self._want_z = z_planes
         self._dim_pref = dim_planes
+        self._reset_vis()
         self._reset()
         self.refresh()
 
@@ -104,6 +142,14 @@ class DeviceIndex:
         self._cols: dict = {}
         self._compiled: dict = {}  # repr(filter) -> CompiledFilter
         self._loose_cache: dict = {}  # repr(filter) -> (qarr, R) | None
+        self._visid_np = None  # host mirror of the VIS_ID plane
+
+    def _reset_vis(self) -> None:
+        """Vocabulary state; like the counterpart's it outlives a refresh,
+        so label ids stay stable across restages."""
+        self._vis_vocab: "dict | None" = None  # label expr -> id
+        self._vis_disabled = False  # vocabulary overflowed: public-only
+        self._auth_tables: dict = {}  # sorted auths -> (host, device) table
 
     @classmethod
     def from_planes(
@@ -114,10 +160,13 @@ class DeviceIndex:
         bt_base: "int | None",
         bin_range: "tuple | None",
         device=None,
+        vis_vocab: "dict | None" = None,
     ) -> "DeviceIndex":
         """Serve from planes staged elsewhere (``convert.planes_from_numpy``
         of the counterpart's ``_cols``): the same resident state, so the
-        same answers. ``host_batch`` is the row-aligned host mirror."""
+        same answers. ``host_batch`` is the row-aligned host mirror;
+        ``vis_vocab`` is the counterpart's ``_vis_vocab`` (label -> id),
+        required exactly when the planes hold ``__visid``."""
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.store = None
@@ -126,6 +175,7 @@ class DeviceIndex:
         self._planes = _stageable_planes(sft)
         self._want_z = Z_NX in planes
         self._dim_pref = None
+        self._reset_vis()
         self._reset()
         n = len(host_batch)
         for k, t in planes.items():
@@ -138,6 +188,14 @@ class DeviceIndex:
             raise ValueError(f"planes {missing} missing")
         self._host_batch = host_batch
         self._cols = dict(planes)
+        if (VIS_ID in planes) != (vis_vocab is not None):
+            raise ValueError(f"a {VIS_ID} plane and vis_vocab come together")
+        if vis_vocab is not None:
+            ids = planes[VIS_ID].cpu().numpy()
+            if ids.dtype != np.int32 or (n and not 0 <= ids.min() <= ids.max() < len(vis_vocab)):
+                raise ValueError(f"{VIS_ID} must hold int32 ids of the vocabulary")
+            self._vis_vocab = dict(vis_vocab)
+            self._visid_np = ids
         if self._want_z:
             kind, _ = schema_kind(sft)
             want = (Z_NX, Z_NY, Z_BT) if kind == "z3" else (Z_NX, Z_NY)
@@ -151,21 +209,113 @@ class DeviceIndex:
     # -- staging -----------------------------------------------------------
 
     def refresh(self) -> None:
-        """Re-stage from the backing store (after writes)."""
+        """Re-stage from the backing store (after writes). The staging
+        scan keeps labeled rows (``raw_visibility``): this index enforces
+        each request's auths itself."""
         if self.store is None:
             raise RuntimeError("an index built from planes has no store")
         res = self.store.query(self.type_name, ast.Include, raw_visibility=True)
         self._reset()
-        self._host_batch = res.batch
-        self._cols = self._stage_batch(res.batch)
+        self._host_batch, self._cols = self._stage_checked(res.batch)
+
+    def _stage_checked(self, batch):
+        """(batch, cols) with the vocabulary-overflow route, decided on the
+        host before anything is staged: on overflow, per-auth residency is
+        disabled and labeled rows are dropped from the resident copy (the
+        store path still serves them), loudly."""
+        try:
+            ids = self._vis_ids(batch)
+        except _VisOverflow:
+            warnings.warn(
+                f"visibility vocabulary exceeds {self.VIS_VOCAB_MAX} "
+                "distinct labels; labeled rows leave the resident cache "
+                "and are served by the store path only",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            self._vis_disabled = True
+            self._vis_vocab = None
+            self._auth_tables.clear()
+            keep = np.array(
+                [v is None or str(v) == "" for v in batch.visibilities], dtype=bool
+            )
+            batch = batch.take(np.nonzero(keep)[0])
+            ids = self._vis_ids(batch)
+        cols = self._stage_batch(batch)
+        if ids is not None:
+            cols[VIS_ID] = to_tensor(ids, self.device)
+        self._visid_np = ids
+        return batch, cols
+
+    # -- visibility plane --------------------------------------------------
+
+    def _vis_ids(self, batch) -> "np.ndarray | None":
+        """int32 label ids of a batch (extends the vocabulary; raises
+        _VisOverflow past VIS_VOCAB_MAX), or None when no label was ever
+        seen: pure-public schemas stage no plane at all."""
+        vis = batch.visibilities
+        norm = None
+        if vis is not None:
+            norm = np.array(["" if v is None else str(v) for v in vis], dtype=object)
+        labeled = norm is not None and bool(np.any(norm != ""))
+        if self._vis_disabled:
+            if labeled:
+                raise _VisOverflow()
+            return None
+        if self._vis_vocab is None:
+            if not labeled:
+                return None
+            self._vis_vocab = {"": 0}
+        if norm is None:
+            return np.zeros(len(batch), np.int32)
+        return self._vocab_ids(norm)
+
+    def _vocab_ids(self, labels: np.ndarray) -> np.ndarray:
+        uniq, inv = np.unique(labels.astype(str), return_inverse=True)
+        mapped = np.empty(len(uniq), np.int32)
+        grew = False
+        for i, lab in enumerate(uniq.tolist()):
+            vid = self._vis_vocab.get(lab)
+            if vid is None:
+                if len(self._vis_vocab) >= self.VIS_VOCAB_MAX:
+                    raise _VisOverflow()
+                vid = len(self._vis_vocab)
+                self._vis_vocab[lab] = vid
+                grew = True
+            mapped[i] = vid
+        if grew:
+            self._auth_tables.clear()  # tables are per-vocabulary
+        return mapped[inv.reshape(-1)].astype(np.int32)
+
+    def _auth_table(self, auths) -> tuple:
+        """(host, device) bool tables over the vocabulary for one auth set:
+        entry v is True iff label v is visible under ``auths`` (None/() =
+        no authorizations: labeled rows hide, fail closed). Padded to a
+        power of two of at least 16, as the counterpart pads its jit
+        shapes; at most 256 auth sets are cached, since they come straight
+        from request input."""
+        key = tuple(sorted(str(a) for a in (auths or ())))
+        tab = self._auth_tables.get(key)
+        if tab is None:
+            if len(self._auth_tables) >= _AUTH_TABLES_MAX:
+                self._auth_tables.clear()
+            vals = np.zeros(bucket_cap(len(self._vis_vocab), floor=16), dtype=bool)
+            ev = VisibilityEvaluator(auths or ())
+            for lab, vid in self._vis_vocab.items():
+                vals[vid] = ev.can_see(lab if lab else None)
+            tab = (vals, torch.from_numpy(vals).to(self.device))
+            self._auth_tables[key] = tab
+        return tab
+
+    def _apply_auths_np(self, m: np.ndarray, auths) -> np.ndarray:
+        """Host-side auth AND over a hit mask (the mask/query path; the
+        fused paths apply the same table on the device)."""
+        if self._visid_np is None:
+            return m
+        return m & self._auth_table(auths)[0][self._visid_np[: len(m)]]
 
     def _stage_batch(self, batch) -> dict:
         """Attribute planes + (optionally) key planes for a batch."""
-        if has_labels(batch):
-            raise NotImplementedError(
-                _later("visibility/auths and _fused_agg")
-                + "; labeled rows are never served unlabeled"
-            )
         host = stage_columns_host(batch, self._planes)
         cols = {k: to_tensor(v, self.device) for k, v in host.items()}
         if not self._want_z:
@@ -323,7 +473,10 @@ class DeviceIndex:
             return parse_ecql(query)
         if isinstance(query, ast.Filter):
             return query
-        raise TypeError("DeviceIndex takes a CQL string or filter AST")
+        raise TypeError(
+            "DeviceIndex takes a CQL string or filter AST; pass auths= "
+            "explicitly (a Query object is the store path's plumbing)"
+        )
 
     def _compiled_for(self, f):
         from geomesa_tpu_torch.filter.compile import compile_filter
@@ -336,11 +489,21 @@ class DeviceIndex:
     def _resident_subset(self, compiled) -> dict:
         return {c: self._cols[c] for c in compiled.device_cols}
 
-    def count(self, query, loose: "bool | None" = None) -> int:
+    def count(self, query, loose: "bool | None" = None, auths=None) -> int:
         """Fused device count; exact when the filter is fully on device,
         else it falls through to query(). With loose=True bbox(+during)
-        filters are answered at cell granularity from the key planes."""
+        filters are answered at cell granularity from the key planes.
+        ``auths`` applies per-request row security against the staged
+        label-id plane (None/() hides labeled rows: fail closed)."""
         f = self._parse(query)
+        if VIS_ID in self._cols:
+            # labeled data: the auth table must AND into the device mask
+            if len(self) == 0:
+                return 0
+            n = self._fused_agg(f, loose, lambda cols, m: int(m.sum()), auths=auths)
+            if n is not None:
+                return n
+            return int(self.mask(f, loose=loose, auths=auths).sum())
         if self._resolve_loose(loose):
             lb = self._loose_bounds(f)
             if lb is not None:
@@ -353,17 +516,20 @@ class DeviceIndex:
             return len(self.query(f))
         return int(compiled.count(self._resident_subset(compiled)))
 
-    def mask(self, query, loose: "bool | None" = None) -> np.ndarray:
-        """Boolean hit mask over the staged rows (host array)."""
+    def mask(self, query, loose: "bool | None" = None, auths=None) -> np.ndarray:
+        """Boolean hit mask over the staged rows (host array). When a
+        label-id plane is staged, the per-request ``auths`` verdict is
+        ANDed in (fail closed on None/())."""
         f = self._parse(query)
         if self._resolve_loose(loose):
             lb = self._loose_bounds(f)
             if lb is not None:
                 qarr, r = lb
-                return zscan.dimscan_mask(qarr, *self._dim_operands(r)).cpu().numpy()
+                m = zscan.dimscan_mask(qarr, *self._dim_operands(r)).cpu().numpy()
+                return self._apply_auths_np(m, auths)
         compiled = self._compiled_for(f)
         if not compiled.device_cols:
-            return compiled.host_mask(self._host_batch)
+            return self._apply_auths_np(compiled.host_mask(self._host_batch), auths)
         m = compiled.mask(self._resident_subset(compiled)).cpu().numpy()
         if not compiled.fully_on_device:
             idx = np.nonzero(m)[0]
@@ -372,11 +538,177 @@ class DeviceIndex:
                 keep = compiled.residual_mask(self._host_batch.take(idx))
                 out[idx[keep]] = True
             m = out
-        return m
+        return self._apply_auths_np(m, auths)
 
-    def query(self, query, loose: "bool | None" = None):
+    def query(self, query, loose: "bool | None" = None, auths=None):
         """FeatureBatch of hits (host-side take over the device mask)."""
-        return self._host_batch.take(np.nonzero(self.mask(query, loose=loose))[0])
+        return self._host_batch.take(
+            np.nonzero(self.mask(query, loose=loose, auths=auths))[0]
+        )
+
+    # -- pushdown aggregation (StatsIterator / DensityIterator analogs) ----
+
+    def _fused_agg(self, f, loose, agg_build, auths=None):
+        """The pushdown-aggregation hook: the filter mask, computed next to
+        the data, handed to an aggregation over the resident planes --
+        ``agg_build(cols, mask)``, whose result is returned. The mask is
+        the loose dim scan (``loose=True`` and a filter the key planes
+        answer), None for INCLUDE (every row; the consumer skips the read),
+        or the exact filter scan (the filter-scan kernel, or the plain
+        ``device_fn`` for a filter the encoder refuses); with a label-id
+        plane staged, the auth verdict gathered by label id is ANDed in.
+        Returns None when the filter is not fully on the device: the caller
+        then takes its host path. The counterpart jits one dispatch per
+        (filter, kind, aggregation); PyTorch runs eagerly, so only the
+        filter's compiled program is cached (per ``repr(f)``)."""
+        m = None
+        lb = self._loose_bounds(f) if self._resolve_loose(loose) else None
+        if lb is not None:
+            qarr, r = lb
+            m = zscan.dimscan_mask(qarr, *self._dim_operands(r))
+        elif not (f is ast.Include and self._cols):
+            compiled = self._compiled_for(f)
+            if not (compiled.device_cols and compiled.fully_on_device):
+                return None
+            m = compiled.mask(self._resident_subset(compiled))
+        if VIS_ID in self._cols:
+            # per-request row security: the auth verdict by label id
+            seen = self._auth_table(auths)[1][self._cols[VIS_ID]]
+            m = seen if m is None else m & seen
+        return agg_build(self._cols, m)
+
+    def stats(self, query, spec: str, loose: "bool | None" = None, auths=None):
+        """Stat-DSL aggregation on the pushdown hook (ref StatsIterator:
+        stats computed next to the data, never shipping features). Count,
+        MinMax over resident numeric/date planes and fixed-bin Histogram
+        over resident planes reduce on the device; any other stat observes
+        the masked host rows. A filter that is not fully on the device
+        falls back to host observation entirely.
+
+        Precision: MinMax over a float attribute reflects the device
+        storage type, float32 (the counterpart's is float64 on the CPU).
+        Date (int64) MinMax is exact through the lexicographic hi/lo
+        reduction; Histogram bins in float64, as the counterpart does
+        under x64."""
+        seq = parse_stat(spec)
+        f = self._parse(query)
+        device_parts, host_parts = [], []
+        for s in seq.stats:
+            if isinstance(s, CountStat):
+                device_parts.append(("count", s))
+            elif isinstance(s, MinMax) and (
+                s.attr in self._cols or f"{s.attr}__hi" in self._cols
+            ):
+                device_parts.append(("minmax", s))
+            elif isinstance(s, Histogram) and s.attr in self._cols:
+                device_parts.append(("hist", s))  # every plane is numeric
+            else:
+                host_parts.append(s)
+        if len(self) == 0:
+            return seq  # nothing staged: zero-size reductions have no identity
+        outs = self._fused_agg(
+            f, loose,
+            lambda cols, m: self._stats_reduce(cols, m, device_parts, bool(host_parts)),
+            auths=auths,
+        )
+        if outs is None:  # filter not fully on the device
+            seq.observe_batch(self.query(f, loose=loose, auths=auths))
+            return seq
+        n_hits = outs["__count"]
+        for i, (tag, s) in enumerate(device_parts):
+            if tag == "count":
+                s.count += n_hits
+            elif tag == "minmax" and n_hits:
+                s.count += n_hits
+                mn, mx = outs[i]
+                s.min = mn if s.min is None else min(s.min, mn)
+                s.max = mx if s.max is None else max(s.max, mx)
+            elif tag == "hist":
+                s.counts += outs[i]
+        if host_parts:
+            # the fused mask already evaluated the filter: reuse it
+            rows = self._host_batch.take(np.nonzero(outs["__mask"])[0])
+            for s in host_parts:
+                _observe_on_batch(s, rows)
+        return seq
+
+    def _stats_reduce(self, cols, m, device_parts, need_mask) -> dict:
+        """The device reductions of :meth:`stats` over mask ``m`` (None:
+        every row), keyed by part index (two stats over one attribute must
+        not share a slot): (min, max) for MinMax, the int64 bin counts for
+        Histogram; ``__count`` always, ``__mask`` (host) for host parts."""
+        n = len(self)
+        out: dict = {"__count": n if m is None else int(m.sum())}
+        if need_mask:
+            out["__mask"] = np.ones(n, bool) if m is None else m.cpu().numpy()
+
+        def masked(v, sel, fill):
+            return v if sel is None else torch.where(sel, v, fill)
+
+        for i, (tag, s) in enumerate(device_parts):
+            if tag == "minmax" and f"{s.attr}__hi" in cols:
+                vhi = cols[f"{s.attr}__hi"].to(torch.int64)
+                vlo = widen_u32(cols[f"{s.attr}__lo"])
+                mnhi = int(masked(vhi, m, 2**31 - 1).min())
+                mxhi = int(masked(vhi, m, -(2**31)).max())
+                at_mn = vhi == mnhi if m is None else m & (vhi == mnhi)
+                at_mx = vhi == mxhi if m is None else m & (vhi == mxhi)
+                mnlo = int(masked(vlo, at_mn, 0xFFFFFFFF).min())
+                mxlo = int(masked(vlo, at_mx, 0).max())
+                out[i] = ((mnhi << 32) | mnlo, (mxhi << 32) | mxlo)
+            elif tag == "minmax":
+                v = cols[s.attr]
+                if v.dtype.is_floating_point:
+                    big, small = float("inf"), float("-inf")
+                else:
+                    big, small = torch.iinfo(v.dtype).max, torch.iinfo(v.dtype).min
+                out[i] = (masked(v, m, big).min().item(), masked(v, m, small).max().item())
+            elif tag == "hist":
+                v = cols[s.attr].to(torch.float64)
+                scale = s.bins / (s.hi - s.lo) if s.hi > s.lo else 0.0
+                b = torch.clamp(torch.floor((v - s.lo) * scale), 0, s.bins - 1)
+                idx = torch.nan_to_num(b, nan=0.0).to(torch.int64)
+                ones = torch.ones_like(idx) if m is None else m.to(torch.int64)
+                h = torch.zeros(s.bins, dtype=torch.int64, device=v.device)
+                out[i] = h.index_add_(0, idx, ones).cpu().numpy()
+        return out
+
+    def density(
+        self,
+        query,
+        envelope,
+        width: int,
+        height: int,
+        weight_attr: "str | None" = None,
+        loose: "bool | None" = None,
+        auths=None,
+    ) -> "np.ndarray | None":
+        """Fused density rasterization (ref DensityIterator: aggregation
+        next to the data, no feature batch materialized): the filter mask,
+        then the density kernel over the resident coordinates. Returns a
+        (height, width) float32 grid, or None when the filter or the needed
+        planes are not resident (the caller takes the store path): a
+        non-point geometry, a weight attribute without a 32-bit plane
+        (int64 attributes stage as ``__hi/__lo``), or a filter that is not
+        fully on the device.
+
+        One kernel serves every grid size; the counterpart switches from
+        its Pallas kernel to an XLA scatter past 512x512, a TPU limit (see
+        ``ops/density.py``)."""
+        geom = self.sft.geom_field
+        gx, gy = f"{geom}__x", f"{geom}__y"
+        if gx not in self._cols or gy not in self._cols:
+            return None  # non-point (or unstaged) geometry: host path
+        if weight_attr is not None and weight_attr not in self._cols:
+            return None
+        f = self._parse(query)
+
+        def agg_build(cols, m):
+            w = cols[weight_attr] if weight_attr is not None else None
+            return density_grid(cols[gx], cols[gy], envelope, width, height, mask=m, weights=w)
+
+        grid = self._fused_agg(f, loose, agg_build, auths=auths)
+        return None if grid is None else grid.cpu().numpy()
 
     # -- later slices --------------------------------------------------------
 
@@ -389,11 +721,5 @@ class DeviceIndex:
     def refresh_delta(self, batch):
         raise NotImplementedError(_later("StreamingDeviceIndex"))
 
-    def density(self, *args, **kwargs):
-        raise NotImplementedError(_later("density (build_density_pallas)"))
-
     def knn(self, *args, **kwargs):
-        raise NotImplementedError(_later("stats/knn/joins"))
-
-    def stats(self, *args, **kwargs):
         raise NotImplementedError(_later("stats/knn/joins"))

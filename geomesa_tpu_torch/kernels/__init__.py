@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels of the port and their launch counts.
 
 ``LAUNCHES`` counts, per kernel variant, the launches its wrapper made
-(the wrappers in ``ops/zscan.py`` and ``ops/filter_scan.py`` add one where
-they launch, and nowhere else). ``DEVICE_FN_CALLS`` counts exact scans
-that went to the plain ``device_fn`` because the filter-scan encoder
-refused the filter (the counterpart's ``PallasUnsupported`` route).
+(the wrappers in ``ops/zscan.py``, ``ops/filter_scan.py`` and
+``ops/density.py`` add one where they launch, and nowhere else).
+``DEVICE_FN_CALLS`` counts exact scans that went to the plain
+``device_fn`` because the filter-scan encoder refused the filter (the
+counterpart's ``PallasUnsupported`` route).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ KERNEL_NAMES = (
     "dimscan_z2_mask",
     "filter_scan_count",
     "filter_scan_mask",
+    "density_count",
+    "density_weighted",
 )
 
 LAUNCHES: dict = {k: 0 for k in KERNEL_NAMES}

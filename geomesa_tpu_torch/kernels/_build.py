@@ -24,10 +24,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dimscan", "filter_scan")
+SOURCES = ("dimscan", "filter_scan", "density")
 
-# -fmad=false: the filter scan's float32 distance and crossing tests must
-# round every product and sum on its own, as the reference does
+# -fmad=false: the filter scan's float32 distance and crossing tests and the
+# density kernel's float64 pixel math must round every product and sum on
+# its own, as the reference does
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

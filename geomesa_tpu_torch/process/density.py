@@ -1,0 +1,101 @@
+"""Density (heatmap) rasterization.
+
+Counterpart of ``geomesa_tpu/process/density.py`` (ref: geomesa-process
+DensityProcess and the DensityIterator): features in the query window are
+accumulated onto a width x height grid, optionally weighted by an
+attribute. With a resident ``device_index`` the filter mask and the
+binning run next to the data (``DeviceIndex.density``); otherwise the
+store query materializes the matched batch and the grid accumulates from
+its coordinates -- on the card through the same density kernel with no
+mask, or on the host in numpy.
+
+Not ported: the counterpart's ``Query`` objects (``query`` here is an ECQL
+string or a filter AST) and the chunk pre-aggregate pushdown
+(``store.density_pushdown``), a feature of the file-system store, which
+the port does not have; the counterpart's ``BatchStore`` has no pushdown
+either.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from geomesa_tpu_torch.device import resolve_device
+from geomesa_tpu_torch.filter import ast
+from geomesa_tpu_torch.ops.density import density_grid, viewport
+
+
+def density(
+    store,
+    type_name: str,
+    query,
+    envelope,
+    width: int,
+    height: int,
+    weight_attr: "str | None" = None,
+    use_device: bool = True,
+    device_index=None,
+    loose: "bool | None" = None,
+    auths=None,
+    device=None,
+) -> np.ndarray:
+    """(height, width) float32 grid of (weighted) feature counts.
+
+    ``loose`` applies only to the resident path (key-plane cell
+    granularity, the contract of ``DeviceIndex.count``/``query``);
+    ``auths`` applies row security on both paths. The store path runs on
+    ``device`` (``cuda:0`` unless the caller passes ``"cpu"``) when
+    ``use_device``."""
+    if isinstance(query, str):
+        from geomesa_tpu_torch.filter.ecql import parse_ecql
+
+        query = parse_ecql(query)
+    elif not isinstance(query, ast.Filter):
+        raise TypeError(
+            "density takes an ECQL string or a filter AST; Query objects are "
+            "not in the port yet: ROADMAP, port queue: the store-path scan "
+            "(query/runner.py, the query plan)"
+        )
+    if device_index is not None:
+        grid = device_index.density(
+            query, envelope, width, height, weight_attr=weight_attr,
+            loose=loose, auths=auths,
+        )
+        if grid is not None:
+            return grid
+        # filter or planes not resident: fall through to the store path
+    batch = store.query(type_name, query, auths=auths).batch
+    if len(batch) == 0:
+        return np.zeros((height, width), dtype=np.float32)
+    x, y = batch.point_coords()
+    w = (
+        batch.column(weight_attr).astype(np.float64)
+        if weight_attr
+        else np.ones(len(batch))
+    )
+    if use_device:
+        return _density_device(x, y, w if weight_attr else None, envelope,
+                               width, height, resolve_device(device))
+    return _density_host(x, y, w, envelope, width, height)
+
+
+def _density_host(x, y, w, env, width, height) -> np.ndarray:
+    """numpy twin of ``_pixel_ids`` + scatter-add, in float64."""
+    xmin, ymin, xmax, ymax, sx, sy = viewport(env, width, height)
+    px = np.clip(np.floor((x - xmin) * sx), 0, width - 1).astype(np.int32)
+    py = np.clip(np.floor((y - ymin) * sy), 0, height - 1).astype(np.int32)
+    inside = (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
+    grid = np.zeros(height * width, dtype=np.float64)
+    np.add.at(grid, (py * width + px)[inside], w[inside])
+    return grid.reshape(height, width).astype(np.float32)
+
+
+def _density_device(x, y, w, env, width, height, device) -> np.ndarray:
+    """The density kernel with no mask over the store batch's points,
+    which stage as float32 as resident planes do (the counterpart ships
+    them as float64); weights become float32, as its contributions do."""
+    xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(device)
+    wt = None if w is None else torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(device)
+    return density_grid(xt, yt, env, width, height, weights=wt).cpu().numpy()

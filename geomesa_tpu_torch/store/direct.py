@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+
 from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
@@ -20,12 +22,6 @@ class QueryResult:
     batch: FeatureBatch
     scanned: int
     total: int
-
-
-def has_labels(batch: FeatureBatch) -> bool:
-    """Whether any row carries a non-empty visibility label."""
-    vis = batch.visibilities
-    return vis is not None and any(v is not None and str(v) != "" for v in vis)
 
 
 class BatchStore:
@@ -46,12 +42,13 @@ class BatchStore:
         return self.sft
 
     def query(
-        self, type_name: str, f: ast.Filter = ast.Include,
+        self, type_name: str, f: ast.Filter = ast.Include, auths=None,
         raw_visibility: bool = False,
     ) -> QueryResult:
-        """Full scan. Labeled rows are returned only with
-        ``raw_visibility=True`` (the resident cache's staging scan, which
-        enforces visibility itself); per-auth filtering is a later slice."""
+        """Full scan. Rows whose visibility label ``auths`` cannot see are
+        dropped (``None``/``()``: labeled rows hide, fail closed) unless
+        ``raw_visibility=True`` -- the resident cache's staging scan, which
+        enforces visibility per request itself."""
         if type_name != self.type_name:
             raise KeyError(type_name)
         if f is not ast.Include:
@@ -59,11 +56,11 @@ class BatchStore:
                 "BatchStore serves full scans only; stage a DeviceIndex on "
                 "top for filtered queries"
             )
-        if not raw_visibility and has_labels(self.batch):
-            raise NotImplementedError(
-                "visibility-labeled rows need per-auth filtering, a later "
-                "port slice (ROADMAP, port queue: visibility/auths)"
-            )
-        n = len(self.batch)
-        return QueryResult(batch=self.batch, scanned=n, total=n)
+        batch = self.batch
+        if not raw_visibility:
+            from geomesa_tpu_torch.security import filter_by_visibility
 
+            keep = filter_by_visibility(batch, auths)
+            if keep is not None:
+                batch = batch.take(np.nonzero(keep)[0])
+        return QueryResult(batch=batch, scanned=len(batch), total=len(self.batch))

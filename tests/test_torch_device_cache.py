@@ -21,7 +21,7 @@ from geomesa_tpu.store.direct import BatchStore as JStore
 from geomesa_tpu_torch import kernels
 from geomesa_tpu_torch.convert import planes_from_numpy
 from geomesa_tpu_torch.device_cache import Z_BT, Z_NX, Z_NY, DeviceIndex
-from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
+from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.store.direct import BatchStore
 
 DAY = 86_400_000
@@ -169,6 +169,24 @@ def test_loose_is_superset_of_exact(z3):
         assert not np.any(exact & ~loose)
 
 
+def test_default_index_answers_loose_like_the_reference():
+    """Both packages default to ``z_planes=False``: with no key planes a
+    loose count is the exact count in each (the port once defaulted to key
+    planes and answered a cell-granular superset instead)."""
+    from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
+
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+
+    cols = _columns(5003, seed=7)
+    jdi = JIndex(JStore(JBatch.from_columns(JSFT.create("t", Z3_SPEC), cols)), "t")
+    batch = FeatureBatch.from_columns(SimpleFeatureType.create("t", Z3_SPEC), cols)
+    tdi = DeviceIndex(BatchStore(batch), "t", device="cpu")
+    assert tdi._z_kind is None and Z_NX not in tdi._cols
+    for ecql in Z3_QUERIES[:4]:
+        assert tdi.count(ecql, loose=True) == jdi.count(ecql, loose=True)
+        assert tdi.count(ecql, loose=True) == tdi.count(ecql)
+
+
 def test_later_slices_raise():
     from geomesa_tpu_torch.features.sft import SimpleFeatureType
 
@@ -176,16 +194,12 @@ def test_later_slices_raise():
     cols = _columns(64, seed=3)
     store = BatchStore(FeatureBatch.from_columns(sft, cols))
     with pytest.raises(NotImplementedError, match="interleaved"):
-        DeviceIndex(store, "t", dim_planes=False, device="cpu")
-    labeled = dict(cols)
-    labeled[VIS_COLUMN] = ["", "admin"] * 32
-    with pytest.raises(NotImplementedError, match="visibility"):
-        DeviceIndex(BatchStore(FeatureBatch.from_columns(sft, labeled)), "t", device="cpu")
+        DeviceIndex(store, "t", z_planes=True, dim_planes=False, device="cpu")
     di = DeviceIndex(store, "t", device="cpu")
     with pytest.raises(NotImplementedError, match="fused"):
         di.fused_loose_counts([Z3_QUERIES[0]])
-    with pytest.raises(NotImplementedError, match="density"):
-        di.density()
+    with pytest.raises(NotImplementedError, match="stats"):
+        di.stats("INCLUDE", 'TopK("name")')
     poly = SimpleFeatureType.create("p", "*geom:Polygon:srid=4326")
     with pytest.raises(NotImplementedError, match="xz"):
         FeatureBatch.from_columns(poly, {"geom": ["POLYGON((0 0, 1 0, 1 1, 0 0))"]})

@@ -19,8 +19,10 @@ _WORKLOAD = r"""
 import sys
 import numpy as np
 from geomesa_tpu_torch.device_cache import DeviceIndex
-from geomesa_tpu_torch.features.batch import FeatureBatch
+from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
+from geomesa_tpu_torch.geom import Envelope
+from geomesa_tpu_torch.process.density import density
 from geomesa_tpu_torch.store.direct import BatchStore
 from geomesa_tpu_torch import convert, kernels
 from geomesa_tpu_torch.kernels import _build
@@ -28,14 +30,23 @@ from geomesa_tpu_torch.kernels import _build
 sft = SimpleFeatureType.create("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
 rng = np.random.default_rng(0)
 n = 500
-batch = FeatureBatch.from_columns(sft, {
+cols = {
     "count": rng.integers(0, 10, n),
     "dtg": rng.integers(1_577_836_800_000, 1_580_515_200_000, n),
     "geom": rng.uniform(-50, 50, (n, 2)),
-})
-di = DeviceIndex(BatchStore(batch), "t", device="cpu")
+}
+batch = FeatureBatch.from_columns(sft, cols)
+di = DeviceIndex(BatchStore(batch), "t", z_planes=True, device="cpu")
 q = "BBOX(geom, -10, -10, 30, 30) AND dtg DURING 2020-01-03T00:00:00Z/2020-01-09T00:00:00Z"
 assert di.count(q, loose=True) >= di.count(q) == len(di.query(q))
+cols[VIS_COLUMN] = rng.choice(["", "A", "A&B"], n)
+store = BatchStore(FeatureBatch.from_columns(sft, cols))
+ldi = DeviceIndex(store, "t", device="cpu")
+env = Envelope(-50, -50, 50, 50)
+grid = density(store, "t", q, env, 32, 16, device_index=ldi, auths=("A",))
+assert grid.sum() == ldi.count(q, auths=("A",)) < di.count(q)
+seq = ldi.stats(q, 'Count();MinMax("count");Histogram("count",10,0,10)', auths=("A",))
+assert seq.to_json()[0]["count"] == grid.sum()
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -98,6 +109,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     store = BatchStore(FeatureBatch.from_columns(sft, {"geom": np.zeros((4, 2))}))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeviceIndex(store, "t")
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.process.density import density
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        density(store, "t", "INCLUDE", Envelope(-1, -1, 1, 1), 4, 4)  # the store path
+    assert density(store, "t", "INCLUDE", Envelope(-1, -1, 1, 1), 4, 4, device="cpu").sum() == 4
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -1,6 +1,8 @@
 """CUDA kernels of ``geomesa_tpu_torch`` against their plain PyTorch
-versions, on the card. Bit-exact: counts and masks are integers and the
-float32 arithmetic is rounded op by op on both sides.
+versions, on the card. Bit-exact: counts, masks and unweighted density
+grids are integers and the float arithmetic is rounded op by op on both
+sides. Weighted density grids sum in float64 in a run-dependent order, so
+they match within rtol 1e-6.
 
 Marked ``cuda``; every test skips where there is no CUDA device (decided
 inside the fixture, never at import). The machine with the card has no
@@ -17,7 +19,7 @@ from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter.compile import compile_filter
 from geomesa_tpu_torch.filter.ecql import parse_ecql
-from geomesa_tpu_torch.ops import filter_scan, zscan
+from geomesa_tpu_torch.ops import density, filter_scan, zscan
 from geomesa_tpu_torch.ops.scan import stage_columns
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +122,82 @@ def test_misaligned_planes_raise(dev):
     q = np.array([0, 1, 0, 1], np.uint32)
     with pytest.raises(ValueError, match="aligned"):
         zscan.dimscan_count(q, t[1:], t[1:])
+
+
+# -- density ------------------------------------------------------------------
+
+DENSITY_ENV = (-60.0, -45.0, 100.0, 60.0)
+GRIDS = [(16, 16), (100, 37), (256, 256), (512, 512), (1024, 1024), (2048, 1024)]
+
+
+def density_case(n, width, height, clustered, seed):
+    """float32 points: clustered (8 centres, sigma 0.2 degrees) or uniform
+    over a box wider than the viewport; the first rows sit on cell edges,
+    on the viewport border and just outside it."""
+    rng = np.random.default_rng(seed)
+    x0, y0, x1, y1 = DENSITY_ENV
+    if clustered:
+        centres = rng.uniform([x0 + 5, y0 + 5], [x1 - 5, y1 - 5], (8, 2))
+        xy = centres[rng.integers(0, 8, n)] + rng.normal(0.0, 0.2, (n, 2))
+    else:
+        xy = rng.uniform([x0 - 10, y0 - 10], [x1 + 10, y1 + 10], (n, 2))
+    k = min(n, 64)
+    xy[:k, 0] = x0 + rng.integers(0, width + 1, k) * (x1 - x0) / width
+    xy[:k, 1] = y0 + rng.integers(0, height + 1, k) * (y1 - y0) / height
+    if n >= 4:
+        xy[:4] = [[x0, y0], [x1, y1], [x0 - 1e-3, 0.0], [0.0, y1 + 1e-3]]
+    x = np.ascontiguousarray(xy[:, 0], np.float32)
+    y = np.ascontiguousarray(xy[:, 1], np.float32)
+    return x, y, rng.random(n) < 0.6, rng.uniform(0.5, 2.0, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 17])
+@pytest.mark.parametrize("wh", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+@pytest.mark.parametrize("clustered", [True, False], ids=["clustered", "uniform"])
+def test_density_kernel_matches_plain(dev, n, wh, clustered):
+    width, height = wh
+    x, y, m, w = (torch.from_numpy(a).to(dev)
+                  for a in density_case(n, width, height, clustered, seed=n + width))
+    for mask in (None, m):
+        before = dict(kernels.LAUNCHES)
+        got = density.density_grid(x, y, DENSITY_ENV, width, height, mask=mask)
+        want = density.density_plain(x, y, DENSITY_ENV, width, height, mask=mask)
+        got_w = density.density_grid(x, y, DENSITY_ENV, width, height, mask=mask, weights=w)
+        want_w = density.density_plain(x, y, DENSITY_ENV, width, height, mask=mask, weights=w)
+        # the global engine on the counted grids that take shared memory
+        got_g = density._launch(x, y, DENSITY_ENV, width, height, mask, None, shared=False)
+        torch.cuda.synchronize()
+        assert got.shape == (height, width) and torch.equal(got, want)
+        assert torch.equal(got_g, want)
+        torch.testing.assert_close(got_w, want_w, rtol=1e-6, atol=0.0)
+        # 0 rows launch nothing: the grid stays zero
+        assert kernels.LAUNCHES["density_count"] == before["density_count"] + (2 if n else 0)
+        assert kernels.LAUNCHES["density_weighted"] == before["density_weighted"] + (1 if n else 0)
+
+
+def test_device_index_density_on_the_card_matches_the_host(dev):
+    """The resident path end to end: the mask kernel, then the density
+    kernel, against the same index on the CPU (plain versions)."""
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import VIS_COLUMN
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    sft = SimpleFeatureType.create("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
+    n = 50_000
+    x, y, _, _ = density_case(n, 256, 256, True, seed=9)
+    rng = np.random.default_rng(9)
+    cols = {"count": rng.integers(0, 100, n), "dtg": rng.integers(T0, T0 + 60 * 86400_000, n),
+            "geom": np.stack([x, y], axis=1).astype(np.float64),
+            VIS_COLUMN: rng.choice(["", "A", "A&B"], n)}
+    store = BatchStore(FeatureBatch.from_columns(sft, cols))
+    gpu = DeviceIndex(store, "t", z_planes=True, device=dev)
+    cpu = DeviceIndex(store, "t", z_planes=True, device="cpu")
+    q = "BBOX(geom, -30, -20, 60, 40) AND dtg DURING 2020-01-05T00:00:00Z/2020-02-01T00:00:00Z"
+    for f, loose in ((q, False), (q, True), ("INCLUDE", None)):
+        for auths in (None, ("A",), ("A", "B")):
+            before = dict(kernels.LAUNCHES)
+            got = gpu.density(f, DENSITY_ENV, 512, 256, loose=loose, auths=auths)
+            np.testing.assert_array_equal(
+                got, cpu.density(f, DENSITY_ENV, 512, 256, loose=loose, auths=auths))
+            assert kernels.LAUNCHES["density_count"] == before["density_count"] + 1
+            assert gpu.count(f, loose=loose, auths=auths) == cpu.count(f, loose=loose, auths=auths)
