@@ -7,30 +7,42 @@ Phases:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version on the card, at ragged
-     sizes with edge rows (dim scans at R in {1,2,4,8} and z2; the filter
-     scan over a fixed filter list; the density kernel at n in {0, 1, 1000,
-     2^20+17} on six grids from 16x16 to 2048x1024, clustered and uniform
-     points, with and without a mask): bit-exact, weighted density grids
-     within rtol 1e-6;
+     sizes with edge rows (dim scans at R in {1,2,4,8} and z2; the baked dim
+     scan with 0 to 16 bt ranges; the interleaved scan at n in {0, 1, 1000,
+     2^20+17} with 1 to 64 bin entries, padded and all-padded, and its z2
+     variant; the filter scan over a fixed filter list; the density kernel
+     at n in {0, 1, 1000, 2^20+17} on six grids from 16x16 to 2048x1024,
+     clustered and uniform points, with and without a mask): bit-exact,
+     weighted density grids within rtol 1e-6;
   3. the main path at full size: a GDELT-shaped resident Z3 point type
      (count:Int,dtg:Date,*geom:Point, 2^26 rows from a fixed seed: 90% of
      points in 64 city clusters, coordinates float32, dtg over 60 days from
      2020-01-01) and its date-less Z2 sibling, staged through
      DeviceIndex(BatchStore(batch)) and queried with 32 bbox+during
      filters through count(loose=True), count(loose=False), query() and
-     query(loose=True); then 9 density calls (INCLUDE over the world at
+     query(loose=True), each Z3 window also through the baked dim scan
+     against the runtime one; then 9 density calls (INCLUDE over the world at
      512x256 and 128x128, the Europe 5-day query exact, loose and weighted,
      a city viewport, grids up to 2048x1024, one on Z2) and 4 Count/MinMax/Histogram stats calls;
      every answer is checked on the host with numpy, and the launch counts
      of each drive show which kernels carried it;
+  3c. (run before 3b, while the main path's answers are held) the
+     interleaved key layout on the same rows: the Z3 and Z2 indexes
+     staged with dim_planes=False (every loose count, mask and fid set equal
+     to the dim-plane index's; loose density and stats), then the same
+     points with dtg over 2015-02-18 .. 2024-12-31 in day bins, which the
+     staging must put in the interleaved layout by itself (windows of 1 day
+     to 8 weeks on the interleaved scan, longer ones on the filter scan;
+     loose answers against numpy over host-encoded keys on a subsample,
+     exact counts against numpy);
   3b. a labeled Z3 index of 2^24 rows (labels from a fixed seed over six
      visibility expressions): counts, fid sets, density grids and a
      Count() stat under three auth sets, checked against numpy with a
      per-label verdict table;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
-     the density kernel's shared-memory and global engines on a counted
-     128x128 grid.
+     the interleaved scan also at 28 day bins; the density kernel's
+     shared-memory and global engines on a counted 128x128 grid.
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -52,8 +64,13 @@ N_ROWS = 1 << 26
 T0 = 1_577_836_800_000  # 2020-01-01T00:00:00Z
 DAY = 86_400_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
+# Operations bounds. The scans are 32-bit integer and compare work, which
+# Hopper issues at 64 lanes per SM per clock: 132 SMs x 64 x 1.98 GHz. The
+# density kernel's float64 pixel math (separate multiplies and subtracts,
+# no FMA) runs at the same 64 lanes per SM per clock; the data sheet's
+# 67 TFLOP/s float32 and 34 TFLOP/s float64 count an FMA as two.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+F64_OPS_PER_S = 132 * 64 * 1.98e9
 GDELT_SPEC = "count:Int,dtg:Date,*geom:Point:srid=4326"
 Z2_SPEC = "count:Int,*geom:Point:srid=4326"
 
@@ -140,6 +157,97 @@ def check_dimscans(dev, errs: Errs):
                 f"dimscan_{z}_count", zscan.dimscan_count(q, *ps).reshape(1),
                 want.sum(dtype=torch.int32).reshape(1), f"n={n} R={r}",
             )
+    torch.cuda.synchronize()
+
+
+def check_baked_dimscans(dev, errs: Errs):
+    """The baked dim scan against its plain version: 0 to 16 bt ranges,
+    inverted ranges among them, sentinel rows and rows at max_index."""
+    import torch
+
+    from geomesa_tpu_torch.ops import zscan
+
+    maxi, sent = (1 << 21) - 1, 0xFFFFFFFF
+    for n in (0, 1, 1000, (1 << 20) + 17):
+        rng = np.random.default_rng(SEED + 7 * n)
+        nx = rng.integers(0, maxi + 1, n).astype(np.uint32)
+        ny = rng.integers(0, maxi + 1, n).astype(np.uint32)
+        bt = rng.integers(0, 40 << 21, n).astype(np.uint32)
+        edge = min(n, 4)
+        bt[:edge] = sent
+        nx[-edge:] = maxi
+        planes = [torch.from_numpy(a).to(dev) for a in (nx, ny, bt)]
+        for r in (0, 1, 2, 3, 8, 16):
+            qnx = tuple(int(v) for v in np.sort(rng.integers(0, maxi + 1, 2)))
+            qny = (int(rng.integers(0, maxi)), maxi)
+            ranges = [tuple(int(v) for v in np.sort(rng.integers(0, 40 << 21, 2)))
+                      for _ in range(r)]
+            if r > 2:
+                ranges[2] = (sent, 0)  # inverted: never matches
+            count_fn, mask_fn = zscan.build_z3_dimscan_pallas(qnx, qny, ranges)
+            want = zscan.z3_dimscan_mask(*planes, qnx, qny, ranges)
+            errs.check("dimscan_baked_mask", mask_fn(*planes), want, f"n={n} ranges={r}")
+            errs.check("dimscan_baked_count", count_fn(*planes).reshape(1),
+                       want.sum(dtype=torch.int32).reshape(1), f"n={n} ranges={r}")
+    torch.cuda.synchronize()
+
+
+def check_zscans(dev, errs: Errs):
+    """The interleaved scan against its plain version: keys of random
+    points over 64 week bins (a few rows in bin -1), 1 to 64 bin entries
+    from the curve's own cell bounds or random words, some ids padded,
+    and every query once more all-padded (counts 0); the z2 variant on
+    the same points."""
+    import torch
+
+    from geomesa_tpu_torch.curves.z2 import Z2SFC
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
+    from geomesa_tpu_torch.curves.zorder import u64_hi_lo
+    from geomesa_tpu_torch.ops import zscan
+
+    maxi = (1 << 21) - 1
+    for n in (0, 1, 1000, (1 << 20) + 17):
+        rng = np.random.default_rng(SEED + 3 * n)
+        x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+        off = rng.uniform(0, 604_800, n)
+        k = min(n, 3)
+        x[:k], y[:k], off[:k] = 180.0, 90.0, 604_800.0  # max_index corners
+        bins = (2600 + rng.integers(0, 64, n)).astype(np.int32)
+        bins[n - k:] = -1
+        h3, l3 = u64_hi_lo(Z3SFC().index(x, y, off))
+        h2, l2 = u64_hi_lo(Z2SFC().index(x, y))
+        p3 = [torch.from_numpy(a).to(dev) for a in (bins, h3, l3)]
+        p2 = [torch.from_numpy(a).to(dev) for a in (h2, l2)]
+        for b in (1, 2, 5, 28, 64):
+            for random_words in (False, True):
+                if random_words:
+                    bounds = rng.integers(0, 1 << 32, (b, 3, 6), dtype=np.uint64).astype(np.uint32)
+                else:
+                    bounds = np.stack([zscan.z3_dim_bounds(tuple(lo), tuple(hi)) for lo, hi in (
+                        np.sort(rng.integers(0, maxi + 1, (2, 3)), axis=0) for _ in range(b))])
+                ids = (2600 + rng.permutation(64)[:b]).astype(np.int32)
+                ids[rng.random(b) < 0.25] = -1
+                for ii in (ids, np.full(b, -1, np.int32)):
+                    what = f"n={n} B={b} {'random' if random_words else 'cells'}"
+                    count_fn, mask_fn = zscan.build_z3_pallas_scan(bounds, ii)
+                    want = zscan.z3_zscan_mask(p3[1], p3[2], p3[0], bounds, ii)
+                    errs.check("zscan_z3_mask", mask_fn(*p3), want, what)
+                    got_c = count_fn(*p3)
+                    errs.check("zscan_z3_count", got_c.reshape(1),
+                               want.sum(dtype=torch.int32).reshape(1), what)
+                    if (ii < 0).all() and int(got_c):
+                        raise AssertionError(f"zscan_z3_count {what}: all-padded query counted rows")
+        for random_words in (False, True):
+            if random_words:
+                bounds = rng.integers(0, 1 << 32, (2, 6), dtype=np.uint64).astype(np.uint32)
+            else:
+                lo, hi = np.sort(rng.integers(0, (1 << 31), (2, 2)), axis=0)
+                bounds = zscan.z2_dim_bounds(tuple(lo), tuple(hi))
+            count_fn, mask_fn = zscan.build_z2_zscan(bounds)
+            want = zscan.z2_zscan_mask(*p2, bounds)
+            errs.check("zscan_z2_mask", mask_fn(*p2), want, f"n={n}")
+            errs.check("zscan_z2_count", count_fn(*p2).reshape(1),
+                       want.sum(dtype=torch.int32).reshape(1), f"n={n}")
     torch.cuda.synchronize()
 
 
@@ -316,6 +424,11 @@ def main_queries(centers: np.ndarray) -> list:
     ]
 
 
+def window_ms(w) -> tuple:
+    """A window in days from T0 as the (start, end) ms its DURING gives."""
+    return T0 + int(w[0] * DAY), T0 + int(w[1] * DAY)
+
+
 def pct(v, p):
     return float(np.percentile(np.asarray(v) * 1e3, p))
 
@@ -343,9 +456,11 @@ def run_main_path(dev, cols):
     import torch
 
     from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
     from geomesa_tpu_torch.device_cache import Z_BT, Z_NX, Z_NY, DeviceIndex
     from geomesa_tpu_torch.features.batch import FeatureBatch
     from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.ops import zscan
     from geomesa_tpu_torch.store.direct import BatchStore
 
     n = len(cols["count"])
@@ -372,8 +487,10 @@ def run_main_path(dev, cols):
     z2_queries = [f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})" for _, b, _ in queries[:8]]
     lat = {k: [] for k in ("count_loose", "count_exact", "query_exact", "query_loose")}
     res3, res2 = [], []
+    planes3 = (di3._cols[Z_NX], di3._cols[Z_NY], di3._cols[Z_BT])
+    sfc3 = Z3SFC()
     kernels.reset_counts()
-    for ecql, _, _ in queries:
+    for ecql, box, w in queries:
         out = {}
         for key, fn in (
             ("count_loose", lambda: di3.count(ecql, loose=True)),
@@ -385,6 +502,13 @@ def run_main_path(dev, cols):
             out[key] = fn()
             lat[key].append(time.perf_counter() - t)
         res3.append(out)
+        # the baked dim scan (the cross-check engine) on the same window
+        # against the runtime kernel's answer
+        qnx, qny, ranges = zscan.z3_dim_plane_query(sfc3, *box, *window_ms(w), di3._bt_base)
+        count_fn, mask_fn = zscan.build_z3_dimscan_pallas(qnx, qny, ranges)
+        if int(count_fn(*planes3)) != out["count_loose"] or not np.array_equal(
+                np.flatnonzero(mask_fn(*planes3).cpu().numpy()), np.sort(out["query_loose"].fids)):
+            raise AssertionError(f"{ecql}: the baked dim scan != the runtime dim scan")
     for ecql in z2_queries:
         res2.append({
             "count_loose": di2.count(ecql, loose=True),
@@ -395,6 +519,7 @@ def run_main_path(dev, cols):
     q3, q2 = len(queries), len(z2_queries)
     launches = read_launches("main path (count/query)", {
         "dimscan_z3_count": q3, "dimscan_z3_mask": q3,
+        "dimscan_baked_count": q3, "dimscan_baked_mask": q3,
         "dimscan_z2_count": q2, "dimscan_z2_mask": q2,
         "filter_scan_count": q3 + q2, "filter_scan_mask": q3 + q2,
     })
@@ -477,7 +602,7 @@ def check_main_path(cols, di3, di2, queries, z2_queries, res3, res2):
         lb = di._loose_bounds(parse_ecql(ecql))
         if lb is None:
             raise AssertionError(f"{tag} {ecql}: the key planes could not answer")
-        lm = np_loose(lb[0], planes)
+        lm = np_loose(lb[1], planes)
         if out["count_loose"] != int(lm.sum()) or out["count_loose"] < n_exact:
             raise AssertionError(
                 f"{tag} {ecql}: loose count {out['count_loose']} vs numpy {int(lm.sum())}, "
@@ -636,7 +761,7 @@ def check_density_path(cols, di3, di2, planes3, planes2, dcalls, grids, scalls, 
         if box is None:
             return None
         if loose:
-            return np_loose(di._loose_bounds(parse_ecql(ecql))[0], planes)
+            return np_loose(di._loose_bounds(parse_ecql(ecql))[1], planes)
         return np_exact(x, y, dtg, box, window)
 
     for (tag, idx, ecql, loose, env, wh, weight, box, window), got in zip(dcalls, grids):
@@ -655,6 +780,217 @@ def check_density_path(cols, di3, di2, planes3, planes2, dcalls, grids, scalls, 
             raise AssertionError(f"stats {tag}: {got} != numpy {np_stats(cols, sel)}")
     log(f"checked {len(dcalls)} density grids and {len(scalls)} stats against numpy "
         f"in {time.time() - t:.1f} s")
+
+
+# -- phase 3c: the interleaved key layout --------------------------------------
+
+WIDE_T0 = 1_424_217_600_000  # 2015-02-18T00:00:00Z
+WIDE_T1 = 1_735_689_600_000  # 2025-01-01T00:00:00Z, exclusive
+WIDE_SPEC = GDELT_SPEC + ";geomesa.z3.interval=day"
+WIDE_SAMPLE = 1 << 23  # rows of the host-encoded subsample
+
+
+def _iso(ms: int) -> str:
+    return str(np.datetime64(int(ms), "ms")) + "Z"
+
+
+def wide_queries(centers: np.ndarray) -> list:
+    """(ecql, box, (t0, t1) ms) over the day-binned data: windows of 1 day
+    to 8 weeks (2 to 57 bins: the interleaved scan), then 70 and 180 days
+    (past 64 bins: the filter scan). The short windows take boxes around
+    cluster centres, so that the subsample holds hits."""
+    spans = [(100.25, 1), (731, 3), (1200, 7), (1800.5, 14), (2500, 28), (3000, 56),
+             (3300, 70), (1000, 180)]
+    city = [tuple(round(float(v), 3) for v in (c[0] - h, c[1] - h, c[0] + h, c[1] + h))
+            for c, h in ((centers[0], 1.0), (centers[1], 2.0))]
+    boxes = city + [REGIONS[i][1] for i in (1, 4, 11, 3, 0, 2)]
+    out = []
+    for (d0, days), b in zip(spans, boxes):
+        t0, t1 = WIDE_T0 + int(d0 * DAY), WIDE_T0 + int((d0 + days) * DAY)
+        out.append((f"{_bbox(b)} AND dtg DURING {_iso(t0)}/{_iso(t1)}", b, (t0, t1)))
+    return out
+
+
+def np_zscan(bins, z, bounds, ids) -> np.ndarray:
+    """numpy masked compare over host-encoded uint64 keys: any entry with
+    id >= 0 and id == bin whose dims all hold lo <= (z & mask) <= hi."""
+    u = np.uint64
+    m = np.zeros(len(z), bool)
+    for e, bid in zip(bounds, ids):
+        if bid < 0:
+            continue
+        hit = bins == bid
+        for w in e.astype(np.uint64):
+            zm = z & ((w[0] << u(32)) | w[1])
+            hit &= (zm >= ((w[2] << u(32)) | w[3])) & (zm <= ((w[4] << u(32)) | w[5]))
+        m |= hit
+    return m
+
+
+def _staged_keys_match(di, idx, z, bins=None) -> None:
+    """The interleaved planes at rows ``idx`` against host-encoded keys."""
+    import torch
+
+    from geomesa_tpu_torch.curves.zorder import u64_hi_lo
+    from geomesa_tpu_torch.device_cache import Z_BIN, Z_HI, Z_LO
+
+    hi, lo = u64_hi_lo(z)
+    ti = torch.from_numpy(idx).to(di.device)
+    for name, want in ((Z_HI, hi), (Z_LO, lo), (Z_BIN, bins)):
+        if want is None:
+            continue
+        # gather through an int32 view: CUDA has no uint32 indexing
+        got = di._cols[name].view(torch.int32)[ti].cpu().numpy().view(want.dtype)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"staged {name} != the host encode")
+
+
+def _stage(dev, store, type_name, **kw):
+    import torch
+
+    from geomesa_tpu_torch.device_cache import Z_HI, DeviceIndex
+
+    t = time.time()
+    di = DeviceIndex(store, type_name, z_planes=True, device=dev, **kw)
+    torch.cuda.synchronize()
+    if di._dim_mode or Z_HI not in di._cols:
+        raise AssertionError(f"{type_name}: not in the interleaved layout")
+    return di, time.time() - t
+
+
+def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, planes2,
+                         dcalls, grids, scalls, seqs) -> dict:
+    """Stage the interleaved Z3 and Z2 indexes over the main path's rows and
+    a day-binned index over 2015-2024; drive them through the entry points
+    (three drives, each with its launch counts) and check every answer."""
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.curves.binnedtime import TimePeriod, to_binned_time
+    from geomesa_tpu_torch.curves.z2 import Z2SFC
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    n = len(cols["count"])
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    idx = np.sort(np.random.default_rng(SEED + 5).choice(n, WIDE_SAMPLE, replace=False))
+    xs, ys = cols["geom"][idx, 0], cols["geom"][idx, 1]
+    totals = {k: 0 for k in kernels.KERNEL_NAMES}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # 1. interleaved Z3 on the week-binned main-path rows
+    di3i, st3 = _stage(dev, di3.store, "gdelt", dim_planes=False)
+    bins_s, off_s = to_binned_time(cols["dtg"][idx], TimePeriod.WEEK)
+    _staged_keys_match(di3i, idx, Z3SFC().index(xs, ys, off_s), bins_s.astype(np.int32))
+    kernels.reset_counts()
+    got3, lat = [], []
+    for ecql, _, _ in queries:
+        t = time.perf_counter()
+        c = di3i.count(ecql, loose=True)
+        lat.append(time.perf_counter() - t)
+        got3.append((c, di3i.mask(ecql, loose=True), di3i.query(ecql, loose=True).fids))
+    dens = [di3i.density(dcalls[i][2], Envelope(*dcalls[i][4]), *dcalls[i][5],
+                         weight_attr=dcalls[i][6], loose=True) for i in (3, 7)]
+    seq = di3i.stats(scalls[2][1], STATS_SPEC, loose=True).to_json()
+    q3 = len(queries)
+    add(read_launches("interleaved z3", {
+        "zscan_z3_count": q3, "zscan_z3_mask": 2 * q3 + 3,
+        "density_count": 1, "density_weighted": 1,
+    }))
+    for (ecql, _, _), (c, m, fids), want in zip(queries, got3, res3):
+        loose = np.sort(want["query_loose"].fids)
+        if c != want["count_loose"] or not np.array_equal(np.flatnonzero(m), loose) \
+                or not np.array_equal(np.sort(fids), loose):
+            raise AssertionError(f"interleaved z3 {ecql}: loose answer != the dim-plane index's")
+    if not (same_grid(dens[0], grids[3], False) and same_grid(dens[1], grids[7], True)):
+        raise AssertionError("interleaved z3: loose density != the dim-plane index's")
+    if seq != seqs[2]:
+        raise AssertionError(f"interleaved z3: loose stats {seq} != {seqs[2]}")
+    log(f"phase 3c: interleaved z3 staged in {st3:.2f} s ({di3i.nbytes / 1e9:.3f} GB resident); "
+        f"{q3} loose counts, masks and fid sets, 2 loose density grids and a loose stats call "
+        f"equal to the dim-plane index's; count(loose=True) p50 {pct(lat, 50):.3f} ms "
+        f"p99 {pct(lat, 99):.3f} ms [{CARD}]")
+
+    # 2. interleaved Z2 on the date-less sibling
+    di2i, st2 = _stage(dev, di2.store, "points", dim_planes=False)
+    _staged_keys_match(di2i, idx, Z2SFC().index(xs, ys))
+    kernels.reset_counts()
+    got2 = [(di2i.count(ecql, loose=True), di2i.mask(ecql, loose=True),
+             di2i.query(ecql, loose=True).fids) for ecql in z2_queries]
+    g2 = di2i.density(_bbox(EUROPE), Envelope(*EUROPE), 256, 256, loose=True)
+    q2 = len(z2_queries)
+    add(read_launches("interleaved z2", {
+        "zscan_z2_count": q2, "zscan_z2_mask": 2 * q2 + 1, "density_count": 1,
+    }))
+    for ecql, (c, m, fids), want in zip(z2_queries, got2, res2):
+        loose = np.sort(want["query_loose"].fids)
+        if c != want["count_loose"] or not np.array_equal(np.flatnonzero(m), loose) \
+                or not np.array_equal(np.sort(fids), loose):
+            raise AssertionError(f"interleaved z2 {ecql}: loose answer != the dim-plane index's")
+    sel = np_loose(di2._loose_bounds(parse_ecql(_bbox(EUROPE)))[1], planes2)
+    if not same_grid(g2, np_density(x, y, sel, EUROPE, (256, 256)), False):
+        raise AssertionError("interleaved z2: loose density != numpy")
+    log(f"phase 3c: interleaved z2 staged in {st2:.2f} s ({di2i.nbytes / 1e9:.3f} GB resident); "
+        f"{q2} loose counts, masks and fid sets equal to the dim-plane index's, "
+        f"a loose density grid equal to numpy")
+
+    # 3. day bins over ten years: the staging falls back by itself
+    t = time.time()
+    dtg_w = np.random.default_rng(SEED + 6).integers(WIDE_T0, WIDE_T1, n)
+    sftw = SimpleFeatureType.create("gdelt_wide", WIDE_SPEC)
+    bw = FeatureBatch.from_columns(sftw, {"count": cols["count"], "dtg": dtg_w, "geom": cols["geom"]})
+    diw, stw = _stage(dev, BatchStore(bw), "gdelt_wide")
+    span = diw._bin_range[1] - diw._bin_range[0] + 1
+    if span <= 2047:
+        raise AssertionError(f"the wide index spans only {span} bins")
+    bins_s, off_s = to_binned_time(dtg_w[idx], TimePeriod.DAY)
+    z_s = Z3SFC(TimePeriod.DAY).index(xs, ys, off_s)
+    _staged_keys_match(diw, idx, z_s, bins_s.astype(np.int32))
+    wq = wide_queries(cols["_centers"])
+    lbs = [diw._loose_bounds(parse_ecql(ecql)) for ecql, _, _ in wq]
+    wide_bins = [None if lb is None else int((lb[2] >= 0).sum()) for lb in lbs]
+    kernels.reset_counts()
+    gotw = [(diw.count(ecql, loose=True), diw.count(ecql), diw.mask(ecql, loose=True))
+            for ecql, _, _ in wq]
+    short = sum(b is not None for b in wide_bins)
+    add(read_launches("wide span", {
+        "zscan_z3_count": short, "zscan_z3_mask": short,
+        "filter_scan_count": len(wq) + (len(wq) - short), "filter_scan_mask": len(wq) - short,
+    }))
+    if short == len(wq) or short == 0:
+        raise AssertionError(f"wide span: bins per window {wide_bins} miss a route")
+    xw, yw = x[idx], y[idx]
+
+    def check(i):
+        (ecql, b, (t0, t1)), lb, (c_loose, c_exact, m) = wq[i], lbs[i], gotw[i]
+        em = (x >= np.float32(b[0])) & (x <= np.float32(b[2])) & (y >= np.float32(b[1])) \
+            & (y <= np.float32(b[3])) & (dtg_w >= t0) & (dtg_w <= t1)
+        if c_exact != int(em.sum()):
+            raise AssertionError(f"wide {ecql}: exact count {c_exact} != numpy {int(em.sum())}")
+        if lb is None:  # past 64 bins: the exact scan answers
+            if c_loose != c_exact or not np.array_equal(m, em):
+                raise AssertionError(f"wide {ecql}: loose past 64 bins != exact")
+            return c_exact, c_loose, None
+        lm = np_zscan(bins_s, z_s, lb[1], lb[2])
+        if not np.array_equal(m[idx], lm) or c_loose != int(m.sum()) or np.any(em & ~m):
+            raise AssertionError(f"wide {ecql}: loose mask != numpy over host keys")
+        if not lm.any():
+            raise AssertionError(f"wide {ecql}: the subsample holds no hit")
+        return c_exact, c_loose, int(lm.sum())
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        checked = list(pool.map(check, range(len(wq))))
+    log(f"phase 3c: wide span ({n:,} rows, {span} day bins) generated and staged in "
+        f"{time.time() - t:.2f} s (staging {stw:.2f} s, {diw.nbytes / 1e9:.3f} GB resident); "
+        f"bins per window {wide_bins} (None: past 64, the filter scan); exact/loose/subsample "
+        f"hits {checked}; all equal to numpy")
+    return {"di3i": di3i, "di2i": di2i, "diw": diw, "launches": totals, "wide": wq}
 
 
 # -- phase 3b: per-request visibility -----------------------------------------
@@ -717,7 +1053,7 @@ def run_labeled_path(dev, queries):
     x = cols["geom"][:, 0].astype(np.float32)
     y = cols["geom"][:, 1].astype(np.float32)
     em = np_exact(x, y, cols["dtg"], eb, ew)
-    lm = np_loose(di._loose_bounds(parse_ecql(europe))[0], host_z3_planes(cols))
+    lm = np_loose(di._loose_bounds(parse_ecql(europe))[1], host_z3_planes(cols))
     for auths, (c_loose, c_exact, f_exact, f_loose, g_eu, g_all, n_stat) in res.items():
         seen = np.asarray(VERDICTS[auths])[lab]
         ex, lo = em & seen, lm & seen
@@ -738,10 +1074,10 @@ def run_labeled_path(dev, queries):
 # -- phase 4: kernel timings --------------------------------------------------
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, warm: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -765,33 +1101,49 @@ def _program_ops(prog) -> int:
     return ops
 
 
-def kernel_table(dev, di3, di2, queries, z2_queries, launches, errs: Errs) -> list:
+def zscan_ops(lb, bins) -> int:
+    """Integer operations of the interleaved scan on this data: per row an
+    id compare and branch per (padded) entry, and about 25 for the masked
+    compares of the entry its bin matches (counted where one does)."""
+    import torch
+
+    ids = lb[2]
+    n = bins.shape[0]
+    if ids is None:  # z2: one entry, 2 dims
+        return 17 * n
+    real = torch.from_numpy(ids[ids >= 0]).to(bins.device)
+    in_window = int(torch.isin(bins, real).sum())
+    return 2 * len(ids) * n + 25 * in_window
+
+
+def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs) -> list:
     """Time each kernel at the main path's shapes; compare it with its
     plain version on those inputs too."""
     import torch
 
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
     from geomesa_tpu_torch.device_cache import Z_BT, Z_NX, Z_NY
     from geomesa_tpu_torch.filter.ecql import parse_ecql
     from geomesa_tpu_torch.ops import filter_scan, zscan
 
     n = len(di3)
     ecql = queries[0][0]  # the bench's Europe 5-day query
-    q3, r3 = di3._loose_bounds(parse_ecql(ecql))
+    _, q3, r3 = di3._loose_bounds(parse_ecql(ecql))
     p3 = (di3._cols[Z_NX], di3._cols[Z_NY], di3._cols[Z_BT])
-    q2, _ = di2._loose_bounds(parse_ecql(z2_queries[0]))
+    _, q2, _ = di2._loose_bounds(parse_ecql(z2_queries[0]))
     p2 = (di2._cols[Z_NX], di2._cols[Z_NY])
     cf = di3._compiled_for(parse_ecql(ecql))
     fcols = di3._resident_subset(cf)
     fbytes = 4 * len(cf.program.cols)
     rows = []
 
-    def row(name, source, replaces, kern, plain, in_bytes, out_bytes, ops):
+    def row(name, source, replaces, kern, plain, in_bytes, out_bytes, ops, plain_iters=5):
         got, want = kern(), plain()
         errs.check(name, got.reshape(-1), want.reshape(-1), "main-path shapes")
         ms = time_ms(kern, 50)
-        plain_ms = time_ms(plain, 5)
+        plain_ms = time_ms(plain, plain_iters, warm=min(3, plain_iters))
         t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / OPS_PER_S * 1e3
+        t_ops = ops / INT32_OPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs.err[name],
@@ -799,9 +1151,10 @@ def kernel_table(dev, di3, di2, queries, z2_queries, launches, errs: Errs) -> li
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         })
-        log(f"{name}: {ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms, "
-            f"{(in_bytes + out_bytes) / ms / 1e6:.1f} GB/s, {n / ms / 1e6:.2f} G rows/s); "
-            f"plain version {plain_ms:.3f} ms (not a yardstick) [{CARD}]")
+        log(f"{name}: {ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms: bytes {t_bytes:.4f}, "
+            f"operations {t_ops:.4f}; {(in_bytes + out_bytes) / ms / 1e6:.1f} GB/s, "
+            f"{n / ms / 1e6:.2f} G rows/s); plain version {plain_ms:.3f} ms (not a yardstick) "
+            f"[{CARD}]")
 
     dim_src = "geomesa_tpu_torch/csrc/dimscan.cu"
     fs_src = "geomesa_tpu_torch/csrc/filter_scan.cu"
@@ -822,6 +1175,58 @@ def kernel_table(dev, di3, di2, queries, z2_queries, launches, errs: Errs) -> li
     row("dimscan_z2_mask", dim_src, f"{rz2} (pallas_call :521)",
         lambda: zscan.dimscan_mask(q2, *p2), lambda: zscan.dimscan_plain(q2, *p2),
         8 * n, n, n * 7)
+
+    # the baked dim scan on the same window, beside the runtime kernel
+    w = window_ms(queries[0][2])
+    qnx, qny, ranges = zscan.z3_dim_plane_query(Z3SFC(), *queries[0][1], *w, di3._bt_base)
+    bc, bm = zscan.build_z3_dimscan_pallas(qnx, qny, ranges)
+    bake_src = "geomesa_tpu_torch/csrc/dimscan_baked.cu"
+    rbake = "geomesa_tpu/ops/zscan.py:703 build_z3_dimscan_pallas"
+    bake_ops = n * (4 + 2 * len(ranges) + 3)
+    row("dimscan_baked_count", bake_src, f"{rbake} (pallas_call :772)", lambda: bc(*p3),
+        lambda: zscan.z3_dimscan_mask(*p3, qnx, qny, ranges).sum(dtype=torch.int32),
+        12 * n, 4, bake_ops)
+    row("dimscan_baked_mask", bake_src, f"{rbake} (pallas_call :790)", lambda: bm(*p3),
+        lambda: zscan.z3_dimscan_mask(*p3, qnx, qny, ranges), 12 * n, n, bake_ops)
+
+    # the interleaved scan: a 2-bin main-path window (Africa, days 6-13)
+    zs_src = "geomesa_tpu_torch/csrc/zscan.cu"
+    rzs = "geomesa_tpu/ops/zscan.py:848 build_z3_pallas_scan"
+    di3i, di2i = inter["di3i"], inter["di2i"]
+    lb = di3i._loose_bounds(parse_ecql(queries[3][0]))
+    zc, zm, ops3 = di3i._loose_args(lb)
+    bounds, ids = lb[1], lb[2]
+    zops = zscan_ops(lb, ops3[0])
+    log(f"zscan_z3 timing window: {queries[3][0]} ({int((ids >= 0).sum())} bins, "
+        f"{len(ids)} entries)")
+    row("zscan_z3_count", zs_src, f"{rzs} (pallas_call :942)", lambda: zc(*ops3),
+        lambda: zscan.z3_zscan_mask(ops3[1], ops3[2], ops3[0], bounds, ids).sum(dtype=torch.int32),
+        12 * n, 4, zops, plain_iters=2)
+    row("zscan_z3_mask", zs_src, f"{rzs} (pallas_call :960)", lambda: zm(*ops3),
+        lambda: zscan.z3_zscan_mask(ops3[1], ops3[2], ops3[0], bounds, ids),
+        12 * n, n, zops, plain_iters=2)
+    lb2 = di2i._loose_bounds(parse_ecql(z2_queries[0]))
+    z2c, z2m, ops2 = di2i._loose_args(lb2)
+    row("zscan_z2_count", zs_src, f"{rzs} (pallas_call :942; z2 variant of zscan.py:97)",
+        lambda: z2c(*ops2),
+        lambda: zscan.z2_zscan_mask(*ops2, lb2[1]).sum(dtype=torch.int32), 8 * n, 4, 17 * n)
+    row("zscan_z2_mask", zs_src, f"{rzs} (pallas_call :960; z2 variant of zscan.py:97)",
+        lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, 17 * n)
+
+    # the interleaved scan at 28 day bins (the wide index, kernel only)
+    diw, (wq, _, _) = inter["diw"], inter["wide"][4]
+    lbw = diw._loose_bounds(parse_ecql(wq))
+    wc, wm, opsw = diw._loose_args(lbw)
+    nb = int((lbw[2] >= 0).sum())
+    zops_w = zscan_ops(lbw, opsw[0])
+    for name, fn, out_b in (("zscan_z3_count", wc, 4), ("zscan_z3_mask", wm, n)):
+        ms = time_ms(lambda f=fn: f(*opsw), 20)
+        t_bytes = (12 * n + out_b) / HBM_BYTES_PER_S * 1e3
+        log(f"{name} at {nb} day bins ({len(lbw[2])} entries): {ms:.4f} ms; bytes bound "
+            f"{t_bytes:.4f} ms, operations bound {zops_w / INT32_OPS_PER_S * 1e3:.4f} ms "
+            f"(this kernel: {zops_w / n:.1f} ops/row), {25 * nb * n / INT32_OPS_PER_S * 1e3:.4f} ms "
+            f"at 25 ops per row per bin entry (the TPU kernel's way) [{CARD}]")
+
     ops = n * _program_ops(cf.program)
     row("filter_scan_count", fs_src, f"{rfs} (pallas_call :284)",
         lambda: filter_scan.filter_scan_count(cf.program, fcols),
@@ -938,6 +1343,8 @@ def main() -> int:
     t = time.time()
     errs = Errs()
     check_dimscans(dev, errs)
+    check_baked_dimscans(dev, errs)
+    check_zscans(dev, errs)
     check_filter_scans(dev, errs)
     check_density(dev, errs)
     log(f"phase 2: kernels == plain versions, bit-exact (weighted density: rtol 1e-6) "
@@ -951,12 +1358,15 @@ def main() -> int:
     planes3, planes2 = check_main_path(cols, di3, di2, queries, z2q, res3, res2)
     dcalls, grids, scalls, seqs, dens_launches = run_density_path(di3, di2, queries)
     check_density_path(cols, di3, di2, planes3, planes2, dcalls, grids, scalls, seqs)
-    del planes3, planes2, grids
+    inter = run_interleaved_path(dev, cols, di3, di2, queries, z2q, res3, res2, planes2,
+                                 dcalls, grids, scalls, seqs)
+    del planes3, planes2, grids, res3, res2
     lab_launches = run_labeled_path(dev, queries)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    launches = {k: main_launches[k] + dens_launches[k] + lab_launches[k] for k in main_launches}
+    launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
+                for k in main_launches}
 
-    rows = kernel_table(dev, di3, di2, queries, z2q, launches, errs)
+    rows = kernel_table(dev, di3, di2, inter, queries, z2q, launches, errs)
     rows += density_rows(dev, di3, launches, errs)
     log(json.dumps({"kernels": rows}))
     log(f"total {time.time() - t_all:.1f} s")

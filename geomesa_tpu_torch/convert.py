@@ -9,8 +9,9 @@ float64 off a TPU) becomes float32 only when every value survives the
 round trip; otherwise it raises, since the port's kernels read float32
 lanes and a rounded plane would change answers. The visibility label-id
 plane ``__visid`` is an int32 plane like any other; pass the counterpart's
-``_vis_vocab`` to ``from_planes`` with it. The interleaved key planes are
-not in the port yet and raise.
+``_vis_vocab`` to ``from_planes`` with it. So are the key planes of either
+layout: ``__znx/__zny/__zbt`` (uint32) and the interleaved ``__zbin``
+(int32), ``__zhi/__zlo`` (uint32).
 """
 
 from __future__ import annotations
@@ -20,20 +21,10 @@ import torch
 
 from geomesa_tpu_torch.ops.scan import to_tensor
 
-_LATER = {
-    "__zbin": "the interleaved masked-compare layout",
-    "__zhi": "the interleaved masked-compare layout",
-    "__zlo": "the interleaved masked-compare layout",
-}
-
 
 def planes_from_numpy(cols: "dict[str, np.ndarray]", device) -> "dict[str, torch.Tensor]":
     out = {}
     for k, v in cols.items():
-        if k in _LATER:
-            raise NotImplementedError(
-                f"plane {k}: {_LATER[k]} is a later port slice (ROADMAP)"
-            )
         a = np.asarray(v)
         if a.dtype == np.float64:
             f32 = a.astype(np.float32)

@@ -3,26 +3,33 @@ serving bbox+during count and query, density grids and stats, under
 per-request authorizations.
 
 Counterpart of ``DeviceIndex`` in ``geomesa_tpu/device_cache.py``, trimmed
-to what the port has so far: full staging (attribute planes, the
-de-interleaved key planes ``__znx/__zny/__zbt`` of z3/z2 point schemas,
-and the visibility label-id plane ``__visid``), the loose key-only count
-and mask, the exact fused count and mask, the host take, and the
-pushdown-aggregation hook ``_fused_agg`` with its two consumers,
-``density`` (the density kernel) and ``stats`` (Count/MinMax/Histogram as
-torch reductions). Uploads are plain per-plane copies (the counterpart's
-packed transfer and thin-transfer tricks exist for its remote link).
+to what the port has so far: full staging (attribute planes, the key
+planes of z3/z2 point schemas, and the visibility label-id plane
+``__visid``), the loose key-only count and mask, the exact fused count and
+mask, the host take, and the pushdown-aggregation hook ``_fused_agg``
+with its two consumers, ``density`` (the density kernel) and ``stats``
+(Count/MinMax/Histogram as torch reductions). Uploads are plain per-plane
+copies (the counterpart's packed transfer and thin-transfer tricks exist
+for its remote link).
+
+Key planes come in two layouts, chosen at staging as the counterpart
+chooses them: the de-interleaved dim planes ``__znx/__zny/__zbt`` (the
+dim-scan kernels) whenever the bins pack into the bt word, else -- with
+``dim_planes=False``, or z3 data spanning too many period bins, such as
+day bins over more than 2,047 days -- the interleaved Morton key
+``__zhi/__zlo`` plus the z3 bin plane ``__zbin`` (the masked-compare
+kernel). Both answer ``loose=True`` with the same cell-granular rows.
 
 Not in the port yet; each raises ``NotImplementedError`` naming its
-ROADMAP item: the interleaved masked-compare layout (``dim_planes=False``
-with key planes, or a z3 bin span too wide to pack), the xz kinds, the
-Q-batched fused loose paths, streaming and sharded indexes, knn, joins,
-and the stats the host sketches serve (Cardinality, TopK, Frequency,
-Z3Histogram).
+ROADMAP item: the xz kinds, the Q-batched fused loose paths, streaming and
+sharded indexes, knn, joins, and the stats the host sketches serve
+(Cardinality, TopK, Frequency, Z3Histogram).
 """
 
 from __future__ import annotations
 
 import warnings
+from functools import partial
 
 import numpy as np
 import torch
@@ -48,6 +55,13 @@ from geomesa_tpu_torch.stats.sketches import CountStat, Histogram, MinMax
 # reserved names of the de-interleaved key planes (a leading underscore
 # cannot clash with attribute planes "<attr>" / "<attr>__suffix")
 Z_NX, Z_NY, Z_BT = "__znx", "__zny", "__zbt"
+# reserved names of the interleaved key planes: the Morton key's two words
+# and (z3 only) the int32 period bin
+Z_BIN, Z_HI, Z_LO = "__zbin", "__zhi", "__zlo"
+# a loose window over more bins than this takes the exact scan (the
+# counterpart's cut: past it the per-row cost outweighs the key scan's win;
+# its second cut, 8192 bound words, concerns xz bounds: 64 z3 bins hold 1152)
+_LOOSE_MAX_BINS = 64
 # reserved name of the visibility label-id plane: each row carries the id
 # of its label expression in a small vocabulary; a per-request auth table
 # gathers to a bool mask on the device
@@ -93,7 +107,10 @@ class DeviceIndex:
     ``loose=True`` answers bbox(+during) filters from them at cell
     granularity: a superset of the exact answer (GeoMesa's loose-bbox
     mode). Without key planes ``loose=True`` answers exactly, as in the
-    counterpart. Runs on ``cuda:0`` unless ``device`` says otherwise;
+    counterpart. ``dim_planes`` picks the key layout: None (the default)
+    stages dim planes when the bins pack and the interleaved key
+    otherwise, False always the interleaved key, True dim planes or a
+    ``ValueError``. Runs on ``cuda:0`` unless ``device`` says otherwise;
     ``device="cpu"`` runs the kernels' plain versions on the host.
 
     Visibility (per-auth resident serving, ref Accumulo cell visibility):
@@ -118,11 +135,6 @@ class DeviceIndex:
         dim_planes: "bool | None" = None,
         device=None,
     ):
-        if z_planes and dim_planes is False:
-            raise NotImplementedError(
-                _later("interleaved-layout and xz scans")
-                + " (dim_planes=False, the masked-compare layout)"
-            )
         self.device = resolve_device(device)
         self.store = store
         self.type_name = type_name
@@ -136,12 +148,13 @@ class DeviceIndex:
 
     def _reset(self) -> None:
         self._z_kind = None
+        self._dim_mode = False  # key layout: dim planes (True) or interleaved
         self._bin_range = None  # (min, max) period bins staged
         self._bt_base = None  # bin_base the bt plane is packed around
         self._host_batch = None
         self._cols: dict = {}
         self._compiled: dict = {}  # repr(filter) -> CompiledFilter
-        self._loose_cache: dict = {}  # repr(filter) -> (qarr, R) | None
+        self._loose_cache: dict = {}  # repr(filter) -> _loose_bounds result
         self._visid_np = None  # host mirror of the VIS_ID plane
 
     def _reset_vis(self) -> None:
@@ -173,7 +186,7 @@ class DeviceIndex:
         self.type_name = sft.type_name
         self.sft = sft
         self._planes = _stageable_planes(sft)
-        self._want_z = Z_NX in planes
+        self._want_z = Z_NX in planes or Z_HI in planes
         self._dim_pref = None
         self._reset_vis()
         self._reset()
@@ -198,7 +211,11 @@ class DeviceIndex:
             self._visid_np = ids
         if self._want_z:
             kind, _ = schema_kind(sft)
-            want = (Z_NX, Z_NY, Z_BT) if kind == "z3" else (Z_NX, Z_NY)
+            self._dim_mode = Z_NX in planes
+            if self._dim_mode:
+                want = (Z_NX, Z_NY, Z_BT) if kind == "z3" else (Z_NX, Z_NY)
+            else:
+                want = (Z_BIN, Z_HI, Z_LO) if kind == "z3" else (Z_HI, Z_LO)
             if kind is None or any(p not in planes for p in want):
                 raise ValueError(f"key planes {want} missing for a {kind} schema")
             self._z_kind = kind
@@ -326,24 +343,32 @@ class DeviceIndex:
         coords, bins = encode_inputs(
             batch, kind, sfc, self.sft.geom_field, self.sft.dtg_field
         )
-        if not self._dim_usable(kind, sfc, bins):
-            raise NotImplementedError(
-                _later("interleaved-layout and xz scans")
-                + " (z3 data whose bin span does not pack into the bt word)"
-            )
+        self._dim_mode = self._dim_usable(kind, sfc, bins)
         self._z_kind = kind
-        if kind == "z2":
+        if not self._dim_mode:
+            cols.update(self._interleaved_planes(sfc, coords, bins))
+        elif kind == "z2":
             cols.update(self._dim_planes_z2(sfc, coords))
         else:
             cols.update(self._dim_planes_for(sfc, coords, bins))
-            if len(batch):
-                self._bin_range = (int(bins.min()), int(bins.max()))
+        if kind == "z3" and len(batch):
+            lo, hi = int(bins.min()), int(bins.max())
+            rng = (lo, hi) if self._bin_range is None else (
+                min(self._bin_range[0], lo), max(self._bin_range[1], hi))
+            if rng != self._bin_range:
+                self._bin_range = rng
+                self._loose_cache.clear()  # entries keyed on the old range
         return cols
 
     def _dim_usable(self, kind, sfc, bins) -> bool:
-        """Whether the dim-plane layout packs: z2 always; z3 with 21-bit
-        time precision and a bin span inside the packable window (top bin
-        reserved for the out-of-range sentinel)."""
+        """Whether the dim-plane layout packs: not with ``dim_planes=False``
+        or for a non-point kind; z2 always; z3 with 21-bit time precision
+        and a bin span inside the packable window (top bin reserved for the
+        out-of-range sentinel)."""
+        if self._dim_pref is False or kind not in ("z3", "z2"):
+            if self._dim_pref is True:
+                raise ValueError("dim_planes=True requires a z3/z2 (point) schema")
+            return False
         if kind == "z2":
             return True
         if sfc.precision != zscan.BT_TIME_BITS:
@@ -373,6 +398,18 @@ class DeviceIndex:
             Z_NX: zscan._u32(self._quantize(sfc.lon, x)),
             Z_NY: zscan._u32(self._quantize(sfc.lat, y)),
         }
+
+    def _interleaved_planes(self, sfc, coords, bins) -> dict:
+        """{Z_HI, Z_LO} (+ Z_BIN for z3): the Morton key encoded on the
+        device (float64 quantize, bit for bit the host ``sfc.index``) and
+        the int32 period bins."""
+        hi, lo = sfc.index_hi_lo(
+            *(torch.from_numpy(np.asarray(c, np.float64)).to(self.device) for c in coords)
+        )
+        planes = {Z_HI: hi, Z_LO: lo}
+        if bins is not None:
+            planes[Z_BIN] = to_tensor(np.asarray(bins, np.int32), self.device)
+        return planes
 
     def _dim_planes_for(self, sfc, coords, bins) -> dict:
         if bins is None or len(bins) == 0:
@@ -417,8 +454,10 @@ class DeviceIndex:
         return env, window
 
     def _loose_bounds(self, f):
-        """(qarr, R) for the dim scan (R = 0: the 2-plane z2 scan), or None
-        when the key planes cannot answer the filter. Cached per filter."""
+        """How the key planes answer the filter, or None when they cannot:
+        ``("dim", qarr, R)`` for the dim scan (R = 0: the 2-plane z2 scan),
+        ``("zscan", bounds, ids, (count_fn, mask_fn))`` for the interleaved
+        scan (``ids`` None for z2). Cached per filter."""
         key = repr(f)
         if key not in self._loose_cache:
             self._loose_cache[key] = self._loose_bounds_uncached(f)
@@ -437,7 +476,12 @@ class DeviceIndex:
         if self._z_kind == "z2":
             if window is not None:
                 return None  # no time in the key
-            return zscan.z2_dim_plane_qarr(sfc, env), 0
+            if self._dim_mode:
+                return "dim", zscan.z2_dim_plane_qarr(sfc, env), 0
+            qlo = (int(sfc.lon.normalize(env[0])), int(sfc.lat.normalize(env[1])))
+            qhi = (int(sfc.lon.normalize(env[2])), int(sfc.lat.normalize(env[3])))
+            bounds = zscan.z2_dim_bounds(qlo, qhi)
+            return "zscan", bounds, None, zscan.build_z2_zscan(bounds)
         if env is None:
             env = (-180.0, -90.0, 180.0, 90.0)
         if window is None:
@@ -449,16 +493,48 @@ class DeviceIndex:
                 int(bin_to_millis(self._bin_range[1], p))
                 + int(offset_to_millis(max_offset(p), p)),
             )
+        if not self._dim_mode:
+            return self._zscan_bounds(sfc, env, window)
         if self._bt_base is None:
             return None  # nothing staged; the normal path returns empty too
-        return zscan.z3_dim_plane_qarr(
-            sfc, env, window, self._bt_base, self._bin_range
-        )
+        q = zscan.z3_dim_plane_qarr(sfc, env, window, self._bt_base, self._bin_range)
+        return None if q is None else ("dim", *q)
 
-    def _dim_operands(self, r: int) -> tuple:
-        if r == 0:
-            return self._cols[Z_NX], self._cols[Z_NY]
-        return self._cols[Z_NX], self._cols[Z_NY], self._cols[Z_BT]
+    def _zscan_bounds(self, sfc, env, window):
+        """The interleaved z3 scan's entry: one bound set per staged bin of
+        the window; an empty window becomes one never-matching padded
+        entry. None past 64 bins, and for a window over a bin before 1970
+        (the scan reads a negative id as padding and would lose that bin's
+        rows): the exact scan answers those."""
+        bounds, ids = zscan.z3_query_bounds(sfc, *env, *window)
+        if self._bin_range is not None:
+            keep = (ids >= self._bin_range[0]) & (ids <= self._bin_range[1])
+            bounds, ids = bounds[keep], ids[keep]
+        if (ids < 0).any():
+            return None
+        if len(ids) == 0:
+            bounds, ids = np.zeros((1, 3, 6), np.uint32), np.full(1, -1, np.int32)
+        if len(ids) > _LOOSE_MAX_BINS:
+            return None
+        bounds, ids = zscan.pad_bins(bounds, ids)
+        return "zscan", bounds, ids, zscan.build_z3_pallas_scan(bounds, ids)
+
+    def _loose_args(self, lb) -> tuple:
+        """(count_fn, mask_fn, operands) for a ``_loose_bounds`` result: the
+        one place that pairs a loose scan with its resident planes, so
+        ``count``, ``mask``, ``_fused_agg`` and ``loose_scan_kernel`` run the
+        same kernel."""
+        if lb[0] == "dim":
+            _, qarr, r = lb
+            ops = (self._cols[Z_NX], self._cols[Z_NY])
+            if r:
+                ops += (self._cols[Z_BT],)
+            return partial(zscan.dimscan_count, qarr), partial(zscan.dimscan_mask, qarr), ops
+        _, _, ids, (count_fn, mask_fn) = lb
+        ops = (self._cols[Z_HI], self._cols[Z_LO])
+        if ids is not None:
+            ops = (self._cols[Z_BIN],) + ops
+        return count_fn, mask_fn, ops
 
     def _resolve_loose(self, loose: "bool | None") -> bool:
         # None: the counterpart's query.loose.bbox default (off)
@@ -507,8 +583,8 @@ class DeviceIndex:
         if self._resolve_loose(loose):
             lb = self._loose_bounds(f)
             if lb is not None:
-                qarr, r = lb
-                return int(zscan.dimscan_count(qarr, *self._dim_operands(r)))
+                count_fn, _, ops = self._loose_args(lb)
+                return int(count_fn(*ops))
         compiled = self._compiled_for(f)
         if not compiled.device_cols:
             return int(compiled.host_mask(self._host_batch).sum())
@@ -524,9 +600,8 @@ class DeviceIndex:
         if self._resolve_loose(loose):
             lb = self._loose_bounds(f)
             if lb is not None:
-                qarr, r = lb
-                m = zscan.dimscan_mask(qarr, *self._dim_operands(r)).cpu().numpy()
-                return self._apply_auths_np(m, auths)
+                _, mask_fn, ops = self._loose_args(lb)
+                return self._apply_auths_np(mask_fn(*ops).cpu().numpy(), auths)
         compiled = self._compiled_for(f)
         if not compiled.device_cols:
             return self._apply_auths_np(compiled.host_mask(self._host_batch), auths)
@@ -546,15 +621,26 @@ class DeviceIndex:
             np.nonzero(self.mask(query, loose=loose, auths=auths))[0]
         )
 
+    def loose_scan_kernel(self, query):
+        """(count_fn, operands): the kernel wrapper and resident planes that
+        ``count(query, loose=True)`` launches, so a benchmark can time the
+        serving path's own kernel. None when the key planes cannot answer
+        the filter or a label-id plane would change the result."""
+        lb = self._loose_bounds(self._parse(query))
+        if lb is None or VIS_ID in self._cols:
+            return None
+        count_fn, _, ops = self._loose_args(lb)
+        return count_fn, ops
+
     # -- pushdown aggregation (StatsIterator / DensityIterator analogs) ----
 
     def _fused_agg(self, f, loose, agg_build, auths=None):
         """The pushdown-aggregation hook: the filter mask, computed next to
         the data, handed to an aggregation over the resident planes --
         ``agg_build(cols, mask)``, whose result is returned. The mask is
-        the loose dim scan (``loose=True`` and a filter the key planes
-        answer), None for INCLUDE (every row; the consumer skips the read),
-        or the exact filter scan (the filter-scan kernel, or the plain
+        the loose key scan (``loose=True`` and a filter the key planes
+        answer: the dim scan or the interleaved scan), None for INCLUDE
+        (every row; the consumer skips the read), or the exact filter scan (the filter-scan kernel, or the plain
         ``device_fn`` for a filter the encoder refuses); with a label-id
         plane staged, the auth verdict gathered by label id is ANDed in.
         Returns None when the filter is not fully on the device: the caller
@@ -564,8 +650,8 @@ class DeviceIndex:
         m = None
         lb = self._loose_bounds(f) if self._resolve_loose(loose) else None
         if lb is not None:
-            qarr, r = lb
-            m = zscan.dimscan_mask(qarr, *self._dim_operands(r))
+            _, mask_fn, ops = self._loose_args(lb)
+            m = mask_fn(*ops)
         elif not (f is ast.Include and self._cols):
             compiled = self._compiled_for(f)
             if not (compiled.device_cols and compiled.fully_on_device):

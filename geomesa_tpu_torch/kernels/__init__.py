@@ -2,7 +2,11 @@
 
 ``LAUNCHES`` counts, per kernel variant, the launches its wrapper made
 (the wrappers in ``ops/zscan.py``, ``ops/filter_scan.py`` and
-``ops/density.py`` add one where they launch, and nowhere else).
+``ops/density.py`` add one where they launch, and nowhere else):
+``dimscan_*`` (``csrc/dimscan.cu``), ``dimscan_baked_*``
+(``csrc/dimscan_baked.cu``), ``zscan_*`` (``csrc/zscan.cu``),
+``filter_scan_*`` (``csrc/filter_scan.cu``), ``density_*``
+(``csrc/density.cu``).
 ``DEVICE_FN_CALLS`` counts exact scans that went to the plain
 ``device_fn`` because the filter-scan encoder refused the filter (the
 counterpart's ``PallasUnsupported`` route).
@@ -15,6 +19,12 @@ KERNEL_NAMES = (
     "dimscan_z3_mask",
     "dimscan_z2_count",
     "dimscan_z2_mask",
+    "dimscan_baked_count",
+    "dimscan_baked_mask",
+    "zscan_z3_count",
+    "zscan_z3_mask",
+    "zscan_z2_count",
+    "zscan_z2_mask",
     "filter_scan_count",
     "filter_scan_mask",
     "density_count",

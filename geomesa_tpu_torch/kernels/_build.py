@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dimscan", "filter_scan", "density")
+SOURCES = ("dimscan", "dimscan_baked", "zscan", "filter_scan", "density")
 
 # -fmad=false: the filter scan's float32 distance and crossing tests and the
 # density kernel's float64 pixel math must round every product and sum on

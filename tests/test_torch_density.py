@@ -35,6 +35,8 @@ from geomesa_tpu_torch.geom import Envelope
 from geomesa_tpu_torch.ops.density import density_grid
 from geomesa_tpu_torch.store.direct import BatchStore
 
+torch.set_num_threads(2)  # xdist workers share the host's cores
+
 ENV = np.array([-60.0, -45.0, 100.0, 60.0], np.float32)
 DAY = 86_400_000
 T0 = 1_577_836_800_000  # 2020-01-01

@@ -27,6 +27,8 @@ from geomesa_tpu_torch.filter.ecql import parse_ecql
 from geomesa_tpu_torch.ops import filter_scan
 from geomesa_tpu_torch.ops.scan import stage_columns
 
+torch.set_num_threads(2)  # xdist workers share the host's cores
+
 SPEC = "count:Int,score:Float,dtg:Date,name:String,dbl:Double,*geom:Point:srid=4326"
 T0 = 1_577_836_800_000  # 2020-01-01 in epoch-ms
 W32 = 1 << 32

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(2)  # xdist workers share the host's cores
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "geomesa_tpu_torch"
 
@@ -39,6 +41,10 @@ batch = FeatureBatch.from_columns(sft, cols)
 di = DeviceIndex(BatchStore(batch), "t", z_planes=True, device="cpu")
 q = "BBOX(geom, -10, -10, 30, 30) AND dtg DURING 2020-01-03T00:00:00Z/2020-01-09T00:00:00Z"
 assert di.count(q, loose=True) >= di.count(q) == len(di.query(q))
+inter = DeviceIndex(BatchStore(batch), "t", z_planes=True, dim_planes=False, device="cpu")
+assert inter.count(q, loose=True) == di.count(q, loose=True)
+count_fn, ops = inter.loose_scan_kernel(q)
+assert int(count_fn(*ops)) == inter.count(q, loose=True)
 cols[VIS_COLUMN] = rng.choice(["", "A", "A&B"], n)
 store = BatchStore(FeatureBatch.from_columns(sft, cols))
 ldi = DeviceIndex(store, "t", device="cpu")
@@ -58,6 +64,7 @@ print("LOADED", bad)
 def test_port_workload_loads_no_jax():
     env = {k: v for k, v in os.environ.items() if not k.startswith("GEOMESA_TPU_")}
     env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "2"  # the child's torch pool, as the cap above
     out = subprocess.run(
         [sys.executable, "-c", _WORKLOAD], cwd=str(ROOT), env=env,
         capture_output=True, text=True, timeout=120,

@@ -22,6 +22,8 @@ from geomesa_tpu_torch.filter.ecql import parse_ecql
 from geomesa_tpu_torch.ops import density, filter_scan, zscan
 from geomesa_tpu_torch.ops.scan import stage_columns
 
+torch.set_num_threads(2)  # xdist workers share the host's cores
+
 pytestmark = pytest.mark.cuda
 
 MAXI = (1 << 21) - 1
@@ -117,11 +119,140 @@ def test_filter_scan_kernel_matches_plain(dev, batch, ecql):
     assert kernels.LAUNCHES["filter_scan_count"] == before + 1
 
 
+# -- interleaved masked-compare scan and baked dim scan ---------------------
+
+
+def zscan_case(n, n_bins, seed):
+    """Interleaved Z3 keys of random points over bins 2600..2600+n_bins-1
+    (a few rows in bin -1, which padded entries must not match), and for
+    Z2 the keys of the same points."""
+    from geomesa_tpu_torch.curves.z2 import Z2SFC
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
+    from geomesa_tpu_torch.curves.zorder import u64_hi_lo
+
+    rng = np.random.default_rng(seed)
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    off = rng.uniform(0, 604_800, n)
+    if n >= 4:
+        x[:4], y[:4], off[:4] = [180, -180, 0, 5], [90, -90, 0, 5], [604_800, 0, 0, 302_400]
+    bins = (2600 + rng.integers(0, n_bins, n)).astype(np.int32)
+    bins[: min(n, 3)] = -1
+    h3, l3 = u64_hi_lo(Z3SFC().index(x, y, off))
+    h2, l2 = u64_hi_lo(Z2SFC().index(x, y))
+    return rng, bins, (h3, l3), (h2, l2)
+
+
+def zscan_bounds(rng, n_bins, b, random_words):
+    """(bounds, ids) with b entries over bins 2600.. : cell boxes from the
+    curve's own bounds, or random words; some ids padded (-1)."""
+    if random_words:
+        bounds = rng.integers(0, 1 << 32, (b, 3, 6), dtype=np.uint64).astype(np.uint32)
+    else:
+        bounds = np.stack([
+            zscan.z3_dim_bounds(tuple(lo), tuple(hi)) for lo, hi in (
+                np.sort(rng.integers(0, MAXI + 1, (2, 3)), axis=0) for _ in range(b))
+        ])
+    ids = (2600 + rng.permutation(max(n_bins, b))[:b]).astype(np.int32)
+    ids[rng.random(b) < 0.25] = -1
+    return bounds, ids
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 17])
+@pytest.mark.parametrize("b", [1, 2, 7, 28, 64])
+@pytest.mark.parametrize("random_words", [False, True], ids=["cells", "random"])
+def test_zscan_z3_kernel_matches_plain(dev, n, b, random_words):
+    rng, bins, (h3, l3), _ = zscan_case(n, 64, seed=n + b)
+    bounds, ids = zscan_bounds(rng, 64, b, random_words)
+    planes = (torch.from_numpy(bins).to(dev), _u32(h3, dev), _u32(l3, dev))
+    for bb, ii in ((bounds, ids), (bounds, np.full(b, -1, np.int32))):  # and all padded
+        count_fn, mask_fn = zscan.build_z3_pallas_scan(bb, ii)
+        before = dict(kernels.LAUNCHES)
+        got_c, got_m = count_fn(*planes), mask_fn(*planes)
+        want = zscan.z3_zscan_mask(planes[1], planes[2], planes[0], bb, ii)
+        torch.cuda.synchronize()
+        assert got_m.dtype == torch.bool and torch.equal(got_m, want)
+        assert got_c.dtype == torch.int32 and int(got_c) == int(want.sum())
+        assert kernels.LAUNCHES["zscan_z3_count"] == before["zscan_z3_count"] + 1
+        assert kernels.LAUNCHES["zscan_z3_mask"] == before["zscan_z3_mask"] + 1
+        if (ii < 0).all():
+            assert int(got_c) == 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 17])
+@pytest.mark.parametrize("random_words", [False, True], ids=["cells", "random"])
+def test_zscan_z2_kernel_matches_plain(dev, n, random_words):
+    from geomesa_tpu_torch.curves.zorder import MAX_MASK_2D
+
+    rng, _, _, (h2, l2) = zscan_case(n, 4, seed=n + 5)
+    planes = (_u32(h2, dev), _u32(l2, dev))
+    for _ in range(4):
+        if random_words:
+            bounds = rng.integers(0, 1 << 32, (2, 6), dtype=np.uint64).astype(np.uint32)
+        else:
+            lo, hi = np.sort(rng.integers(0, MAX_MASK_2D + 1, (2, 2)), axis=0)
+            bounds = zscan.z2_dim_bounds(tuple(lo), tuple(hi))
+        count_fn, mask_fn = zscan.build_z2_zscan(bounds)
+        got_c, got_m = count_fn(*planes), mask_fn(*planes)
+        want = zscan.z2_zscan_mask(*planes, bounds)
+        torch.cuda.synchronize()
+        assert torch.equal(got_m, want) and int(got_c) == int(want.sum())
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 17])
+@pytest.mark.parametrize("r", [0, 1, 2, 5, 16, 300])
+def test_baked_dimscan_kernel_matches_plain(dev, n, r):
+    rng = np.random.default_rng(n + 31 * r)
+    nx = rng.integers(0, MAXI + 1, n).astype(np.uint32)
+    ny = rng.integers(0, MAXI + 1, n).astype(np.uint32)
+    bt = rng.integers(0, 40 << 21, n).astype(np.uint32)
+    bt[: min(n, 2)] = SENT
+    nx[-1:] = MAXI
+    qnx = tuple(np.sort(rng.integers(0, MAXI + 1, 2)))
+    qny = (0, MAXI)
+    ranges = [tuple(np.sort(rng.integers(0, 40 << 21, 2))) for _ in range(r)]
+    if r > 1:
+        ranges[1] = (SENT, 0)  # inverted: never matches
+    planes = [_u32(a, dev) for a in (nx, ny, bt)]
+    count_fn, mask_fn = zscan.build_z3_dimscan_pallas(qnx, qny, ranges)
+    before = dict(kernels.LAUNCHES)
+    got_c, got_m = count_fn(*planes), mask_fn(*planes)
+    want = zscan.z3_dimscan_mask(*planes, qnx, qny, ranges)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want) and int(got_c) == int(want.sum())
+    assert kernels.LAUNCHES["dimscan_baked_count"] == before["dimscan_baked_count"] + 1
+    assert kernels.LAUNCHES["dimscan_baked_mask"] == before["dimscan_baked_mask"] + 1
+
+
+def test_baked_dimscan_agrees_with_the_runtime_kernel(dev):
+    """The two dim-scan engines on one window: the runtime query vector of
+    the dim scan and the baked query of the same bins."""
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
+
+    rng = np.random.default_rng(12)
+    n = (1 << 20) + 3
+    nx = rng.integers(0, MAXI + 1, n).astype(np.uint32)
+    ny = rng.integers(0, MAXI + 1, n).astype(np.uint32)
+    bt = ((rng.integers(0, 9, n).astype(np.uint32) << np.uint32(21))
+          | rng.integers(0, MAXI + 1, n).astype(np.uint32))
+    planes = [_u32(a, dev) for a in (nx, ny, bt)]
+    sfc, base = Z3SFC(), 2608
+    for env, w in (((-10.0, 35.0, 30.0, 60.0), (T0 + 9 * 86400_000, T0 + 14 * 86400_000)),
+                   ((-180.0, -90.0, 180.0, 90.0), (T0, T0 + 59 * 86400_000))):
+        qarr, _ = zscan.z3_dim_plane_qarr(sfc, env, w, base, None)
+        qnx, qny, ranges = zscan.z3_dim_plane_query(sfc, *env, *w, base)
+        count_fn, mask_fn = zscan.build_z3_dimscan_pallas(qnx, qny, ranges)
+        assert torch.equal(mask_fn(*planes), zscan.dimscan_mask(qarr, *planes))
+        assert int(count_fn(*planes)) == int(zscan.dimscan_count(qarr, *planes)) > 0
+
+
 def test_misaligned_planes_raise(dev):
     t = torch.zeros(65, dtype=torch.uint32, device=dev)
     q = np.array([0, 1, 0, 1], np.uint32)
     with pytest.raises(ValueError, match="aligned"):
         zscan.dimscan_count(q, t[1:], t[1:])
+    count_fn, _ = zscan.build_z2_zscan(np.zeros((2, 6), np.uint32))
+    with pytest.raises(ValueError, match="aligned"):
+        count_fn(t[1:], t[1:])
 
 
 # -- density ------------------------------------------------------------------

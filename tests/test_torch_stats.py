@@ -9,6 +9,7 @@ give the same MinMax and the same histogram bins. Tolerance: equal.
 
 import numpy as np
 import pytest
+import torch
 
 from geomesa_tpu.device_cache import DeviceIndex as JIndex
 from geomesa_tpu.features.batch import FeatureBatch as JBatch
@@ -18,6 +19,8 @@ from geomesa_tpu_torch.device_cache import DeviceIndex
 from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.stats import parse_stat
 from geomesa_tpu_torch.store.direct import BatchStore
+
+torch.set_num_threads(2)  # xdist workers share the host's cores
 
 DAY = 86_400_000
 T0 = 1_577_836_800_000  # 2020-01-01

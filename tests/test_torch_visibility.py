@@ -14,6 +14,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from geomesa_tpu import security as jsec
 from geomesa_tpu.device_cache import DeviceIndex as JIndex
@@ -27,6 +28,8 @@ from geomesa_tpu_torch.device_cache import VIS_ID, DeviceIndex
 from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
 from geomesa_tpu_torch.geom import Envelope
 from geomesa_tpu_torch.store.direct import BatchStore
+
+torch.set_num_threads(2)  # xdist workers share the host's cores
 
 DAY = 86_400_000
 T0 = 1_577_836_800_000  # 2020-01-01

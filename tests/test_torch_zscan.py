@@ -19,6 +19,8 @@ from geomesa_tpu_torch.curves.z2 import Z2SFC
 from geomesa_tpu_torch.curves.z3 import Z3SFC
 from geomesa_tpu_torch.ops import zscan as tz
 
+torch.set_num_threads(2)  # xdist workers share the host's cores
+
 MAXI = (1 << 21) - 1
 SENT = 0xFFFFFFFF
 T0 = 1_577_836_800_000  # 2020-01-01
