@@ -9,10 +9,14 @@ Phases:
   2. every kernel against its plain PyTorch version on the card, at ragged
      sizes with edge rows (dim scans at R in {1,2,4,8} and z2; the baked dim
      scan with 0 to 16 bt ranges; the interleaved scan at n in {0, 1, 1000,
-     2^20+17} with 1 to 64 bin entries, padded and all-padded, and its z2
-     variant; the filter scan over a fixed filter list; the density kernel
-     at n in {0, 1, 1000, 2^20+17} on six grids from 16x16 to 2048x1024,
-     clustered and uniform points, with and without a mask): bit-exact,
+     2^20+17} with 1 to 64 bin entries (29 among them), ids with gaps,
+     padded, all-padded and contiguous, and its z2 variant; the filter scan
+     over a fixed filter list; the density kernel at n in {0, 1, 1000,
+     2^20+17} on six grids from 16x16 to 2048x1024, clustered and uniform
+     points, with and without a mask, on the engine each grid takes and
+     forced onto every engine that can hold it (cluster sizes 1, 2, 4, 8,
+     hot-cell), a zero-width viewport on every engine, and the
+     entry points on an inverted and a zero-width viewport): bit-exact,
      weighted density grids within rtol 1e-6;
   3. the main path at full size: a GDELT-shaped resident Z3 point type
      (count:Int,dtg:Date,*geom:Point, 2^26 rows from a fixed seed: 90% of
@@ -41,8 +45,9 @@ Phases:
      per-label verdict table;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
-     the interleaved scan also at 28 day bins; the density kernel's
-     shared-memory and global engines on a counted 128x128 grid.
+     the interleaved scan also at 29 day bins (rows with a "case" key);
+     the density kernel on every engine at every grid size of the density
+     drive, clustered and uniform, counted and weighted.
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -195,9 +200,10 @@ def check_baked_dimscans(dev, errs: Errs):
 def check_zscans(dev, errs: Errs):
     """The interleaved scan against its plain version: keys of random
     points over 64 week bins (a few rows in bin -1), 1 to 64 bin entries
-    from the curve's own cell bounds or random words, some ids padded,
-    and every query once more all-padded (counts 0); the z2 variant on
-    the same points."""
+    (29 among them) from the curve's own cell bounds or random words:
+    shuffled ids with gaps and some padded, every query once more
+    all-padded (counts 0), and contiguous bins padded to a power of two;
+    the z2 variant on the same points."""
     import torch
 
     from geomesa_tpu_torch.curves.z2 import Z2SFC
@@ -218,19 +224,21 @@ def check_zscans(dev, errs: Errs):
         h2, l2 = u64_hi_lo(Z2SFC().index(x, y))
         p3 = [torch.from_numpy(a).to(dev) for a in (bins, h3, l3)]
         p2 = [torch.from_numpy(a).to(dev) for a in (h2, l2)]
-        for b in (1, 2, 5, 28, 64):
+        for b in (1, 2, 5, 28, 29, 64):
             for random_words in (False, True):
                 if random_words:
                     bounds = rng.integers(0, 1 << 32, (b, 3, 6), dtype=np.uint64).astype(np.uint32)
                 else:
                     bounds = np.stack([zscan.z3_dim_bounds(tuple(lo), tuple(hi)) for lo, hi in (
                         np.sort(rng.integers(0, maxi + 1, (2, 3)), axis=0) for _ in range(b))])
-                ids = (2600 + rng.permutation(64)[:b]).astype(np.int32)
+                ids = (2600 + rng.permutation(64)[:b]).astype(np.int32)  # gaps between bins
                 ids[rng.random(b) < 0.25] = -1
-                for ii in (ids, np.full(b, -1, np.int32)):
-                    what = f"n={n} B={b} {'random' if random_words else 'cells'}"
-                    count_fn, mask_fn = zscan.build_z3_pallas_scan(bounds, ii)
-                    want = zscan.z3_zscan_mask(p3[1], p3[2], p3[0], bounds, ii)
+                # a window's own layout: contiguous bins padded to a power of two
+                pb, pi = zscan.pad_bins(bounds, (2600 + np.arange(b)).astype(np.int32))
+                for bb, ii in ((bounds, ids), (bounds, np.full(b, -1, np.int32)), (pb, pi)):
+                    what = f"n={n} B={b} {'random' if random_words else 'cells'} {len(ii)} entries"
+                    count_fn, mask_fn = zscan.build_z3_pallas_scan(bb, ii)
+                    want = zscan.z3_zscan_mask(p3[1], p3[2], p3[0], bb, ii)
                     errs.check("zscan_z3_mask", mask_fn(*p3), want, what)
                     got_c = count_fn(*p3)
                     errs.check("zscan_z3_count", got_c.reshape(1),
@@ -331,10 +339,18 @@ def density_case(n, width, height, clustered, seed):
     return x, y, rng.random(n) < 0.6, rng.uniform(0.5, 2.0, n).astype(np.float32)
 
 
+def _engine_name(engine) -> str:
+    return f"{engine[0]}{engine[1] or ''}"
+
+
 def check_density(dev, errs: Errs):
+    """The density kernel on the engine each grid takes (density_grid) and,
+    at n >= 1000, forced onto every engine that can hold the grid (cluster
+    sizes 1, 2, 4, 8, hot-cell); then a zero-width viewport on every
+    engine, and the entry points on an inverted and a zero-width one."""
     import torch
 
-    from geomesa_tpu_torch.ops.density import _launch, density_grid, density_plain
+    from geomesa_tpu_torch.ops.density import _launch, density_grid, density_plain, engines
 
     for n in (0, 1, 1000, (1 << 20) + 17):
         for width, height in DENSITY_GRIDS:
@@ -350,10 +366,96 @@ def check_density(dev, errs: Errs):
                     errs.check_grid("density_count", density_grid(*args, mask=mask), want, 0.0, what)
                     errs.check_grid("density_weighted", density_grid(*args, mask=mask, weights=w),
                                     want_w, 1e-6, what)
-                    # the global engine on the counted grids that take shared memory
-                    errs.check_grid("density_count", _launch(*args, mask, None, shared=False),
-                                    want, 0.0, what + " global engine")
+                    if n < 1000:
+                        continue
+                    for weighted in (False, True):
+                        for engine in engines(width, height, weighted):
+                            got = _launch(*args, mask, w if weighted else None, engine=engine)
+                            errs.check_grid(
+                                "density_weighted" if weighted else "density_count", got,
+                                want_w if weighted else want, 1e-6 if weighted else 0.0,
+                                f"{what} {_engine_name(engine)} engine")
+    check_density_viewports(dev, errs)
     torch.cuda.synchronize()
+
+
+def check_density_viewports(dev, errs: Errs):
+    """A zero-width viewport (rows on its line land in column 0) on every
+    engine against the plain version; then DeviceIndex.density and the
+    store path of process.density on the card: an inverted viewport gives
+    a zero grid and launches nothing, a zero-width one counts the rows on
+    the line (and the store path raises ZeroDivisionError for it, as the
+    counterpart's does)."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.ops.density import _launch, density_plain, engines
+    from geomesa_tpu_torch.process.density import density
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    line = (-20.0, 10.0, -20.0, 40.0)
+    n = (1 << 20) + 17
+    for clustered in (True, False):
+        x, y, m, w = (torch.from_numpy(a).to(dev) for a in density_case(n, 64, 64, clustered, SEED))
+        x[: n // 3] = line[0]
+        y[: n // 3] = torch.linspace(0.0, 50.0, n // 3, device=dev)
+        for mask in (None, m):
+            for weighted in (False, True):
+                wt = w if weighted else None
+                want = density_plain(x, y, line, 256, 256, mask=mask, weights=wt, lines=True)
+                if int((want != 0).sum()) == 0 or bool(want[:, 1:].any()):
+                    raise AssertionError("the zero-width case must count rows in column 0 only")
+                for engine in engines(256, 256, weighted):
+                    got = _launch(x, y, line, 256, 256, mask, wt, engine=engine, lines=True)
+                    errs.check_grid("density_weighted" if weighted else "density_count", got, want,
+                                    1e-6 if weighted else 0.0,
+                                    f"zero-width viewport {_engine_name(engine)} engine")
+    # the entry points on 2^18 rows, a quarter of them on the line x = 0
+    n = 1 << 18
+    rng = np.random.default_rng(SEED)
+    xy = rng.uniform(-50.0, 50.0, (n, 2)).astype(np.float32).astype(np.float64)
+    xy[: n // 4, 0] = 0.0
+    sft = SimpleFeatureType.create("t", GDELT_SPEC)
+    cols = {"count": rng.integers(0, 1000, n).astype(np.int32),
+            "dtg": rng.integers(T0, T0 + 60 * DAY, n), "geom": xy}
+    store = BatchStore(FeatureBatch.from_columns(sft, cols))
+    di = DeviceIndex(store, "t", z_planes=True, device=dev)
+    for env in ((170.0, -10.0, -170.0, 10.0), (0.0, -10.0, 0.0, 30.0)):
+        for weight in (None, "count"):
+            sel = (xy[:, 0] >= env[0]) & (xy[:, 0] <= env[2]) & (xy[:, 1] >= env[1]) & (xy[:, 1] <= env[3])
+            want = np.zeros((64, 32), np.float32)
+            if sel.any():
+                py = np.clip(np.floor((xy[sel, 1] - env[1]) * 64 / (env[3] - env[1])), 0, 63)
+                want[:, 0] = np.bincount(py.astype(np.int64), minlength=64, weights=(
+                    cols["count"][sel].astype(np.float64) if weight else None))
+            kernels.reset_counts()
+            got = di.density("INCLUDE", Envelope(*env), 32, 64, weight_attr=weight)
+            launched = sum(kernels.LAUNCHES.values())
+            inverted = env[2] < env[0]
+            if launched != (0 if inverted else 1) or not same_grid(got, want, weight is not None):
+                raise AssertionError(f"DeviceIndex.density {env} {weight}: {launched} launches, "
+                                     f"grid {'==' if same_grid(got, want, weight is not None) else '!='} numpy")
+            if inverted:
+                got = density(store, "t", "INCLUDE", Envelope(*env), 32, 64, weight_attr=weight,
+                              device=dev)
+                if got.shape != (64, 32) or got.any():
+                    raise AssertionError("store-path density over an inverted viewport is not zero")
+            else:
+                try:
+                    density(store, "t", "INCLUDE", Envelope(*env), 32, 64, weight_attr=weight,
+                            device=dev)
+                except ZeroDivisionError:
+                    pass
+                else:
+                    raise AssertionError("store-path density over a zero-width viewport did not raise")
+    del di
+    log(f"density viewports: zero-width on every engine == plain; inverted and zero-width "
+        f"through DeviceIndex.density == numpy (inverted launched nothing); store path "
+        f"zero / ZeroDivisionError")
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -1102,9 +1204,12 @@ def _program_ops(prog) -> int:
 
 
 def zscan_ops(lb, bins) -> int:
-    """Integer operations of the interleaved scan on this data: per row an
-    id compare and branch per (padded) entry, and about 25 for the masked
-    compares of the entry its bin matches (counted where one does)."""
+    """Integer operations the interleaved scan's function needs on this
+    data, whatever implements it: per row one bin lookup (a subtract, an
+    unsigned range check and a table load: 4), and for a row whose bin has
+    an entry that entry's masked compares (25: per dimension an AND pair
+    and two 64-bit compares, and the ANDs between them); z2 rows pay the
+    masked compares of 2 dimensions (17) and no lookup."""
     import torch
 
     ids = lb[2]
@@ -1113,7 +1218,7 @@ def zscan_ops(lb, bins) -> int:
         return 17 * n
     real = torch.from_numpy(ids[ids >= 0]).to(bins.device)
     in_window = int(torch.isin(bins, real).sum())
-    return 2 * len(ids) * n + 25 * in_window
+    return 4 * n + 25 * in_window
 
 
 def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs) -> list:
@@ -1137,9 +1242,10 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     fbytes = 4 * len(cf.program.cols)
     rows = []
 
-    def row(name, source, replaces, kern, plain, in_bytes, out_bytes, ops, plain_iters=5):
+    def row(name, source, replaces, kern, plain, in_bytes, out_bytes, ops, plain_iters=5,
+            case=None):
         got, want = kern(), plain()
-        errs.check(name, got.reshape(-1), want.reshape(-1), "main-path shapes")
+        errs.check(name, got.reshape(-1), want.reshape(-1), f"main-path shapes {case or ''}")
         ms = time_ms(kern, 50)
         plain_ms = time_ms(plain, plain_iters, warm=min(3, plain_iters))
         t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
@@ -1151,7 +1257,9 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         })
-        log(f"{name}: {ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms: bytes {t_bytes:.4f}, "
+        if case:
+            rows[-1]["case"] = case
+        log(f"{name}{f' ({case})' if case else ''}: {ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms: bytes {t_bytes:.4f}, "
             f"operations {t_ops:.4f}; {(in_bytes + out_bytes) / ms / 1e6:.1f} GB/s, "
             f"{n / ms / 1e6:.2f} G rows/s); plain version {plain_ms:.3f} ms (not a yardstick) "
             f"[{CARD}]")
@@ -1213,19 +1321,24 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     row("zscan_z2_mask", zs_src, f"{rzs} (pallas_call :960; z2 variant of zscan.py:97)",
         lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, 17 * n)
 
-    # the interleaved scan at 28 day bins (the wide index, kernel only)
+    # the interleaved scan over many bins: the wide day-binned index, a
+    # 28-day world window (29 day bins), rows of their own
     diw, (wq, _, _) = inter["diw"], inter["wide"][4]
     lbw = diw._loose_bounds(parse_ecql(wq))
     wc, wm, opsw = diw._loose_args(lbw)
-    nb = int((lbw[2] >= 0).sum())
+    bw, iw = lbw[1], lbw[2]
+    nb = int((iw >= 0).sum())
     zops_w = zscan_ops(lbw, opsw[0])
-    for name, fn, out_b in (("zscan_z3_count", wc, 4), ("zscan_z3_mask", wm, n)):
-        ms = time_ms(lambda f=fn: f(*opsw), 20)
-        t_bytes = (12 * n + out_b) / HBM_BYTES_PER_S * 1e3
-        log(f"{name} at {nb} day bins ({len(lbw[2])} entries): {ms:.4f} ms; bytes bound "
-            f"{t_bytes:.4f} ms, operations bound {zops_w / INT32_OPS_PER_S * 1e3:.4f} ms "
-            f"(this kernel: {zops_w / n:.1f} ops/row), {25 * nb * n / INT32_OPS_PER_S * 1e3:.4f} ms "
-            f"at 25 ops per row per bin entry (the TPU kernel's way) [{CARD}]")
+    case = f"{nb} day bins ({len(iw)} entries), the wide index"
+    row("zscan_z3_count", zs_src, f"{rzs} (pallas_call :942)", lambda: wc(*opsw),
+        lambda: zscan.z3_zscan_mask(opsw[1], opsw[2], opsw[0], bw, iw).sum(dtype=torch.int32),
+        12 * n, 4, zops_w, plain_iters=1, case=case)
+    row("zscan_z3_mask", zs_src, f"{rzs} (pallas_call :960)", lambda: wm(*opsw),
+        lambda: zscan.z3_zscan_mask(opsw[1], opsw[2], opsw[0], bw, iw),
+        12 * n, n, zops_w, plain_iters=1, case=case)
+    log(f"zscan_z3 at {nb} day bins: the function's operations bound {zops_w / INT32_OPS_PER_S * 1e3:.4f} ms "
+        f"({zops_w / n:.1f} ops/row); {25 * nb * n / INT32_OPS_PER_S * 1e3:.4f} ms at 25 ops per "
+        f"row per bin entry (the TPU kernel's way) [{CARD}]")
 
     ops = n * _program_ops(cf.program)
     row("filter_scan_count", fs_src, f"{rfs} (pallas_call :284)",
@@ -1239,18 +1352,26 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     return rows
 
 
+DRIVE_GRIDS = [(128, 128), (256, 256), (512, 256), (512, 512), (1024, 1024), (2048, 1024)]
+TABLE_GRIDS = ((256, 256), (1024, 1024))  # the density cases the kernel table lists
+
+
 def density_rows(dev, di3, launches, errs: Errs) -> list:
     """Time the density kernel on the main path's 2^26 rows with every row
     masked in (the heaviest case: each row adds to the grid) over the world
-    viewport: the main path's clustered points and uniform points, at
-    256x256 and 1024x1024, counted and weighted (float32 weights, cast
-    before timing). Beside it: the plain version and one torch.bincount
-    over precomputed flat ids (computes less: ids precomputed). The kernel
-    table's row is the clustered 256x256 case. Then a counted 128x128
-    grid on each of the kernel's two engines."""
+    viewport: the main path's clustered points and uniform points, at every
+    grid size of the density drive (128x128 to 2048x1024), counted and
+    weighted (float32 weights, cast before timing), on the engine the grid
+    takes and on every other engine that can hold it. Beside each: the
+    bound, the plain version and one torch.bincount over precomputed flat
+    ids (computes less: ids precomputed). The kernel table's first two
+    density rows are the clustered 256x256 case; rows with a ``case`` key
+    add clustered and uniform 256x256 and 1024x1024."""
     import torch
 
-    from geomesa_tpu_torch.ops.density import _launch, density_grid, density_plain, pixel_ids
+    from geomesa_tpu_torch.ops.density import (
+        _launch, density_grid, density_plain, engine_for, engines, pixel_ids,
+    )
 
     n = len(di3)
     gen = torch.Generator(device=dev)
@@ -1262,55 +1383,64 @@ def density_rows(dev, di3, launches, errs: Errs) -> list:
     found = {}
     for data, (px, py) in (("clustered", (di3._cols["geom__x"], di3._cols["geom__y"])),
                            ("uniform", uni)):
-        for width, height in ((256, 256), (1024, 1024)):
+        for width, height in DRIVE_GRIDS:
             ix, iy, inside = pixel_ids(px, py, WORLD, width, height)
             flat = (iy.to(torch.int64) * width + ix.to(torch.int64))[inside]
             del ix, iy
             for w in (None, wts):
                 name = "density_count" if w is None else "density_weighted"
                 args = (px, py, WORLD, width, height)
+                static = engine_for(width, height, w is not None)
                 kern = lambda a=args, w=w: density_grid(*a, mask=ones, weights=w)  # noqa: E731
                 plain = lambda a=args, w=w: density_plain(*a, mask=ones, weights=w)  # noqa: E731
                 wf = None if w is None else w[inside]
                 lib = lambda f=flat, wf=wf, c=width * height: torch.bincount(  # noqa: E731
                     f, weights=wf, minlength=c)
                 what = f"{data} {width}x{height} main-path shapes"
-                errs.check_grid(name, kern(), plain(), 0.0 if w is None else 1e-6, what)
+                rtol = 0.0 if w is None else 1e-6
+                want = plain()
+                errs.check_grid(name, kern(), want, rtol, what)
                 ms, plain_ms, lib_ms = time_ms(kern, 20), time_ms(plain, 2), time_ms(lib, 10)
                 nbytes = (9 if w is None else 13) * n + 4 * width * height
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = 12 * n / F64_OPS_PER_S * 1e3  # float64 pixel math per row
                 bound = max(t_bytes, t_ops)
-                found[(data, width, name)] = (ms, plain_ms, lib_ms, bound,
-                                              "bytes" if t_bytes >= t_ops else "operations")
-                log(f"{name} {data} {width}x{height}: {ms:.4f} ms (bound {bound:.4f} ms, "
-                    f"{100 * bound / ms:.1f}% of it, {n / ms / 1e6:.2f} G rows/s); "
-                    f"torch.bincount {lib_ms:.4f} ms (computes less: ids precomputed); "
+                per_engine = {}
+                for engine in engines(width, height, w is not None):
+                    if engine == static:
+                        per_engine[_engine_name(engine)] = ms
+                        continue
+                    run = lambda a=args, w=w, e=engine: _launch(*a, ones, w, engine=e)  # noqa: E731
+                    errs.check_grid(name, run(), want, rtol, f"{what} {_engine_name(engine)} engine")
+                    per_engine[_engine_name(engine)] = time_ms(run, 20)
+                del want
+                found[(data, width, height, name)] = (ms, plain_ms, lib_ms, bound,
+                                                      "bytes" if t_bytes >= t_ops else "operations",
+                                                      _engine_name(static))
+                log(f"{name} {data} {width}x{height}: {ms:.4f} ms on the {_engine_name(static)} "
+                    f"engine (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it, "
+                    f"{n / ms / 1e6:.2f} G rows/s); every engine: "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in per_engine.items())
+                    + f" ms; torch.bincount {lib_ms:.4f} ms (computes less: ids precomputed); "
                     f"plain version {plain_ms:.3f} ms (not a yardstick) [{CARD}]")
             del flat, inside
-        # a counted grid that takes the shared-memory engine, timed on it
-        # and on the global engine: the measurement behind the split
-        args = (px, py, WORLD, 128, 128, ones, None)
-        want = density_plain(*args[:5], mask=ones)
-        t = {}
-        for shared in (True, False):
-            kern = lambda s=shared: _launch(*args, shared=s)  # noqa: E731
-            errs.check_grid("density_count", kern(), want, 0.0,
-                            f"{data} 128x128 {'shared-memory' if shared else 'global'} engine")
-            t[shared] = time_ms(kern, 20)
-        log(f"density_count {data} 128x128: shared-memory engine {t[True]:.4f} ms, "
-            f"global engine {t[False]:.4f} ms [{CARD}]")
     src = "geomesa_tpu_torch/csrc/density.cu"
     rep = "geomesa_tpu/ops/density_pallas.py:42 build_density_pallas (pallas_call :124)"
     rows = []
-    for name in ("density_count", "density_weighted"):
-        ms, plain_ms, lib_ms, bound, bound_by = found[("clustered", 256, name)]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": errs.err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": lib_ms,
-        })
+    cases = [("clustered", 256, 256, None)] + [
+        (d, w, h, f"{d} {w}x{h}, world viewport, every row in")
+        for d in ("clustered", "uniform") for w, h in TABLE_GRIDS if (d, w) != ("clustered", 256)]
+    for data, width, height, case in cases:
+        for name in ("density_count", "density_weighted"):
+            ms, plain_ms, lib_ms, bound, bound_by, engine = found[(data, width, height, name)]
+            rows.append({
+                "name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[name], "max_abs_err": errs.err[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": lib_ms, "engine": engine,
+            })
+            if case:
+                rows[-1]["case"] = case
     return rows
 
 

@@ -45,7 +45,7 @@ from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.keyplanes import encode_inputs, schema_kind
 from geomesa_tpu_torch.ops import zscan
-from geomesa_tpu_torch.ops.density import density_grid
+from geomesa_tpu_torch.ops.density import density_grid, inverted
 from geomesa_tpu_torch.ops.int64lanes import widen_u32
 from geomesa_tpu_torch.ops.scan import stage_columns_host, to_tensor
 from geomesa_tpu_torch.security import VisibilityEvaluator
@@ -634,6 +634,21 @@ class DeviceIndex:
 
     # -- pushdown aggregation (StatsIterator / DensityIterator analogs) ----
 
+    def _device_mask(self, f, loose):
+        """The filter's mask on the device as a function of no arguments
+        that launches it (and returns None for INCLUDE: every row), or None
+        when the filter is not fully on the device. Nothing launches here."""
+        lb = self._loose_bounds(f) if self._resolve_loose(loose) else None
+        if lb is not None:
+            _, mask_fn, ops = self._loose_args(lb)
+            return lambda: mask_fn(*ops)
+        if f is ast.Include and self._cols:
+            return lambda: None
+        compiled = self._compiled_for(f)
+        if not (compiled.device_cols and compiled.fully_on_device):
+            return None
+        return lambda: compiled.mask(self._resident_subset(compiled))
+
     def _fused_agg(self, f, loose, agg_build, auths=None):
         """The pushdown-aggregation hook: the filter mask, computed next to
         the data, handed to an aggregation over the resident planes --
@@ -647,16 +662,10 @@ class DeviceIndex:
         then takes its host path. The counterpart jits one dispatch per
         (filter, kind, aggregation); PyTorch runs eagerly, so only the
         filter's compiled program is cached (per ``repr(f)``)."""
-        m = None
-        lb = self._loose_bounds(f) if self._resolve_loose(loose) else None
-        if lb is not None:
-            _, mask_fn, ops = self._loose_args(lb)
-            m = mask_fn(*ops)
-        elif not (f is ast.Include and self._cols):
-            compiled = self._compiled_for(f)
-            if not (compiled.device_cols and compiled.fully_on_device):
-                return None
-            m = compiled.mask(self._resident_subset(compiled))
+        mask = self._device_mask(f, loose)
+        if mask is None:
+            return None
+        m = mask()
         if VIS_ID in self._cols:
             # per-request row security: the auth verdict by label id
             seen = self._auth_table(auths)[1][self._cols[VIS_ID]]
@@ -778,9 +787,14 @@ class DeviceIndex:
         (int64 attributes stage as ``__hi/__lo``), or a filter that is not
         fully on the device.
 
-        One kernel serves every grid size; the counterpart switches from
-        its Pallas kernel to an XLA scatter past 512x512, a TPU limit (see
-        ``ops/density.py``)."""
+        The density kernel's engines serve every grid size; the
+        counterpart switches from its Pallas kernel to an XLA scatter past
+        512x512, a TPU limit (see ``ops/density.py``).
+
+        Viewports without area answer as the counterpart's do: an inverted
+        one (xmax < xmin or ymax < ymin) gives a zero grid and launches
+        nothing; one of zero width or height counts the rows on its line,
+        in cell 0 of that axis (``viewport(..., lines=True)``)."""
         geom = self.sft.geom_field
         gx, gy = f"{geom}__x", f"{geom}__y"
         if gx not in self._cols or gy not in self._cols:
@@ -788,10 +802,15 @@ class DeviceIndex:
         if weight_attr is not None and weight_attr not in self._cols:
             return None
         f = self._parse(query)
+        if inverted(envelope):
+            if self._device_mask(f, loose) is None:
+                return None
+            return np.zeros((height, width), dtype=np.float32)
 
         def agg_build(cols, m):
             w = cols[weight_attr] if weight_attr is not None else None
-            return density_grid(cols[gx], cols[gy], envelope, width, height, mask=m, weights=w)
+            return density_grid(cols[gx], cols[gy], envelope, width, height, mask=m,
+                                weights=w, lines=True)
 
         grid = self._fused_agg(f, loose, agg_build, auths=auths)
         return None if grid is None else grid.cpu().numpy()
@@ -808,4 +827,4 @@ class DeviceIndex:
         raise NotImplementedError(_later("StreamingDeviceIndex"))
 
     def knn(self, *args, **kwargs):
-        raise NotImplementedError(_later("stats/knn/joins"))
+        raise NotImplementedError(_later("kNN"))

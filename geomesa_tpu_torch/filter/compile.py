@@ -36,7 +36,7 @@ from geomesa_tpu_torch.ops import filter_scan
 
 _RELATIONS_LATER = (
     "DE-9IM relation predicates (crosses/touches/overlaps/equals/relate) "
-    "are a later port slice (ROADMAP, port queue: stats/knn/joins)"
+    "are a later port slice (ROADMAP, port queue: the xz kinds: non-point schemas)"
 )
 
 

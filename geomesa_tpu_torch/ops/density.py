@@ -4,9 +4,12 @@ plain PyTorch version.
 Counterpart of ``geomesa_tpu/ops/density_pallas.py`` (whole) and of
 ``_pixel_ids`` in ``geomesa_tpu/process/density.py:109``. The kernel
 (``csrc/density.cu``) replaces ``build_density_pallas`` and also the XLA
-scatter engine the counterpart keeps for grids past 512x512: the split is
-a TPU limit (VMEM holds the accumulator and the one-hot width), so one
-kernel serves every grid here.
+scatter engine the counterpart keeps for grids past 512x512: that split is
+a TPU limit (VMEM holds the accumulator and the one-hot width). Here the
+kernel has two engines of its own, chosen by grid size and kind
+(:func:`engine_for`): counted grids of at most 2^18 cells in the shared
+memory of a thread-block cluster, every other grid through a per-block
+table of hot cells (``csrc/density.cu`` says why).
 
 Precision. The pixel math runs in float64 on float32 coordinates widened
 exactly: the counterpart's tests run on the CPU under x64, where the
@@ -39,23 +42,46 @@ from geomesa_tpu_torch import kernels
 MAX_CELLS = 2**31 - 1  # flat cell ids are int32 in the kernel
 
 
-def viewport(env, width: int, height: int) -> tuple:
-    """(xmin, ymin, xmax, ymax, sx, sy) in Python float64 for an
-    Envelope or a (xmin, ymin, xmax, ymax) 4-vector."""
+def corners(env) -> tuple:
+    """(xmin, ymin, xmax, ymax) as Python floats from an Envelope or a
+    4-vector."""
     if hasattr(env, "xmin"):
-        xmin, ymin, xmax, ymax = env.xmin, env.ymin, env.xmax, env.ymax
-    else:
-        xmin, ymin, xmax, ymax = env
-    xmin, ymin, xmax, ymax = (float(v) for v in (xmin, ymin, xmax, ymax))
+        env = (env.xmin, env.ymin, env.xmax, env.ymax)
+    return tuple(float(v) for v in env)
+
+
+def inverted(env) -> bool:
+    """True for a viewport with xmax < xmin or ymax < ymin: no row lies
+    inside it (a map tile across the antimeridian is one)."""
+    xmin, ymin, xmax, ymax = corners(env)
+    return xmax < xmin or ymax < ymin
+
+
+def viewport(env, width: int, height: int, lines: bool = False) -> tuple:
+    """(xmin, ymin, xmax, ymax, sx, sy) in Python float64 for an
+    Envelope or a (xmin, ymin, xmax, ymax) 4-vector.
+
+    A viewport without area raises, unless ``lines`` is set and no axis
+    is inverted: then an axis of zero extent gets the scale 0, so the
+    rows on its line land in cell 0 of that axis. That is where the
+    counterpart's resident path puts them: its scale is ``width / 0``,
+    the pixel coordinate of a row on the line ``0 * inf`` = NaN, and
+    NaN converts to pixel 0."""
+    xmin, ymin, xmax, ymax = corners(env)
     if not (xmax > xmin and ymax > ymin):
-        raise ValueError(f"viewport {(xmin, ymin, xmax, ymax)} has no area")
-    return xmin, ymin, xmax, ymax, width / (xmax - xmin), height / (ymax - ymin)
+        if not (lines and xmax >= xmin and ymax >= ymin):
+            raise ValueError(f"viewport {(xmin, ymin, xmax, ymax)} has no area")
+    sx = width / (xmax - xmin) if xmax > xmin else 0.0
+    sy = height / (ymax - ymin) if ymax > ymin else 0.0
+    return xmin, ymin, xmax, ymax, sx, sy
 
 
-def pixel_ids(x: torch.Tensor, y: torch.Tensor, env, width: int, height: int):
+def pixel_ids(x: torch.Tensor, y: torch.Tensor, env, width: int, height: int,
+              lines: bool = False):
     """(px, py, inside): int32 pixel columns and rows, clipped to the grid,
-    and the viewport test, all in float64 (``_pixel_ids`` under x64)."""
-    xmin, ymin, xmax, ymax, sx, sy = viewport(env, width, height)
+    and the viewport test, all in float64 (``_pixel_ids`` under x64);
+    ``lines`` as in :func:`viewport`."""
+    xmin, ymin, xmax, ymax, sx, sy = viewport(env, width, height, lines)
     xd, yd = x.to(torch.float64), y.to(torch.float64)
     px = torch.clamp(torch.floor((xd - xmin) * sx), 0, width - 1).to(torch.int32)
     py = torch.clamp(torch.floor((yd - ymin) * sy), 0, height - 1).to(torch.int32)
@@ -63,11 +89,14 @@ def pixel_ids(x: torch.Tensor, y: torch.Tensor, env, width: int, height: int):
     return px, py, inside
 
 
-def density_plain(x, y, env, width: int, height: int, mask=None, weights=None) -> torch.Tensor:
+def density_plain(x, y, env, width: int, height: int, mask=None, weights=None,
+                  lines: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the density kernel: float64 pixel ids,
     then ``index_add_`` into an int64 (count) or float64 (weight) grid;
-    returns the (height, width) float32 grid."""
-    px, py, inside = pixel_ids(x, y, env, width, height)
+    returns the (height, width) float32 grid. Only the weights of rows
+    that count enter the sum, so a non-finite weight elsewhere changes
+    nothing."""
+    px, py, inside = pixel_ids(x, y, env, width, height, lines)
     keep = inside if mask is None else inside & mask
     flat = (py.to(torch.int64) * width + px.to(torch.int64))[keep]
     if weights is None:
@@ -100,18 +129,56 @@ def _check(x, y, width, height, mask, weights) -> None:
             raise ValueError(f"density {name} must be contiguous on {x.device}")
 
 
-def _launch(x, y, env, width, height, mask, weights, shared: bool = True) -> torch.Tensor:
-    """Launch the kernel (none for 0 rows: the grid stays zero).
-    ``shared=False`` keeps a grid that fits shared memory on the global
-    engine, so that the two engines can be timed on one grid."""
+# the cluster engine: counted grids of at most 2^18 cells, in slices of at
+# most 2^15 int32 cells (128 KB) per CTA of a cluster of 1, 2, 4 or 8
+CLUSTER_MAX_CELLS = 1 << 18
+SLICE_CELLS = 1 << 15
+_ENGINE_IDS = {"cluster": 1, "hotcell": 2}
+_SMEM_CELLS = 227 * 1024 // 4  # int32 cells one CTA's shared memory holds
+
+
+def engine_for(width: int, height: int, weighted: bool) -> tuple:
+    """The kernel's engine for a grid, by size and kind alone:
+    ``("cluster", C)`` for counted grids of at most 2^18 cells (C the
+    fewest CTAs whose slices hold them), else ``("hotcell", 0)``."""
+    cells = width * height
+    if weighted or cells > CLUSTER_MAX_CELLS:
+        return ("hotcell", 0)
+    c = 1
+    while cells > SLICE_CELLS * c:
+        c *= 2
+    return ("cluster", c)
+
+
+def engines(width: int, height: int, weighted: bool) -> list:
+    """Every engine that can take a grid: the cluster engine at each
+    cluster size whose shared memory holds the grid (counts only), and the
+    hot-cell engine."""
+    cells = width * height
+    fits = [] if weighted else [
+        ("cluster", c) for c in (1, 2, 4, 8)
+        if cells <= (_SMEM_CELLS if c == 1 else SLICE_CELLS * c)]
+    return fits + [("hotcell", 0)]
+
+
+def _launch(x, y, env, width, height, mask, weights, engine=None,
+            lines: bool = False) -> torch.Tensor:
+    """Launch the kernel (none for 0 rows: the grid stays zero) on the
+    engine :func:`engine_for` picks, or on ``engine`` (``("cluster", C)``
+    or ``("hotcell", 0)``), which only a timing or check of one engine
+    passes."""
     from geomesa_tpu_torch.kernels import _build
 
-    view = viewport(env, width, height)
+    view = viewport(env, width, height, lines)
+    weighted = weights is not None
+    engine = engine or engine_for(width, height, weighted)
+    if engine not in engines(width, height, weighted):
+        raise ValueError(f"the {engine} engine cannot take a {'weighted' if weighted else 'counted'} "
+                         f"{width}x{height} grid")
     lib = _build.load("density")
     fn = lib.gm_density
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_double] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+        ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dev = x.device
     n = int(x.shape[0])
@@ -127,8 +194,8 @@ def _launch(x, y, env, width, height, mask, weights, shared: bool = True) -> tor
                 x.data_ptr(), y.data_ptr(),
                 None if mask is None else mask.data_ptr(),
                 None if w is None else w.data_ptr(),
-                n, *view, width, height, int(shared), acc.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
+                n, *view, width, height, _ENGINE_IDS[engine[0]], engine[1],
+                acc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
             )
             name = "density_count" if weights is None else "density_weighted"
             kernels.check_status(rc, name)
@@ -136,13 +203,16 @@ def _launch(x, y, env, width, height, mask, weights, shared: bool = True) -> tor
     return acc.to(torch.float32).reshape(height, width)
 
 
-def density_grid(x, y, env, width: int, height: int, mask=None, weights=None) -> torch.Tensor:
+def density_grid(x, y, env, width: int, height: int, mask=None, weights=None,
+                 lines: bool = False) -> torch.Tensor:
     """(height, width) float32 grid of the rows that are masked in (``mask``
     None: every row) and inside the viewport ``env``: their count, or the
     sum of their ``weights`` (float32, or int32 cast to float32 as the
-    counterpart's ``astype(float32)`` does). The CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    counterpart's ``astype(float32)`` does). A viewport without area
+    raises, unless ``lines`` lets one of zero width or height count the
+    rows on its line (:func:`viewport`). The CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
     _check(x, y, width, height, mask, weights)
     if kernels.on_cuda(x):
-        return _launch(x, y, env, width, height, mask, weights)
-    return density_plain(x, y, env, width, height, mask, weights)
+        return _launch(x, y, env, width, height, mask, weights, lines=lines)
+    return density_plain(x, y, env, width, height, mask, weights, lines)

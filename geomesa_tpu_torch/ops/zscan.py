@@ -346,7 +346,10 @@ def build_z3_dimscan_pallas(qnx, qny, bt_ranges):
 
 # -- interleaved masked-compare layout ---------------------------------------
 
-ZSCAN_MAX_ENTRIES = 512  # bound entries a kernel launch stages in shared memory
+# a kernel launch stages the bound entries and the bin-to-entry table in
+# shared memory: at most 512 entries (36 KB) and a bin span of 2,048 (8 KB)
+ZSCAN_MAX_ENTRIES = 512
+ZSCAN_MAX_SPAN = 2048
 
 
 def _hi_lo(v) -> "tuple[int, int]":
@@ -458,6 +461,54 @@ def z3_zscan_mask(z_hi, z_lo, bins, bounds, bin_ids) -> torch.Tensor:
     return total
 
 
+def entry_table(bin_ids) -> "tuple[int, np.ndarray]":
+    """(first_bin, entry_of): the dense int32 table from bin to bound
+    entry that the interleaved kernel reads, ``entry_of[bin - first_bin]``
+    for every bin from the least to the greatest id >= 0, -1 where no entry
+    has that bin. Padding (ids < 0) has no place in it; no ids >= 0 gives
+    an empty table. Raises for two entries of one bin and for a span past
+    ``ZSCAN_MAX_SPAN``."""
+    ids = np.asarray(bin_ids, np.int32)
+    real = np.nonzero(ids >= 0)[0]
+    if not len(real):
+        return 0, np.zeros(0, np.int32)
+    first = int(ids[real].min())
+    span = int(ids[real].max()) - first + 1
+    if len(np.unique(ids[real])) != len(real):
+        raise ValueError(f"bound entries share a bin: {ids.tolist()}")
+    if span > ZSCAN_MAX_SPAN:
+        raise ValueError(f"bound entries span {span} bins, past {ZSCAN_MAX_SPAN}")
+    entry_of = np.full(span, -1, np.int32)
+    entry_of[ids[real] - first] = real
+    return first, entry_of
+
+
+def z3_zscan_lookup(z_hi, z_lo, bins, bounds, first: int, entry_of) -> torch.Tensor:
+    """Plain PyTorch version of the binned scan on the kernel's table
+    layout: each row looks its entry up as ``entry_of[bin - first]`` (no
+    entry outside the table or at -1) and runs that entry's 3 masked
+    compares. Equal to :func:`z3_zscan_mask`, the semantic reference, for
+    bound entries with distinct bin ids."""
+    dev = z_hi.device
+    b = torch.from_numpy(np.asarray(bounds, np.uint32).astype(np.int64)).to(dev)
+    tab = torch.from_numpy(np.asarray(entry_of, np.int32)).to(dev)
+    off = bins.to(torch.int64) - int(first)
+    inside = (off >= 0) & (off < len(tab))
+    e = torch.full(bins.shape, -1, dtype=torch.int64, device=dev)
+    if len(tab):
+        e = torch.where(inside, tab[off.clamp(0, len(tab) - 1)].to(torch.int64), e)
+    hit = e >= 0
+    if not len(b):
+        return hit
+    rows = b[e.clamp(min=0)]  # (n, 3, 6): the bounds of each row's entry
+    zh, zl = widen_u32(z_hi), widen_u32(z_lo)
+    for d in range(3):
+        mask_hi, mask_lo, lo_hi, lo_lo, hi_hi, hi_lo = rows[:, d].unbind(1)
+        zm_hi, zm_lo = zh & mask_hi, zl & mask_lo
+        hit &= _ge64(zm_hi, zm_lo, lo_hi, lo_lo) & _le64(zm_hi, zm_lo, hi_hi, hi_lo)
+    return hit
+
+
 def z2_zscan_mask(z_hi, z_lo, bounds) -> torch.Tensor:
     """Plain PyTorch version of the unbinned Z2 interleaved scan;
     ``bounds`` is (2, 6) uint32."""
@@ -480,7 +531,7 @@ class _ZScan:
     """One interleaved-scan query: bounds (and bin ids, None for z2)
     checked once, and packed once per device into the uint32 table the
     kernel stages in shared memory: every entry's n_dims * 6 bound words,
-    then the entries' int32 ids."""
+    then (binned) the int32 bin-to-entry table of :func:`entry_table`."""
 
     def __init__(self, bounds, bin_ids):
         self.n_dims = 2 if bin_ids is None else 3
@@ -495,13 +546,16 @@ class _ZScan:
         if len(ids) > ZSCAN_MAX_ENTRIES:
             raise ValueError(f"{len(ids)} bound entries exceed {ZSCAN_MAX_ENTRIES}")
         self.bounds, self.ids = b, ids
-        self._table = np.concatenate([b.reshape(-1), ids.view(np.uint32)])
+        self.first, self.entry_of = (
+            (0, np.zeros(0, np.int32)) if bin_ids is None else entry_table(ids)
+        )
+        self._table = np.concatenate([b.reshape(-1), self.entry_of.view(np.uint32)])
         self._dev: dict = {}
 
     def plain(self, bins, z_hi, z_lo) -> torch.Tensor:
         if self.n_dims == 2:
             return z2_zscan_mask(z_hi, z_lo, self.bounds[0])
-        return z3_zscan_mask(z_hi, z_lo, bins, self.bounds, self.ids)
+        return z3_zscan_lookup(z_hi, z_lo, bins, self.bounds, self.first, self.entry_of)
 
     def _check(self, bins, z_hi, z_lo) -> None:
         planes = [z_hi, z_lo] + ([] if bins is None else [bins])
@@ -538,8 +592,8 @@ class _ZScan:
             tab = self._dev[dev] = torch.from_numpy(self._table).to(dev)
         fn = _build.load("zscan").gm_zscan
         fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         with torch.cuda.device(dev):
@@ -550,8 +604,9 @@ class _ZScan:
             )
             rc = fn(
                 None if bins is None else bins.data_ptr(), z_hi.data_ptr(),
-                z_lo.data_ptr(), n, tab.data_ptr(), len(self.ids), self.n_dims,
-                int(want_mask), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+                z_lo.data_ptr(), n, tab.data_ptr(), len(self.ids), self.first,
+                len(self.entry_of), self.n_dims, int(want_mask), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         name = f"zscan_z{self.n_dims}_{'mask' if want_mask else 'count'}"
         kernels.check_status(rc, name)
@@ -564,7 +619,10 @@ def build_z3_pallas_scan(bounds: np.ndarray, bin_ids: np.ndarray):
     interleaved key planes for one binned query: (B, 3, 6) uint32 bounds
     and (B,) int32 bin ids, -1 for padding. CUDA planes launch the kernel
     of ``csrc/zscan.cu`` (bounds are runtime data: one build serves every
-    window), CPU planes take :func:`z3_zscan_mask`. The count is int32."""
+    window), CPU planes take :func:`z3_zscan_lookup` (the kernel's table
+    layout; :func:`z3_zscan_mask` is the semantic reference). The ids >= 0
+    must be distinct and span at most ``ZSCAN_MAX_SPAN`` bins, as one
+    window's bins do. The count is int32."""
     q = _ZScan(bounds, bin_ids)
     return (
         lambda bins, z_hi, z_lo: q.run(bins, z_hi, z_lo, want_mask=False),

@@ -23,7 +23,7 @@ import torch
 
 from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.filter import ast
-from geomesa_tpu_torch.ops.density import density_grid, viewport
+from geomesa_tpu_torch.ops.density import corners, density_grid, inverted, viewport
 
 
 def density(
@@ -46,7 +46,12 @@ def density(
     granularity, the contract of ``DeviceIndex.count``/``query``);
     ``auths`` applies row security on both paths. The store path runs on
     ``device`` (``cuda:0`` unless the caller passes ``"cpu"``) when
-    ``use_device``."""
+    ``use_device``.
+
+    Viewports without area answer as the counterpart's do: the resident
+    path as ``DeviceIndex.density`` says; on the store path an inverted
+    viewport gives a zero grid and one of zero width or height raises
+    ``ZeroDivisionError`` once there are rows to place."""
     if isinstance(query, str):
         from geomesa_tpu_torch.filter.ecql import parse_ecql
 
@@ -74,6 +79,13 @@ def density(
         if weight_attr
         else np.ones(len(batch))
     )
+    xmin, ymin, xmax, ymax = corners(envelope)
+    if xmax == xmin or ymax == ymin:
+        # the counterpart's store path divides by the extent in Python
+        # (``width / (xmax - xmin)``) on both of its paths
+        raise ZeroDivisionError(f"density viewport {(xmin, ymin, xmax, ymax)} has a zero extent")
+    if inverted(envelope):
+        return np.zeros((height, width), dtype=np.float32)  # no row inside
     if use_device:
         return _density_device(x, y, w if weight_attr else None, envelope,
                                width, height, resolve_device(device))

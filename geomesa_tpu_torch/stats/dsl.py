@@ -71,7 +71,7 @@ def parse_stat(spec: str) -> SeqStat:
         elif name in _LATER:
             raise NotImplementedError(
                 f"stat {m.group(1)}: not in the port yet: ROADMAP, port "
-                "queue: stats/knn/joins (the host sketches)"
+                "queue: the store path, host sketches and the server seam"
             )
         else:
             raise ValueError(f"unknown stat {name!r}")

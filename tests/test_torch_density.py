@@ -303,3 +303,179 @@ def test_process_density_refuses_query_objects(z3):
     _, tdi, _, store = z3
     with pytest.raises(TypeError, match="query plan"):
         density(store, "t", object(), Envelope(*ENV_WIDE), 8, 8, device_index=tdi)
+
+
+# -- viewports without area ----------------------------------------------------
+
+INVERTED = (170.0, -10.0, -170.0, 10.0)  # a map tile across the antimeridian
+DEGENERATE = [INVERTED, (0.0, 0.0, 0.0, 10.0), (0.0, 0.0, 10.0, 0.0), (0.0, 0.0, 0.0, 0.0)]
+DEGENERATE_IDS = ["inverted", "zero-width", "zero-height", "point"]
+
+
+def _line_columns(n, seed, with_dtg=True):
+    """``_columns`` with rows on the lines x = 0 and y = 0 (inside and
+    outside the viewports below), on the point (0, 0), on the corners of
+    the segments, and near the antimeridian."""
+    cols = _columns(n, seed, with_dtg)
+    rng = np.random.default_rng(seed + 1)
+    xy = cols["geom"]
+    k = 40
+    xy[2000:2000 + k] = np.stack([np.zeros(k), rng.uniform(-5, 15, k)], 1)
+    xy[2100:2100 + k] = np.stack([rng.uniform(-5, 15, k), np.zeros(k)], 1)
+    xy[2200:2205] = [[0, 0], [0, 0], [0, 10], [10, 0], [0, -1e-3]]
+    xy[2300:2300 + k] = np.stack([rng.uniform(170, 180, k), rng.uniform(-10, 10, k)], 1)
+    cols["geom"] = xy.astype(np.float32).astype(np.float64)
+    return cols
+
+
+@pytest.fixture(scope="module")
+def lines_z3():
+    return _pair(Z3_SPEC, _line_columns(3001, seed=21))
+
+
+@pytest.fixture(scope="module")
+def lines_z2():
+    return _pair(Z2_SPEC, _line_columns(3001, seed=22, with_dtg=False))
+
+
+@pytest.mark.parametrize("env", DEGENERATE, ids=DEGENERATE_IDS)
+@pytest.mark.parametrize("wh", [(8, 4), (600, 3)], ids=["8x4", "600x3"])
+@pytest.mark.parametrize("weight", [None, "val"])
+@pytest.mark.parametrize("kind", ["z3", "z2"])
+def test_degenerate_viewport_density_matches(lines_z3, lines_z2, kind, weight, wh, env):
+    """Inverted viewports give a zero grid; a viewport of zero width or
+    height counts the rows on its line in cell 0 of that axis, as the
+    counterpart's NaN pixel coordinate lands there (its Pallas engine at
+    8x4, its scatter engine at 600x3)."""
+    jdi, tdi, _, _ = lines_z3 if kind == "z3" else lines_z2
+    f = f"{BBOX} AND {DURING}" if kind == "z3" else BBOX
+    want = jdi.density(f, JEnvelope(*env), *wh, weight_attr=weight, loose=False)
+    got = tdi.density(f, Envelope(*env), *wh, weight_attr=weight, loose=False)
+    _assert_grids(got, want, weight)
+    if env == INVERTED:
+        assert not got.any()
+    else:
+        assert got.sum() > 0  # rows on the line count
+        nz = np.argwhere(got)
+        assert (nz[:, 1] == 0).all() if env[2] == env[0] else True
+        assert (nz[:, 0] == 0).all() if env[3] == env[1] else True
+
+
+@pytest.mark.parametrize("env", DEGENERATE, ids=DEGENERATE_IDS)
+def test_degenerate_viewport_loose_and_include(lines_z3, env):
+    jdi, tdi, _, _ = lines_z3
+    for f, loose in (("INCLUDE", None), (f"{BBOX} AND {DURING}", True)):
+        want = jdi.density(f, JEnvelope(*env), 16, 16, loose=loose)
+        got = tdi.density(f, Envelope(*env), 16, 16, loose=loose)
+        _assert_grids(got, want, None)
+    # a filter the device cannot answer: None in both, inverted or not
+    f = f"{BBOX} AND name LIKE 'a%'"
+    assert jdi.density(f, JEnvelope(*env), 16, 16) is None
+    assert tdi.density(f, Envelope(*env), 16, 16) is None
+
+
+@pytest.mark.parametrize("env", DEGENERATE, ids=DEGENERATE_IDS)
+@pytest.mark.parametrize("weight", [None, "val"])
+@pytest.mark.parametrize("path", ["resident", "store-device", "store-host"])
+def test_degenerate_viewport_process_density_matches(lines_z3, path, weight, env):
+    """``process.density.density``: the resident path answers as
+    ``DeviceIndex.density``; the store path gives a zero grid for an
+    inverted viewport and raises ZeroDivisionError, as the counterpart's
+    host and device store paths do, for one of zero width or height."""
+    from geomesa_tpu.filter import ast as jast
+    from geomesa_tpu.process.density import density as jdensity
+
+    from geomesa_tpu_torch.filter import ast
+    from geomesa_tpu_torch.process.density import density
+
+    jdi, tdi, jstore, store = lines_z3
+    if path == "resident":
+        jkw, kw = dict(device_index=jdi), dict(device_index=tdi)
+        jf, f = BBOX, BBOX
+    else:
+        use_device = path == "store-device"
+        jkw, kw = dict(use_device=use_device), dict(use_device=use_device, device="cpu")
+        jf, f = jast.Include, ast.Include
+    try:
+        want = jdensity(jstore, "t", jf, JEnvelope(*env), 32, 16, weight_attr=weight, **jkw)
+    except Exception as e:  # noqa: BLE001 - the class is what is compared
+        with pytest.raises(type(e)):
+            density(store, "t", f, Envelope(*env), 32, 16, weight_attr=weight, **kw)
+        assert path != "resident" and env != INVERTED
+        return
+    got = density(store, "t", f, Envelope(*env), 32, 16, weight_attr=weight, **kw)
+    _assert_grids(got, want, weight)
+
+
+def test_density_grid_lines_argument():
+    """The ops layer counts rows on a line only when asked (the entry
+    points ask); an inverted viewport raises even then."""
+    x = torch.tensor([0.0, 0.0, 0.0, 8.0, 5.0], dtype=torch.float32)
+    y = torch.tensor([0.0, 5.0, 10.0, 5.0, 11.0], dtype=torch.float32)
+    got = density_grid(x, y, (0, 0, 0, 10), 4, 2, lines=True).numpy()
+    np.testing.assert_array_equal(got, [[1, 0, 0, 0], [2, 0, 0, 0]])
+    got = density_grid(x, y, (0, 5, 10, 5), 4, 2, lines=True,
+                       weights=torch.tensor([1, 2, 4, 8, 16], dtype=torch.float32)).numpy()
+    np.testing.assert_array_equal(got, [[2, 0, 0, 8], [0, 0, 0, 0]])
+    with pytest.raises(ValueError, match="no area"):
+        density_grid(x, y, INVERTED, 4, 2, lines=True)
+
+
+# -- non-finite weights ----------------------------------------------------------
+
+
+def test_non_finite_weights_stay_in_the_cells_of_rows_that_count():
+    """NaN and +-inf weights on masked-out rows and on rows outside the
+    viewport change nothing; on rows inside, only their own cells go
+    non-finite. Held against numpy's float64 scatter (the counterpart's
+    Pallas engine spreads such a weight over a whole grid row)."""
+    rng = np.random.default_rng(5)
+    n, width, height = 4000, 64, 32
+    x0, y0, x1, y1 = ENV_WIDE
+    x = rng.uniform(x0 - 20, x1 + 20, n).astype(np.float32)
+    y = rng.uniform(y0 - 20, y1 + 20, n).astype(np.float32)
+    m = rng.random(n) < 0.6
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    inside = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+    bad = [np.nan, np.inf, -np.inf]
+    for sel in (~m & inside, m & ~inside, ~m & ~inside):  # rows that do not count
+        rows = np.nonzero(sel)[0][:3]
+        w[rows] = bad
+    counting = np.nonzero(m & inside)[0][:3]
+    w[counting] = bad
+    sx, sy = width / (x1 - x0), height / (y1 - y0)
+    px = np.clip(np.floor((x.astype(np.float64) - x0) * sx), 0, width - 1).astype(np.int64)
+    py = np.clip(np.floor((y.astype(np.float64) - y0) * sy), 0, height - 1).astype(np.int64)
+    keep = m & inside
+    want = np.zeros(width * height)
+    np.add.at(want, (py * width + px)[keep], w[keep].astype(np.float64))
+    want = want.reshape(height, width).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        got = density_grid(_t(x), _t(y), ENV_WIDE, width, height, mask=_t(m), weights=_t(w)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    bad_cells = {(int(py[i]), int(px[i])) for i in counting}
+    assert {tuple(c) for c in np.argwhere(~np.isfinite(got))} == bad_cells
+
+
+def test_non_finite_weights_resident_match_the_scatter_engine():
+    """The same through ``DeviceIndex.density`` against the counterpart's
+    scatter engine (its grids past 512 cells wide) and numpy."""
+    cols = _columns(3001, seed=31)
+    cols["geom"][[5, 9, 13]] = [[10.25, 5.25], [20.75, -10.5], [-35.25, 30.75]]  # inside
+    cols["val"][[5, 9, 13]] = [np.nan, np.inf, -np.inf]
+    cols["geom"][[20, 21, 22]] = [[170.0, 80.0], [-170.0, -80.0], [179.0, 0.0]]  # outside
+    cols["val"][[20, 21, 22]] = [np.nan, np.inf, -np.inf]
+    jdi, tdi, _, _ = _pair(Z3_SPEC, cols)
+    for f in ("INCLUDE", BBOX):
+        want = jdi.density(f, JEnvelope(*ENV_WIDE), 600, 3, weight_attr="val")
+        got = tdi.density(f, Envelope(*ENV_WIDE), 600, 3, weight_attr="val")
+        _assert_grids(got, want, "val")
+        xy = cols["geom"]
+        x0, y0, x1, y1 = ENV_WIDE
+        sel = (xy[:, 0] >= x0) & (xy[:, 0] <= x1) & (xy[:, 1] >= y0) & (xy[:, 1] <= y1)
+        if f == BBOX:
+            sel &= (xy[:, 0] >= -40) & (xy[:, 0] <= 60) & (xy[:, 1] >= -30) & (xy[:, 1] <= 40)
+        assert sel[[5, 9, 13]].all() and not sel[[20, 21, 22]].any()
+        bad_cells = {(int(np.floor((xy[i, 1] - y0) * 3 / (y1 - y0))),
+                      int(np.floor((xy[i, 0] - x0) * 600 / (x1 - x0)))) for i in (5, 9, 13)}
+        assert {tuple(c) for c in np.argwhere(~np.isfinite(got))} == bad_cells

@@ -203,8 +203,12 @@ def test_later_slices_raise():
     di = DeviceIndex(store, "t", device="cpu")
     with pytest.raises(NotImplementedError, match="fused"):
         di.fused_loose_counts([Z3_QUERIES[0]])
-    with pytest.raises(NotImplementedError, match="stats"):
+    with pytest.raises(NotImplementedError, match="host sketches"):
         di.stats("INCLUDE", 'TopK("name")')
+    with pytest.raises(NotImplementedError, match="port queue: kNN"):
+        di.knn()
+    with pytest.raises(NotImplementedError, match="port queue: the xz kinds"):
+        di.count("RELATE(geom, POINT(0 0), 'T********')")
     poly = SimpleFeatureType.create("p", "*geom:Polygon:srid=4326")
     with pytest.raises(NotImplementedError, match="xz"):
         FeatureBatch.from_columns(poly, {"geom": ["POLYGON((0 0, 1 0, 1 1, 0 0))"]})

@@ -233,6 +233,70 @@ def test_z3_zscan_random_bounds_match_pallas_interpret(b):
         _t(bins), _t(hi), _t(lo)).numpy(), want)
 
 
+# -- the kernel's bin-to-entry table -----------------------------------------
+
+
+@pytest.mark.parametrize("ids,first,table", [
+    ([2606, 2607, 2608], 2606, [0, 1, 2]),  # contiguous
+    ([2610, 2606, 2608], 2606, [1, -1, 2, -1, 0]),  # gapped, out of order
+    ([2606, 2607, -1, -1], 2606, [0, 1]),  # padded to a power of two
+    ([-1, 2608, -1, 2606], 2606, [3, -1, 1]),  # padding among real entries
+    ([-1, -1], 0, []),  # all padding: no table, nothing matches
+    ([0], 0, [0]),  # the epoch's own bin
+], ids=["contiguous", "gapped", "padded", "padding-among", "all-padding", "bin-0"])
+def test_entry_table(ids, first, table):
+    f, entry_of = tz.entry_table(np.array(ids, np.int32))
+    assert f == first and entry_of.dtype == np.int32
+    np.testing.assert_array_equal(entry_of, np.array(table, np.int32))
+
+
+def test_entry_table_refuses_shared_bins_and_wide_spans():
+    with pytest.raises(ValueError, match="share a bin"):
+        tz.entry_table(np.array([2606, 2607, 2606], np.int32))
+    with pytest.raises(ValueError, match="span"):
+        tz.entry_table(np.array([0, tz.ZSCAN_MAX_SPAN], np.int32))
+    tz.entry_table(np.array([0, tz.ZSCAN_MAX_SPAN - 1], np.int32))  # the widest span taken
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: f"n{c[0]}-{c[3]}d")
+def test_z3_zscan_lookup_matches_jax(case):
+    """The plain version on the kernel's table layout (one lookup per row)
+    against the counterpart's XLA mask and its Pallas kernel in interpret
+    mode, over 1 to 20 real bins padded to a power of two."""
+    n, env, d0, days = case
+    _, bins, hi, lo = _keys(n, n + days + 1)
+    w = (T0 + d0 * DAY + 3600_000, T0 + (d0 + days) * DAY)
+    bounds, ids = jz.pad_bins(*jz.z3_query_bounds(JZ3SFC(), *env, *w))
+    want = np.asarray(jz.z3_zscan_mask(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(bins),
+                                       jnp.asarray(bounds), jnp.asarray(ids)))
+    pallas = np.asarray(jz.build_z3_pallas_scan(bounds, ids)[1](
+        jnp.asarray(bins), jnp.asarray(hi), jnp.asarray(lo)))
+    np.testing.assert_array_equal(pallas, want)
+    first, entry_of = tz.entry_table(ids)
+    got = tz.z3_zscan_lookup(_t(hi), _t(lo), _t(bins), bounds, first, entry_of)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("b", [1, 2, 17, 24])
+def test_z3_zscan_lookup_random_bounds_match_pallas_interpret(b):
+    """Arbitrary bound words over gapped, shuffled and padded ids; rows in
+    bins past both ends of the table and in bin -1."""
+    rng, bins, hi, lo = _keys(20011, 40 + b, n_bins=26, base=2605)
+    bins[:50] = -1
+    bounds = rng.integers(0, 1 << 32, (b, 3, 6), dtype=np.uint64).astype(np.uint32)
+    bounds[:, :, 0:2] = rng.integers(0, 1 << 32, (b, 3, 2), dtype=np.uint64) & 0x0F0F0F0F
+    ids = (2606 + rng.permutation(24)[:b]).astype(np.int32)
+    ids[1::3] = -1
+    want = np.asarray(jz.build_z3_pallas_scan(bounds, ids)[1](
+        jnp.asarray(bins), jnp.asarray(hi), jnp.asarray(lo)))
+    first, entry_of = tz.entry_table(ids)
+    got = tz.z3_zscan_lookup(_t(hi), _t(lo), _t(bins), bounds, first, entry_of).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tz.z3_zscan_mask(_t(hi), _t(lo), _t(bins), bounds, ids).numpy(), want)
+
+
 def test_negative_ids_are_padding_as_in_the_pallas_kernel():
     """Entries with ids < 0 never match, as in the counterpart's Pallas
     kernel, also where rows lie in bin -1 (the week before the epoch; the

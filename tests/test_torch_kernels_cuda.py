@@ -295,8 +295,8 @@ def test_density_kernel_matches_plain(dev, n, wh, clustered):
         want = density.density_plain(x, y, DENSITY_ENV, width, height, mask=mask)
         got_w = density.density_grid(x, y, DENSITY_ENV, width, height, mask=mask, weights=w)
         want_w = density.density_plain(x, y, DENSITY_ENV, width, height, mask=mask, weights=w)
-        # the global engine on the counted grids that take shared memory
-        got_g = density._launch(x, y, DENSITY_ENV, width, height, mask, None, shared=False)
+        # the hot-cell engine on every grid, also those the cluster engine takes
+        got_g = density._launch(x, y, DENSITY_ENV, width, height, mask, None, engine=("hotcell", 0))
         torch.cuda.synchronize()
         assert got.shape == (height, width) and torch.equal(got, want)
         assert torch.equal(got_g, want)
@@ -332,3 +332,106 @@ def test_device_index_density_on_the_card_matches_the_host(dev):
                 got, cpu.density(f, DENSITY_ENV, 512, 256, loose=loose, auths=auths))
             assert kernels.LAUNCHES["density_count"] == before["density_count"] + 1
             assert gpu.count(f, loose=loose, auths=auths) == cpu.count(f, loose=loose, auths=auths)
+
+
+ENGINES = [("cluster", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8), ("hotcell", 0)]
+LINES_ENV = (-20.0, 10.0, -20.0, 40.0)  # zero width: rows on x = -20 count in column 0
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 20) + 17])
+@pytest.mark.parametrize("engine", ENGINES, ids=lambda e: f"{e[0]}{e[1] or ''}")
+@pytest.mark.parametrize("clustered", [True, False], ids=["clustered", "uniform"])
+def test_density_engines_match_plain(dev, n, engine, clustered):
+    """Every engine, forced, on every grid it can hold: counts exact,
+    weights (hot-cell engine) within rtol 1e-6; and on a
+    zero-width viewport with rows on its line."""
+    kind, c = engine
+    for width, height in GRIDS + [(1, 1)]:
+        cells = width * height
+        if kind == "cluster" and cells > (1 << 15) * c:
+            continue
+        x, y, m, w = (torch.from_numpy(a).to(dev)
+                      for a in density_case(n, width, height, clustered, seed=n + width + 1))
+        for mask in (None, m):
+            got = density._launch(x, y, DENSITY_ENV, width, height, mask, None, engine=engine)
+            want = density.density_plain(x, y, DENSITY_ENV, width, height, mask=mask)
+            assert torch.equal(got, want), (width, height)
+            if kind != "cluster":
+                got_w = density._launch(x, y, DENSITY_ENV, width, height, mask, w, engine=engine)
+                want_w = density.density_plain(x, y, DENSITY_ENV, width, height, mask=mask, weights=w)
+                torch.testing.assert_close(got_w, want_w, rtol=1e-6, atol=0.0)
+    x, y, m, w = (torch.from_numpy(a).to(dev) for a in density_case(n, 64, 64, clustered, seed=n))
+    x[: n // 3] = LINES_ENV[0]
+    y[: n // 3] = torch.linspace(0.0, 50.0, n // 3, device=dev)
+    for mask in (None, m):
+        got = density._launch(x, y, LINES_ENV, 64, 64, mask, None, engine=engine, lines=True)
+        want = density.density_plain(x, y, LINES_ENV, 64, 64, mask=mask, lines=True)
+        assert torch.equal(got, want) and int(got.sum()) > 0 and not got[:, 1:].any()
+
+
+def test_density_static_engines_and_refusals(dev):
+    assert density.engine_for(128, 128, False) == ("cluster", 1)
+    assert density.engine_for(256, 256, False) == ("cluster", 2)
+    assert density.engine_for(512, 256, False) == ("cluster", 4)
+    assert density.engine_for(512, 512, False) == ("cluster", 8)
+    assert density.engine_for(1024, 1024, False) == ("hotcell", 0)
+    assert density.engine_for(128, 128, True) == ("hotcell", 0)
+    x = torch.zeros(8, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="cannot take a counted 512x512"):
+        density._launch(x, x, DENSITY_ENV, 512, 512, None, None, engine=("cluster", 4))
+    with pytest.raises(ValueError, match="cannot take a weighted"):
+        density._launch(x, x, DENSITY_ENV, 64, 64, None, x, engine=("cluster", 1))
+    assert density.engines(512, 512, False)[0] == ("cluster", 8)
+    assert density.engines(128, 128, True) == [("hotcell", 0)]
+
+
+def test_device_index_density_degenerate_viewports_on_the_card(dev):
+    """An inverted viewport answers a zero grid with no launch; a
+    zero-width one counts the rows on its line, as the CPU index does."""
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    sft = SimpleFeatureType.create("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
+    n = 20_000
+    x, y, _, _ = density_case(n, 64, 64, True, seed=4)
+    x[:500] = 0.0
+    rng = np.random.default_rng(4)
+    cols = {"count": rng.integers(0, 100, n), "dtg": rng.integers(T0, T0 + 60 * 86400_000, n),
+            "geom": np.stack([x, y], axis=1).astype(np.float64)}
+    store = BatchStore(FeatureBatch.from_columns(sft, cols))
+    gpu = DeviceIndex(store, "t", z_planes=True, device=dev)
+    cpu = DeviceIndex(store, "t", z_planes=True, device="cpu")
+    for env in ((170, -10, -170, 10), (0, -40, 0, 40), (-60, 0, 60, 0), (0, 0, 0, 0)):
+        for weight in (None, "count"):
+            kernels.reset_counts()
+            got = gpu.density("INCLUDE", Envelope(*env), 300, 200, weight_attr=weight)
+            want = cpu.density("INCLUDE", Envelope(*env), 300, 200, weight_attr=weight)
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0)
+            launched = sum(kernels.LAUNCHES.values())
+            assert launched == (0 if env[0] > env[2] else 1)
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 20) + 17])
+@pytest.mark.parametrize("b", [1, 2, 29, 64])
+@pytest.mark.parametrize("layout", ["contiguous", "gapped", "padded"])
+def test_zscan_z3_many_bins_matches_plain(dev, n, b, layout):
+    """The bin lookup over 1 to 64 bins: contiguous ids, ids with gaps
+    (bins between entries have none), and ids padded to a power of two."""
+    rng, bins, (h3, l3), _ = zscan_case(n, 128, seed=n + 3 * b)
+    bounds = np.stack([
+        zscan.z3_dim_bounds(tuple(lo), tuple(hi)) for lo, hi in (
+            np.sort(rng.integers(0, MAXI + 1, (2, 3)), axis=0) for _ in range(b))
+    ])
+    if layout == "gapped":
+        ids = (2600 + np.sort(rng.permutation(128)[:b])).astype(np.int32)
+    else:
+        ids = (2600 + 10 + np.arange(b)).astype(np.int32)
+    if layout == "padded":
+        bounds, ids = zscan.pad_bins(bounds, ids)
+    planes = (torch.from_numpy(bins).to(dev), _u32(h3, dev), _u32(l3, dev))
+    count_fn, mask_fn = zscan.build_z3_pallas_scan(bounds, ids)
+    got_c, got_m = count_fn(*planes), mask_fn(*planes)
+    want = zscan.z3_zscan_mask(planes[1], planes[2], planes[0], bounds, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want) and int(got_c) == int(want.sum())
