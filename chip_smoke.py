@@ -16,7 +16,11 @@ Phases:
      points, with and without a mask, on the engine each grid takes and
      forced onto every engine that can hold it (cluster sizes 1, 2, 4, 8,
      hot-cell), a zero-width viewport on every engine, and the
-     entry points on an inverted and a zero-width viewport): bit-exact,
+     entry points on an inverted and a zero-width viewport; the filter
+     scan over the envelope planes of a Polygon schema at n in {1, 1000,
+     2^20+17}, edges on, one float32 ulp inside and outside the box:
+     BBOX, BBOX AND DURING, DWITHIN around a point and a polygon, an
+     INTERSECTS's envelope prefilter, a NOT/OR mix): bit-exact,
      weighted density grids within rtol 1e-6;
   3. the main path at full size: a GDELT-shaped resident Z3 point type
      (count:Int,dtg:Date,*geom:Point, 2^26 rows from a fixed seed: 90% of
@@ -43,11 +47,30 @@ Phases:
      visibility expressions): counts, fid sets, density grids and a
      Count() stat under three auth sets, checked against numpy with a
      per-label verdict table;
+  3d. the xz path, non-point footprints: 2^21 OSM-building-shaped
+     polygons (85% 4-to-12-vertex, 10% with a hole, 5% MultiPolygons,
+     5-60 m across, 90% in phase 3's city clusters) staged as xz2
+     (name:String,count:Int,*geom:Polygon), the first 2^20 with dates as
+     xz3 (week bins, 60 days), driven with a map client's requests (16
+     BBOX windows from 0.005 to 10 degrees, loose and exact, count, mask
+     and query; on xz3 the same windows AND DURING of 1 to 21 days; 4
+     INTERSECTS with 32-64-vertex district rings, 2 DWITHIN, 2 BBOX AND
+     TOUCHES, 1 BBOX AND RELATE; Count/MinMax stats loose and exact) and a
+     2^20-row labeled xz2 index under phase 3b's auth sets; the staged xz
+     keys equal the host XZ2SFC/XZ3SFC.index, loose answers a numpy range
+     cover of the host codes and cover the exact ones, exact BBOX and
+     DWITHIN equal numpy over the float32 envelope planes, residual
+     answers equal evaluate_host, from_planes answers alike, and the launch
+     counts show every exact count and mask on the filter-scan kernel;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
      the density kernel on every engine at every grid size of the density
-     drive, clustered and uniform, counted and weighted.
+     drive, clustered and uniform, counted and weighted; the filter scan
+     over envelope planes (BBOX, BBOX AND DURING) at 2^26 synthetic rows
+     made on the card and on the xz drive's planes; and, on a line of
+     their own, the torch ops of the xz path that replace no TPU kernel
+     (the xz range masks, the card key encode).
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -311,6 +334,73 @@ def check_filter_scans(dev, errs: Errs):
                 "filter_scan_count", cf.count(staged).reshape(1),
                 want.sum(dtype=torch.int32).reshape(1), f"n={n} {ecql[:40]}",
             )
+    torch.cuda.synchronize()
+
+
+ENV_BOX = (-10.0, 35.0, 30.0, 60.0)
+ENV_FILTERS = [
+    "BBOX(geom, -10, 35, 30, 60)",
+    "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z",
+    "DWITHIN(geom, POINT(5 45), 500, kilometers)",
+    "DWITHIN(geom, POLYGON((-10 35, 30 40, 20 60, -5 55, -10 35)), 50, kilometers)",
+    "INTERSECTS(geom, POLYGON((-10 35, 30 40, 20 60, -5 55, -10 35)))",
+    "NOT (count < 200 OR BBOX(geom, -10, 35, 30, 60)) OR dtg > '2020-02-20T00:00:00Z'",
+]
+
+
+def envelope_planes(n, seed, box=ENV_BOX):
+    """Float32 envelope planes of n synthetic footprints around ``box``,
+    the first rows with one edge exactly on a box edge or one float32 ulp
+    inside or outside it (x1 at xmin, y1 at ymin, x0 at xmax, y0 at ymax),
+    plus count and dtg planes."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(box[0] - 20, box[2] + 10, n).astype(np.float32)
+    y0 = rng.uniform(box[1] - 20, box[3] + 10, n).astype(np.float32)
+    x1 = (x0 + rng.uniform(0, 3, n)).astype(np.float32)
+    y1 = (y0 + rng.uniform(0, 3, n)).astype(np.float32)
+    edges = []
+    for v in box:
+        f = np.float32(v)
+        edges += [f, np.nextafter(f, np.float32(-1e9)), np.nextafter(f, np.float32(1e9))]
+    cx, cy = np.float32((box[0] + box[2]) / 2), np.float32((box[1] + box[3]) / 2)
+    for i, e in enumerate(edges[:n]):
+        x0[i], y0[i], x1[i], y1[i] = cx - 1, cy - 1, cx + 1, cy + 1
+        k = i // 3
+        lo_plane, hi_plane = ((x0, x1), (y0, y1), (x0, x1), (y0, y1))[k]
+        if k < 2:
+            hi_plane[i], lo_plane[i] = e, e - np.float32(1)
+        else:
+            lo_plane[i], hi_plane[i] = e, e + np.float32(1)
+    dtg = rng.integers(T0, T0 + 60 * DAY, n)
+    return {"geom__x0": x0, "geom__y0": y0, "geom__x1": x1, "geom__y1": y1,
+            "count": rng.integers(0, 1000, n).astype(np.int32),
+            "dtg__hi": (dtg >> 32).astype(np.int32),
+            "dtg__lo": (dtg & 0xFFFFFFFF).astype(np.uint32)}
+
+
+def check_envelope_scans(dev, errs: Errs):
+    """The filter scan over the envelope planes of a Polygon schema (the
+    exact xz path): BBOX, BBOX AND DURING, DWITHIN around a point and a
+    polygon, an INTERSECTS's envelope prefilter and a NOT/OR mix."""
+    import torch
+
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.compile import compile_filter
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.ops import filter_scan
+
+    sft = SimpleFeatureType.create("osm3", XZ3_SPEC)
+    for n in (1, 1000, (1 << 20) + 17):
+        planes = envelope_planes(n, SEED + n)
+        for ecql in ENV_FILTERS:
+            cf = compile_filter(parse_ecql(ecql), sft)
+            if cf.program is None or not any(c.endswith("__x0") for c in cf.device_cols):
+                raise AssertionError(f"{ecql}: no envelope-plane program")
+            cols = {c: torch.from_numpy(planes[c]).to(dev) for c in cf.device_cols}
+            want = filter_scan.run_program_plain(cf.program, cols)
+            errs.check("filter_scan_mask", cf.mask(cols), want, f"envelope n={n} {ecql[:40]}")
+            errs.check("filter_scan_count", cf.count(cols).reshape(1),
+                       want.sum(dtype=torch.int32).reshape(1), f"envelope n={n} {ecql[:40]}")
     torch.cuda.synchronize()
 
 
@@ -1173,6 +1263,407 @@ def run_labeled_path(dev, queries):
     return launches
 
 
+# -- phase 3d: the xz path (non-point footprints) ------------------------------
+
+XZ2_SPEC = "name:String,count:Int,*geom:Polygon:srid=4326"
+XZ3_SPEC = "name:String,count:Int,dtg:Date,*geom:Polygon:srid=4326"
+XZ_N2 = 1 << 21  # xz2 footprints: about the OSM buildings of one large metro region
+XZ_N3 = 1 << 20  # xz3: the first 2^20 of them, with dates
+XZ_LABELED = 1 << 20
+M_PER_DEG = 111_320.0
+WORLD_DAYS = 60
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float64).astype(np.float32).astype(np.float64)
+
+
+def _q(v: float) -> float:
+    """A query constant on a 2^-12 grid: exact in float32."""
+    return round(v * 4096.0) / 4096.0
+
+
+def make_footprints(n: int, seed: int) -> np.ndarray:
+    """n OSM-building-shaped footprints as an object array of geometries:
+    85% closed 4-to-12-vertex polygons, 10% polygons with one hole, 5%
+    two-part MultiPolygons, 5-60 m across; 90% in the 64 city clusters of
+    phase 3 (sigma 0.2 deg), the rest uniform over land latitudes
+    (-56 .. 72); coordinates exact in float32."""
+    from geomesa_tpu_torch.geom import MultiPolygon, Polygon
+
+    rng = np.random.default_rng(seed)
+    crng = np.random.default_rng(SEED)  # phase 3's city centres
+    cx, cy = crng.uniform(-170.0, 170.0, 64), crng.uniform(-60.0, 70.0, 64)
+    cid = rng.integers(0, 64, n)
+    x = cx[cid] + rng.normal(0.0, 0.2, n)
+    y = cy[cid] + rng.normal(0.0, 0.2, n)
+    uni = rng.random(n) >= 0.9
+    x[uni] = rng.uniform(-180.0, 180.0, int(uni.sum()))
+    y[uni] = rng.uniform(-56.0, 72.0, int(uni.sum()))
+    x, y = np.clip(x, -179.99, 179.99), np.clip(y, -89.99, 89.99)
+    half = rng.uniform(5.0, 60.0, n) / M_PER_DEG / 2  # half the width, degrees
+    kind = rng.choice(3, n, p=[0.85, 0.10, 0.05])
+    nv = np.where(kind == 2, 4, rng.integers(4, 13, n))
+    out = np.empty(n, dtype=object)
+    for k in range(4, 13):
+        idx = np.nonzero(nv == k)[0]
+        if not len(idx):
+            continue
+        a = np.sort(rng.uniform(0.0, 2 * np.pi, (len(idx), k)), axis=1)
+        r = half[idx, None] * rng.uniform(0.7, 1.0, (len(idx), k))
+        ring = np.empty((len(idx), k + 1, 2))
+        ring[:, :k, 0] = _f32(x[idx, None] + r * np.cos(a))
+        ring[:, :k, 1] = _f32(y[idx, None] + r * np.sin(a))
+        ring[:, k] = ring[:, 0]
+        for j, i in enumerate(idx.tolist()):
+            if kind[i] == 0:
+                out[i] = Polygon(ring[j])
+            elif kind[i] == 1:
+                h = half[i] * 0.2
+                hole = _f32([[x[i] - h, y[i] - h], [x[i] + h, y[i] - h], [x[i] + h, y[i] + h],
+                             [x[i] - h, y[i] + h], [x[i] - h, y[i] - h]])
+                out[i] = Polygon(ring[j], (hole,))
+            else:
+                second = ring[j].copy()
+                second[:, 0] = _f32(second[:, 0] + 3 * half[i])
+                out[i] = MultiPolygon((Polygon(ring[j]), Polygon(second)))
+    return out
+
+
+def _wkt_ring(pts) -> str:
+    return "(" + ", ".join(f"{float(a)!r} {float(b)!r}" for a, b in pts) + ")"
+
+
+def xz_traffic(geoms) -> dict:
+    """The requests of a map client over a footprint layer: 16 BBOX windows
+    from a city block (0.005 deg) to a country (10 deg), the same windows
+    AND DURING of 1 to 21 days for xz3, 4 INTERSECTS with a district ring
+    of 32-64 vertices, 2 DWITHIN (around a point and around a polygon),
+    2 BBOX AND TOUCHES and 1 BBOX AND RELATE."""
+    crng = np.random.default_rng(SEED)
+    cx, cy = crng.uniform(-170.0, 170.0, 64), crng.uniform(-60.0, 70.0, 64)
+    boxes = []
+    for i, s in enumerate(np.geomspace(0.005, 10.0, 16)):
+        c = (cx[i % 64], cy[i % 64])
+        boxes.append(tuple(_q(v) for v in (max(c[0] - s / 2, -180), max(c[1] - s / 2, -90),
+                                            min(c[0] + s / 2, 180), min(c[1] + s / 2, 90))))
+    days = [1, 2, 3, 5, 7, 10, 14, 21]
+    starts = [(3 * i) % (WORLD_DAYS - 22) for i in range(16)]
+    windows = [(s, s + days[i % len(days)]) for i, s in enumerate(starts)]
+    bbox = [f"BBOX(geom, {b[0]!r}, {b[1]!r}, {b[2]!r}, {b[3]!r})" for b in boxes]
+    during = [f"{q} AND dtg DURING {_day(w[0])}/{_day(w[1])}" for q, w in zip(bbox, windows)]
+    rings = []
+    for i in range(4):
+        k = 32 + 10 * i
+        a = np.linspace(0.0, 2 * np.pi, k, endpoint=False)
+        r = (0.01 + 0.007 * i) * (1.0 + 0.25 * np.sin(3 * a))
+        pts = np.stack([cx[i] + r * np.cos(a), cy[i] + r * np.sin(a)], axis=1)
+        rings.append("POLYGON (" + _wkt_ring(np.vstack([pts, pts[:1]])) + ")")
+    intersects = [f"INTERSECTS(geom, {r})" for r in rings]
+    dwithin = [f"DWITHIN(geom, POINT({float(cx[5])!r} {float(cy[5])!r}), 2, kilometers)",
+               f"DWITHIN(geom, {rings[1]}, 300, meters)"]
+    from geomesa_tpu_torch.geom import Polygon
+
+    relations = []
+    plain = [g for g in geoms[:64] if isinstance(g, Polygon) and not g.holes][:2]
+    for g in plain:  # a triangle sharing the footprint's eastmost vertex, outside it
+        v = g.shell[np.argmax(g.shell[:, 0])]
+        d = 1e-3
+        tri = [v, (v[0] + d, v[1] + d / 2), (v[0] + d, v[1] - d / 2), v]
+        box = (_q(v[0] - 0.01), _q(v[1] - 0.01), _q(v[0] + 0.01), _q(v[1] + 0.01))
+        relations.append(f"BBOX(geom, {box[0]!r}, {box[1]!r}, {box[2]!r}, {box[3]!r}) AND "
+                         f"TOUCHES(geom, POLYGON ({_wkt_ring(tri)}))")
+    relations.append(f"{bbox[3]} AND RELATE(geom, {rings[0]}, 'T*T***T**')")
+    return {"boxes": boxes, "windows": windows, "bbox": bbox, "during": during,
+            "intersects": intersects, "dwithin": dwithin, "relations": relations}
+
+
+def np_env_bbox(planes, b):
+    """numpy envelope overlap over float32 envelope planes, the bounds
+    rounded to float32 as the filter compiles them."""
+    x0, y0, x1, y1 = planes
+    return ((x1 >= np.float32(b[0])) & (x0 <= np.float32(b[2]))
+            & (y1 >= np.float32(b[1])) & (y0 <= np.float32(b[3])))
+
+
+def np_xz_loose(codes, bins, lb) -> np.ndarray:
+    """numpy range cover of host-encoded xz codes for a loose bounds entry
+    ("xz", bounds, ids, fns): a row matches when its bin has an entry (ids
+    >= 0; None for xz2) and its code lies in one of that entry's ranges."""
+    _, bounds, ids, _ = lb
+
+    def cover(c, b):
+        b = np.asarray(b, np.uint64).reshape(-1, 4)
+        lo = (b[:, 0] << np.uint64(32)) | b[:, 1]
+        hi = (b[:, 2] << np.uint64(32)) | b[:, 3]
+        m = np.zeros(len(c), bool)
+        for a, z in zip(lo[lo <= hi], hi[lo <= hi]):
+            m |= (c >= a) & (c <= z)
+        return m
+
+    if ids is None:
+        return cover(codes, bounds)
+    m = np.zeros(len(codes), bool)
+    for e, b in enumerate(ids.tolist()):
+        if b >= 0:
+            sel = bins == b
+            m[sel] = cover(codes[sel], bounds[e])
+    return m
+
+
+class Calls:
+    """Latencies per call kind, and the filter-scan launches the exact
+    calls must cause (a count with no host residual: one count kernel;
+    every other exact count, mask, query or stats call: one mask kernel;
+    a loose call on xz keys: none, the range masks are torch ops)."""
+
+    def __init__(self):
+        self.lat: dict = {}
+        self.want = {"filter_scan_count": 0, "filter_scan_mask": 0}
+
+    def run(self, kind, fn, launch=None):
+        t = time.perf_counter()
+        out = fn()
+        self.lat.setdefault(kind, []).append(time.perf_counter() - t)
+        if launch:
+            self.want[launch] += 1
+        return out
+
+
+def _drive_xz(di, queries, calls: Calls, tag: str) -> dict:
+    """count/mask/query, loose and exact, for bbox(+during) filters the
+    key planes answer; every loose one must take the xz range masks."""
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+
+    out = {}
+    for q in queries:
+        lb = di._loose_bounds(parse_ecql(q))
+        if lb is None or lb[0] != "xz":
+            raise AssertionError(f"{tag} {q}: the xz key planes did not answer loose")
+        out[q] = {
+            "count_loose": calls.run("count_loose", lambda: di.count(q, loose=True)),
+            "count_exact": calls.run("count_exact", lambda: di.count(q), "filter_scan_count"),
+            "mask_loose": calls.run("mask_loose", lambda: di.mask(q, loose=True)),
+            "mask_exact": calls.run("mask_exact", lambda: di.mask(q), "filter_scan_mask"),
+            "query_loose": calls.run("query_loose", lambda: di.query(q, loose=True).fids),
+            "query_exact": calls.run("query_exact", lambda: di.query(q).fids, "filter_scan_mask"),
+            "lb": lb,
+        }
+    return out
+
+
+def _check_xz(tag, di, res, planes, codes, bins, dtg=None) -> list:
+    """Loose answers against the numpy range cover of host codes, exact
+    ones against numpy over the float32 envelope planes; loose covers
+    exact. Returns (exact, loose) hit counts."""
+    from geomesa_tpu_torch.filter import ast
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+
+    hits = []
+    for q, r in res.items():
+        f = parse_ecql(q)
+        parts = f.children if isinstance(f, ast.And) else (f,)
+        b = next(p for p in parts if isinstance(p, ast.BBox))
+        em = np_env_bbox(planes, (b.xmin, b.ymin, b.xmax, b.ymax))
+        d = next((p for p in parts if isinstance(p, ast.During)), None)
+        if d is not None:
+            em &= (dtg >= d.t0) & (dtg <= d.t1)
+        lm = np_xz_loose(codes, bins, r["lb"])
+        if r["count_exact"] != int(em.sum()) or not np.array_equal(r["mask_exact"], em):
+            raise AssertionError(f"{tag} {q}: exact answer != numpy over the envelope planes")
+        if not np.array_equal(np.sort(r["query_exact"]), np.nonzero(em)[0]):
+            raise AssertionError(f"{tag} {q}: exact fid set != numpy")
+        if r["count_loose"] != int(lm.sum()) or not np.array_equal(r["mask_loose"], lm):
+            raise AssertionError(f"{tag} {q}: loose answer != numpy over host codes")
+        if not np.array_equal(np.sort(r["query_loose"]), np.nonzero(lm)[0]):
+            raise AssertionError(f"{tag} {q}: loose fid set != numpy")
+        if np.any(em & ~lm):
+            raise AssertionError(f"{tag} {q}: loose does not cover exact")
+        hits.append((int(em.sum()), int(lm.sum())))
+    return hits
+
+
+def _host_keys(di, batch, tag):
+    """The staged xz keys against the port's numpy XZ2SFC/XZ3SFC.index
+    over the float64 envelopes; returns the host codes (uint64) and bins."""
+    import torch
+
+    from geomesa_tpu_torch.device_cache import Z_BIN, Z_HI, Z_LO, _z_planes_np
+
+    kind, host, bins = _z_planes_np(batch, di.sft)
+    if kind != di._z_kind:
+        raise AssertionError(f"{tag}: staged kind {di._z_kind} != {kind}")
+    for name, want in host.items():
+        got = di._cols[name].view(torch.int32).cpu().numpy().view(want.dtype)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{tag}: staged {name} != the host XZ index")
+    codes = (host[Z_HI].astype(np.uint64) << np.uint64(32)) | host[Z_LO].astype(np.uint64)
+    return codes, (None if Z_BIN not in host else host[Z_BIN])
+
+
+def _env_planes_np(di):
+    return tuple(di._cols[f"geom__{s}"].cpu().numpy() for s in ("x0", "y0", "x1", "y1"))
+
+
+def run_xz_path(dev, n2: int = XZ_N2, n3: int = XZ_N3, n_lab: int = XZ_LABELED) -> dict:
+    """Phase 3d: stage footprints as xz2 and xz3, drive the map-client
+    traffic through the public entry points, check every answer, and
+    return what phase 4 times."""
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.device_cache import VIS_ID, DeviceIndex
+    from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter import ast
+    from geomesa_tpu_torch.filter.compile import evaluate_host
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    t = time.time()
+    geoms = make_footprints(n2, SEED + 7)
+    t_build = time.time() - t
+    rng = np.random.default_rng(SEED + 8)
+    count = rng.integers(0, 1000, n2).astype(np.int32)
+    dtg = rng.integers(T0, T0 + WORLD_DAYS * DAY, n3)
+    names = np.array(["building"] * n2, dtype=object)
+    sft2, sft3 = SimpleFeatureType.create("osm", XZ2_SPEC), SimpleFeatureType.create("osm3", XZ3_SPEC)
+    b2 = FeatureBatch.from_columns(sft2, {"name": names, "count": count, "geom": geoms})
+    b3 = FeatureBatch.from_columns(sft3, {"name": names[:n3], "count": count[:n3], "dtg": dtg,
+                                          "geom": geoms[:n3]})
+    t = time.time()
+    b2.bboxes()
+    b3.bboxes()
+    t_env = time.time() - t
+    t = time.time()
+    di2 = DeviceIndex(BatchStore(b2), "osm", z_planes=True, device=dev)
+    _sync(dev)
+    t_stage2 = time.time() - t
+    t = time.time()
+    di3 = DeviceIndex(BatchStore(b3), "osm3", z_planes=True, device=dev)
+    _sync(dev)
+    t_stage3 = time.time() - t
+    if di2._z_kind != "xz2" or di3._z_kind != "xz3":
+        raise AssertionError(f"staged kinds {di2._z_kind}/{di3._z_kind}, not xz2/xz3")
+    log(f"phase 3d: built {n2:,} footprint geometries in {t_build:.1f} s; envelopes of "
+        f"{n2 + n3:,} rows in {t_env:.1f} s; staged (upload + card key encode) xz2 in "
+        f"{t_stage2:.2f} s ({di2.nbytes / 1e9:.3f} GB resident), xz3 ({n3:,} rows) in "
+        f"{t_stage3:.2f} s ({di3.nbytes / 1e9:.3f} GB resident)")
+
+    traffic = xz_traffic(geoms)
+    calls = Calls()
+    kernels.reset_counts()
+    res2 = _drive_xz(di2, traffic["bbox"], calls, "xz2")
+    res3 = _drive_xz(di3, traffic["during"], calls, "xz3")
+    residual = {}
+    for q in traffic["intersects"] + traffic["relations"]:
+        residual[q] = (calls.run("residual_count", lambda: di2.count(q), "filter_scan_mask"),
+                       calls.run("residual_query", lambda: di2.query(q).fids, "filter_scan_mask"))
+    dw = {q: (calls.run("count_exact", lambda: di2.count(q), "filter_scan_count"),
+              calls.run("mask_exact", lambda: di2.mask(q), "filter_scan_mask"),
+              calls.run("query_exact", lambda: di2.query(q).fids, "filter_scan_mask"))
+          for q in traffic["dwithin"]}
+    spec = 'Count();MinMax("count")'
+    stat_q = traffic["bbox"][8]
+    stats = {}
+    for loose in (True, False):
+        for di, q in ((di2, stat_q), (di3, traffic["during"][8])):
+            stats[(di._z_kind, loose)] = calls.run(
+                "stats", lambda: di.stats(q, spec, loose=loose).to_json(),
+                None if loose else "filter_scan_mask")
+    launches = read_launches("xz path", calls.want)
+    for kind, v in calls.lat.items():
+        log(f"latency xz {kind}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms "
+            f"({len(v)} calls) [{CARD}]")
+
+    # -- checks ---------------------------------------------------------------
+    t = time.time()
+    codes2, _ = _host_keys(di2, b2, "xz2")
+    codes3, bins3 = _host_keys(di3, b3, "xz3")
+    p2, p3 = _env_planes_np(di2), _env_planes_np(di3)
+    h2 = _check_xz("xz2", di2, res2, p2, codes2, None)
+    h3 = _check_xz("xz3", di3, res3, p3, codes3, bins3, dtg)
+    for q, (c, fids) in residual.items():
+        f = parse_ecql(q)
+        if isinstance(f, ast.And):  # BBOX AND relation: the host runs on the bbox rows
+            cand = np.nonzero(evaluate_host(f.children[0], b2))[0]
+            want = cand[evaluate_host(f, b2.take(cand))]
+        else:
+            want = np.nonzero(evaluate_host(f, b2))[0]
+        if c != len(want) or not np.array_equal(np.sort(fids), want):
+            raise AssertionError(f"xz2 {q[:60]}: residual answer != evaluate_host")
+        log(f"xz2 residual {q[:48]}...: {c} rows")
+    for q, (c, m, fids) in dw.items():
+        f = parse_ecql(q)
+        e, d = f.geometry.envelope, f.distance
+        em = np_env_bbox(p2, (e.xmin - d, e.ymin - d, e.xmax + d, e.ymax + d))
+        if c != int(em.sum()) or not np.array_equal(m, em) or not np.array_equal(np.sort(fids), np.nonzero(em)[0]):
+            raise AssertionError(f"xz2 {q[:60]}: dwithin != numpy over the envelope planes")
+        log(f"xz2 {q[:40]}...: {c} rows")
+    for (kind, loose), js in stats.items():
+        di, res, planes = (di2, res2, p2) if kind == "xz2" else (di3, res3, p3)
+        q = stat_q if kind == "xz2" else traffic["during"][8]
+        m = res[q]["mask_loose" if loose else "mask_exact"]
+        cnt = di._cols["count"].cpu().numpy()[m]
+        want = (int(m.sum()), int(cnt.min()) if len(cnt) else None,
+                int(cnt.max()) if len(cnt) else None)
+        if (js[0]["count"], js[1]["min"], js[1]["max"]) != want:
+            raise AssertionError(f"{kind} stats loose={loose}: {js} != numpy {want}")
+    # from_planes over the same resident state
+    for di, b, qs in ((di2, b2, traffic["bbox"][:4]), (di3, b3, traffic["during"][:4])):
+        fdi = DeviceIndex.from_planes(di.sft, b, dict(di._cols), None, di._bin_range, device=dev)
+        for q in qs:
+            for loose in (True, False):
+                if not np.array_equal(fdi.mask(q, loose=loose), di.mask(q, loose=loose)):
+                    raise AssertionError(f"from_planes {di._z_kind} {q}: answers differ")
+    ex2 = [h[0] for h in h2]
+    log(f"checked the xz path in {time.time() - t:.1f} s: xz2 exact hits "
+        f"min/median/max {min(ex2)}/{int(np.median(ex2))}/{max(ex2)}, loose/exact overscan "
+        f"median xz2 {np.median([lo / max(e, 1) for e, lo in h2]):.3f}, xz3 "
+        f"{np.median([lo / max(e, 1) for e, lo in h3]):.3f}")
+
+    # -- a labeled xz2 index under the auth sets of phase 3b -------------------
+    t = time.time()
+    lab = np.random.default_rng(SEED + 9).integers(0, len(LABELS), n_lab)
+    lb_batch = FeatureBatch.from_columns(sft2, {
+        "name": names[:n_lab], "count": count[:n_lab], "geom": geoms[:n_lab],
+        VIS_COLUMN: np.array(LABELS, dtype=object)[lab]})
+    ldi = DeviceIndex(BatchStore(lb_batch), "osm", z_planes=True, device=dev)
+    _sync(dev)
+    if VIS_ID not in ldi._cols:
+        raise AssertionError("the labeled xz2 index staged no label-id plane")
+    q = traffic["bbox"][9]
+    lf = parse_ecql(q)
+    lcalls = Calls()
+    kernels.reset_counts()
+    lres = {a: (lcalls.run("count_loose", lambda: ldi.count(q, loose=True, auths=a)),
+                lcalls.run("count_exact", lambda: ldi.count(q, auths=a), "filter_scan_mask"),
+                lcalls.run("query_exact", lambda: ldi.query(q, auths=a).fids, "filter_scan_mask"),
+                lcalls.run("stats", lambda: ldi.stats(q, "Count()", auths=a).to_json()[0]["count"],
+                           "filter_scan_mask"))
+            for a in VERDICTS}
+    lab_launches = read_launches("labeled xz path", lcalls.want)
+    _, lmf, lops = ldi._loose_args(ldi._loose_bounds(lf))
+    lm = lmf(*lops).cpu().numpy()
+    em = np_env_bbox(_env_planes_np(ldi), (lf.xmin, lf.ymin, lf.xmax, lf.ymax))
+    for a, (c_loose, c_exact, fids, n_stat) in lres.items():
+        seen = np.asarray(VERDICTS[a])[lab]
+        if (c_loose, c_exact, n_stat) != (int((lm & seen).sum()), int((em & seen).sum()),
+                                          int((em & seen).sum())):
+            raise AssertionError(f"labeled xz2 {a}: counts != numpy")
+        if not np.array_equal(np.sort(fids), np.nonzero(em & seen)[0]):
+            raise AssertionError(f"labeled xz2 {a}: fid set != numpy")
+        log(f"labeled xz2 auths={a}: exact {c_exact}, loose {c_loose}")
+    log(f"phase 3d labeled: {n_lab:,} rows staged, driven and checked in {time.time() - t:.1f} s")
+    total = {k: launches[k] + lab_launches[k] for k in launches}
+    return {"di2": di2, "di3": di3, "traffic": traffic, "launches": total}
+
+
 # -- phase 4: kernel timings --------------------------------------------------
 
 
@@ -1352,6 +1843,120 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     return rows
 
 
+N_ENV = 1 << 26  # rows of the synthetic envelope planes
+
+
+def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3) -> dict:
+    """One filter-scan row over envelope planes: bytes bound 16 B/row of
+    envelopes, 8 B/row of dtg words for a during, 1 B/row for a mask (4 B
+    for a count) over the HBM rate; operations bound from the program."""
+    import torch
+
+    from geomesa_tpu_torch.ops import filter_scan
+
+    mask = name.endswith("mask")
+    kern = (lambda: filter_scan.filter_scan_mask(prog, cols)) if mask else (
+        lambda: filter_scan.filter_scan_count(prog, cols))
+    plain = (lambda: filter_scan.run_program_plain(prog, cols)) if mask else (
+        lambda: filter_scan.run_program_plain(prog, cols).sum(dtype=torch.int32))
+    errs.check(name, kern().reshape(-1), plain().reshape(-1), case)
+    ms, plain_ms = time_ms(kern, 50), time_ms(plain, plain_iters, warm=1)
+    nbytes = 4 * len(prog.cols) * n + (n if mask else 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n * _program_ops(prog) / INT32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"{name} ({case}): {ms:.4f} ms (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it; "
+        f"{nbytes / ms / 1e6:.1f} GB/s, {n / ms / 1e6:.2f} G rows/s); plain version "
+        f"{plain_ms:.3f} ms [{CARD}]")
+    return {"name": name, "route": "cuda", "source": "geomesa_tpu_torch/csrc/filter_scan.cu",
+            "replaces": "geomesa_tpu/ops/pallas_scan.py:203 build_pallas_scan (pallas_call "
+                        f"{':304' if mask else ':284'})",
+            "launches": launches[name], "max_abs_err": errs.err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "case": case}
+
+
+def xz_rows(dev, xz, launches, errs: Errs) -> "tuple[list, list]":
+    """Phase 4 for the xz path: the filter scan over envelope planes at
+    2^26 synthetic rows (made on the card) and on the drive's own planes,
+    BBOX and BBOX AND DURING, count and mask; then the torch ops of the
+    path that replace no TPU kernel (the xz range masks and the card key
+    encode), timed at the drive's size, as rows of their own."""
+    import torch
+
+    from geomesa_tpu_torch.device_cache import Z_HI, Z_LO
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.compile import compile_filter
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.index.keyplanes import encode_inputs, schema_kind
+
+    di2, di3, traffic = xz["di2"], xz["di3"], xz["traffic"]
+    bbox_q, during_q = traffic["bbox"][12], traffic["during"][12]
+    sft = SimpleFeatureType.create("osm3", XZ3_SPEC)
+    progs = {"BBOX": compile_filter(parse_ecql(bbox_q), sft).program,
+             "BBOX AND DURING": compile_filter(parse_ecql(during_q), sft).program}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+
+    def rand(lo, hi):
+        return (torch.rand(N_ENV, generator=gen, device=dev, dtype=torch.float64)
+                * (hi - lo) + lo).to(torch.float32)
+
+    x0, y0 = rand(-180.0, 180.0), rand(-56.0, 72.0)
+    synth = {"geom__x0": x0, "geom__y0": y0,
+             "geom__x1": x0 + rand(5e-5, 6e-4), "geom__y1": y0 + rand(5e-5, 6e-4)}
+    dtg = torch.randint(T0, T0 + WORLD_DAYS * DAY, (N_ENV,), generator=gen, device=dev)
+    synth["dtg__hi"] = (dtg >> 32).to(torch.int32)
+    synth["dtg__lo"] = (dtg & 0xFFFFFFFF).to(torch.int32).view(torch.uint32)
+    del dtg
+    rows = []
+    for what, prog in progs.items():
+        for name in ("filter_scan_count", "filter_scan_mask"):
+            rows.append(_env_row(name, prog, synth, N_ENV,
+                                 f"envelope planes, {what}, 2^26 synthetic footprints",
+                                 launches, errs, plain_iters=2))
+    del synth
+    for what, prog, di in (("BBOX", progs["BBOX"], di2), ("BBOX AND DURING", progs["BBOX AND DURING"], di3)):
+        cols = {c: di._cols[c] for c in prog.cols}
+        for name in ("filter_scan_count", "filter_scan_mask"):
+            rows.append(_env_row(name, prog, cols, len(di),
+                                 f"envelope planes, {what}, the {di._z_kind} drive ({len(di):,} rows)",
+                                 launches, errs))
+
+    # torch ops with no TPU kernel behind them
+    ops_rows = []
+
+    def ops_row(name, fn, n, nbytes, case):
+        fn()
+        ms = time_ms(fn, 20)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{name} ({case}): {ms:.4f} ms (bytes bound {bound:.4f} ms; {n / ms / 1e6:.2f} G rows/s) "
+            f"[torch ops, no TPU kernel] [{CARD}]")
+        ops_rows.append({"name": name, "route": "torch ops, no TPU kernel", "ms": ms,
+                         "bound_ms": bound, "bound_by": "bytes", "rows": n, "case": case})
+
+    for di, q in ((di2, bbox_q), (di3, during_q)):
+        lb = di._loose_bounds(parse_ecql(q))
+        _, mf, ops = di._loose_args(lb)
+        n = len(di)
+        binned = di._z_kind == "xz3"
+        ops_row(f"{di._z_kind}_range_mask", lambda mf=mf, ops=ops: mf(*ops), n,
+                (12 if binned else 8) * n + n,
+                f"{int((lb[2] >= 0).sum()) if binned else 1} bin entries, "
+                f"{int(lb[1].size // 4)} range slots, the {di._z_kind} drive")
+        kind, sfc = schema_kind(di.sft)
+        coords, _ = encode_inputs(di._host_batch, kind, sfc, "geom", di.sft.dtg_field)
+        ct = [torch.from_numpy(np.ascontiguousarray(c, np.float64)).to(dev) for c in coords]
+        hi, lo = sfc.index_hi_lo(*ct)
+        if not (torch.equal(hi, di._cols[Z_HI]) and torch.equal(lo, di._cols[Z_LO])):
+            raise AssertionError(f"{di._z_kind}: the card encode != the staged keys")
+        ops_row(f"{di._z_kind}_card_encode", lambda s=sfc, c=ct: s.index_hi_lo(*c), n,
+                8 * len(ct) * n + 8 * n, f"float64 envelopes to (hi, lo) words, the {di._z_kind} drive")
+        del ct
+    return rows, ops_rows
+
+
 DRIVE_GRIDS = [(128, 128), (256, 256), (512, 256), (512, 512), (1024, 1024), (2048, 1024)]
 TABLE_GRIDS = ((256, 256), (1024, 1024))  # the density cases the kernel table lists
 
@@ -1476,6 +2081,7 @@ def main() -> int:
     check_baked_dimscans(dev, errs)
     check_zscans(dev, errs)
     check_filter_scans(dev, errs)
+    check_envelope_scans(dev, errs)
     check_density(dev, errs)
     log(f"phase 2: kernels == plain versions, bit-exact (weighted density: rtol 1e-6) "
         f"({time.time() - t:.1f} s)")
@@ -1492,12 +2098,18 @@ def main() -> int:
                                  dcalls, grids, scalls, seqs)
     del planes3, planes2, grids, res3, res2
     lab_launches = run_labeled_path(dev, queries)
+    t = time.time()
+    xz = run_xz_path(dev)
+    log(f"phase 3d: the xz path in {time.time() - t:.1f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
-                for k in main_launches}
+                + xz["launches"].get(k, 0) for k in main_launches}
 
     rows = kernel_table(dev, di3, di2, inter, queries, z2q, launches, errs)
     rows += density_rows(dev, di3, launches, errs)
+    env_rows, ops_rows = xz_rows(dev, xz, launches, errs)
+    rows += env_rows
+    log(json.dumps({"torch_ops": ops_rows}))
     log(json.dumps({"kernels": rows}))
     log(f"total {time.time() - t_all:.1f} s")
     log(card_line())

@@ -11,7 +11,9 @@ lanes and a rounded plane would change answers. The visibility label-id
 plane ``__visid`` is an int32 plane like any other; pass the counterpart's
 ``_vis_vocab`` to ``from_planes`` with it. So are the key planes of either
 layout: ``__znx/__zny/__zbt`` (uint32) and the interleaved ``__zbin``
-(int32), ``__zhi/__zlo`` (uint32).
+(int32), ``__zhi/__zlo`` (uint32), which hold the xz code for xz2/xz3
+schemas, whose float32 envelope planes ``<geom>__x0/__y0/__x1/__y1``
+carry across like any other float plane.
 """
 
 from __future__ import annotations

@@ -3,12 +3,14 @@ serving bbox+during count and query, density grids and stats, under
 per-request authorizations.
 
 Counterpart of ``DeviceIndex`` in ``geomesa_tpu/device_cache.py``, trimmed
-to what the port has so far: full staging (attribute planes, the key
-planes of z3/z2 point schemas, and the visibility label-id plane
+to what the port has so far: full staging (attribute planes, the
+envelope planes of non-point geometries, the key planes of z3/z2 point
+schemas and xz3/xz2 non-point ones, and the visibility label-id plane
 ``__visid``), the loose key-only count and mask, the exact fused count and
-mask, the host take, and the pushdown-aggregation hook ``_fused_agg``
-with its two consumers, ``density`` (the density kernel) and ``stats``
-(Count/MinMax/Histogram as torch reductions). Uploads are plain per-plane
+mask, the host take with its residual predicates, and the
+pushdown-aggregation hook ``_fused_agg`` with its two consumers,
+``density`` (the density kernel; None for non-point schemas) and
+``stats`` (Count/MinMax/Histogram as torch reductions). Uploads are plain per-plane
 copies (the counterpart's packed transfer and thin-transfer tricks exist
 for its remote link).
 
@@ -19,11 +21,16 @@ dim-scan kernels) whenever the bins pack into the bt word, else -- with
 day bins over more than 2,047 days -- the interleaved Morton key
 ``__zhi/__zlo`` plus the z3 bin plane ``__zbin`` (the masked-compare
 kernel). Both answer ``loose=True`` with the same cell-granular rows.
+Non-point schemas stage the xz code in ``__zhi/__zlo`` (plus ``__zbin``
+for xz3), encoded on the card, and answer ``loose=True`` from the range
+masks of ``ops/zscan.py``; their exact answers come from the filter-scan
+kernel over the envelope planes ``<geom>__x0/__y0/__x1/__y1`` plus the
+host residual.
 
 Not in the port yet; each raises ``NotImplementedError`` naming its
-ROADMAP item: the xz kinds, the Q-batched fused loose paths, streaming and
-sharded indexes, knn, joins, and the stats the host sketches serve
-(Cardinality, TopK, Frequency, Z3Histogram).
+ROADMAP item: the Q-batched fused loose paths, streaming and sharded
+indexes, knn, joins, and the stats the host sketches serve (Cardinality,
+TopK, Frequency, Z3Histogram).
 """
 
 from __future__ import annotations
@@ -58,10 +65,11 @@ Z_NX, Z_NY, Z_BT = "__znx", "__zny", "__zbt"
 # reserved names of the interleaved key planes: the Morton key's two words
 # and (z3 only) the int32 period bin
 Z_BIN, Z_HI, Z_LO = "__zbin", "__zhi", "__zlo"
-# a loose window over more bins than this takes the exact scan (the
-# counterpart's cut: past it the per-row cost outweighs the key scan's win;
-# its second cut, 8192 bound words, concerns xz bounds: 64 z3 bins hold 1152)
+# a loose window over more bins than this, or xz bounds of more words,
+# takes the exact scan (the counterpart's cuts: past them the per-row cost
+# outweighs the key scan's win)
 _LOOSE_MAX_BINS = 64
+_LOOSE_MAX_WORDS = 8192
 # reserved name of the visibility label-id plane: each row carries the id
 # of its label expression in a small vocabulary; a per-request auth table
 # gathers to a bool mask on the device
@@ -84,6 +92,11 @@ def _stageable_planes(sft: SimpleFeatureType) -> list:
         if a.is_geometry:
             if a.is_point:
                 planes += [f"{a.name}__x", f"{a.name}__y"]
+            else:
+                # non-point geometries: envelope planes (the device bbox and
+                # the envelope prefilter of exact residual predicates)
+                planes += [f"{a.name}__x0", f"{a.name}__y0",
+                           f"{a.name}__x1", f"{a.name}__y1"]
             continue
         dtype = a.column_dtype
         if dtype == np.int64:
@@ -91,6 +104,25 @@ def _stageable_planes(sft: SimpleFeatureType) -> list:
         elif dtype in (np.float32, np.float64, np.int32):
             planes.append(a.name)
     return planes
+
+
+def _z_planes_np(batch, sft: SimpleFeatureType):
+    """(kind, planes, bins) of the interleaved key layout through the HOST
+    encode (``sfc.index``): the oracle the card's staging encode must
+    equal. Planes are numpy: ``__zhi/__zlo`` uint32, ``__zbin`` int32 for
+    binned kinds."""
+    kind, sfc = schema_kind(sft)
+    if kind is None:
+        return None, {}, None
+    coords, bins = encode_inputs(batch, kind, sfc, sft.geom_field, sft.dtg_field)
+    code = np.asarray(sfc.index(*coords)).astype(np.uint64)
+    planes = {
+        Z_HI: (code >> np.uint64(32)).astype(np.uint32),
+        Z_LO: (code & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+    }
+    if bins is not None:
+        planes[Z_BIN] = np.asarray(bins, np.int32)
+    return kind, planes, bins
 
 
 class DeviceIndex:
@@ -215,7 +247,7 @@ class DeviceIndex:
             if self._dim_mode:
                 want = (Z_NX, Z_NY, Z_BT) if kind == "z3" else (Z_NX, Z_NY)
             else:
-                want = (Z_BIN, Z_HI, Z_LO) if kind == "z3" else (Z_HI, Z_LO)
+                want = (Z_BIN, Z_HI, Z_LO) if kind in ("z3", "xz3") else (Z_HI, Z_LO)
             if kind is None or any(p not in planes for p in want):
                 raise ValueError(f"key planes {want} missing for a {kind} schema")
             self._z_kind = kind
@@ -351,7 +383,7 @@ class DeviceIndex:
             cols.update(self._dim_planes_z2(sfc, coords))
         else:
             cols.update(self._dim_planes_for(sfc, coords, bins))
-        if kind == "z3" and len(batch):
+        if kind in ("z3", "xz3") and len(batch):
             lo, hi = int(bins.min()), int(bins.max())
             rng = (lo, hi) if self._bin_range is None else (
                 min(self._bin_range[0], lo), max(self._bin_range[1], hi))
@@ -362,7 +394,8 @@ class DeviceIndex:
 
     def _dim_usable(self, kind, sfc, bins) -> bool:
         """Whether the dim-plane layout packs: not with ``dim_planes=False``
-        or for a non-point kind; z2 always; z3 with 21-bit time precision
+        or for a non-point kind (xz codes take the interleaved planes); z2
+        always; z3 with 21-bit time precision
         and a bin span inside the packable window (top bin reserved for the
         out-of-range sentinel)."""
         if self._dim_pref is False or kind not in ("z3", "z2"):
@@ -400,9 +433,9 @@ class DeviceIndex:
         }
 
     def _interleaved_planes(self, sfc, coords, bins) -> dict:
-        """{Z_HI, Z_LO} (+ Z_BIN for z3): the Morton key encoded on the
-        device (float64 quantize, bit for bit the host ``sfc.index``) and
-        the int32 period bins."""
+        """{Z_HI, Z_LO} (+ Z_BIN for binned kinds): the Morton key or the
+        xz code encoded on the device (float64 math, bit for bit the host
+        ``sfc.index``) and the int32 period bins."""
         hi, lo = sfc.index_hi_lo(
             *(torch.from_numpy(np.asarray(c, np.float64)).to(self.device) for c in coords)
         )
@@ -457,7 +490,9 @@ class DeviceIndex:
         """How the key planes answer the filter, or None when they cannot:
         ``("dim", qarr, R)`` for the dim scan (R = 0: the 2-plane z2 scan),
         ``("zscan", bounds, ids, (count_fn, mask_fn))`` for the interleaved
-        scan (``ids`` None for z2). Cached per filter."""
+        scan and ``("xz", bounds, ids, (count_fn, mask_fn))`` for the xz
+        range masks (``ids`` None for the unbinned z2 and xz2). Cached per
+        filter."""
         key = repr(f)
         if key not in self._loose_cache:
             self._loose_cache[key] = self._loose_bounds_uncached(f)
@@ -482,6 +517,11 @@ class DeviceIndex:
             qhi = (int(sfc.lon.normalize(env[2])), int(sfc.lat.normalize(env[3])))
             bounds = zscan.z2_dim_bounds(qlo, qhi)
             return "zscan", bounds, None, zscan.build_z2_zscan(bounds)
+        if self._z_kind == "xz2":
+            if window is not None:
+                return None  # no time in the key
+            bounds = zscan.pad_ranges(zscan.xz2_query_bounds(sfc, *env))
+            return "xz", bounds, None, zscan.build_xz_scan(bounds, None)
         if env is None:
             env = (-180.0, -90.0, 180.0, 90.0)
         if window is None:
@@ -494,29 +534,38 @@ class DeviceIndex:
                 + int(offset_to_millis(max_offset(p), p)),
             )
         if not self._dim_mode:
-            return self._zscan_bounds(sfc, env, window)
+            return self._binned_bounds(sfc, env, window)
         if self._bt_base is None:
             return None  # nothing staged; the normal path returns empty too
         q = zscan.z3_dim_plane_qarr(sfc, env, window, self._bt_base, self._bin_range)
         return None if q is None else ("dim", *q)
 
-    def _zscan_bounds(self, sfc, env, window):
-        """The interleaved z3 scan's entry: one bound set per staged bin of
-        the window; an empty window becomes one never-matching padded
-        entry. None past 64 bins, and for a window over a bin before 1970
-        (the scan reads a negative id as padding and would lose that bin's
-        rows): the exact scan answers those."""
-        bounds, ids = zscan.z3_query_bounds(sfc, *env, *window)
+    def _binned_bounds(self, sfc, env, window):
+        """The binned key scan's entry -- the interleaved z3 scan, or the
+        xz3 range masks: one bound set per staged bin of the window; an
+        empty window becomes one never-matching padded entry. None past 64
+        bins or 8192 bound words, and for a window over a bin before 1970
+        (both scans read a negative id as padding and would lose that
+        bin's rows): the exact scan answers those."""
+        xz = self._z_kind == "xz3"
+        build = zscan.xz3_query_bounds if xz else zscan.z3_query_bounds
+        bounds, ids = build(sfc, *env, *window)
         if self._bin_range is not None:
             keep = (ids >= self._bin_range[0]) & (ids <= self._bin_range[1])
             bounds, ids = bounds[keep], ids[keep]
         if (ids < 0).any():
             return None
         if len(ids) == 0:
-            bounds, ids = np.zeros((1, 3, 6), np.uint32), np.full(1, -1, np.int32)
-        if len(ids) > _LOOSE_MAX_BINS:
+            bounds = (
+                np.broadcast_to(zscan._NEVER_RANGE, (1, 1, 4)).copy()
+                if xz else np.zeros((1, 3, 6), np.uint32)
+            )
+            ids = np.full(1, -1, np.int32)
+        if len(ids) > _LOOSE_MAX_BINS or bounds.size > _LOOSE_MAX_WORDS:
             return None
         bounds, ids = zscan.pad_bins(bounds, ids)
+        if xz:
+            return "xz", bounds, ids, zscan.build_xz_scan(bounds, ids)
         return "zscan", bounds, ids, zscan.build_z3_pallas_scan(bounds, ids)
 
     def _loose_args(self, lb) -> tuple:
@@ -534,7 +583,7 @@ class DeviceIndex:
         ops = (self._cols[Z_HI], self._cols[Z_LO])
         if ids is not None:
             ops = (self._cols[Z_BIN],) + ops
-        return count_fn, mask_fn, ops
+        return count_fn, mask_fn, ops  # "zscan" and "xz": one operand order
 
     def _resolve_loose(self, loose: "bool | None") -> bool:
         # None: the counterpart's query.loose.bbox default (off)

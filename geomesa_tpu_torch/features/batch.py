@@ -1,26 +1,27 @@
 """FeatureBatch: the columnar SimpleFeature collection.
 
-Copy of ``geomesa_tpu/features/batch.py``, trimmed to what the slice uses:
-``from_columns``, ``column``, ``point_coords``, ``take``, ``__len__`` and
-the reserved visibility column (carried so the resident index can refuse
-labeled rows). Column conventions are the counterpart's:
+Copy of ``geomesa_tpu/features/batch.py``, trimmed to what the port uses:
+``from_columns``, ``column``, ``point_coords``, ``bboxes``, ``take``,
+``__len__`` and the reserved visibility column. Column conventions are
+the counterpart's:
 
 - Point geometry  -> (n, 2) float64 array [x, y]
+- other geometry  -> object array of ``geom`` Geometry values, with a
+                     cached (n, 4) float64 envelope array [xmin, ymin,
+                     xmax, ymax] per column (``bboxes``)
 - Date            -> int64 epoch milliseconds
 - numeric/bool    -> matching numpy dtype
 - String/UUID/Bytes -> object array (host-only)
-
-Non-point geometry columns belong to the xz slice and raise.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
-from geomesa_tpu_torch.geom import Point, parse_wkt
+from geomesa_tpu_torch.geom import Geometry, Point, parse_wkt
 
 VIS_COLUMN = "__vis__"  # reserved per-feature visibility label column
 
@@ -30,12 +31,13 @@ class FeatureBatch:
     sft: SimpleFeatureType
     fids: np.ndarray
     columns: dict
+    _bboxes: dict = field(default_factory=dict, repr=False)
 
     @staticmethod
     def from_columns(sft: SimpleFeatureType, columns: dict, fids=None) -> "FeatureBatch":
-        """Build from {attribute: values}. Point columns may be given as
-        (n, 2) arrays, Point objects or WKT strings; dates as int64 millis
-        or numpy datetime64."""
+        """Build from {attribute: values}. Geometry columns may be given as
+        (n, 2) point arrays, Geometry objects or WKT strings; dates as int64
+        millis or numpy datetime64."""
         n = None
         out: dict = {}
         for attr in sft.attributes:
@@ -43,13 +45,7 @@ class FeatureBatch:
                 raise ValueError(f"missing column {attr.name!r}")
             vals = columns[attr.name]
             if attr.is_geometry:
-                if not attr.is_point:
-                    raise NotImplementedError(
-                        f"{attr.type_name} column {attr.name!r}: non-point "
-                        "geometries (xz3/xz2 keys) are a later port slice "
-                        "(ROADMAP, port queue: interleaved-layout and xz scans)"
-                    )
-                col = _coerce_points(vals)
+                col = _coerce_geometry(vals, attr.is_point)
             elif attr.type_name == "Date":
                 col = _coerce_date(vals)
             elif attr.column_dtype is not None:
@@ -105,24 +101,58 @@ class FeatureBatch:
             raise TypeError(f"{name!r} is not a Point column")
         return np.ascontiguousarray(col[:, 0]), np.ascontiguousarray(col[:, 1])
 
+    def bboxes(self, name: str | None = None) -> np.ndarray:
+        """(n, 4) float64 [xmin, ymin, xmax, ymax] for any geometry column
+        (cached per non-point column)."""
+        name = name or self.sft.geom_field
+        col = self.columns[name]
+        if col.dtype != object:
+            return np.stack([col[:, 0], col[:, 1], col[:, 0], col[:, 1]], axis=1)
+        if name not in self._bboxes:
+            bb = np.empty((len(col), 4), dtype=np.float64)
+            for i, g in enumerate(col):
+                e = g.envelope
+                bb[i] = (e.xmin, e.ymin, e.xmax, e.ymax)
+            self._bboxes[name] = bb
+        return self._bboxes[name]
 
-def _coerce_points(vals) -> np.ndarray:
+
+def _coerce_geometry(vals, is_point: bool) -> np.ndarray:
     if isinstance(vals, np.ndarray) and vals.dtype != object and vals.ndim == 2:
         return np.asarray(vals, dtype=np.float64)
     vals = list(vals)
     if not vals:
-        return np.zeros((0, 2), dtype=np.float64)
+        return (
+            np.zeros((0, 2), dtype=np.float64)
+            if is_point
+            else np.array([], dtype=object)
+        )
+    if is_point:
+        try:  # fast path: homogeneous (x, y) pairs
+            arr = np.asarray(vals, dtype=np.float64)
+            if arr.ndim == 2 and arr.shape[1] == 2:
+                return arr
+        except (ValueError, TypeError):
+            pass
 
-    def xy(v):
-        if isinstance(v, str):
-            v = parse_wkt(v)
-        if isinstance(v, Point):
-            return (v.x, v.y)
-        if isinstance(v, (tuple, list, np.ndarray)):
-            return tuple(np.asarray(v, dtype=np.float64))
-        raise TypeError(f"cannot coerce {type(v)} to Point column")
+        # per-row coercion: a column may mix WKT strings, Point objects
+        # and coordinate pairs
+        def xy(v):
+            if isinstance(v, str):
+                v = parse_wkt(v)
+            if isinstance(v, Point):
+                return (v.x, v.y)
+            if isinstance(v, (tuple, list, np.ndarray)):
+                return tuple(np.asarray(v, dtype=np.float64))
+            raise TypeError(f"cannot coerce {type(v)} to Point column")
 
-    return np.asarray([xy(v) for v in vals], dtype=np.float64)
+        return np.asarray([xy(v) for v in vals], dtype=np.float64)
+    out = [parse_wkt(v) if isinstance(v, str) else v for v in vals]
+    if isinstance(out[0], Geometry):
+        col = np.empty(len(out), dtype=object)
+        col[:] = out
+        return col
+    raise TypeError(f"cannot coerce {type(out[0])} to geometry column")
 
 
 def _coerce_date(vals) -> np.ndarray:

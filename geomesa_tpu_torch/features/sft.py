@@ -2,7 +2,8 @@
 
 Copy of ``geomesa_tpu/features/sft.py``, trimmed to what the port uses
 (spec parsing, descriptors, ``geom_field``/``dtg_field``,
-``z3_interval``). Grammar follows GeoMesa's SimpleFeatureTypes.createType:
+``z3_interval``, ``xz_precision``). Grammar follows GeoMesa's
+SimpleFeatureTypes.createType:
 
     "name:String,age:Int,dtg:Date,*geom:Point:srid=4326;geomesa.z3.interval=week"
 
@@ -160,6 +161,12 @@ class SimpleFeatureType:
     @property
     def z3_interval(self) -> str:
         return self.user_data.get("geomesa.z3.interval", "week")
+
+    @property
+    def xz_precision(self) -> int:
+        """XZ curve resolution of non-point schemas (``geomesa.xz.precision``
+        user data, default 12)."""
+        return int(self.user_data.get("geomesa.xz.precision", 12))
 
     @staticmethod
     def create(type_name: str, spec: str) -> "SimpleFeatureType":

@@ -32,12 +32,15 @@ from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.geom import Point, Polygon, points_in_polygon
-from geomesa_tpu_torch.ops import filter_scan
-
-_RELATIONS_LATER = (
-    "DE-9IM relation predicates (crosses/touches/overlaps/equals/relate) "
-    "are a later port slice (ROADMAP, port queue: the xz kinds: non-point schemas)"
+from geomesa_tpu_torch.geom.predicates import (
+    geometry_crosses,
+    geometry_intersects,
+    geometry_overlaps,
+    geometry_relate_matches,
+    geometry_touches,
+    geometry_within,
 )
+from geomesa_tpu_torch.ops import filter_scan
 
 
 # ---------------------------------------------------------------------------
@@ -65,8 +68,7 @@ def evaluate_host(f: ast.Filter, batch: FeatureBatch) -> np.ndarray:
     if isinstance(f, ast.Not):
         return ~evaluate_host(f.child, batch)
     if isinstance(f, ast.BBox):
-        x, y = batch.point_coords(f.attr)
-        return (x >= f.xmin) & (x <= f.xmax) & (y >= f.ymin) & (y <= f.ymax)
+        return _host_bbox(f, batch)
     if isinstance(f, (ast.Intersects, ast.DWithin)):
         return _host_spatial(f, batch)
     if isinstance(f, ast.During):
@@ -112,36 +114,109 @@ def evaluate_host(f: ast.Filter, batch: FeatureBatch) -> np.ndarray:
     raise TypeError(f"cannot evaluate {type(f)}")
 
 
+def _host_bbox(f: ast.BBox, batch: FeatureBatch) -> np.ndarray:
+    """Point columns: the point in the box; other geometries: envelope
+    overlap, which is exactly BBOX for them."""
+    if batch.sft.descriptor(f.attr).is_point:
+        x, y = batch.point_coords(f.attr)
+        return (x >= f.xmin) & (x <= f.xmax) & (y >= f.ymin) & (y <= f.ymax)
+    bb = batch.bboxes(f.attr)
+    return (
+        (bb[:, 2] >= f.xmin)
+        & (bb[:, 0] <= f.xmax)
+        & (bb[:, 3] >= f.ymin)
+        & (bb[:, 1] <= f.ymax)
+    )
+
+
 def _host_spatial(f, batch: FeatureBatch) -> np.ndarray:
-    """Point-data spatial predicates (non-point data cannot be staged in
-    this slice: FeatureBatch refuses it)."""
+    desc = batch.sft.descriptor(f.attr)
     geom = f.geometry
-    x, y = batch.point_coords(f.attr)
     if isinstance(f, ast.DWithin):
-        if isinstance(geom, Point):
+        # a point column and a point: the distance test; else the padded
+        # query envelope as a bbox
+        if desc.is_point and isinstance(geom, Point):
+            x, y = batch.point_coords(f.attr)
             return (x - geom.x) ** 2 + (y - geom.y) ** 2 <= f.distance**2
         e = geom.envelope
-        return (
-            (x >= e.xmin - f.distance) & (x <= e.xmax + f.distance)
-            & (y >= e.ymin - f.distance) & (y <= e.ymax + f.distance)
+        d = f.distance
+        return _host_bbox(
+            ast.BBox(f.attr, e.xmin - d, e.ymin - d, e.xmax + d, e.ymax + d), batch
         )
     if f.op in ("crosses", "touches", "overlaps", "equals", "relate"):
-        raise NotImplementedError(_RELATIONS_LATER)
-    if f.op == "contains" and not isinstance(geom, Point):
-        return np.zeros(len(batch), dtype=bool)  # a point contains points only
-    if isinstance(geom, Point):
-        m = (x == geom.x) & (y == geom.y)
-    elif hasattr(geom, "rings"):
-        if isinstance(geom, Polygon):
-            m = points_in_polygon(x, y, geom.rings())
-        else:
-            m = np.zeros(len(x), dtype=bool)
-            for p in getattr(geom, "polygons", ()):
-                m |= points_in_polygon(x, y, p.rings())
-    else:  # linestring vs point: envelope fallback
+        return _host_relation(f, batch, desc)
+    if desc.is_point:
+        x, y = batch.point_coords(f.attr)
+        if f.op == "contains" and not isinstance(geom, Point):
+            return np.zeros(len(batch), dtype=bool)  # a point contains points only
+        if isinstance(geom, Point):
+            m = (x == geom.x) & (y == geom.y)
+        elif hasattr(geom, "rings"):
+            if isinstance(geom, Polygon):
+                m = points_in_polygon(x, y, geom.rings())
+            else:
+                m = np.zeros(len(x), dtype=bool)
+                for p in getattr(geom, "polygons", ()):
+                    m |= points_in_polygon(x, y, p.rings())
+        else:  # linestring vs point: envelope fallback
+            e = geom.envelope
+            m = (x >= e.xmin) & (x <= e.xmax) & (y >= e.ymin) & (y <= e.ymax)
+        return ~m if f.op == "disjoint" else m
+    # non-point data: envelope prefilter, then the exact test per candidate
+    e = geom.envelope
+    cand = np.nonzero(_host_bbox(ast.BBox(f.attr, e.xmin, e.ymin, e.xmax, e.ymax), batch))[0]
+    col = batch.column(f.attr)
+    out = np.zeros(len(batch), dtype=bool)
+    if f.op == "within":  # data geometry within query geometry
+        for i in cand:
+            out[i] = geometry_within(col[i], geom)
+        return out
+    if f.op == "contains":  # data geometry contains query geometry
+        for i in cand:
+            out[i] = geometry_within(geom, col[i])
+        return out
+    for i in cand:
+        out[i] = geometry_intersects(col[i], geom)
+    return ~out if f.op == "disjoint" else out
+
+
+def _host_relation(f: "ast.Intersects", batch: FeatureBatch, desc) -> np.ndarray:
+    """CROSSES / TOUCHES / OVERLAPS / EQUALS / RELATE: envelope prefilter,
+    then the DE-9IM-lite predicate per candidate, the row's geometry first
+    (ECQL argument order). RELATE patterns can match disjoint rows, so
+    RELATE skips the prefilter."""
+    geom = f.geometry
+    if desc.is_point:
+        x, y = batch.point_coords(f.attr)
+
+        def rowgeom(i):
+            return Point(float(x[i]), float(y[i]))
+
+    else:
+        col = batch.column(f.attr)
+
+        def rowgeom(i):
+            return col[i]
+
+    if f.op == "relate":
+        cand = np.arange(len(batch))
+        fn = lambda g: geometry_relate_matches(g, geom, f.pattern)  # noqa: E731
+    else:
         e = geom.envelope
-        m = (x >= e.xmin) & (x <= e.xmax) & (y >= e.ymin) & (y <= e.ymax)
-    return ~m if f.op == "disjoint" else m
+        cand = np.nonzero(
+            _host_bbox(ast.BBox(f.attr, e.xmin, e.ymin, e.xmax, e.ymax), batch)
+        )[0]
+        fn = {
+            "crosses": lambda g: geometry_crosses(g, geom),
+            "touches": lambda g: geometry_touches(g, geom),
+            "overlaps": lambda g: geometry_overlaps(g, geom),
+            # equals: the DE-9IM equality mask
+            "equals": lambda g: geometry_relate_matches(g, geom, "T*F**FFF*"),
+        }[f.op]
+    out = np.zeros(len(batch), dtype=bool)
+    for i in cand:
+        out[i] = fn(rowgeom(i))
+    return out
 
 
 # ---------------------------------------------------------------------------

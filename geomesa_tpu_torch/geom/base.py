@@ -1,7 +1,9 @@
 """Geometry value types: immutable, numpy-backed coordinate arrays.
 
-Copy of ``geomesa_tpu/geom/base.py``, trimmed to the envelopes and the
-shapes the WKT reader produces for ECQL literals.
+Copy of ``geomesa_tpu/geom/base.py``: envelopes with their set
+operations, and the geometry kinds with their parts (``points``,
+``lines``, ``polygons``) and rings (``Polygon.rings``,
+``MultiPolygon.rings``) that the host predicates walk.
 """
 
 from __future__ import annotations
@@ -20,6 +22,29 @@ class Envelope:
     xmax: float
     ymax: float
 
+    def intersects(self, other: "Envelope") -> bool:
+        return not (
+            other.xmin > self.xmax
+            or other.xmax < self.xmin
+            or other.ymin > self.ymax
+            or other.ymax < self.ymin
+        )
+
+    def contains_env(self, other: "Envelope") -> bool:
+        return (
+            self.xmin <= other.xmin
+            and self.xmax >= other.xmax
+            and self.ymin <= other.ymin
+            and self.ymax >= other.ymax
+        )
+
+    def intersection(self, other: "Envelope") -> "Envelope | None":
+        xmin, xmax = max(self.xmin, other.xmin), min(self.xmax, other.xmax)
+        ymin, ymax = max(self.ymin, other.ymin), min(self.ymax, other.ymax)
+        if xmin > xmax or ymin > ymax:
+            return None
+        return Envelope(xmin, ymin, xmax, ymax)
+
     def expand(self, other: "Envelope") -> "Envelope":
         return Envelope(
             min(self.xmin, other.xmin),
@@ -27,6 +52,10 @@ class Envelope:
             max(self.xmax, other.xmax),
             max(self.ymax, other.ymax),
         )
+
+    @staticmethod
+    def world() -> "Envelope":
+        return Envelope(-180.0, -90.0, 180.0, 90.0)
 
 
 class Geometry:
@@ -55,7 +84,8 @@ def _coords_array(coords) -> np.ndarray:
 
 
 def _coords_envelope(c: np.ndarray) -> Envelope:
-    return Envelope(c[:, 0].min(), c[:, 1].min(), c[:, 0].max(), c[:, 1].max())
+    lo, hi = c.min(axis=0), c.max(axis=0)  # two reductions, not four
+    return Envelope(lo[0], lo[1], hi[0], hi[1])
 
 
 @dataclass(frozen=True)

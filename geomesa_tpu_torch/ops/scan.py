@@ -2,8 +2,9 @@
 
 Counterpart of ``geomesa_tpu/ops/scan.py``. Plane names follow the
 counterpart: ``attr`` for scalar columns, ``attr__x``/``attr__y`` for point
-coordinates, ``attr__hi``/``attr__lo`` for the two words of int64 columns
-(ops/int64lanes.py). One difference: float planes ALWAYS stage as float32
+coordinates, ``attr__x0``/``__y0``/``__x1``/``__y1`` for the envelopes of
+non-point geometries, ``attr__hi``/``attr__lo`` for the two words of int64
+columns (ops/int64lanes.py). One difference: float planes ALWAYS stage as float32
 (the counterpart does so only on a TPU), since 32-bit lanes are the
 kernels' storage type.
 """
@@ -30,11 +31,10 @@ def stage_columns_host(
     splits: dict = {}  # attr -> (hi, lo), computed once per i64 column
     for name in names:
         if name.endswith(("__x0", "__y0", "__x1", "__y1")):
-            raise NotImplementedError(
-                f"{name}: envelope planes of non-point geometries are a "
-                "later port slice (ROADMAP, port queue: xz scans)"
-            )
-        if name.endswith("__x") or name.endswith("__y"):
+            # per-row envelope planes of a non-point geometry column
+            k = {"x0": 0, "y0": 1, "x1": 2, "y1": 3}[name[-2:]]
+            arr = batch.bboxes(name[:-4])[start:stop, k]
+        elif name.endswith("__x") or name.endswith("__y"):
             col = batch.column(name[:-3])
             arr = col[start:stop, 0 if name.endswith("__x") else 1]
         elif name.endswith("__hi") or name.endswith("__lo"):

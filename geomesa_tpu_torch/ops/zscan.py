@@ -2,7 +2,8 @@
 interleaved masked-compare planes, with their query builders, kernel
 wrappers and plain PyTorch versions.
 
-Counterpart of ``geomesa_tpu/ops/zscan.py`` for the point kinds (z3, z2).
+Counterpart of ``geomesa_tpu/ops/zscan.py``: the point kinds' scans (z3,
+z2) and the range masks of the extent-curve kinds (xz3, xz2).
 
 *Dim planes.* Morton order exists for sorting; a resident scan keeps the
 SAME key de-interleaved -- nx, ny uint32 planes plus ONE packed bt word
@@ -39,7 +40,7 @@ import torch
 from geomesa_tpu_torch import kernels
 from geomesa_tpu_torch.bucketing import bucket_cap
 from geomesa_tpu_torch.curves import zorder
-from geomesa_tpu_torch.curves.binnedtime import bins_for_interval
+from geomesa_tpu_torch.curves.binnedtime import bins_for_interval, max_offset
 from geomesa_tpu_torch.ops.int64lanes import widen_u32
 
 BT_TIME_BITS = 21  # nt occupies the low 21 bits of bt
@@ -515,16 +516,259 @@ def z2_zscan_mask(z_hi, z_lo, bounds) -> torch.Tensor:
     return _dims_mask(widen_u32(z_hi), widen_u32(z_lo), np.asarray(bounds, np.uint32), 2)
 
 
+# -- XZ (extent-curve) key scans ---------------------------------------------
+#
+# XZ codes are pre-order tree walks, not Morton interleaves, so there is no
+# masked-compare trick: a query decomposes into a small list of inclusive
+# [lo, hi] code ranges (budget-bounded, over-covering on truncation; see
+# curves/xz.py ranges()), and a row matches when its code falls in one.
+# The counterpart tests every row against every range, an (R, n)
+# broadcast; here the ranges are merged and sorted once on the host and
+# each row binary-searches them (torch.searchsorted), so a call reads the
+# key planes once and holds no (R, n) intermediate. These are torch ops,
+# not a kernel, as the counterpart's are XLA ops, not Pallas.
+
+
+def xz_range_bounds(ranges) -> np.ndarray:
+    """IndexRange list -> (R, 4) uint32 rows [lo_hi, lo_lo, hi_hi, hi_lo]."""
+    out = np.empty((len(ranges), 4), np.uint32)
+    for i, r in enumerate(ranges):
+        out[i, 0:2] = _hi_lo(np.uint64(r.lower))
+        out[i, 2:4] = _hi_lo(np.uint64(r.upper))
+    return out
+
+
+_NEVER_RANGE = np.array(
+    [0xFFFFFFFF, 0xFFFFFFFF, 0, 0], np.uint32
+)  # lo = 2^64-1 > hi = 0: matches nothing
+
+
+def pad_ranges(bounds: np.ndarray, min_r: int = 1) -> np.ndarray:
+    """Pad the range axis (last-but-one) to the next power of two (at
+    least ``min_r``) with never-matching entries, as the counterpart pads
+    its jit shapes."""
+    r = bounds.shape[-2]
+    cap = max(min_r, bucket_cap(r))
+    if cap == r:
+        return bounds
+    pad_shape = bounds.shape[:-2] + (cap - r, 4)
+    return np.concatenate([bounds, np.broadcast_to(_NEVER_RANGE, pad_shape)], axis=-2)
+
+
+def xz2_query_bounds(
+    sfc, xmin: float, ymin: float, xmax: float, ymax: float,
+    max_ranges: int = 128,
+) -> np.ndarray:
+    """(R, 4) uint32 range bounds for one bbox (loose cell semantics: an
+    over-covering superset; truncation at max_ranges stays a superset)."""
+    return xz_range_bounds(sfc.ranges(xmin, ymin, xmax, ymax, max_ranges=max_ranges))
+
+
+def xz3_query_bounds(
+    sfc,
+    xmin: float,
+    ymin: float,
+    xmax: float,
+    ymax: float,
+    tmin_ms: int,
+    tmax_ms: int,
+    max_ranges: int = 128,
+) -> "tuple[np.ndarray, np.ndarray]":
+    """(bounds (B, R, 4), bin_ids (B,)) for a bbox + absolute-ms window:
+    one entry per period bin, partial time extents on edge bins (the xz3
+    analog of :func:`z3_query_bounds`); interior whole-period bins share
+    one decomposition. Per-bin range lists pad to a common R with
+    never-matching entries."""
+    mx = max_offset(sfc.period)
+    per_bin: list = []
+    ids: list = []
+    whole_cache = None
+    ax, ay = np.array([xmin]), np.array([ymin])
+    bx, by = np.array([xmax]), np.array([ymax])
+    for b, lo_off, hi_off in bins_for_interval(tmin_ms, tmax_ms, sfc.period):
+        whole = lo_off == 0 and hi_off == mx
+        if whole and whole_cache is not None:
+            rs = whole_cache
+        else:
+            rs = sfc.ranges(
+                ax, ay, np.array([float(lo_off)]), bx, by, np.array([float(hi_off)]),
+                max_ranges=max_ranges,
+            )
+            if whole:
+                whole_cache = rs
+        per_bin.append(xz_range_bounds(rs))
+        ids.append(b)
+    if not per_bin:
+        return np.zeros((0, 1, 4), np.uint32), np.array([], np.int32)
+    r_max = bucket_cap(max(len(p) for p in per_bin))  # the pad_ranges ladder
+    stacked = np.stack([pad_ranges(p, min_r=r_max) for p in per_bin])
+    return stacked, np.array(ids, np.int32)
+
+
+def _u64_of(hi, lo) -> np.ndarray:
+    return (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
+
+
+def _merged(lo: np.ndarray, hi: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
+    """Union of inclusive uint64 ranges (lo <= hi) as sorted, disjoint
+    (lows, highs) arrays."""
+    order = np.argsort(lo, kind="stable")
+    lows, highs = [], []
+    for a, b in zip(lo[order].tolist(), hi[order].tolist()):
+        if highs and a <= highs[-1] + 1:
+            highs[-1] = max(highs[-1], b)
+        else:
+            lows.append(a)
+            highs.append(b)
+    return np.array(lows, np.uint64), np.array(highs, np.uint64)
+
+
+_SIGN = np.uint64(1 << 63)
+
+
+def _ordered_i64(v: np.ndarray) -> np.ndarray:
+    """uint64 -> int64 with the order kept (top bit flipped), the keys
+    searchsorted compares: 2^64-1 stays the greatest, not -1."""
+    return (np.asarray(v, np.uint64) ^ _SIGN).view(np.int64)
+
+
+def _keys_i64(xz_hi: torch.Tensor, xz_lo: torch.Tensor) -> torch.Tensor:
+    """The rows' 64-bit codes, top bit flipped, as int64 (the order of
+    :func:`_ordered_i64`)."""
+    hi = widen_u32(xz_hi) ^ 0x80000000
+    return (hi << 32) | widen_u32(xz_lo)
+
+
+def _real_ranges(bounds: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
+    """(lo, hi) uint64 of the (R, 4) bounds rows that can match (lo <= hi):
+    the never-matching padding drops out here."""
+    b = np.asarray(bounds, np.uint32).reshape(-1, 4)
+    lo, hi = _u64_of(b[:, 0], b[:, 1]), _u64_of(b[:, 2], b[:, 3])
+    keep = lo <= hi
+    return lo[keep], hi[keep]
+
+
+class _SortedRanges:
+    """Sorted, disjoint inclusive int64 ranges, uploaded once per device;
+    ``search`` tells, with one binary search per key, which keys (int64 in
+    the ranges' order) fall in one."""
+
+    def __init__(self, lows: np.ndarray, highs: np.ndarray):
+        self.lows, self.highs = lows, highs
+        self._dev: dict = {}
+
+    def search(self, keys: torch.Tensor) -> torch.Tensor:
+        if not len(self.lows):
+            return torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+        t = self._dev.get(keys.device)
+        if t is None:
+            t = self._dev[keys.device] = (torch.from_numpy(self.lows).to(keys.device),
+                                          torch.from_numpy(self.highs).to(keys.device))
+        i = torch.searchsorted(t[0], keys, right=True) - 1
+        return (i >= 0) & (keys <= t[1][i.clamp(min=0)])
+
+
+class _XZ2Ranges(_SortedRanges):
+    """One unbinned xz query's ranges, merged and sorted once (int64 in
+    the order of :func:`_ordered_i64`)."""
+
+    def __init__(self, lo: np.ndarray, hi: np.ndarray):
+        lows, highs = _merged(lo, hi)
+        super().__init__(_ordered_i64(lows), _ordered_i64(highs))
+
+    def mask(self, xz_hi, xz_lo) -> torch.Tensor:
+        return self.search(_keys_i64(xz_hi, xz_lo))
+
+
+class _XZ3Ranges(_SortedRanges):
+    """One binned xz query as a single sorted range list: each entry's
+    ranges become composite ranges ``(bin - first) << bits | code`` over
+    the bins >= 0 (a negative id is padding and never matches, as in the
+    interleaved scan), merged once; a row's key is its bin offset and code
+    composed the same way, searched once. Where the composite would pass
+    62 bits (never for the ranges of one window at g <= 12), the entries
+    are searched one by one."""
+
+    def __init__(self, bounds, bin_ids):
+        b = np.asarray(bounds, np.uint32)
+        ids = np.asarray(bin_ids, np.int64)
+        parts = [(int(ids[e]), *_real_ranges(b[e])) for e in range(len(ids)) if ids[e] >= 0]
+        self.parts = [p for p in parts if len(p[1])]
+        self.fits = True
+        if not self.parts:
+            super().__init__(np.zeros(0, np.int64), np.zeros(0, np.int64))
+            return
+        self.first = min(p[0] for p in self.parts)
+        self.span = max(p[0] for p in self.parts) - self.first + 1
+        self.max_code = max(int(p[2].max()) for p in self.parts)
+        self.bits = max(self.max_code.bit_length(), 1)
+        self.fits = self.bits + self.span.bit_length() <= 62
+        if not self.fits:
+            self.parts = [(bin_id, _XZ2Ranges(lo, hi)) for bin_id, lo, hi in self.parts]
+            return
+        shift = [np.uint64(p[0] - self.first) << np.uint64(self.bits) for p in self.parts]
+        lows, highs = _merged(np.concatenate([s | p[1] for s, p in zip(shift, self.parts)]),
+                              np.concatenate([s | p[2] for s, p in zip(shift, self.parts)]))
+        super().__init__(lows.view(np.int64), highs.view(np.int64))
+
+    def mask(self, xz_hi, xz_lo, bins) -> torch.Tensor:
+        if not self.parts:
+            return torch.zeros(xz_hi.shape, dtype=torch.bool, device=xz_hi.device)
+        if not self.fits:
+            bn = bins.to(torch.int64)
+            total = torch.zeros(xz_hi.shape, dtype=torch.bool, device=xz_hi.device)
+            for bin_id, ranges in self.parts:
+                total |= (bn == bin_id) & ranges.mask(xz_hi, xz_lo)
+            return total
+        off = bins.to(torch.int64) - self.first
+        code = (widen_u32(xz_hi) << 32) | widen_u32(xz_lo)
+        # a code past every range's high matches nothing (and must not
+        # spill into the next bin's composite space)
+        ok = (off >= 0) & (off < self.span) & (code >= 0) & (code <= self.max_code)
+        key = torch.where(ok, (off << self.bits) | code, -1)
+        return self.search(key) & ok
+
+
+def xz_range_mask(xz_hi, xz_lo, bounds) -> torch.Tensor:
+    """Boolean hit mask for unbinned XZ2 keys; bounds is (R, 4) uint32.
+    Equal to the counterpart's any-of-R compare for every bounds array."""
+    return _XZ2Ranges(*_real_ranges(bounds)).mask(xz_hi, xz_lo)
+
+
+def xz3_range_mask(xz_hi, xz_lo, bins, bounds, bin_ids) -> torch.Tensor:
+    """Boolean hit mask for binned XZ3 keys: bounds (B, R, 4) uint32
+    per-bin ranges, bin_ids (B,) int32. Entries with ``bin_ids < 0`` are
+    padding and never match (the counterpart compares padded ids like any
+    other, so a row in bin -1 with code 0 would match a padded entry's
+    all-zero bounds there)."""
+    return _XZ3Ranges(bounds, bin_ids).mask(xz_hi, xz_lo, bins)
+
+
+def build_xz_scan(bounds: np.ndarray, bin_ids: "np.ndarray | None"):
+    """(count_fn, mask_fn) for one loose xz query, the ranges merged once:
+    over (xz_hi, xz_lo) for xz2 (``bin_ids`` None), over (bins, xz_hi,
+    xz_lo) for xz3, the operand order of the interleaved scan. Torch ops
+    on the planes' device; the count is int32."""
+    if bin_ids is None:
+        mask = _XZ2Ranges(*_real_ranges(bounds)).mask
+    else:
+        r3 = _XZ3Ranges(bounds, bin_ids)
+
+        def mask(bins, xz_hi, xz_lo):
+            return r3.mask(xz_hi, xz_lo, bins)
+
+    return (lambda *planes: mask(*planes).sum(dtype=torch.int32)), mask
+
+
 def kind_mask_fn(kind: str):
     """Key-plane mask function for an index-key kind: binned kinds take
     (hi, lo, bins, bounds, ids), unbinned (hi, lo, bounds)."""
-    fns = {"z3": z3_zscan_mask, "z2": z2_zscan_mask}
-    if kind in ("xz3", "xz2"):
-        raise NotImplementedError(
-            f"{kind} range masks are a later port slice (ROADMAP, port queue: "
-            "interleaved-layout and xz scans, the xz kinds)"
-        )
-    return fns[kind]
+    return {
+        "z3": z3_zscan_mask,
+        "z2": z2_zscan_mask,
+        "xz3": xz3_range_mask,
+        "xz2": xz_range_mask,
+    }[kind]
 
 
 class _ZScan:

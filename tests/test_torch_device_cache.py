@@ -207,8 +207,22 @@ def test_later_slices_raise():
         di.stats("INCLUDE", 'TopK("name")')
     with pytest.raises(NotImplementedError, match="port queue: kNN"):
         di.knn()
-    with pytest.raises(NotImplementedError, match="port queue: the xz kinds"):
-        di.count("RELATE(geom, POINT(0 0), 'T********')")
-    poly = SimpleFeatureType.create("p", "*geom:Polygon:srid=4326")
-    with pytest.raises(NotImplementedError, match="xz"):
-        FeatureBatch.from_columns(poly, {"geom": ["POLYGON((0 0, 1 0, 1 1, 0 0))"]})
+    # the DE-9IM relations and non-point schemas are in the port now: they
+    # answer as the JAX package does
+    from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
+
+    jdi = JIndex(JStore(JBatch.from_columns(JSFT.create("t", Z3_SPEC), cols)), "t", z_planes=True)
+    for ecql in ("RELATE(geom, POINT(0 0), 'T********')",
+                 "TOUCHES(geom, POLYGON((-60 -30, 60 -30, 60 30, -60 30, -60 -30)))",
+                 "RELATE(geom, POLYGON((-60 -30, 60 -30, 60 30, -60 30, -60 -30)), 'T********')"):
+        assert di.count(ecql) == jdi.count(ecql)
+    spec = "*geom:Polygon:srid=4326"
+    wkt = ["POLYGON((0 0, 1 0, 1 1, 0 0))", "POLYGON((5 5, 6 5, 6 6, 5 5))"]
+    poly = FeatureBatch.from_columns(SimpleFeatureType.create("p", spec), {"geom": wkt})
+    jpoly = JBatch.from_columns(JSFT.create("p", spec), {"geom": wkt})
+    pdi = DeviceIndex(BatchStore(poly), "p", z_planes=True, device="cpu")
+    jpdi = JIndex(JStore(jpoly), "p", z_planes=True)
+    assert pdi._z_kind == jpdi._z_kind == "xz2"
+    for ecql in ("BBOX(geom, 0.5, 0.5, 2, 2)", "INTERSECTS(geom, POINT(0.75 0.25))"):
+        for loose in (False, True):
+            assert pdi.count(ecql, loose=loose) == jpdi.count(ecql, loose=loose)

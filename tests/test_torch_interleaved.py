@@ -167,12 +167,39 @@ def test_z2_dim_bounds_match_jax(env):
     np.testing.assert_array_equal(tz.z2_dim_bounds(qlo, qhi), jz.z2_dim_bounds(qlo, qhi))
 
 
-def test_kind_mask_fn_refuses_xz_kinds():
+@pytest.mark.parametrize("kind", ["xz3", "xz2"])
+def test_kind_mask_fn_xz_kinds_match_jax(kind):
+    """The xz kinds dispatch to the port's range masks, which answer as
+    the JAX package's on the same codes and bounds."""
+    from geomesa_tpu.curves.xz2 import XZ2SFC as JXZ2
+    from geomesa_tpu.curves.xz3 import XZ3SFC as JXZ3
+
     assert tz.kind_mask_fn("z3") is tz.z3_zscan_mask
     assert tz.kind_mask_fn("z2") is tz.z2_zscan_mask
-    for kind in ("xz3", "xz2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tz.kind_mask_fn(kind)
+    rng = np.random.default_rng(11)
+    n = 2000
+    x0, y0 = rng.uniform(-30, 30, n), rng.uniform(-30, 30, n)
+    x1, y1 = x0 + rng.uniform(0, 2, n), y0 + rng.uniform(0, 2, n)
+    off = rng.uniform(0, 604800, n)
+    bins = rng.integers(2606, 2611, n).astype(np.int32)
+    if kind == "xz2":
+        code = JXZ2().index(x0, y0, x1, y1)
+        bounds = jz.pad_ranges(jz.xz2_query_bounds(JXZ2(), -10, -5, 12, 8))
+        args, jargs = (bounds,), (jnp.asarray(bounds),)
+    else:
+        code = JXZ3().index(x0, y0, off, x1, y1, off)
+        bounds, ids = jz.pad_bins(*jz.xz3_query_bounds(
+            JXZ3(), -10, -5, 12, 8, 2607 * 604_800_000 + 5 * 86_400_000,
+            2609 * 604_800_000 + 2 * 86_400_000))
+        args = (torch.from_numpy(bins), bounds, ids)
+        jargs = (jnp.asarray(bins), jnp.asarray(bounds), jnp.asarray(ids))
+    c = code.astype(np.uint64)
+    hi = (c >> np.uint64(32)).astype(np.uint32)
+    lo = (c & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    got = tz.kind_mask_fn(kind)(torch.from_numpy(hi), torch.from_numpy(lo), *args)
+    want = np.asarray(jz.kind_mask_fn(kind)(jnp.asarray(hi), jnp.asarray(lo), *jargs))
+    assert 0 < want.sum() < n
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # -- the interleaved scan and the baked dim scan --------------------------------

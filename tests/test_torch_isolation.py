@@ -1,6 +1,6 @@
 """The port stands alone: ``geomesa_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, and entry points never fall back
-to the CPU on their own."""
+import neither JAX nor the JAX package (also on a non-point xz2 workload),
+and entry points never fall back to the CPU on their own."""
 
 import os
 import re
@@ -53,6 +53,19 @@ grid = density(store, "t", q, env, 32, 16, device_index=ldi, auths=("A",))
 assert grid.sum() == ldi.count(q, auths=("A",)) < di.count(q)
 seq = ldi.stats(q, 'Count();MinMax("count");Histogram("count",10,0,10)', auths=("A",))
 assert seq.to_json()[0]["count"] == grid.sum()
+psft = SimpleFeatureType.create("p", "name:String,*geom:Polygon:srid=4326")
+x0, y0 = rng.uniform(-50, 40, n), rng.uniform(-50, 40, n)
+wkt = [f"POLYGON (({a} {b}, {a + 2} {b}, {a + 2} {b + 1}, {a} {b}, {a} {b}))"
+       for a, b in zip(x0, y0)]
+pbatch = FeatureBatch.from_columns(psft, {"name": ["x"] * n, "geom": wkt})
+pdi = DeviceIndex(BatchStore(pbatch), "p", z_planes=True, device="cpu")
+assert pdi._z_kind == "xz2"
+pq = "BBOX(geom, -10, -10, 30, 30)"
+assert pdi.count(pq, loose=True) >= pdi.count(pq) == len(pdi.query(pq)) > 0
+rq = "BBOX(geom, -10, -10, 30, 30) AND TOUCHES(geom, POLYGON((0 0, 10 0, 10 10, 0 10, 0 0)))"
+assert pdi.count(rq) <= pdi.count(pq)
+assert pdi.stats(pq, "Count()", loose=True).to_json()[0]["count"] == pdi.count(pq, loose=True)
+assert pdi.density(pq, env, 8, 8) is None
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

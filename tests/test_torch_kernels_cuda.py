@@ -119,6 +119,63 @@ def test_filter_scan_kernel_matches_plain(dev, batch, ecql):
     assert kernels.LAUNCHES["filter_scan_count"] == before + 1
 
 
+POLY_SPEC = "name:String,count:Int,dtg:Date,*geom:Polygon:srid=4326"
+ENV_BOX = (-10.0, 35.0, 30.0, 60.0)
+ENV_FILTERS = [
+    "BBOX(geom, -10, 35, 30, 60)",
+    "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z",
+    "DWITHIN(geom, POINT(5 45), 500, kilometers)",
+    "DWITHIN(geom, POLYGON((-10 35, 30 40, 20 60, -5 55, -10 35)), 50, kilometers)",
+    "INTERSECTS(geom, POLYGON((-10 35, 30 40, 20 60, -5 55, -10 35)))",
+    "NOT (count < 200 OR BBOX(geom, -10, 35, 30, 60)) OR dtg > '2020-02-20T00:00:00Z'",
+]
+
+
+def envelope_planes(n, seed, box=ENV_BOX):
+    """Float32 envelope planes of n synthetic footprints around ``box``,
+    the first rows with an edge exactly on a box edge or one float32 ulp
+    inside or outside it, plus count and dtg planes."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(box[0] - 20, box[2] + 10, n).astype(np.float32)
+    y0 = rng.uniform(box[1] - 20, box[3] + 10, n).astype(np.float32)
+    x1 = (x0 + rng.uniform(0, 3, n)).astype(np.float32)
+    y1 = (y0 + rng.uniform(0, 3, n)).astype(np.float32)
+    edges = []
+    for v in box:
+        f = np.float32(v)
+        edges += [f, np.nextafter(f, np.float32(-1e9)), np.nextafter(f, np.float32(1e9))]
+    cx, cy = np.float32((box[0] + box[2]) / 2), np.float32((box[1] + box[3]) / 2)
+    for i, e in enumerate(edges[:n]):
+        # row i: an envelope inside the box but for one edge on, just
+        # inside or just outside a box edge (x1 at xmin, y1 at ymin, x0 at
+        # xmax, y0 at ymax)
+        x0[i], y0[i], x1[i], y1[i] = cx - 1, cy - 1, cx + 1, cy + 1
+        k = i // 3
+        lo_plane, hi_plane = ((x0, x1), (y0, y1), (x0, x1), (y0, y1))[k]
+        if k < 2:
+            hi_plane[i], lo_plane[i] = e, e - np.float32(1)
+        else:
+            lo_plane[i], hi_plane[i] = e, e + np.float32(1)
+    dtg = rng.integers(T0, T0 + 60 * 86400_000, n)
+    hi, lo = (dtg >> 32).astype(np.int32), (dtg & 0xFFFFFFFF).astype(np.uint32)
+    return {"geom__x0": x0, "geom__y0": y0, "geom__x1": x1, "geom__y1": y1,
+            "count": rng.integers(0, 1000, n).astype(np.int32),
+            "dtg__hi": hi, "dtg__lo": lo}
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 20) + 17])
+@pytest.mark.parametrize("ecql", ENV_FILTERS, ids=lambda s: s[:40])
+def test_filter_scan_envelope_planes_match_plain(dev, n, ecql):
+    sft = SimpleFeatureType.create("p", POLY_SPEC)
+    cf = compile_filter(parse_ecql(ecql), sft)
+    assert cf.program is not None
+    planes = envelope_planes(n, n)
+    cols = {c: torch.from_numpy(planes[c]).to(dev) for c in cf.device_cols}
+    want = filter_scan.run_program_plain(cf.program, cols)
+    assert torch.equal(cf.mask(cols), want)
+    assert int(cf.count(cols)) == int(want.sum())
+
+
 # -- interleaved masked-compare scan and baked dim scan ---------------------
 
 
