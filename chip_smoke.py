@@ -21,7 +21,13 @@ Phases:
      2^20+17}, edges on, one float32 ulp inside and outside the box:
      BBOX, BBOX AND DURING, DWITHIN around a point and a polygon, an
      INTERSECTS's envelope prefilter, a NOT/OR mix): bit-exact,
-     weighted density grids within rtol 1e-6;
+     weighted density grids within rtol 1e-6; and the AIS processes'
+     torch ops (ops/knn.py, ops/window.py) on the card against the same
+     functions on CPU tensors, bit for bit, at n in {0, 1, 1000, 2^20+17}:
+     kNN with exact duplicates at one distance and rows on the radius
+     box's edges and one ulp either side, k in {1, 10, 120, 8192}; the
+     union mask over m in {1, 2, 64, 257} windows with and without time
+     windows, rows on window edges and one ulp around them;
   3. the main path at full size: a GDELT-shaped resident Z3 point type
      (count:Int,dtg:Date,*geom:Point, 2^26 rows from a fixed seed: 90% of
      points in 64 city clusters, coordinates float32, dtg over 60 days from
@@ -44,9 +50,9 @@ Phases:
      loose answers against numpy over host-encoded keys on a subsample,
      exact counts against numpy);
   3b. a labeled Z3 index of 2^24 rows (labels from a fixed seed over six
-     visibility expressions): counts, fid sets, density grids and a
-     Count() stat under three auth sets, checked against numpy with a
-     per-label verdict table;
+     visibility expressions): counts, fid sets, density grids, a Count()
+     stat and two kNN calls (one with a base filter) under three auth
+     sets, checked against numpy with a per-label verdict table;
   3d. the xz path, non-point footprints: 2^21 OSM-building-shaped
      polygons (85% 4-to-12-vertex, 10% with a hole, 5% MultiPolygons,
      5-60 m across, 90% in phase 3's city clusters) staged as xz2
@@ -62,6 +68,23 @@ Phases:
      DWITHIN equal numpy over the float32 envelope planes, residual
      answers equal evaluate_host, from_planes answers alike, and the launch
      counts show every exact count and mask on the filter-scan kernel;
+  3e. the AIS processes, BASELINE config #4: 2^26 AIS position reports
+     shaped like NOAA MarineCadastre's
+     (mmsi:Int,vessel_type:Int,sog:Float,cog:Float,dtg:Date,*geom:Point;
+     2^14 vessels x 4,096 three-minute fixes shuttling between phase 3's
+     64 city centres as ports, 10% moored, starts over 30 days, rows in
+     report-time order, coordinates exact in float32) staged with key
+     planes; 24 DeviceIndex.knn calls (busy lanes and ports, open ocean,
+     75N, the antimeridian; k from 1 to 8192; 4 at radius 0.5 in sparse
+     water; 8 with base filters on the filter-scan kernel) and 4 through
+     process.knn, 6 tube_select calls on vessels' own tracks of 17-257
+     fixes, 4 proximity_search calls (8 ports, a 128-vertex lane, a
+     harbour polygon, one with a base filter) and 4 one-day density calls
+     over a 512x512 sea viewport (exact, loose, weighted by sog); every
+     kNN answer equals a numpy oracle of the same float32 formula bit for
+     bit, tube and proximity fid sets (and distances) equal numpy, grids
+     equal numpy, and the launch counts show the filter-scan kernel for
+     every base filter and the density kernel for every density call;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -69,8 +92,9 @@ Phases:
      drive, clustered and uniform, counted and weighted; the filter scan
      over envelope planes (BBOX, BBOX AND DURING) at 2^26 synthetic rows
      made on the card and on the xz drive's planes; and, on a line of
-     their own, the torch ops of the xz path that replace no TPU kernel
-     (the xz range masks, the card key encode).
+     their own, the torch ops that replace no TPU kernel (the xz range
+     masks, the card key encode, the kNN pass at k = 10 and 8192 and the
+     union mask of 16 and 256 tube windows at 2^26 AIS rows).
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -546,6 +570,78 @@ def check_density_viewports(dev, errs: Errs):
     log(f"density viewports: zero-width on every engine == plain; inverted and zero-width "
         f"through DeviceIndex.density == numpy (inverted launched nothing); store path "
         f"zero / ZeroDivisionError")
+
+
+RAGGED = (0, 1, 1000, (1 << 20) + 17)
+
+
+def _ulps(v) -> list:
+    """float32 ``v`` and one ulp above and below it."""
+    e = np.float32(v)
+    return [e, np.nextafter(e, np.float32(np.inf)), np.nextafter(e, np.float32(-np.inf))]
+
+
+def check_ais_ops(dev):
+    """The AIS processes' torch ops (ops/knn.py, ops/window.py; no TPU
+    kernel behind them) on the card against the same functions on CPU
+    tensors, bit for bit: kNN distance and selection with 40 exact
+    duplicates at one distance and rows on the radius box's edges and one
+    ulp either side; the union mask over m in {1, 2, 64, 257} windows, with
+    and without time windows, rows on a window's edges and one ulp around."""
+    import torch
+
+    from geomesa_tpu_torch.ops import knn as knn_ops
+    from geomesa_tpu_torch.ops.int64lanes import split_array_np
+    from geomesa_tpu_torch.ops.window import union_mask, widen
+
+    cpu = torch.device("cpu")
+    cases = 0
+    for n in RAGGED:
+        rng = np.random.default_rng(SEED + n)
+        x = rng.uniform(9.0, 11.0, n).astype(np.float32)
+        y = rng.uniform(19.0, 21.0, n).astype(np.float32)
+        if n >= 1000:
+            x[100:140], y[100:140] = np.float32(10.25), np.float32(20.125)
+            edge = _ulps(10.5) + _ulps(9.5)
+            x[200:206], y[200:206] = edge, np.float32(20.0)
+            y[300:306], x[300:306] = _ulps(20.5) + _ulps(19.5), np.float32(10.0)
+        mask = rng.random(n) < 0.8
+        q = (10.0, 20.0, 0.5, knn_ops.lon_factor(20.0))
+        for k in (1, 10, 120, 8192):
+            out = []
+            for d in (dev, cpu):
+                xt, yt = torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)
+                qt = knn_ops.query_vector(*q, d)
+                out.append([knn_ops.knn_d2(xt, yt, qt).cpu()] + [
+                    t.cpu() for t in knn_ops.knn(xt, yt, qt, k, torch.from_numpy(mask).to(d))])
+            if not all(torch.equal(a, b) for a, b in zip(*out)):
+                raise AssertionError(f"knn ops n={n} k={k}: the card != the CPU")
+            cases += 1
+        t = T0 + rng.integers(0, DAY, n)
+        hi, lo = split_array_np(t)
+        for m in (1, 2, 64, 257):
+            c = rng.uniform(9.0, 11.0, (m, 2))
+            h = rng.uniform(0.01, 0.5, (m, 2))
+            envs = _f32(np.concatenate([c - h, c + h], axis=1))
+            envs[3::7] = envs[3::7][:, [2, 3, 0, 1]]  # inverted windows
+            if n >= 1000:
+                x[400:403], y[400:403] = _ulps(envs[0, 2]), np.float32((envs[0, 1] + envs[0, 3]) / 2)
+                x[403:406], y[403:406] = _ulps(envs[0, 0]), np.float32((envs[0, 1] + envs[0, 3]) / 2)
+            t0 = T0 + rng.integers(0, DAY, m)
+            times = np.stack([t0, t0 + rng.integers(0, DAY // 4, m)], axis=1)
+            for tm in (None, times):
+                out = []
+                for d in (dev, cpu):
+                    lanes = (None, None) if tm is None else (
+                        torch.from_numpy(hi).to(d), torch.from_numpy(lo).to(d))
+                    out.append(union_mask(torch.from_numpy(x).to(d), torch.from_numpy(y).to(d),
+                                          widen(envs), *lanes, times=tm).cpu())
+                if not torch.equal(*out):
+                    raise AssertionError(f"union mask n={n} m={m} times={tm is not None}: "
+                                         "the card != the CPU")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"AIS torch ops: {cases} kNN and union-mask cases, the card == the CPU bit for bit")
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -1194,6 +1290,8 @@ VERDICTS = {  # auths -> whether each of LABELS is visible, written out by hand
     ("A", "B", "C"): [True, True, True, True, True, True],
 }
 N_LABELED = 1 << 24
+# kNN on the labeled index, (target, k, base filter): phase 3's city centres
+LABELED_KNN = [((2.3515625, 48.859375), 100, None), ((-73.96875, 40.78125), 1000, "count > 500")]
 
 
 def run_labeled_path(dev, queries):
@@ -1236,18 +1334,24 @@ def run_labeled_path(dev, queries):
             di.density(europe, Envelope(*EUROPE), 256, 256, auths=auths),
             di.density("INCLUDE", Envelope(*WORLD), 512, 256, auths=auths),
             di.stats(europe, "Count()", auths=auths).to_json()[0]["count"],
+            [di.knn(*target, kk, query=base, auths=auths) for target, kk, base in LABELED_KNN],
         )
     k = len(VERDICTS)
     launches = read_launches("labeled path", {
-        "dimscan_z3_mask": 2 * k, "filter_scan_mask": 4 * k, "density_count": 2 * k,
+        "dimscan_z3_mask": 2 * k, "density_count": 2 * k,
+        "filter_scan_mask": (4 + sum(b is not None for _, _, b in LABELED_KNN)) * k,
     })
     t = time.time()
     x = cols["geom"][:, 0].astype(np.float32)
     y = cols["geom"][:, 1].astype(np.float32)
     em = np_exact(x, y, cols["dtg"], eb, ew)
     lm = np_loose(di._loose_bounds(parse_ecql(europe))[1], host_z3_planes(cols))
-    for auths, (c_loose, c_exact, f_exact, f_loose, g_eu, g_all, n_stat) in res.items():
+    for auths, (c_loose, c_exact, f_exact, f_loose, g_eu, g_all, n_stat, nn) in res.items():
         seen = np.asarray(VERDICTS[auths])[lab]
+        for (target, kk, base), got in zip(LABELED_KNN, nn):
+            keep = seen if base is None else seen & (cols["count"] > 500)
+            check_knn(f"labeled kNN {auths} {target} k={kk} {base}", got,
+                      np_knn(x, y, *target, 45.0, kk, keep))
         ex, lo = em & seen, lm & seen
         if c_exact != int(ex.sum()) or n_stat != c_exact or c_loose != int(lo.sum()):
             raise AssertionError(f"labeled {auths}: counts {c_exact}/{n_stat}/{c_loose} != numpy")
@@ -1258,7 +1362,7 @@ def run_labeled_path(dev, queries):
                 and same_grid(g_all, np_density(x, y, seen, WORLD, (512, 256)), False)):
             raise AssertionError(f"labeled {auths}: density grid != numpy")
         log(f"labeled auths={auths}: exact {c_exact}, loose {c_loose}, "
-            f"visible rows {int(seen.sum())}")
+            f"visible rows {int(seen.sum())}, kNN rows {[len(r[0]) for r in nn]}")
     log(f"checked the labeled path against numpy in {time.time() - t:.1f} s")
     return launches
 
@@ -1419,22 +1523,27 @@ def np_xz_loose(codes, bins, lb) -> np.ndarray:
 
 
 class Calls:
-    """Latencies per call kind, and the filter-scan launches the exact
-    calls must cause (a count with no host residual: one count kernel;
-    every other exact count, mask, query or stats call: one mask kernel;
-    a loose call on xz keys: none, the range masks are torch ops)."""
+    """Latencies per call kind, and the launches each call must cause, by
+    kernel (xz path: a count with no host residual, one count kernel;
+    every other exact count, mask, query or stats call, one mask kernel; a
+    loose call on xz keys, none: the range masks are torch ops)."""
 
     def __init__(self):
         self.lat: dict = {}
-        self.want = {"filter_scan_count": 0, "filter_scan_mask": 0}
+        self.want: dict = {}
 
-    def run(self, kind, fn, launch=None):
+    def run(self, kind, fn, *launches):
         t = time.perf_counter()
         out = fn()
         self.lat.setdefault(kind, []).append(time.perf_counter() - t)
-        if launch:
-            self.want[launch] += 1
+        for name in filter(None, launches):
+            self.want[name] = self.want.get(name, 0) + 1
         return out
+
+    def log_latency(self, tag: str) -> None:
+        for kind, v in self.lat.items():
+            log(f"latency {tag} {kind}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms "
+                f"({len(v)} calls) [{CARD}]")
 
 
 def _drive_xz(di, queries, calls: Calls, tag: str) -> dict:
@@ -1577,9 +1686,7 @@ def run_xz_path(dev, n2: int = XZ_N2, n3: int = XZ_N3, n_lab: int = XZ_LABELED) 
                 "stats", lambda: di.stats(q, spec, loose=loose).to_json(),
                 None if loose else "filter_scan_mask")
     launches = read_launches("xz path", calls.want)
-    for kind, v in calls.lat.items():
-        log(f"latency xz {kind}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms "
-            f"({len(v)} calls) [{CARD}]")
+    calls.log_latency("xz")
 
     # -- checks ---------------------------------------------------------------
     t = time.time()
@@ -1662,6 +1769,399 @@ def run_xz_path(dev, n2: int = XZ_N2, n3: int = XZ_N3, n_lab: int = XZ_LABELED) 
     log(f"phase 3d labeled: {n_lab:,} rows staged, driven and checked in {time.time() - t:.1f} s")
     total = {k: launches[k] + lab_launches[k] for k in launches}
     return {"di2": di2, "di3": di3, "traffic": traffic, "launches": total}
+
+
+# -- phase 3e: the AIS processes (BASELINE config #4) --------------------------
+
+AIS_SPEC = "mmsi:Int,vessel_type:Int,sog:Float,cog:Float,dtg:Date,*geom:Point:srid=4326"
+AIS_VESSELS = 1 << 14
+AIS_FIXES = 1 << 12  # 3-minute reports: 8.5 days a vessel
+AIS_REPORT_MS = 180_000
+AIS_DAYS = 30  # start times spread over 30 days from 2020-01-01
+VESSEL_TYPES = np.array([30, 31, 36, 52, 60, 70, 80, 90], np.int32)
+KNN_K = (1, 10, 100, 1000, 8192)
+
+
+def ais_ports() -> np.ndarray:
+    """Phase 3's 64 city centres, used as ports."""
+    crng = np.random.default_rng(SEED)
+    return np.stack([crng.uniform(-170.0, 170.0, 64), crng.uniform(-60.0, 70.0, 64)], axis=1)
+
+
+def make_ais(dev, nv: int, nf: int, seed: int = SEED + 20) -> dict:
+    """AIS position reports shaped like NOAA MarineCadastre's (MMSI,
+    BaseDateTime, LAT, LON, SOG, COG, VesselType): nv vessels of nf fixes
+    each, every 3 minutes. Each vessel shuttles between two of the 64 ports
+    along a straight lane at its speed (SOG 0-25 kn) with a cross-track
+    random walk; 10% are moored at their first port (SOG < 0.5). Rows are in
+    report-time order (sorted on the card), coordinates exact in float32.
+    Returns the columns plus ``_vid`` (vessel of each row), ``_lanes``
+    (ports a, b per vessel), ``_moored`` and ``_ports``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ports = ais_ports()
+    a = rng.integers(0, 64, nv)
+    b = (a + rng.integers(1, 64, nv)) % 64
+    moored = rng.random(nv) < 0.1
+    vtype = VESSEL_TYPES[rng.integers(0, len(VESSEL_TYPES), nv)]
+    sog = np.clip(rng.uniform(6.0, 22.0, nv)[:, None] + rng.normal(0.0, 1.5, (nv, nf)), 0.0, 25.0)
+    sog[moored] = rng.uniform(0.0, 0.5, (int(moored.sum()), nf))
+    sog = sog.astype(np.float32)
+    d = ports[b] - ports[a]
+    length = np.hypot(d[:, 0], d[:, 1])[:, None]
+    # degrees run along the lane: a knot is a sixtieth of a degree an hour
+    leg = np.cumsum(sog * np.float32(AIS_REPORT_MS / 3.6e6 / 60.0), axis=1, dtype=np.float64)
+    leg += rng.uniform(0.0, 2.0, (nv, 1)) * length
+    leg = np.mod(leg, 2.0 * length)
+    back = leg > length  # on the way back to port a
+    frac = np.where(back, 2.0 * length - leg, leg) / length
+    frac[moored] = 0.0
+    del leg
+    drift = np.cumsum(rng.normal(0.0, 0.002, (nv, nf)), axis=1)
+    drift[moored] *= 0.05
+    nx, ny = (-d[:, 1:2] / length), (d[:, 0:1] / length)
+    x = _f32(np.clip(ports[a, 0:1] + frac * d[:, 0:1] + drift * nx, -180.0, 180.0))
+    y = _f32(np.clip(ports[a, 1:2] + frac * d[:, 1:2] + drift * ny, -90.0, 90.0))
+    del frac, drift
+    cog = np.mod(np.degrees(np.arctan2(d[:, 0:1], d[:, 1:2])) + np.where(back, 180.0, 0.0)
+                 + rng.normal(0.0, 3.0, (nv, nf)), 360.0).astype(np.float32)
+    del back
+    start = T0 + rng.integers(0, AIS_DAYS * DAY, nv)
+    dtg = start[:, None] + np.arange(nf) * AIS_REPORT_MS + rng.integers(0, 10_000, (nv, nf))
+    dtg = dtg.ravel()
+    order = torch.from_numpy(dtg).to(dev).sort(stable=True).indices.cpu().numpy()
+    vid = np.repeat(np.arange(nv, dtype=np.int32), nf)[order]
+    geom = np.empty((nv * nf, 2))
+    geom[:, 0], geom[:, 1] = x.ravel()[order], y.ravel()[order]
+    return {
+        "mmsi": (366_000_000 + vid).astype(np.int32),
+        "vessel_type": vtype[vid],
+        "sog": sog.ravel()[order],
+        "cog": cog.ravel()[order],
+        "dtg": dtg[order],
+        "geom": geom,
+        "_vid": vid, "_lanes": np.stack([a, b], axis=1), "_moored": moored, "_ports": ports,
+    }
+
+
+def _remote_points(ports, lanes, k: int) -> list:
+    """k points of a 5-degree grid farthest from every lane: open ocean."""
+    gx, gy = np.meshgrid(np.arange(-170.0, 171.0, 5.0), np.arange(-55.0, 66.0, 5.0))
+    pts = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    segs = np.concatenate([ports[lanes[:, 0]], ports[lanes[:, 1]]], axis=1)
+    best = np.full(len(pts), np.inf)
+    for s in range(0, len(segs), 1024):
+        best = np.minimum(best, np_pt_seg_dist2(pts, segs[s: s + 1024]).min(axis=1))
+    return [tuple(pts[i]) for i in np.argsort(-best, kind="stable")[:k]]
+
+
+def np_pt_seg_dist2(pts, segs) -> np.ndarray:
+    """(n, m) squared distances of points to segments [x0, y0, x1, y1]: the
+    clamped projection, in the order of operations of the reference's
+    ``pt_seg_project``."""
+    p = pts[:, None, :]
+    a = segs[None, :, 0:2]
+    d = segs[None, :, 2:4] - a
+    len2 = (d**2).sum(-1)
+    t = ((p - a) * d).sum(-1) / np.where(len2 == 0, 1.0, len2)
+    t = np.clip(np.where(len2 == 0, 0.0, t), 0.0, 1.0)
+    near = a + t[..., None] * d
+    return ((p - near) ** 2).sum(-1)
+
+
+def np_knn(x, y, px, py, r, k, keep=None):
+    """numpy kNN oracle: the float32 radius box and distance of ops/knn.py
+    (longitude factor rounded once from float64), a stable argsort over the
+    candidates (partitioned to the k-th distance first). (rows, d2)."""
+    import math
+
+    q = np.array([px, py, r], np.float32)
+    c = np.float32(math.cos(math.radians(float(q[1]))))
+    box = (np.abs(x - q[0]) <= q[2]) & (np.abs(y - q[1]) <= q[2])
+    if keep is not None:
+        box &= keep
+    idx = np.nonzero(box)[0]
+    dx = ((x[idx] - q[0]) * c).astype(np.float64)
+    dy = y[idx] - q[1]
+    d2 = (dx * dx + (dy * dy).astype(np.float64)).astype(np.float32)
+    fin = np.isfinite(d2)
+    idx, d2 = idx[fin], d2[fin]
+    if 0 < k < len(idx):
+        sel = np.nonzero(d2 <= np.partition(d2, k - 1)[k - 1])[0]
+        idx, d2 = idx[sel], d2[sel]
+    order = np.argsort(d2, kind="stable")[: max(k, 0)]
+    return idx[order], d2[order]
+
+
+def check_knn(tag, got, want) -> None:
+    """A kNN answer (batch, distances) against the oracle's (rows, d2), bit
+    for bit; fids are row ids."""
+    rows, d2 = want
+    if not np.array_equal(got[0].fids, rows):
+        raise AssertionError(f"{tag}: fids != the numpy oracle ({len(got[0])} vs {len(rows)} rows)")
+    if not np.array_equal(got[1], np.sqrt(d2.astype(np.float64))):
+        raise AssertionError(f"{tag}: distances != the numpy oracle")
+
+
+def np_union(x, y, envs, t=None, times=None) -> np.ndarray:
+    """Rows inside any window widened one float32 ulp outward (and inside
+    its time range): the union envelope first, then a loop over windows."""
+    e = _f32(envs).astype(np.float32)
+    e[:, :2] = np.nextafter(e[:, :2], np.float32(-np.inf))
+    e[:, 2:] = np.nextafter(e[:, 2:], np.float32(np.inf))
+    lo, hi = np.fmin.reduce(e[:, :2], axis=0), np.fmax.reduce(e[:, 2:], axis=0)
+    cand = np.nonzero((x >= lo[0]) & (x <= hi[0]) & (y >= lo[1]) & (y <= hi[1]))[0]
+    xc, yc = x[cand], y[cand]
+    hit = np.zeros(len(cand), bool)
+    for i, (x0, y0, x1, y1) in enumerate(e):
+        m = (xc >= x0) & (xc <= x1) & (yc >= y0) & (yc <= y1)
+        if times is not None:
+            m &= (t[cand] >= times[i, 0]) & (t[cand] <= times[i, 1])
+        hit |= m
+    out = np.zeros(len(x), bool)
+    out[cand[hit]] = True
+    return out
+
+
+def np_tube(cols, x, y, track_xy, track_t, buf, max_dt, keep=None) -> np.ndarray:
+    """Tube select in numpy: the union of the segments' bbox+time windows,
+    then the reference's fine pass (distance to the nearest segment within
+    the buffer, time at the closest approach within max_dt). Row ids."""
+    a, b = track_xy[:-1], track_xy[1:]
+    envs = np.stack([np.minimum(a[:, 0], b[:, 0]) - buf, np.minimum(a[:, 1], b[:, 1]) - buf,
+                     np.maximum(a[:, 0], b[:, 0]) + buf, np.maximum(a[:, 1], b[:, 1]) + buf], axis=1)
+    ta, tb = track_t[:-1], track_t[1:]
+    times = np.stack([np.minimum(ta, tb) - max_dt, np.maximum(ta, tb) + max_dt], axis=1)
+    m = np_union(x, y, envs, cols["dtg"], times)
+    if keep is not None:
+        m &= keep
+    cand = np.nonzero(m)[0]
+    px, py, t = cols["geom"][cand, 0], cols["geom"][cand, 1], cols["dtg"][cand]
+    ok = np.zeros(len(cand), bool)
+    best = np.full(len(cand), np.inf)
+    for i in range(len(track_xy) - 1):
+        (x0, y0), (x1, y1) = track_xy[i], track_xy[i + 1]
+        dx, dy = x1 - x0, y1 - y0
+        L2 = dx * dx + dy * dy
+        if L2 == 0:
+            d, frac = np.sqrt((px - x0) ** 2 + (py - y0) ** 2), np.zeros_like(px)
+        else:
+            frac = np.clip(((px - x0) * dx + (py - y0) * dy) / L2, 0.0, 1.0)
+            d = np.sqrt((px - (x0 + frac * dx)) ** 2 + (py - (y0 + frac * dy)) ** 2)
+        seg_t = track_t[i] + frac * (track_t[i + 1] - track_t[i])
+        c = (d <= buf) & (np.abs(t - seg_t) <= max_dt) & (d < best)
+        ok |= c
+        best = np.where(c, d, best)
+    return cand[ok]
+
+
+def np_proximity(cols, x, y, envs, segs, dist, keep=None):
+    """Proximity in numpy: the union of the inputs' expanded envelopes,
+    then the exact distance to the nearest input segment. (rows, dist)."""
+    m = np_union(x, y, envs)
+    if keep is not None:
+        m &= keep
+    cand = np.nonzero(m)[0]
+    d = np.sqrt(np_pt_seg_dist2(cols["geom"][cand], segs).min(axis=1))
+    ok = d <= dist
+    return cand[ok], d[ok]
+
+
+def ais_traffic(cols) -> dict:
+    """The kNN targets and calls, tube tracks, proximity inputs and density
+    calls of phase 3e (module docstring)."""
+    ports, lanes, moored, vid = cols["_ports"], cols["_lanes"], cols["_moored"], cols["_vid"]
+    sailing = np.nonzero(~moored)[0]
+    busy_lane = np.bincount(lanes[sailing, 0], minlength=64).argmax()
+    v0, v1, v2 = sailing[:3]
+    r3 = np.nonzero(vid == sailing[3])[0]
+    busy = [tuple(ports[busy_lane]), tuple(ports[lanes[v0, 1]]),
+            tuple((ports[lanes[v1, 0]] + ports[lanes[v1, 1]]) / 2), tuple(cols["geom"][r3[2000]])]
+    ocean = _remote_points(ports, lanes[sailing], 2)
+    east = ports[np.argmax(ports[:, 0])]
+    targets = busy + ocean + [(20.0, 75.0), (179.97, float(east[1]))]
+    day = (T0 + 12 * DAY, T0 + 13 * DAY)
+    during = f"dtg DURING {_day(12)}/{_day(13)}"
+    f70 = f"vessel_type = 70 AND sog > 5 AND {during}"
+    knn_calls = [(targets[i], KNN_K[i % 5], 45.0, None) for i in range(8)]
+    knn_calls += [(targets[i], KNN_K[(i + 2) % 5], 45.0, None) for i in range(4)]
+    # sparse water at radius 0.5: open ocean, the Arctic, the antimeridian,
+    # and 0.3 degrees off a lane's midpoint (its traffic, fewer than k)
+    off_lane = (busy[2][0] + 0.3, busy[2][1] + 0.3)
+    knn_calls += [(targets[4], 1000, 0.5, None), (off_lane, 8192, 0.5, None),
+                  (targets[6], 100, 0.5, None), (targets[7], 8192, 0.5, None)]
+    knn_calls += [(targets[i], (10, 100, 1000, 8192)[i], 45.0, f70) for i in range(4)]
+    knn_calls += [(busy[0], 100, 45.0, "sog < 0.5"), (busy[1], 1000, 45.0, "sog < 0.5"),
+                  (targets[4], 10, 45.0, "vessel_type = 60 OR vessel_type = 80"),
+                  (targets[7], 100, 45.0, f"cog > 180 AND dtg DURING {_day(10)}/{_day(13)}")]
+    process_calls = [(busy[0], 10, None), (busy[1], 1000, None), (busy[2], 100, f70),
+                     (busy[0], 8192, "sog < 0.5")]
+    tubes = []
+    for i, (nfix, buf, dt, base) in enumerate([(17, 0.02, 900_000, None),
+                                               (17, 0.2, 7_200_000, "vessel_type <> 70"),
+                                               (65, 0.02, 1_800_000, None), (65, 0.2, 3_600_000, None),
+                                               (257, 0.02, 7_200_000, "vessel_type <> 70"),
+                                               (257, 0.2, 2_700_000, None)]):
+        rows = np.nonzero(vid == (v0, v1, v2)[i % 3])[0][1000: 1000 + nfix]
+        tubes.append((cols["geom"][rows], cols["dtg"][rows], buf, dt, base))
+    # 1.5 degrees of a lane's middle as 128 vertices with a gentle swing
+    # (the exact pass is candidates x segments on the host: a whole lane's
+    # envelope would hold millions of rows), and a harbour octagon
+    pa, pb = ports[lanes[v0, 0]], ports[lanes[v0, 1]]
+    along = (pb - pa) / np.hypot(*(pb - pa))
+    normal = np.array([-along[1], along[0]])
+    s = np.linspace(-0.75, 0.75, 128)[:, None]
+    lane = (pa + pb) / 2 + s * along + 0.05 * np.sin(4 * np.pi * s) * normal
+    ang = np.linspace(0.0, 2 * np.pi, 9)[:, None]
+    harbour = ports[busy_lane] + 0.08 * np.concatenate([np.cos(ang), np.sin(ang)], axis=1)
+    harbour[-1] = harbour[0]
+    viewport = tuple(_q(v) for v in (busy[0][0] - 2, busy[0][1] - 2, busy[0][0] + 2, busy[0][1] + 2))
+    vb = f"BBOX(geom, {viewport[0]}, {viewport[1]}, {viewport[2]}, {viewport[3]})"
+    return {
+        "knn": knn_calls, "process": process_calls, "tubes": tubes,
+        "ports8": [tuple(p) for p in ports[:8]], "lane": lane, "harbour": harbour,
+        "viewport": viewport, "day": day,
+        "density": [(f"{vb} AND {during}", False, None), (f"{vb} AND {during}", True, None),
+                    (f"{vb} AND {during}", False, "sog"), (f"vessel_type = 70 AND {during}", False, None)],
+    }
+
+
+def ais_keep(cols, base, day):
+    """numpy of the phase's base filters (None: every row)."""
+    if base is None:
+        return None
+    vt, sog, cog, t = cols["vessel_type"], cols["sog"], cols["cog"], cols["dtg"]
+    in_day = (t >= day[0]) & (t <= day[1])
+    return {
+        f"vessel_type = 70 AND sog > 5 AND dtg DURING {_day(12)}/{_day(13)}":
+            (vt == 70) & (sog > np.float32(5)) & in_day,
+        "sog < 0.5": sog < np.float32(0.5),
+        "vessel_type = 60 OR vessel_type = 80": (vt == 60) | (vt == 80),
+        f"cog > 180 AND dtg DURING {_day(10)}/{_day(13)}":
+            (cog > np.float32(180)) & (t >= T0 + 10 * DAY) & (t <= day[1]),
+        "vessel_type <> 70": vt != 70,
+        f"vessel_type = 70 AND dtg DURING {_day(12)}/{_day(13)}": (vt == 70) & in_day,
+    }[base]
+
+
+def run_ais_path(dev) -> dict:
+    """Phase 3e, BASELINE config #4: stage 2^26 AIS fixes, drive kNN, tube
+    select, proximity and spatio-temporal density through the public entry
+    points with the launch counts reset just before, check every answer
+    with numpy, and return what phase 4 times."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.geom import Envelope, LineString, Polygon
+    from geomesa_tpu_torch.process.knn import knn
+    from geomesa_tpu_torch.process.proximity import proximity_search
+    from geomesa_tpu_torch.process.tube import tube_select
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    t = time.time()
+    cols = make_ais(dev, AIS_VESSELS, AIS_FIXES)
+    n = len(cols["dtg"])
+    gen = time.time() - t
+    t = time.time()
+    batch = FeatureBatch.from_columns(SimpleFeatureType.create("ais", AIS_SPEC),
+                                      {k: v for k, v in cols.items() if not k.startswith("_")})
+    store = BatchStore(batch)
+    t_batch = time.time() - t
+    t = time.time()
+    di = DeviceIndex(store, "ais", z_planes=True, device=dev)
+    torch.cuda.synchronize()
+    t_stage = time.time() - t
+    log(f"phase 3e: generated {n:,} AIS fixes ({AIS_VESSELS:,} vessels x {AIS_FIXES:,}) in "
+        f"{gen:.1f} s; FeatureBatch {t_batch:.1f} s; staged in {t_stage:.2f} s "
+        f"({di.nbytes / 1e9:.3f} GB resident, {di.nbytes / n:.1f} B/row)")
+    tr = ais_traffic(cols)
+    calls = Calls()
+    f32 = "filter_scan_mask"
+    kernels.reset_counts()
+    res_knn = [calls.run("knn_filtered" if base else "knn",
+                         lambda: di.knn(*tg, k, query=base, max_radius_deg=r), base and f32)
+               for tg, k, r, base in tr["knn"]]
+    res_proc = [calls.run("knn_process", lambda: knn(store, "ais", *tg, k, base_filter=base,
+                                                     device_index=di), base and f32)
+                for tg, k, base in tr["process"]]
+    res_tube = [calls.run("tube", lambda: tube_select(store, "ais", xy, tt, buf, dt, base_filter=base,
+                                                      device_index=di), base and f32)
+                for xy, tt, buf, dt, base in tr["tubes"]]
+    lane, harbour = LineString(tr["lane"]), Polygon(tr["harbour"])
+    prox_calls = [(tr["ports8"], 0.1, None), ([lane], 0.05, None), ([harbour], 0.02, None),
+                  (tr["ports8"], 0.1, "sog < 0.5")]
+    res_prox = [calls.run("proximity", lambda: proximity_search(store, "ais", g, d, base_filter=base,
+                                                                device_index=di), base and f32)
+                for g, d, base in prox_calls]
+    env = Envelope(*tr["viewport"])
+    res_dens = [calls.run("density", lambda: di.density(q, env, 512, 512, weight_attr=w, loose=loose),
+                          "dimscan_z3_mask" if loose else f32,
+                          "density_weighted" if w else "density_count")
+                for q, loose, w in tr["density"]]
+    torch.cuda.synchronize()
+    launches = read_launches("AIS path", calls.want)
+    calls.log_latency("ais")
+
+    # -- checks ---------------------------------------------------------------
+    t = time.time()
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    day = tr["day"]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        want_knn = list(pool.map(lambda c: np_knn(x, y, *c[0], c[2], c[1], ais_keep(cols, c[3], day)),
+                                 tr["knn"]))
+        want_proc = list(pool.map(lambda c: np_knn(x, y, *c[0], 45.0, c[1], ais_keep(cols, c[2], day)),
+                                  tr["process"]))
+        want_tube = list(pool.map(lambda c: np_tube(cols, x, y, c[0], c[1], c[2], c[3],
+                                                    ais_keep(cols, c[4], day)), tr["tubes"]))
+    for (tg, k, r, base), got, want in zip(tr["knn"], res_knn, want_knn):
+        check_knn(f"kNN {tg} k={k} r={r} {base}", got, want)
+        if r == 0.5 and len(got[0]) >= k:
+            raise AssertionError(f"kNN {tg} in sparse water: {len(got[0])} rows, not fewer than k={k}")
+    for (tg, k, base), got, want in zip(tr["process"], res_proc, want_proc):
+        check_knn(f"process kNN {tg} k={k} {base}", got, want)
+    for (_, _, buf, dt, base), got, want in zip(tr["tubes"], res_tube, want_tube):
+        if not np.array_equal(got.fids, want):
+            raise AssertionError(f"tube buffer={buf} dt={dt} {base}: fids != numpy "
+                                 f"({len(got)} vs {len(want)})")
+    for (geoms, d, base), got in zip(prox_calls, res_prox):
+        if isinstance(geoms[0], tuple):
+            pts = np.array(geoms)
+            segs = np.concatenate([pts, pts], axis=1)
+            envs = np.concatenate([pts - d, pts + d], axis=1)
+        else:
+            c = geoms[0].coords if isinstance(geoms[0], LineString) else geoms[0].shell
+            segs = np.concatenate([c[:-1], c[1:]], axis=1)
+            envs = np.array([[c[:, 0].min() - d, c[:, 1].min() - d, c[:, 0].max() + d, c[:, 1].max() + d]])
+        rows, dist = np_proximity(cols, x, y, envs, segs, d, ais_keep(cols, base, day))
+        if not (np.array_equal(got[0].fids, rows) and np.array_equal(got[1], dist)):
+            raise AssertionError(f"proximity {len(geoms)} inputs at {d} {base}: != numpy "
+                                 f"({len(got[0])} vs {len(rows)} rows)")
+    planes = host_z3_planes(cols)
+    vp = tr["viewport"]
+    in_vp = (x >= np.float32(vp[0])) & (x <= np.float32(vp[2])) & (y >= np.float32(vp[1])) & (y <= np.float32(vp[3]))
+    in_day = (cols["dtg"] >= day[0]) & (cols["dtg"] <= day[1])
+    for (q, loose, w), got in zip(tr["density"], res_dens):
+        if loose:
+            sel = np_loose(di._loose_bounds(parse_ecql(q))[1], planes)
+        elif q.startswith("BBOX"):
+            sel = in_vp & in_day
+        else:
+            sel = ais_keep(cols, q, day)
+        want = np_density(x, y, sel, vp, (512, 512), None if w is None else cols[w])
+        if not same_grid(got, want, w is not None):
+            raise AssertionError(f"AIS density {q} loose={loose} weight={w}: grid != numpy")
+    log(f"phase 3e checks: {len(res_knn)} kNN (rows per call "
+        f"{[len(r[0]) for r in res_knn]}), {len(res_proc)} process kNN, {len(res_tube)} tubes "
+        f"(rows {[len(r) for r in res_tube]}), {len(res_prox)} proximity (rows "
+        f"{[len(r[0]) for r in res_prox]}), {len(res_dens)} density grids (mass "
+        f"{[float(g.sum()) for g in res_dens]}): all equal to numpy, in {time.time() - t:.1f} s")
+    return {"launches": launches, "di": di, "traffic": tr}
 
 
 # -- phase 4: kernel timings --------------------------------------------------
@@ -1957,6 +2457,55 @@ def xz_rows(dev, xz, launches, errs: Errs) -> "tuple[list, list]":
     return rows, ops_rows
 
 
+def ais_ops_rows(dev, ais) -> list:
+    """Phase 4 for the AIS path: the torch ops that replace no TPU kernel,
+    at the drive's 2^26 rows -- the kNN pass (distance, radius box,
+    selection) for k = 10 and 8192 at a busy port, and the union mask of a
+    tube's 16 and 256 segment windows with time windows. Bound: the
+    larger of the bytes (x, y and the date lanes read once, the mask or
+    the k results written once) and the operations this run's data needs
+    (kNN: 20 a row; union: 7 a row for the union envelope, then 20 for
+    each candidate row and window) over the 32-bit rate."""
+    from geomesa_tpu_torch.ops import knn as knn_ops
+    from geomesa_tpu_torch.ops.window import union_mask, widen
+    from geomesa_tpu_torch.process.tube import _segment_windows
+
+    di, tr = ais["di"], ais["traffic"]
+    x, y = di._cols["geom__x"], di._cols["geom__y"]
+    thi, tlo = di._cols["dtg__hi"], di._cols["dtg__lo"]
+    n = len(di)
+    rows = []
+
+    def row(name, fn, nbytes, ops, case):
+        fn()
+        ms = time_ms(fn, 10, warm=2)
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        bound, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+        log(f"{name} ({case}): {ms:.4f} ms (bound {bound:.4f} ms, {by}) "
+            f"[torch ops, no TPU kernel] [{CARD}]")
+        rows.append({"name": name, "route": "torch ops, no TPU kernel", "ms": ms, "bound_ms": bound,
+                     "bound_by": by, "rows": n, "case": case})
+
+    px, py = tr["knn"][0][0]
+    q = knn_ops.query_vector(px, py, 45.0, knn_ops.lon_factor(py), dev)
+    for k in (10, 8192):
+        row("knn_select", lambda k=k: knn_ops.knn(x, y, q, k), 8 * n + 12 * k, 20 * n,
+            f"k = {k}, the AIS drive's busy port, radius 45 deg")
+    for xy, tt, buf, dt, _ in tr["tubes"]:
+        m = len(xy) - 1
+        if m not in (16, 256) or buf != 0.2:
+            continue
+        envs, times = _segment_windows(xy, tt, buf, dt)
+        env = widen(envs)
+        lo, hi = np.fmin.reduce(env[:, :2], axis=0), np.fmax.reduce(env[:, 2:], axis=0)
+        cand = int(((x >= float(lo[0])) & (x <= float(hi[0])) & (y >= float(lo[1]))
+                    & (y <= float(hi[1]))).sum())
+        row("union_mask", lambda env=env, times=times: union_mask(x, y, env, thi, tlo, times=times),
+            17 * n, 7 * n + 20 * cand * m,
+            f"m = {m} windows with time windows, a vessel's track, {cand:,} candidate rows")
+    return rows
+
+
 DRIVE_GRIDS = [(128, 128), (256, 256), (512, 256), (512, 512), (1024, 1024), (2048, 1024)]
 TABLE_GRIDS = ((256, 256), (1024, 1024))  # the density cases the kernel table lists
 
@@ -2083,6 +2632,7 @@ def main() -> int:
     check_filter_scans(dev, errs)
     check_envelope_scans(dev, errs)
     check_density(dev, errs)
+    check_ais_ops(dev)
     log(f"phase 2: kernels == plain versions, bit-exact (weighted density: rtol 1e-6) "
         f"({time.time() - t:.1f} s)")
 
@@ -2101,14 +2651,18 @@ def main() -> int:
     t = time.time()
     xz = run_xz_path(dev)
     log(f"phase 3d: the xz path in {time.time() - t:.1f} s")
+    t = time.time()
+    ais = run_ais_path(dev)
+    log(f"phase 3e: the AIS path in {time.time() - t:.1f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
-                + xz["launches"].get(k, 0) for k in main_launches}
+                + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) for k in main_launches}
 
     rows = kernel_table(dev, di3, di2, inter, queries, z2q, launches, errs)
     rows += density_rows(dev, di3, launches, errs)
     env_rows, ops_rows = xz_rows(dev, xz, launches, errs)
     rows += env_rows
+    ops_rows += ais_ops_rows(dev, ais)
     log(json.dumps({"torch_ops": ops_rows}))
     log(json.dumps({"kernels": rows}))
     log(f"total {time.time() - t_all:.1f} s")

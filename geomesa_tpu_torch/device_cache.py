@@ -27,10 +27,16 @@ masks of ``ops/zscan.py``; their exact answers come from the filter-scan
 kernel over the envelope planes ``<geom>__x0/__y0/__x1/__y1`` plus the
 host residual.
 
+The AIS processes' entry points run on point schemas: ``knn`` (distance,
+mask and selection in torch ops, ``ops/knn.py``) and
+``window_union_query``/``bbox_window_query`` (the window-union mask,
+``ops/window.py``); each ANDs in a base filter's mask from the
+filter-scan kernel and the auth verdict.
+
 Not in the port yet; each raises ``NotImplementedError`` naming its
 ROADMAP item: the Q-batched fused loose paths, streaming and sharded
-indexes, knn, joins, and the stats the host sketches serve (Cardinality,
-TopK, Frequency, Z3Histogram).
+indexes, window pairs and joins, and the stats the host sketches serve
+(Cardinality, TopK, Frequency, Z3Histogram).
 """
 
 from __future__ import annotations
@@ -51,10 +57,12 @@ from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.keyplanes import encode_inputs, schema_kind
+from geomesa_tpu_torch.ops import knn as knn_ops
 from geomesa_tpu_torch.ops import zscan
 from geomesa_tpu_torch.ops.density import density_grid, inverted
 from geomesa_tpu_torch.ops.int64lanes import widen_u32
 from geomesa_tpu_torch.ops.scan import stage_columns_host, to_tensor
+from geomesa_tpu_torch.ops.window import union_mask, widen
 from geomesa_tpu_torch.security import VisibilityEvaluator
 from geomesa_tpu_torch.stats.dsl import _observe_on_batch, parse_stat
 from geomesa_tpu_torch.stats.sketches import CountStat, Histogram, MinMax
@@ -714,12 +722,15 @@ class DeviceIndex:
         mask = self._device_mask(f, loose)
         if mask is None:
             return None
-        m = mask()
-        if VIS_ID in self._cols:
-            # per-request row security: the auth verdict by label id
-            seen = self._auth_table(auths)[1][self._cols[VIS_ID]]
-            m = seen if m is None else m & seen
-        return agg_build(self._cols, m)
+        return agg_build(self._cols, self._and_seen(mask(), auths))
+
+    def _and_seen(self, m, auths):
+        """Mask ``m`` (None: every row) ANDed with the per-request auth
+        verdict gathered by label id, when a label-id plane is staged."""
+        if VIS_ID not in self._cols:
+            return m
+        seen = self._auth_table(auths)[1][self._cols[VIS_ID]]
+        return seen if m is None else m & seen
 
     def stats(self, query, spec: str, loose: "bool | None" = None, auths=None):
         """Stat-DSL aggregation on the pushdown hook (ref StatsIterator:
@@ -864,6 +875,97 @@ class DeviceIndex:
         grid = self._fused_agg(f, loose, agg_build, auths=auths)
         return None if grid is None else grid.cpu().numpy()
 
+    # -- the AIS processes' resident passes ----------------------------------
+
+    def _point_planes(self):
+        """(x, y) resident coordinate planes of the default point geometry,
+        or None (non-point or no geometry)."""
+        geom = self.sft.geom_field
+        gx, gy = f"{geom}__x", f"{geom}__y"
+        if geom is None or gx not in self._cols:
+            return None
+        return self._cols[gx], self._cols[gy]
+
+    def _base_mask(self, query):
+        """(ok, mask function) for an optional base filter: ok is False when
+        the filter is not fully on the device (the caller takes its host
+        path); the function launches the exact mask (the filter-scan
+        kernel) and is None for no filter or INCLUDE."""
+        f = None if query is None else self._parse(query)
+        if f is None or f is ast.Include:
+            return True, None
+        fn = self._device_mask(f, loose=False)
+        return fn is not None, fn
+
+    def _empty(self):
+        return self._host_batch.take(np.array([], np.int64))
+
+    def window_union_query(self, envs, times=None, auths=None, base=None):
+        """Candidate rows inside ANY of m runtime windows: the coarse pass of
+        tube select (one bbox+time window per track segment) and proximity
+        search (one expanded bbox per input geometry).
+
+        ``envs``: (m, 4) ``[xmin, ymin, xmax, ymax]``; ``times``: optional
+        (m, 2) int64 ``[t_lo, t_hi]`` epoch ms, inclusive, tested against
+        the default date's lanes. ``base``: an optional filter whose exact
+        device mask (the filter-scan kernel) is ANDed in; ``auths`` as in
+        ``count``. Bounds widen one float32 ulp outward (candidate
+        semantics: callers refine). Returns the matching host rows in row
+        order, or None when the point planes, the date lanes for
+        ``times``, or a fully device-expressible ``base`` are missing."""
+        planes = self._point_planes()
+        if planes is None:
+            return None
+        dtg = self.sft.dtg_field
+        lanes = (None, None)
+        if times is not None:
+            if dtg is None or f"{dtg}__hi" not in self._cols:
+                return None
+            lanes = (self._cols[f"{dtg}__hi"], self._cols[f"{dtg}__lo"])
+        ok, base_fn = self._base_mask(base)
+        if not ok:
+            return None  # base not on the device: the store path instead
+        if len(self) == 0:
+            return self._empty()
+        m = union_mask(*planes, widen(envs), *lanes, times=times)
+        if base_fn is not None:
+            m &= base_fn()
+        m = self._and_seen(m, auths)
+        return self._host_batch.take(np.nonzero(m.cpu().numpy())[0])
+
+    def bbox_window_query(self, xmin, ymin, xmax, ymax, auths=None):
+        """A bbox query with runtime bounds, the probe of the expanding-window
+        kNN search: the m = 1 case of :meth:`window_union_query`."""
+        return self.window_union_query(
+            np.array([[xmin, ymin, xmax, ymax]], np.float64), auths=auths
+        )
+
+    def knn(self, px: float, py: float, k: int, query=None, auths=None,
+            max_radius_deg: float = 45.0):
+        """k nearest neighbours of ``(px, py)``: (batch, distances in
+        degrees), nearest first. Candidates are the rows inside the
+        ``max_radius_deg`` box around the target that pass ``query`` (the
+        filter-scan kernel) and ``auths`` (fail closed on None/()); fewer
+        than ``k`` of them give fewer results, and equal distances prefer
+        the earlier row (``ops/knn.py``). The distance is the lat-corrected
+        equirectangular one, ``sqrt`` taken in float64 of a float32 square.
+
+        Returns None for a non-point schema or a filter that is not fully
+        on the device: the process then takes expanding windows."""
+        planes = self._point_planes()
+        if planes is None:
+            return None
+        ok, base_fn = self._base_mask(query)
+        if not ok:
+            return None
+        if len(self) == 0:
+            return self._empty(), np.array([], np.float64)
+        q = knn_ops.query_vector(px, py, max_radius_deg, knn_ops.lon_factor(py), self.device)
+        m = self._and_seen(None if base_fn is None else base_fn(), auths)
+        idx, d2 = knn_ops.knn(*planes, q, k, mask=m)
+        return (self._host_batch.take(idx.cpu().numpy()),
+                np.sqrt(d2.cpu().numpy().astype(np.float64)))
+
     # -- later slices --------------------------------------------------------
 
     def fused_loose_counts(self, queries, loose=None):
@@ -874,6 +976,3 @@ class DeviceIndex:
 
     def refresh_delta(self, batch):
         raise NotImplementedError(_later("StreamingDeviceIndex"))
-
-    def knn(self, *args, **kwargs):
-        raise NotImplementedError(_later("kNN"))

@@ -5,7 +5,8 @@ point-in-polygon test (the card runs that test in the filter-scan kernel):
 the crossing-number containment test over packed edge lists, segment
 intersection, ``geometry_intersects``/``geometry_within`` (the exact host
 residual of the envelope prefilter), and the DE-9IM-lite relation algebra
-(touches, crosses, overlaps, relate and pattern matching). Boundary
+(touches, crosses, overlaps, relate and pattern matching), and the
+point-to-segment distances of proximity search. Boundary
 behavior: points exactly on a horizontal-crossing vertex follow the
 half-open rule (a vertex counts for the edge whose y-interval is
 [min, max)); points on edges may test either way at float precision --
@@ -70,6 +71,32 @@ def _segments_of(geom) -> "np.ndarray | None":
     if isinstance(geom, MultiLineString):
         return np.concatenate([_segments_of(l) for l in geom.lines], axis=0)
     return None
+
+
+def distance_segments(g) -> np.ndarray:
+    """(m, 4) [x0, y0, x1, y1] edges of any geometry (rings include holes);
+    points yield zero-length segments, so one distance formula covers
+    every input. Copy of ``_segments_of`` in ``geomesa_tpu/sql/functions.py``."""
+    segs = _segments_of(g)
+    if segs is not None:
+        return segs
+    va = np.array([[p.x, p.y] for p in _points_of(g)], np.float64).reshape(-1, 2)
+    return np.concatenate([va, va], axis=1)
+
+
+def pt_seg_dist2(pts: np.ndarray, segs: np.ndarray) -> np.ndarray:
+    """(n, m) squared distances of the points ``pts`` (n, 2) to the
+    segments ``segs`` (m, 4) [x0, y0, x1, y1], by the clamped projection.
+    Copy of ``pt_seg_project`` in ``geomesa_tpu/sql/functions.py``, trimmed
+    to the distance proximity search reads."""
+    p = pts[:, None, :]
+    a = segs[None, :, 0:2]
+    d = segs[None, :, 2:4] - a
+    len2 = (d**2).sum(-1)
+    t = ((p - a) * d).sum(-1) / np.where(len2 == 0, 1.0, len2)
+    t = np.clip(np.where(len2 == 0, 0.0, t), 0.0, 1.0)
+    near = a + t[..., None] * d
+    return ((p - near) ** 2).sum(-1)
 
 
 def _expand_pairs(sa: np.ndarray, sb: np.ndarray):

@@ -54,7 +54,9 @@ class BatchStore:
         if f is not ast.Include:
             raise NotImplementedError(
                 "BatchStore serves full scans only; stage a DeviceIndex on "
-                "top for filtered queries"
+                "top for filtered queries. The filtered store path is not in "
+                "the port yet: ROADMAP, port queue item 5, the store-path scan "
+                "(query/plan.py, query/runner.py)"
             )
         batch = self.batch
         if not raw_visibility:

@@ -205,13 +205,14 @@ def test_later_slices_raise():
         di.fused_loose_counts([Z3_QUERIES[0]])
     with pytest.raises(NotImplementedError, match="host sketches"):
         di.stats("INCLUDE", 'TopK("name")')
-    with pytest.raises(NotImplementedError, match="port queue: kNN"):
-        di.knn()
-    # the DE-9IM relations and non-point schemas are in the port now: they
-    # answer as the JAX package does
+    with pytest.raises(NotImplementedError, match="StreamingDeviceIndex"):
+        di.refresh_delta(None)
+    # the DE-9IM relations, non-point schemas and kNN are in the port now:
+    # they answer as the JAX package does
     from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
 
     jdi = JIndex(JStore(JBatch.from_columns(JSFT.create("t", Z3_SPEC), cols)), "t", z_planes=True)
+    np.testing.assert_array_equal(di.knn(0.0, 0.0, 5)[0].fids, jdi.knn(0.0, 0.0, 5)[0].fids)
     for ecql in ("RELATE(geom, POINT(0 0), 'T********')",
                  "TOUCHES(geom, POLYGON((-60 -30, 60 -30, 60 30, -60 30, -60 -30)))",
                  "RELATE(geom, POLYGON((-60 -30, 60 -30, 60 30, -60 30, -60 -30)), 'T********')"):

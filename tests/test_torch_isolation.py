@@ -1,5 +1,6 @@
 """The port stands alone: ``geomesa_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package (also on a non-point xz2 workload),
+import neither JAX nor the JAX package (also on a non-point xz2 workload
+and the kNN, tube and proximity processes),
 and entry points never fall back to the CPU on their own."""
 
 import os
@@ -66,6 +67,20 @@ rq = "BBOX(geom, -10, -10, 30, 30) AND TOUCHES(geom, POLYGON((0 0, 10 0, 10 10, 
 assert pdi.count(rq) <= pdi.count(pq)
 assert pdi.stats(pq, "Count()", loose=True).to_json()[0]["count"] == pdi.count(pq, loose=True)
 assert pdi.density(pq, env, 8, 8) is None
+from geomesa_tpu_torch.process.knn import knn
+from geomesa_tpu_torch.process.proximity import proximity_search
+from geomesa_tpu_torch.process.tube import tube_select
+nb, nd = knn(store, "t", 0.0, 0.0, 7, base_filter="count > 2", device_index=ldi, auths=("A",))
+assert len(nb) == 7 and (nb.column("count") > 2).all() and (np.diff(nd) >= 0).all()
+wb, _ = knn(store, "t", 0.0, 0.0, 5, base_filter="count > 2 OR dtg IS NULL", device_index=di)
+assert len(wb) == 5  # a host residual: the expanding windows answer
+track = np.array([[-20.0, -20.0], [0.0, 5.0], [20.0, 20.0]])
+tt = np.array([1_577_836_800_000, 1_578_900_000_000, 1_580_000_000_000])
+tb = tube_select(store, "t", track, tt, 5.0, 86_400_000 * 5, device_index=ldi, auths=("A",))
+assert 0 < len(tb) <= len(ldi.window_union_query([[-25, -25, 25, 25]], auths=("A",)))
+pb, pd = proximity_search(store, "t", [(0.0, 0.0), (30.0, -30.0)], 8.0, base_filter="count < 8",
+                          device_index=ldi, auths=("A",))
+assert len(pb) > 0 and (pd <= 8.0).all()
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -492,3 +492,117 @@ def test_zscan_z3_many_bins_matches_plain(dev, n, b, layout):
     want = zscan.z3_zscan_mask(planes[1], planes[2], planes[0], bounds, ids)
     torch.cuda.synchronize()
     assert torch.equal(got_m, want) and int(got_c) == int(want.sum())
+
+
+# -- the AIS processes' torch ops (no TPU kernel behind them): the card's
+# answer equals the same functions on CPU tensors, bit for bit
+
+def knn_case(n, seed):
+    """float32 points around (10, 20) with exact duplicates at one distance
+    and rows on the 0.5-degree radius box's edges and one ulp either side."""
+    from geomesa_tpu_torch.ops import knn as knn_ops
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(9.0, 11.0, n).astype(np.float32)
+    y = rng.uniform(19.0, 21.0, n).astype(np.float32)
+    if n >= 1000:
+        x[100:140], y[100:140] = np.float32(10.25), np.float32(20.125)  # 40 duplicates
+        for i, e in enumerate((10.5, 9.5)):
+            e32 = np.float32(e)
+            x[200 + 3 * i: 203 + 3 * i] = [e32, np.nextafter(e32, np.float32(np.inf)),
+                                           np.nextafter(e32, np.float32(-np.inf))]
+            y[200 + 3 * i: 203 + 3 * i] = np.float32(20.0)
+    q = (10.0, 20.0, 0.5, knn_ops.lon_factor(20.0))
+    return x, y, q
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 17])
+@pytest.mark.parametrize("k", [1, 10, 120, 8192])
+def test_knn_ops_on_the_card_match_the_cpu(dev, n, k):
+    from geomesa_tpu_torch.ops import knn as knn_ops
+
+    x, y, q = knn_case(n, seed=n + k)
+    mask = np.random.default_rng(k).random(n) < 0.8
+    out = []  # the card's answer, then the CPU's
+    for d in (dev, torch.device("cpu")):
+        xt, yt = torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)
+        qt = knn_ops.query_vector(*q, d)
+        out.append((knn_ops.knn_d2(xt, yt, qt).cpu(),
+                    *(t.cpu() for t in knn_ops.knn(xt, yt, qt, k, torch.from_numpy(mask).to(d)))))
+    torch.cuda.synchronize()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    idx, d2 = out[0][1:]
+    if len(idx) > 1:  # nearest first, ties in row order
+        assert bool(((d2[1:] > d2[:-1]) | ((d2[1:] == d2[:-1]) & (idx[1:] > idx[:-1]))).all())
+
+
+def union_case(n, m, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-10, 10, n).astype(np.float32)
+    y = rng.uniform(-10, 10, n).astype(np.float32)
+    t = T0 + rng.integers(0, 86_400_000, n)
+    c = rng.uniform(-10, 10, (m, 2))
+    h = rng.uniform(0.01, 2.0, (m, 2))
+    envs = np.concatenate([c - h, c + h], axis=1).astype(np.float32).astype(np.float64)
+    envs[3::7] = envs[3::7][:, [2, 3, 0, 1]]  # inverted windows
+    if n >= 16:  # rows on a window's edges and one and two ulps around them
+        e = np.float32(envs[0, 2])
+        up = np.nextafter(e, np.float32(np.inf))
+        x[:4] = [e, up, np.nextafter(up, np.float32(np.inf)), np.nextafter(e, np.float32(-np.inf))]
+        y[:4] = np.float32((envs[0, 1] + envs[0, 3]) / 2)
+    t0 = T0 + rng.integers(0, 86_400_000, m)
+    times = np.stack([t0, t0 + rng.integers(0, 86_400_000 // 4, m)], axis=1)
+    return x, y, t, envs, times
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 17])
+@pytest.mark.parametrize("m", [1, 2, 64, 257])
+@pytest.mark.parametrize("with_times", [False, True], ids=["bbox", "bbox+time"])
+def test_union_mask_on_the_card_matches_the_cpu(dev, n, m, with_times):
+    from geomesa_tpu_torch.ops.int64lanes import split_array_np
+    from geomesa_tpu_torch.ops.window import union_mask, widen
+
+    x, y, t, envs, times = union_case(n, m, seed=n + m)
+    hi, lo = split_array_np(t)
+    out = []  # the card's answer, then the CPU's
+    for d in (dev, torch.device("cpu")):
+        lanes = ((torch.from_numpy(hi).to(d), torch.from_numpy(lo).to(d))
+                 if with_times else (None, None))
+        out.append(union_mask(torch.from_numpy(x).to(d), torch.from_numpy(y).to(d),
+                              widen(envs), *lanes, times=times if with_times else None).cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(*out)
+
+
+def test_device_index_knn_and_windows_on_the_card(dev):
+    """DeviceIndex.knn / window_union_query on the card equal the CPU
+    index's answers, with labels, a base filter (one filter_scan_mask
+    launch per call) and auths."""
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import VIS_COLUMN
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    sft = SimpleFeatureType.create("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
+    n = 200_000
+    x, y, _ = knn_case(n, seed=5)
+    rng = np.random.default_rng(6)
+    cols = {"count": rng.integers(0, 100, n), "dtg": rng.integers(T0, T0 + 86_400_000, n),
+            "geom": np.stack([x, y], axis=1).astype(np.float64),
+            VIS_COLUMN: np.array(["", "A", "B"], object)[rng.integers(0, 3, n)]}
+    store = BatchStore(FeatureBatch.from_columns(sft, cols))
+    gpu = DeviceIndex(store, "t", device=dev)
+    cpu = DeviceIndex(store, "t", device="cpu")
+    _, _, _, envs, times = union_case(0, 33, seed=7)
+    envs = envs / 10.0 + np.array([10.0, 20.0, 10.0, 20.0])
+    for auths in (None, ("A",), ("A", "B")):
+        for base in (None, "count > 50"):
+            kernels.reset_counts()
+            g = gpu.knn(10.0, 20.0, 500, query=base, auths=auths, max_radius_deg=0.5)
+            c = cpu.knn(10.0, 20.0, 500, query=base, auths=auths, max_radius_deg=0.5)
+            np.testing.assert_array_equal(g[0].fids, c[0].fids)
+            np.testing.assert_array_equal(g[1], c[1])
+            gu = gpu.window_union_query(envs, times, auths=auths, base=base)
+            np.testing.assert_array_equal(gu.fids, cpu.window_union_query(envs, times, auths=auths,
+                                                                          base=base).fids)
+            assert kernels.LAUNCHES["filter_scan_mask"] == (2 if base else 0)
