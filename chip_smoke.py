@@ -27,7 +27,13 @@ Phases:
      kNN with exact duplicates at one distance and rows on the radius
      box's edges and one ulp either side, k in {1, 10, 120, 8192}; the
      union mask over m in {1, 2, 64, 257} windows with and without time
-     windows, rows on window edges and one ulp around them;
+     windows, rows on window edges and one ulp around them; the Q-batched
+     scans of the scheduler's fused paths (the dim scan at Q in {1, 3, 8,
+     16, 64} and R in {0, 1, 2, 4, 8}, the interleaved z3 scan over mixed
+     bin layouts and its z2 variant, padded queries among them) against
+     per-query loops of the plain versions, bit for bit; then the fixed
+     cost of one filter-scan launch (an empty CUDA event pair, 0 and 4,096
+     rows beside 2^20 and 2^21, and the host's time to issue each call);
   3. the main path at full size: a GDELT-shaped resident Z3 point type
      (count:Int,dtg:Date,*geom:Point, 2^26 rows from a fixed seed: 90% of
      points in 64 city clusters, coordinates float32, dtg over 60 days from
@@ -85,6 +91,21 @@ Phases:
      bit, tube and proximity fid sets (and distances) equal numpy, grids
      equal numpy, and the launch counts show the filter-scan kernel for
      every base filter and the density kernel for every density call;
+  3f. the device query scheduler (QueryScheduler, SchedConfig defaults
+     with max_queue raised to 2,048) over phase 3's z3 and z2 dim-plane
+     indexes and phase 3c's interleaved z3 and z2 indexes: 64 map-client
+     threads each submit one pan of 16 loose tile counts (0.5-4 degree
+     tiles around a city centre, over one day; bbox only on z2) and 16
+     threads one loose feature request each, all at once, spread over the
+     four indexes; then the same burst with
+     max_fusion=1, unfused. Every count and fid set equals the serial
+     loose answer; the launch counts equal, kernel by kernel, the fused
+     groups and lone requests the requests' sched.execute spans show;
+     fused_queries equals the requests that rode a fused group, the fused
+     run launches fewer times than requests, no fused group fell back to
+     serial, nothing is rejected or expired; per-request latency p50/p99
+     (submit to the scheduler completing the request), requests/s
+     and the fusion factor, fused and unfused;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -94,7 +115,9 @@ Phases:
      made on the card and on the xz drive's planes; and, on a line of
      their own, the torch ops that replace no TPU kernel (the xz range
      masks, the card key encode, the kNN pass at k = 10 and 8192 and the
-     union mask of 16 and 256 tube windows at 2^26 AIS rows).
+     union mask of 16 and 256 tube windows at 2^26 AIS rows); the batched
+     scans at Q in {1, 8, 64} (the z3 dim scan at R = 1 and 2) with phase
+     3f's tile queries, beside Q launches of the single-query kernel.
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -117,7 +140,11 @@ T0 = 1_577_836_800_000  # 2020-01-01T00:00:00Z
 DAY = 86_400_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Operations bounds. The scans are 32-bit integer and compare work, which
-# Hopper issues at 64 lanes per SM per clock: 132 SMs x 64 x 1.98 GHz. The
+# Hopper issues at 64 lanes per SM per clock: 132 SMs x 64 x 1.98 GHz. A
+# compare counts once: the card's ISETP also ANDs or ORs its result into a
+# predicate (the batched z2 dim scan ran under a count that added the ANDs,
+# and its SASS shows 4 ISETP a row and query); a 64-bit compare of two
+# 32-bit words is two, a bitwise word operation one. The
 # density kernel's float64 pixel math (separate multiplies and subtracts,
 # no FMA) runs at the same 64 lanes per SM per clock; the data sheet's
 # 67 TFLOP/s float32 and 34 TFLOP/s float64 count an FMA as two.
@@ -154,11 +181,13 @@ class Errs:
     def check(self, name, got, want, what):
         import torch
 
-        g = got.to(torch.int64).cpu()
-        w = want.to(torch.int64).cpu()
-        if g.shape != w.shape:
-            raise AssertionError(f"{name} {what}: shape {tuple(g.shape)} != {tuple(w.shape)}")
-        err = int((g - w).abs().max()) if g.numel() else 0
+        if got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        if got.dtype == want.dtype == torch.bool:  # masks: 1 where any row differs, on the device
+            err = 0 if torch.equal(got, want) else 1
+        else:
+            g, w = got.to(torch.int64).cpu(), want.to(torch.int64).cpu()
+            err = int((g - w).abs().max()) if g.numel() else 0
         self.err[name] = max(self.err.get(name, 0), err)
         if err:
             raise AssertionError(f"{name} {what}: kernel != plain (max abs err {err})")
@@ -304,6 +333,166 @@ def check_zscans(dev, errs: Errs):
             errs.check("zscan_z2_count", count_fn(*p2).reshape(1),
                        want.sum(dtype=torch.int32).reshape(1), f"n={n}")
     torch.cuda.synchronize()
+
+
+def batch_qmat(rng, nq, r, span):
+    """(nq, 4 + 2r) dim-scan query vectors: random boxes and bt ranges,
+    some ranges inverted, and for nq > 2 the last query the never-matching
+    padding vector of the fused paths."""
+    maxi, sent = (1 << 21) - 1, 0xFFFFFFFF
+    q = np.empty((nq, 4 + 2 * r), np.uint32)
+    for i in range(nq):
+        q[i, 0:2] = np.sort(rng.integers(0, maxi + 1, 2))
+        q[i, 2:4] = (rng.integers(0, maxi), maxi) if i % 2 else np.sort(rng.integers(0, maxi + 1, 2))
+        for k in range(r):
+            q[i, 4 + 2 * k: 6 + 2 * k] = (sent, 0) if (i + k) % 3 == 2 else np.sort(
+                rng.integers(0, span, 2))
+    if nq > 2:
+        q[-1] = [1, 0, 1, 0] + [sent, 0] * r
+    return q
+
+
+def batch_zbounds(rng, nq, n_bins):
+    """(nq, B, 3, 6) bounds and (nq, B) ids over bins 2600.. in mixed
+    layouts: per query 1 to 8 entries, contiguous and padded to a power of
+    two, or shuffled with gaps and some padded; cell boxes or random words;
+    for nq > 2 the last query all padding."""
+    from geomesa_tpu_torch.ops import zscan
+
+    maxi = (1 << 21) - 1
+    per = []
+    for i in range(nq):
+        b = int(rng.integers(1, 9))
+        if i % 3 == 1:
+            bounds = rng.integers(0, 1 << 32, (b, 3, 6), dtype=np.uint64).astype(np.uint32)
+        else:
+            bounds = np.stack([zscan.z3_dim_bounds(tuple(lo), tuple(hi)) for lo, hi in (
+                np.sort(rng.integers(0, maxi + 1, (2, 3)), axis=0) for _ in range(b))])
+        if i % 3 == 0:
+            ids = (2600 + int(rng.integers(0, n_bins - b)) + np.arange(b)).astype(np.int32)
+            bounds, ids = zscan.pad_bins(bounds, ids)
+        else:
+            ids = (2600 + rng.permutation(n_bins)[:b]).astype(np.int32)
+            ids[rng.random(b) < 0.25] = -1
+        per.append((bounds, ids))
+    bmax = max(len(i) for _, i in per)
+    out_b = np.zeros((nq, bmax, 3, 6), np.uint32)
+    out_i = np.full((nq, bmax), -1, np.int32)
+    for i, (b, d) in enumerate(per):
+        out_b[i, : len(d)], out_i[i, : len(d)] = b, d
+    if nq > 2:
+        out_i[-1] = -1
+    return out_b, out_i
+
+
+BATCH_QS = (1, 3, 8, 16, 64)
+
+
+def check_batched_scans(dev, errs: Errs):
+    """The Q-batched scans of the scheduler's fused paths against their
+    plain versions (per-query loops of the single-query plain versions):
+    the dim scan at Q in {1, 3, 8, 16, 64} and R in {0, 1, 2, 4, 8}, the
+    interleaved z3 scan over mixed bin layouts (up to 8 entries a query,
+    padded, gapped, all-padded queries) and its z2 variant, at n in
+    {1, 1000, 2^20+17}; rows in bin -1 never match."""
+    import torch
+
+    from geomesa_tpu_torch.curves.z2 import Z2SFC
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
+    from geomesa_tpu_torch.curves.zorder import MAX_MASK_2D, u64_hi_lo
+    from geomesa_tpu_torch.ops import zscan
+
+    maxi, sent = (1 << 21) - 1, 0xFFFFFFFF
+    cases = 0
+    for n in (1, 1000, (1 << 20) + 17):
+        rng = np.random.default_rng(SEED + 11 * n)
+        nx = rng.integers(0, maxi + 1, n).astype(np.uint32)
+        ny = rng.integers(0, maxi + 1, n).astype(np.uint32)
+        bt = rng.integers(0, 12 << 21, n).astype(np.uint32)
+        bt[: min(n, 4)] = sent
+        planes = [torch.from_numpy(a).to(dev) for a in (nx, ny, bt)]
+        for r in (0, 1, 2, 4, 8):
+            ps = planes[:2] if r == 0 else planes
+            z = "z2" if r == 0 else "z3"
+            for nq in BATCH_QS:
+                q = batch_qmat(rng, nq, r, 12 << 21)
+                want = zscan.batched_dim_mask_rt(r)(*ps, q)
+                what = f"n={n} R={r} Q={nq}"
+                errs.check(f"dimscan_batched_{z}_mask", zscan.batched_dimscan_mask(q, *ps), want, what)
+                errs.check(f"dimscan_batched_{z}_count", zscan.batched_dimscan_count(q, *ps),
+                           want.sum(dim=1, dtype=torch.int32), what)
+                cases += 1
+        x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+        off = rng.uniform(0, 604_800, n)
+        bins = (2600 + rng.integers(0, 16, n)).astype(np.int32)
+        bins[: min(n, 3)] = -1
+        h3, l3 = (torch.from_numpy(a).to(dev) for a in u64_hi_lo(Z3SFC().index(x, y, off)))
+        h2, l2 = (torch.from_numpy(a).to(dev) for a in u64_hi_lo(Z2SFC().index(x, y)))
+        b3 = torch.from_numpy(bins).to(dev)
+        for nq in BATCH_QS:
+            bounds, ids = batch_zbounds(rng, nq, 16)
+            want = zscan.batched_kind_mask("z3")(h3, l3, b3, bounds, ids)
+            what = f"n={n} Q={nq} B={ids.shape[1]}"
+            errs.check("zscan_batched_z3_mask", zscan.batched_zscan_mask(bounds, ids, h3, l3, bins=b3),
+                       want, what)
+            errs.check("zscan_batched_z3_count", zscan.batched_zscan_count(bounds, ids, h3, l3, bins=b3),
+                       want.sum(dim=1, dtype=torch.int32), what)
+            b2 = np.empty((nq, 2, 6), np.uint32)
+            for i in range(nq):
+                lo, hi = np.sort(rng.integers(0, MAX_MASK_2D + 1, (2, 2)), axis=0)
+                b2[i] = zscan.z2_dim_bounds(tuple(lo), tuple(hi))
+            if nq > 2:
+                b2[-1] = 0
+                b2[-1, :, 3] = 1  # the fused paths' z2 padding: lo_lo 1 > hi 0
+            want = zscan.batched_kind_mask("z2")(h2, l2, b2)
+            errs.check("zscan_batched_z2_mask", zscan.batched_zscan_mask(b2, None, h2, l2), want,
+                       f"n={n} Q={nq}")
+            errs.check("zscan_batched_z2_count", zscan.batched_zscan_count(b2, None, h2, l2),
+                       want.sum(dim=1, dtype=torch.int32), f"n={n} Q={nq}")
+            cases += 2
+    torch.cuda.synchronize()
+    log(f"batched scans: {cases} cases (dim scan Q in {list(BATCH_QS)} x R in 0-8, "
+        f"interleaved z3 and z2), kernel == plain bit for bit")
+
+
+def launch_floor(dev) -> None:
+    """The fixed cost of one filter-scan launch as phase 4 times it (50
+    launches between one CUDA event pair): an empty event pair, the
+    wrapper over 0 rows (checks, the output, the count's memset; no
+    kernel) and over 4,096 rows, beside 2^20 and 2^21 rows (the xz drive's
+    sizes); and for each the host's time to issue one call, which bounds
+    the rate of back-to-back launches from below."""
+    import torch
+
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.compile import compile_filter
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.ops import filter_scan
+
+    prog = compile_filter(parse_ecql(ENV_FILTERS[0]), SimpleFeatureType.create("osm3", XZ3_SPEC)).program
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pair = []
+    for _ in range(20):
+        start.record()
+        end.record()
+        torch.cuda.synchronize()
+        pair.append(start.elapsed_time(end))
+    out = {"event_pair_ms": float(np.median(pair))}
+    for n in (0, 4096, 1 << 20, 1 << 21):
+        planes = envelope_planes(n, SEED + 13)
+        cols = {c: torch.from_numpy(planes[c]).to(dev) for c in prog.cols}
+        for kind, fn in (("count", filter_scan.filter_scan_count), ("mask", filter_scan.filter_scan_mask)):
+            call = lambda fn=fn, cols=cols: fn(prog, cols)  # noqa: E731
+            ms = time_ms(call, 50)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(50):
+                call()
+            host = (time.perf_counter() - t) / 50 * 1e3
+            torch.cuda.synchronize()
+            out[f"{kind}_{n}"] = {"ms": ms, "host_issue_ms": host,
+                                  "bound_ms": (16 * n + (n if kind == "mask" else 4)) / HBM_BYTES_PER_S * 1e3}
+    log(json.dumps({"launch_floor": out, "card": CARD}))
 
 
 def _ring(k, cx=10.0, cy=45.0, r=12.0):
@@ -2164,6 +2353,199 @@ def run_ais_path(dev) -> dict:
     return {"launches": launches, "di": di, "traffic": tr}
 
 
+# -- phase 3f: the device query scheduler ---------------------------------------
+
+SCHED_PANS = 64  # map-client threads, one pan of 16 tile counts each
+SCHED_TILES = 16
+SCHED_FEATURES = 16  # threads with one loose feature request each
+SCHED_MAX_QUEUE = 2048  # admits the whole burst (1,040 requests)
+SCHED_INDEXES = ("z3", "z2", "z3i", "z2i")  # dim planes, then the interleaved key
+SCHED_KERNELS = {  # (index, op) -> (batched kernel, single-query kernel)
+    ("z3", "count"): ("dimscan_batched_z3_count", "dimscan_z3_count"),
+    ("z3", "query"): ("dimscan_batched_z3_mask", "dimscan_z3_mask"),
+    ("z2", "count"): ("dimscan_batched_z2_count", "dimscan_z2_count"),
+    ("z2", "query"): ("dimscan_batched_z2_mask", "dimscan_z2_mask"),
+    ("z3i", "count"): ("zscan_batched_z3_count", "zscan_z3_count"),
+    ("z3i", "query"): ("zscan_batched_z3_mask", "zscan_z3_mask"),
+    ("z2i", "count"): ("zscan_batched_z2_count", "zscan_z2_count"),
+    ("z2i", "query"): ("zscan_batched_z2_mask", "zscan_z2_mask"),
+}
+
+
+def sched_traffic(centers) -> "tuple[list, list]":
+    """A fleet of map clients: 64 pans of 16 loose tile counts (a 4x4 grid
+    of 0.5-4 degree tiles around one of phase 3's city centres; over one
+    day on the z3 indexes, bbox only on the z2 ones), and 16 loose feature
+    requests (a 0.5 degree tile, over one day on z3), spread over the four
+    indexes in turn. Items are (index, ECQL)."""
+    pans = []
+    for i in range(SCHED_PANS):
+        key = SCHED_INDEXES[i % len(SCHED_INDEXES)]
+        cx, cy = centers[i % len(centers)]
+        sz = (0.5, 1.0, 2.0, 4.0)[i % 4]
+        d = i % 59
+        pan = []
+        for j in range(SCHED_TILES):
+            x0, y0 = cx + (j % 4 - 2) * sz, cy + (j // 4 - 2) * sz
+            q = f"BBOX(geom, {x0:.3f}, {y0:.3f}, {x0 + sz:.3f}, {y0 + sz:.3f})"
+            if key.startswith("z3"):
+                q += f" AND dtg DURING {_day(d)}/{_day(d + 1)}"
+            pan.append((key, q))
+        pans.append(pan)
+    feats = []
+    for j in range(SCHED_FEATURES):
+        cx, cy = centers[(7 * j) % len(centers)]
+        d = (3 * j) % 59
+        key = SCHED_INDEXES[j % len(SCHED_INDEXES)]
+        q = f"BBOX(geom, {cx - 0.25:.3f}, {cy - 0.25:.3f}, {cx + 0.25:.3f}, {cy + 0.25:.3f})"
+        if key.startswith("z3"):
+            q += f" AND dtg DURING {_day(d)}/{_day(d + 1)}"
+        feats.append([(key, q)])
+    return pans, feats
+
+
+def drive_sched(idx, pans, feats, cfg) -> dict:
+    """Every client on a thread of its own, started together; each submits
+    its requests (each in a trace of its own, a tenant per client) and
+    waits for them in order. Returns the answers, per-request latency from
+    submit to the scheduler completing that request (its own finish time,
+    not the client's in-order wait), each request's launch id, fused width
+    and fallback reason (its sched.execute span), the wall time and the
+    scheduler's snapshot."""
+    import threading
+
+    from geomesa_tpu_torch import tracing
+    from geomesa_tpu_torch.sched import FusableQuery, QueryScheduler
+
+    sched = QueryScheduler(cfg)
+    clients = [(pan, "count") for pan in pans] + [(f, "query") for f in feats]
+    barrier = threading.Barrier(len(clients) + 1)
+
+    def client(c):
+        items, op = clients[c]
+        barrier.wait()
+        mine = []
+        for key, q in items:
+            t0 = time.perf_counter()
+            with tracing.TRACER.trace("tile") as tr:
+                r = sched.submit(fuse=FusableQuery(idx[key], q, op, loose=True), tenant=f"c{c}")
+            mine.append((key, op, q, r, tr, t0))
+        out = []
+        for key, op, q, r, tr, t0 in mine:
+            v = sched.wait(r)
+            lat = r.t_done - t0
+            ex = [sp for sp in tr.root.children if sp.name == "sched.execute"]
+            if len(ex) != 1:
+                raise AssertionError(f"{key} {op} {q}: {len(ex)} sched.execute spans")
+            if "fallback" in ex[0].attrs:
+                raise AssertionError(f"{key} {op} {q}: its group fell back to serial "
+                                     f"({ex[0].attrs['fallback']})")
+            out.append((key, op, q, v, lat, ex[0].attrs["launch"], ex[0].attrs["fused"]))
+        return out
+
+    try:
+        with ThreadPoolExecutor(max_workers=len(clients)) as pool:
+            futs = [pool.submit(client, c) for c in range(len(clients))]
+            barrier.wait()
+            t0 = time.perf_counter()
+            done = [x for f in futs for x in f.result()]
+            wall = time.perf_counter() - t0
+        snap = sched.snapshot()
+    finally:
+        sched.close(timeout=10.0)
+    return {"done": done, "wall": wall, "snap": snap, "sched": sched}
+
+
+def check_sched(tag, run, serial) -> dict:
+    """Every answer equals the serial one; the launches the drive made
+    equal, kernel by kernel, the launches its spans show (one batched
+    launch per fused group, one single-query launch per request served
+    alone); no group of two or more fell back to serial (a failed or
+    declined fused launch); nothing rejected or expired. Returns the launch
+    counts."""
+    done, sched = run["done"], run["sched"]
+    for key, op, q, v, _, _, _ in done:
+        want = serial[(key, op, q)]
+        if op == "count" and v != want:
+            raise AssertionError(f"{tag} {key} {q}: count {v} != serial {want}")
+        if op == "query" and not np.array_equal(v.fids, want):
+            raise AssertionError(f"{tag} {key} {q}: fid set != serial ({len(v)} vs {len(want)})")
+    calls: dict = {}
+    groups = {(key, op, launch) for key, op, _, _, _, launch, fused in done if fused > 1}
+    for key, op, _ in groups:
+        name = SCHED_KERNELS[(key, op)][0]
+        calls[name] = calls.get(name, 0) + 1
+    alone = [(key, op) for key, op, _, _, _, _, fused in done if fused == 1]
+    for key, op in alone:
+        name = SCHED_KERNELS[(key, op)][1]
+        calls[name] = calls.get(name, 0) + 1
+    launches = read_launches(f"scheduler ({tag})", calls)
+    riders = sum(1 for *_, fused in done if fused > 1)
+    if sched.fused_queries != riders or sched.launches != len(groups) + len(alone):
+        raise AssertionError(f"{tag}: fused_queries {sched.fused_queries} / launches "
+                             f"{sched.launches} != the spans' {riders} / {len(groups) + len(alone)}")
+    if sched.fusion_fallbacks:
+        raise AssertionError(f"{tag}: {sched.fusion_fallbacks} groups fell back to serial")
+    if sched.rejected or sched.expired or sched.queries != len(done):
+        raise AssertionError(f"{tag}: rejected {sched.rejected}, expired {sched.expired}, "
+                             f"queries {sched.queries} of {len(done)}")
+    return launches
+
+
+def run_sched_path(dev, cols, di3, di2, di3i, di2i) -> dict:
+    """Phase 3f: the device query scheduler over phase 3's resident 2^26-row
+    indexes (z3 and z2 dim planes, the interleaved z3 and z2 of phase 3c): the
+    map-client burst with the default SchedConfig (max_queue raised to
+    admit it), then again with max_fusion=1, the unfused comparison. Every
+    answer equals the serial one through the single-query kernel; the
+    batched launch counts equal the fused groups the spans show."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.sched import SchedConfig
+
+    idx = {"z3": di3, "z2": di2, "z3i": di3i, "z2i": di2i}
+    pans, feats = sched_traffic(cols["_centers"])
+    t = time.time()
+    serial = {}
+    for items, op in [(p, "count") for p in pans] + [(f, "query") for f in feats]:
+        for key, q in items:
+            di = idx[key]
+            serial[(key, op, q)] = di.count(q, loose=True) if op == "count" else \
+                di.query(q, loose=True).fids
+    log(f"phase 3f: {len(serial)} serial answers in {time.time() - t:.1f} s")
+    n_req = SCHED_PANS * SCHED_TILES + SCHED_FEATURES
+    out = {"launches": {k: 0 for k in kernels.KERNEL_NAMES}}
+    for tag, cfg in (("fused", SchedConfig(max_queue=SCHED_MAX_QUEUE)),
+                     ("unfused", SchedConfig(max_queue=SCHED_MAX_QUEUE, max_fusion=1))):
+        kernels.reset_counts()
+        run = drive_sched(idx, pans, feats, cfg)
+        torch.cuda.synchronize()
+        launches = check_sched(tag, run, serial)
+        for k, v in launches.items():
+            out["launches"][k] += v
+        snap, done = run["snap"], run["done"]
+        lat = [x[4] for x in done]
+        widths = sorted({x[5]: x[6] for x in done if x[6] > 1}.values())
+        log(f"phase 3f {tag}: {n_req} requests in {run['wall'] * 1e3:.1f} ms "
+            f"({n_req / run['wall']:.1f} requests/s), {snap['launches']} launches, fusion factor "
+            f"{snap['fusion_factor']}, {snap['fused_queries']} fused queries, fused widths "
+            f"{widths}; latency submit to completion p50 {pct(lat, 50):.3f} ms p99 {pct(lat, 99):.3f} ms "
+            f"(counts p50 {pct([x[4] for x in done if x[1] == 'count'], 50):.3f} ms, features p50 "
+            f"{pct([x[4] for x in done if x[1] == 'query'], 50):.3f} ms) [{CARD}]")
+        out[tag] = {"requests": n_req, "wall_s": run["wall"], "launches": snap["launches"],
+                    "fusion_factor": snap["fusion_factor"], "fused_queries": snap["fused_queries"],
+                    "p50_ms": pct(lat, 50), "p99_ms": pct(lat, 99), "widths": widths}
+    if not (out["fused"]["launches"] < n_req and out["fused"]["fused_queries"] > 0):
+        raise AssertionError(f"phase 3f: the fused run launched {out['fused']['launches']} times "
+                             f"for {n_req} requests, {out['fused']['fused_queries']} fused")
+    if out["unfused"]["launches"] != n_req:
+        raise AssertionError("phase 3f: the unfused run fused a group")
+    log(json.dumps({"sched": {k: out[k] for k in ("fused", "unfused")}, "card": CARD}))
+    out["traffic"] = (pans, feats)
+    return out
+
+
 # -- phase 4: kernel timings --------------------------------------------------
 
 
@@ -2198,18 +2580,19 @@ def zscan_ops(lb, bins) -> int:
     """Integer operations the interleaved scan's function needs on this
     data, whatever implements it: per row one bin lookup (a subtract, an
     unsigned range check and a table load: 4), and for a row whose bin has
-    an entry that entry's masked compares (25: per dimension an AND pair
-    and two 64-bit compares, and the ANDs between them); z2 rows pay the
-    masked compares of 2 dimensions (17) and no lookup."""
+    an entry that entry's masked compares (18: per dimension an AND pair
+    and two 64-bit compares of two 32-bit compares each, the ANDs between
+    them folded into the compares); z2 rows pay the masked compares of 2
+    dimensions (12) and no lookup."""
     import torch
 
     ids = lb[2]
     n = bins.shape[0]
     if ids is None:  # z2: one entry, 2 dims
-        return 17 * n
+        return 12 * n
     real = torch.from_numpy(ids[ids >= 0]).to(bins.device)
     in_window = int(torch.isin(bins, real).sum())
-    return 4 * n + 25 * in_window
+    return 4 * n + 18 * in_window
 
 
 def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs) -> list:
@@ -2263,17 +2646,17 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     row("dimscan_z3_count", dim_src, f"{rz3} (pallas_call :643)",
         lambda: zscan.dimscan_count(q3, *p3),
         lambda: zscan.dimscan_plain(q3, *p3).sum(dtype=torch.int32),
-        12 * n, 4, n * (4 + 2 * r3 + 3))
+        12 * n, 4, n * (4 + 2 * r3))
     row("dimscan_z3_mask", dim_src, f"{rz3} (pallas_call :669)",
         lambda: zscan.dimscan_mask(q3, *p3), lambda: zscan.dimscan_plain(q3, *p3),
-        12 * n, n, n * (4 + 2 * r3 + 3))
+        12 * n, n, n * (4 + 2 * r3))
     row("dimscan_z2_count", dim_src, f"{rz2} (pallas_call :498)",
         lambda: zscan.dimscan_count(q2, *p2),
         lambda: zscan.dimscan_plain(q2, *p2).sum(dtype=torch.int32),
-        8 * n, 4, n * 7)
+        8 * n, 4, n * 4)
     row("dimscan_z2_mask", dim_src, f"{rz2} (pallas_call :521)",
         lambda: zscan.dimscan_mask(q2, *p2), lambda: zscan.dimscan_plain(q2, *p2),
-        8 * n, n, n * 7)
+        8 * n, n, n * 4)
 
     # the baked dim scan on the same window, beside the runtime kernel
     w = window_ms(queries[0][2])
@@ -2281,7 +2664,7 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     bc, bm = zscan.build_z3_dimscan_pallas(qnx, qny, ranges)
     bake_src = "geomesa_tpu_torch/csrc/dimscan_baked.cu"
     rbake = "geomesa_tpu/ops/zscan.py:703 build_z3_dimscan_pallas"
-    bake_ops = n * (4 + 2 * len(ranges) + 3)
+    bake_ops = n * (4 + 2 * len(ranges))
     row("dimscan_baked_count", bake_src, f"{rbake} (pallas_call :772)", lambda: bc(*p3),
         lambda: zscan.z3_dimscan_mask(*p3, qnx, qny, ranges).sum(dtype=torch.int32),
         12 * n, 4, bake_ops)
@@ -2308,9 +2691,9 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     z2c, z2m, ops2 = di2i._loose_args(lb2)
     row("zscan_z2_count", zs_src, f"{rzs} (pallas_call :942; z2 variant of zscan.py:97)",
         lambda: z2c(*ops2),
-        lambda: zscan.z2_zscan_mask(*ops2, lb2[1]).sum(dtype=torch.int32), 8 * n, 4, 17 * n)
+        lambda: zscan.z2_zscan_mask(*ops2, lb2[1]).sum(dtype=torch.int32), 8 * n, 4, 12 * n)
     row("zscan_z2_mask", zs_src, f"{rzs} (pallas_call :960; z2 variant of zscan.py:97)",
-        lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, 17 * n)
+        lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, 12 * n)
 
     # the interleaved scan over many bins: the wide day-binned index, a
     # 28-day world window (29 day bins), rows of their own
@@ -2328,7 +2711,7 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
         lambda: zscan.z3_zscan_mask(opsw[1], opsw[2], opsw[0], bw, iw),
         12 * n, n, zops_w, plain_iters=1, case=case)
     log(f"zscan_z3 at {nb} day bins: the function's operations bound {zops_w / INT32_OPS_PER_S * 1e3:.4f} ms "
-        f"({zops_w / n:.1f} ops/row); {25 * nb * n / INT32_OPS_PER_S * 1e3:.4f} ms at 25 ops per "
+        f"({zops_w / n:.1f} ops/row); {18 * nb * n / INT32_OPS_PER_S * 1e3:.4f} ms at 18 ops per "
         f"row per bin entry (the TPU kernel's way) [{CARD}]")
 
     ops = n * _program_ops(cf.program)
@@ -2340,6 +2723,119 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
         lambda: filter_scan.filter_scan_mask(cf.program, fcols),
         lambda: filter_scan.run_program_plain(cf.program, fcols),
         fbytes * n, n, ops)
+    return rows
+
+
+def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
+    """Phase 4 for the batched scans, at the main path's 2^26 rows with
+    phase 3f's tile queries: Q in {1, 8, 64}, the z3 dim scan at R = 1 and
+    at R = 2 (each query's bt range split in two: the same rows), the z2
+    dim scan, the interleaved z3 scan (2 week bins; 1 or 2 entries a
+    query) and its z2 variant on the phase 3c indexes; count and mask.
+    Beside each: Q launches of the single-query kernel (the yardstick) and
+    the bound, the larger of the bytes (the planes once, the output) and
+    the operations (Q x the single query's per-row work)."""
+    import torch
+
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.ops import zscan
+
+    pans, _ = sched["traffic"]
+    # one tile of each pan in turn, so that a group spans the pans' days
+    tiles = {k: [pan[j][1] for j in range(SCHED_TILES) for pan in pans if pan[j][0] == k]
+             for k in ("z3", "z2", "z3i")}
+    rows = []
+
+    def brow(name, replaces, kern, plain, single, nbytes, ops, q, case, iters, plain_iters):
+        errs.check(name, kern(), plain(), f"phase 4 {case}")
+        ms = time_ms(kern, iters)
+        single_ms = time_ms(single, max(2, iters // 4), warm=1)
+        plain_ms = time_ms(plain, plain_iters, warm=1)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        src = "geomesa_tpu_torch/csrc/" + ("dimscan.cu" if name.startswith("dimscan") else "zscan.cu")
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs.err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "case": case, "q": q, "single_ms": single_ms,
+        })
+        log(f"{name} ({case}): {ms:.4f} ms; {q} single-query launches {single_ms:.4f} ms; bound "
+            f"{bound:.4f} ms (bytes {t_bytes:.4f}, operations {t_ops:.4f}; {100 * bound / ms:.1f}% "
+            f"of it); plain version {plain_ms:.3f} ms [{CARD}]")
+
+    rdim = "geomesa_tpu/ops/zscan.py:831 batched_dim_mask_rt (an XLA vmap of the single-query mask; no pallas_call)"
+    rkind = "geomesa_tpu/ops/zscan.py:816 batched_kind_mask (an XLA vmap of z3_zscan_mask / z2_zscan_mask; no pallas_call)"
+    di3, di2, di3i, di2i = idx["z3"], idx["z2"], idx["z3i"], idx["z2i"]
+    n = len(di3)
+    p3 = (di3._cols["__znx"], di3._cols["__zny"], di3._cols["__zbt"])
+    p2 = (di2._cols["__znx"], di2._cols["__zny"])
+    q3 = np.stack([di3._loose_bounds(parse_ecql(q))[1] for q in tiles["z3"][:64]])
+    split = np.empty((64, 8), np.uint32)
+    split[:, :4] = q3[:, :4]
+    mid = (q3[:, 4].astype(np.int64) + q3[:, 5]) // 2
+    split[:, 4], split[:, 5], split[:, 6], split[:, 7] = q3[:, 4], mid, mid + 1, q3[:, 5]
+    q2 = np.stack([di2._loose_bounds(parse_ecql(q))[1] for q in tiles["z2"][:64]])
+    zb = [di3i._loose_bounds(parse_ecql(q)) for q in tiles["z3i"][:64]]
+    z2b = [di2i._loose_bounds(parse_ecql(q.split(" AND ")[0])) for q in tiles["z3i"][:64]]
+    for nq in (1, 8, 64):
+        it, pit = (50, 3) if nq < 64 else (20, 1)
+        for r, qm in ((1, q3[:nq]), (2, split[:nq])):
+            ops = nq * (4 + 2 * r) * n
+            for kind in ("count", "mask"):
+                fn = zscan.batched_dimscan_count if kind == "count" else zscan.batched_dimscan_mask
+                one = zscan.dimscan_count if kind == "count" else zscan.dimscan_mask
+                plain = (lambda qm=qm, r=r: zscan.batched_dim_mask_rt(r)(*p3, qm).sum(dim=1, dtype=torch.int32)) \
+                    if kind == "count" else (lambda qm=qm, r=r: zscan.batched_dim_mask_rt(r)(*p3, qm))
+                brow(f"dimscan_batched_z3_{kind}", rdim, lambda fn=fn, qm=qm: fn(qm, *p3), plain,
+                     lambda one=one, qm=qm: [one(v, *p3) for v in qm],
+                     12 * n + (4 * nq if kind == "count" else nq * n), ops, nq,
+                     f"Q={nq} R={r}, 2^26 rows", it, pit)
+        qm = q2[:nq]
+        for kind in ("count", "mask"):
+            fn = zscan.batched_dimscan_count if kind == "count" else zscan.batched_dimscan_mask
+            one = zscan.dimscan_count if kind == "count" else zscan.dimscan_mask
+            plain = (lambda qm=qm: zscan.batched_dim_mask_rt(0)(*p2, qm).sum(dim=1, dtype=torch.int32)) \
+                if kind == "count" else (lambda qm=qm: zscan.batched_dim_mask_rt(0)(*p2, qm))
+            brow(f"dimscan_batched_z2_{kind}", rdim, lambda fn=fn, qm=qm: fn(qm, *p2), plain,
+                 lambda one=one, qm=qm: [one(v, *p2) for v in qm],
+                 8 * n + (4 * nq if kind == "count" else nq * n), nq * 4 * n, nq,
+                 f"Q={nq}, 2^26 rows", it, pit)
+        # the interleaved z3 scan: the group as the fused path pads it
+        lbs = zb[:nq]
+        bmax = max(len(lb[2]) for lb in lbs)
+        bounds = np.zeros((nq, bmax, 3, 6), np.uint32)
+        ids = np.full((nq, bmax), -1, np.int32)
+        for i, lb in enumerate(lbs):
+            bounds[i, : len(lb[2])], ids[i, : len(lb[2])] = lb[1], lb[2]
+        hi, lo, bins = di3i._cols["__zhi"], di3i._cols["__zlo"], di3i._cols["__zbin"]
+        zops = sum(zscan_ops(lb, bins) for lb in lbs)
+        entries = int((ids >= 0).sum())
+        for kind in ("count", "mask"):
+            fn = zscan.batched_zscan_count if kind == "count" else zscan.batched_zscan_mask
+            plain = (lambda b=bounds, i=ids: zscan.batched_kind_mask("z3")(hi, lo, bins, b, i).sum(
+                dim=1, dtype=torch.int32)) if kind == "count" else (
+                lambda b=bounds, i=ids: zscan.batched_kind_mask("z3")(hi, lo, bins, b, i))
+            single = [di3i._loose_args(lb)[0 if kind == "count" else 1] for lb in lbs]
+            brow(f"zscan_batched_z3_{kind}", rkind,
+                 lambda fn=fn, b=bounds, i=ids: fn(b, i, hi, lo, bins=bins), plain,
+                 lambda single=single: [f(bins, hi, lo) for f in single],
+                 12 * n + (4 * nq if kind == "count" else nq * n), zops, nq,
+                 f"Q={nq}, {entries} bin entries of 2 week bins (B={bmax}), 2^26 rows", it, pit)
+        b2 = np.stack([lb[1] for lb in z2b[:nq]])
+        h2, l2 = di2i._cols["__zhi"], di2i._cols["__zlo"]
+        for kind in ("count", "mask"):
+            fn = zscan.batched_zscan_count if kind == "count" else zscan.batched_zscan_mask
+            plain = (lambda b=b2: zscan.batched_kind_mask("z2")(h2, l2, b).sum(dim=1, dtype=torch.int32)) \
+                if kind == "count" else (lambda b=b2: zscan.batched_kind_mask("z2")(h2, l2, b))
+            single = [di2i._loose_args(lb)[0 if kind == "count" else 1] for lb in z2b[:nq]]
+            brow(f"zscan_batched_z2_{kind}", rkind, lambda fn=fn, b=b2: fn(b, None, h2, l2), plain,
+                 lambda single=single: [f(h2, l2) for f in single],
+                 8 * n + (4 * nq if kind == "count" else nq * n), nq * 12 * n, nq,
+                 f"Q={nq}, 2^26 rows", it, pit)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2633,8 +3129,10 @@ def main() -> int:
     check_envelope_scans(dev, errs)
     check_density(dev, errs)
     check_ais_ops(dev)
+    check_batched_scans(dev, errs)
     log(f"phase 2: kernels == plain versions, bit-exact (weighted density: rtol 1e-6) "
         f"({time.time() - t:.1f} s)")
+    launch_floor(dev)
 
     t = time.time()
     cols = make_columns(N_ROWS, SEED)
@@ -2654,14 +3152,23 @@ def main() -> int:
     t = time.time()
     ais = run_ais_path(dev)
     log(f"phase 3e: the AIS path in {time.time() - t:.1f} s")
+    t = time.time()
+    sched = run_sched_path(dev, cols, di3, di2, inter["di3i"], inter["di2i"])
+    log(f"phase 3f: the scheduler in {time.time() - t:.1f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
-                + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) for k in main_launches}
+                + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) + sched["launches"][k]
+                for k in main_launches}
 
     rows = kernel_table(dev, di3, di2, inter, queries, z2q, launches, errs)
     rows += density_rows(dev, di3, launches, errs)
     env_rows, ops_rows = xz_rows(dev, xz, launches, errs)
     rows += env_rows
+    rows += batched_rows(dev, sched, {"z3": di3, "z2": di2, "z3i": inter["di3i"],
+                                      "z2i": inter["di2i"]}, launches, errs)
+    missing = sorted(set(launches) - {r["name"] for r in rows})
+    if missing:
+        raise AssertionError(f"the kernels line lacks {missing}")
     ops_rows += ais_ops_rows(dev, ais)
     log(json.dumps({"torch_ops": ops_rows}))
     log(json.dumps({"kernels": rows}))

@@ -29,55 +29,86 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+#include "quad.cuh"
+
 constexpr int kMaxQ = 20;  // 4 + 2 * 8 ranges
 
 struct DimQuery {
   uint32_t q[kMaxQ];
 };
 
-template <int NR>
+// One query's words: the kernel parameters (DimQuery) or a row of the
+// batched kernels' query matrix in shared memory (a pointer).
+__device__ __forceinline__ uint32_t word(const DimQuery& q, int i) { return q.q[i]; }
+__device__ __forceinline__ uint32_t word(const uint32_t* q, int i) { return q[i]; }
+
+template <int NR, class Q>
 __device__ __forceinline__ uint32_t hit(uint32_t nx, uint32_t ny, uint32_t bt,
-                                        const DimQuery& q) {
-  uint32_t m = (nx >= q.q[0]) & (nx <= q.q[1]) & (ny >= q.q[2]) & (ny <= q.q[3]);
+                                        const Q& q) {
+  uint32_t m = (nx >= word(q, 0)) & (nx <= word(q, 1)) & (ny >= word(q, 2)) &
+               (ny <= word(q, 3));
   if (NR > 0) {
     uint32_t t = 0;
 #pragma unroll
     for (int k = 0; k < NR; ++k) {
-      t |= (bt >= q.q[4 + 2 * k]) & (bt <= q.q[5 + 2 * k]);
+      t |= (bt >= word(q, 4 + 2 * k)) & (bt <= word(q, 5 + 2 * k));
     }
     m &= t;
   }
   return m;
 }
 
-__device__ __forceinline__ uint4 load4(const uint32_t* p, long long row) {
-  return __ldg(reinterpret_cast<const uint4*>(p + row));
+// The planes' words of the 4 rows starting at `row` (a multiple of 4) and
+// how many of them lie before n (at most 4; 0 or less reads nothing).
+struct Quad {
+  uint4 a, b, c;
+  long long rows;
+};
+
+template <int NR>
+__device__ __forceinline__ Quad load_quad(const uint32_t* nx, const uint32_t* ny,
+                                          const uint32_t* bt, long long row,
+                                          long long n) {
+  Quad d;
+  d.rows = n - row;
+  d.c = make_uint4(0, 0, 0, 0);
+  if (d.rows >= 4) {
+    d.a = load4(nx, row);
+    d.b = load4(ny, row);
+    if (NR > 0) d.c = load4(bt, row);
+    return d;
+  }
+  uint32_t a[4] = {0, 0, 0, 0}, b[4] = {0, 0, 0, 0}, c[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    if (r < d.rows) {
+      a[r] = nx[row + r];
+      b[r] = ny[row + r];
+      if (NR > 0) c[r] = bt[row + r];
+    }
+  }
+  d.a = make_uint4(a[0], a[1], a[2], a[3]);
+  d.b = make_uint4(b[0], b[1], b[2], b[3]);
+  d.c = make_uint4(c[0], c[1], c[2], c[3]);
+  return d;
 }
 
-// Hits of the 4 rows starting at `row` (row is a multiple of 4), as bits
-// 0..3; rows at or past n read nothing and are 0.
+// Hits of a quad's rows for one query, as bits 0..3; rows at or past n are 0.
+template <int NR, class Q>
+__device__ __forceinline__ uint32_t quad_bits(const Quad& d, const Q& q) {
+  const uint32_t bits =
+      hit<NR>(d.a.x, d.b.x, d.c.x, q) | (hit<NR>(d.a.y, d.b.y, d.c.y, q) << 1) |
+      (hit<NR>(d.a.z, d.b.z, d.c.z, q) << 2) | (hit<NR>(d.a.w, d.b.w, d.c.w, q) << 3);
+  return d.rows >= 4 ? bits : (d.rows <= 0 ? 0u : bits & ((1u << d.rows) - 1u));
+}
+
 template <int NR>
 __device__ __forceinline__ uint32_t quad_hits(const uint32_t* nx,
                                               const uint32_t* ny,
                                               const uint32_t* bt,
                                               long long row, long long n,
                                               const DimQuery& q) {
-  if (row + 4 <= n) {
-    uint4 a = load4(nx, row);
-    uint4 b = load4(ny, row);
-    uint4 c = make_uint4(0, 0, 0, 0);
-    if (NR > 0) c = load4(bt, row);
-    return hit<NR>(a.x, b.x, c.x, q) | (hit<NR>(a.y, b.y, c.y, q) << 1) |
-           (hit<NR>(a.z, b.z, c.z, q) << 2) | (hit<NR>(a.w, b.w, c.w, q) << 3);
-  }
-  uint32_t bits = 0;
-  for (int r = 0; r < 4 && row + r < n; ++r) {
-    long long i = row + r;
-    uint32_t t = NR > 0 ? bt[i] : 0u;
-    bits |= hit<NR>(nx[i], ny[i], t, q) << r;
-  }
-  return bits;
+  return quad_bits<NR>(load_quad<NR>(nx, ny, bt, row, n), q);
 }
 
 template <int NR>
@@ -128,21 +159,6 @@ dimscan_mask_kernel(const uint32_t* __restrict__ nx,
   }
 }
 
-int grid_for(long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  long long quads = (n + 3) / 4;
-  long long blocks = (quads + kThreads - 1) / kThreads;
-  long long cap = (long long)sms * 8;  // grid-stride beyond 8 blocks per SM
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
 template <int NR>
 void launch(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
             long long n, const DimQuery& q, int want_mask, void* out,
@@ -154,6 +170,102 @@ void launch(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
   } else {
     dimscan_count_kernel<NR><<<grid, kThreads, 0, stream>>>(
         nx, ny, bt, n, q, static_cast<int*>(out));
+  }
+}
+
+// -- the Q-batched dim scan ----------------------------------------------------
+//
+// Q queries over the same planes in one pass: the fused loose count and
+// mask of the device query scheduler. The reference computes them with an
+// XLA vmap of the single-query mask (geomesa_tpu/ops/zscan.py:831,
+// batched_dim_mask_rt), not with a Pallas kernel; a torch broadcast of the
+// plain version would hold (Q, n) int64 intermediates (32 GiB at Q = 64 and
+// 2^26 rows). Each thread loads its quad of rows once and tests every
+// query of the group against it, the query matrix (at most 64 x 20 words)
+// staged once per block in shared memory. The count reads 12 B/row (8 B for
+// z2) and does Q x (4 + 2R) compares a row (each also ANDs or ORs into a
+// predicate), so wide groups are bound by operations; it reduces each
+// query per warp
+// (__reduce_add_sync, the warp's lanes stepping through the rows together)
+// into per-warp counters in shared memory, then one atomic per block and
+// query. The mask writes Q bytes a row: a (Q, n) matrix, one contiguous row
+// of n bytes per query, so that a query's host take reads one row.
+
+constexpr int kMaxBatch = 64;
+constexpr int kWarps = kThreads / 32;
+
+template <int NR>
+__device__ __forceinline__ void stage_queries(const uint32_t* qmat, int nq,
+                                              uint32_t* s) {
+  for (int i = threadIdx.x; i < nq * (4 + 2 * NR); i += blockDim.x) s[i] = qmat[i];
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+dimscan_batched_count_kernel(const uint32_t* __restrict__ nx,
+                             const uint32_t* __restrict__ ny,
+                             const uint32_t* __restrict__ bt, long long n,
+                             const uint32_t* __restrict__ qmat, int nq,
+                             int* __restrict__ out) {
+  constexpr int W = 4 + 2 * NR;
+  __shared__ uint32_t sq[kMaxBatch * W];
+  __shared__ int counts[kWarps][kMaxBatch];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  stage_queries<NR>(qmat, nq, sq);
+  for (int q = lane; q < kMaxBatch; q += 32) counts[warp][q] = 0;
+  __syncthreads();
+  const long long quads = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // the warp's first quad: every lane of a warp runs the same iterations,
+  // as __reduce_add_sync needs; lanes past the end count nothing
+  for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < quads; base += stride) {
+    const Quad d = load_quad<NR>(nx, ny, bt, 4 * (base + lane), n);
+    for (int q = 0; q < nq; ++q) {
+      const int c = __reduce_add_sync(0xffffffffu, __popc(quad_bits<NR>(d, sq + q * W)));
+      if (lane == 0) counts[warp][q] += c;
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += counts[w][q];
+    if (t) atomicAdd(out + q, t);
+  }
+}
+
+template <int NR>
+__global__ void __launch_bounds__(kThreads)
+dimscan_batched_mask_kernel(const uint32_t* __restrict__ nx,
+                            const uint32_t* __restrict__ ny,
+                            const uint32_t* __restrict__ bt, long long n,
+                            const uint32_t* __restrict__ qmat, int nq,
+                            uint8_t* __restrict__ out) {
+  constexpr int W = 4 + 2 * NR;
+  __shared__ uint32_t sq[kMaxBatch * W];
+  stage_queries<NR>(qmat, nq, sq);
+  __syncthreads();
+  const long long quads = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < quads; i += stride) {
+    const Quad d = load_quad<NR>(nx, ny, bt, 4 * i, n);
+    for (int q = 0; q < nq; ++q) store_bits(out, n, q, 4 * i, quad_bits<NR>(d, sq + q * W));
+  }
+}
+
+template <int NR>
+void launch_batched(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
+                    long long n, const uint32_t* qmat, int nq, int want_mask,
+                    void* out, cudaStream_t stream) {
+  const int grid = grid_for(n);
+  if (want_mask) {
+    dimscan_batched_mask_kernel<NR><<<grid, kThreads, 0, stream>>>(
+        nx, ny, bt, n, qmat, nq, static_cast<uint8_t*>(out));
+  } else {
+    dimscan_batched_count_kernel<NR><<<grid, kThreads, 0, stream>>>(
+        nx, ny, bt, n, qmat, nq, static_cast<int*>(out));
   }
 }
 
@@ -186,6 +298,39 @@ extern "C" int gm_dimscan(const uint32_t* nx, const uint32_t* ny,
       case 8: launch<8>(nx, ny, bt, n, q, want_mask, out, stream); break;
       default: return (int)cudaErrorInvalidValue;
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the batched scan (bound with ctypes). `qmat` is
+// DEVICE memory: nq rows of 4 + 2 * n_ranges uint32 words, 1 <= nq <= 64.
+// For the count, `out` is nq int32 that this call zeroes on `stream`
+// first; for the mask, nq * n bytes, row q holding query q's hits. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
+extern "C" int gm_dimscan_batched(const uint32_t* nx, const uint32_t* ny,
+                                  const uint32_t* bt, long long n,
+                                  const uint32_t* qmat, int nq, int n_ranges,
+                                  int want_mask, void* out, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (nq < 1 || nq > kMaxBatch || (n_ranges > 0 && bt == nullptr && n > 0))
+    return (int)cudaErrorInvalidValue;
+  if (!want_mask) {
+    cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int) * nq, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n > 0) {
+    switch (n_ranges) {
+      case 0: launch_batched<0>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
+      case 1: launch_batched<1>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
+      case 2: launch_batched<2>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
+      case 4: launch_batched<4>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
+      case 8: launch_batched<8>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (n_ranges != 0 && n_ranges != 1 && n_ranges != 2 && n_ranges != 4 &&
+             n_ranges != 8) {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

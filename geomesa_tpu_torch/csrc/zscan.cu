@@ -35,7 +35,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+#include "quad.cuh"
+
 constexpr int kMaxEntries = 512;
 constexpr int kMaxSpan = 2048;
 
@@ -70,10 +71,6 @@ __device__ __forceinline__ uint32_t row_hit(int bin, uint32_t zh, uint32_t zl,
       (unsigned long long)((long long)bin - (long long)first);
   const int e = off < (unsigned long long)span ? entry_of[off] : -1;
   return entry_hit<NDIMS>(z, tab + (e < 0 ? 0 : e) * NDIMS * 6) & (uint32_t)(e >= 0);
-}
-
-__device__ __forceinline__ uint4 load4(const uint32_t* p, long long row) {
-  return __ldg(reinterpret_cast<const uint4*>(p + row));
 }
 
 // Hits of the 4 rows starting at `row` (a multiple of 4), as bits 0..3;
@@ -172,21 +169,6 @@ zscan_mask_kernel(const int* __restrict__ bins,
   }
 }
 
-int grid_for(long long n) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  const long long quads = (n + 3) / 4;
-  long long blocks = (quads + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * 8;  // grid-stride beyond 8 per SM
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
 template <int NDIMS>
 void launch(const int* bins, const uint32_t* zh, const uint32_t* zl,
             long long n, const uint32_t* table, int nb, int first, int span,
@@ -200,6 +182,152 @@ void launch(const int* bins, const uint32_t* zh, const uint32_t* zl,
   } else {
     zscan_count_kernel<NDIMS><<<grid, kThreads, smem, stream>>>(
         bins, zh, zl, n, table, nb, first, span, static_cast<int*>(out));
+  }
+}
+
+// -- the Q-batched interleaved scan -------------------------------------------
+//
+// Q queries over the same key planes in one pass: the fused loose count and
+// mask of the device query scheduler. The reference computes them with an
+// XLA vmap of z3_zscan_mask / z2_zscan_mask (geomesa_tpu/ops/zscan.py:816,
+// batched_kind_mask), not with a Pallas kernel. Each thread loads its quad
+// of rows (bin, hi and lo words) once and looks each query's entry up in
+// that query's bin table, as the single-query kernel does. The packed
+// table holds per query a header {bounds offset, bin-table offset, first
+// bin, span} (4 words each, nq of them first), then each query's bound
+// entries and bin table (ops/zscan.py _BatchedZScan builds it); z2 queries
+// have one entry and no bin table. Blocks read the table in place through
+// the read-only cache (64 queries of 2 week bins take 11 KB, 64 of many
+// bins and long spans more than shared memory holds); only the headers are
+// copied to shared memory. Padding never matches: a
+// query's ids < 0 have no place in its bin table, and a padded query has
+// an empty table. The count reduces each query per warp into per-warp
+// counters in shared memory, then one atomic per block and query; the mask
+// writes a (Q, n) byte matrix, one contiguous row per query.
+
+constexpr int kMaxBatch = 64;
+constexpr int kWarps = kThreads / 32;
+
+struct BQuad {
+  int4 b;
+  uint4 h, l;
+  long long rows;
+};
+
+template <int NDIMS>
+__device__ __forceinline__ BQuad load_bquad(const int* bins, const uint32_t* zh,
+                                            const uint32_t* zl, long long row,
+                                            long long n) {
+  BQuad d;
+  d.rows = n - row;
+  d.b = make_int4(0, 0, 0, 0);
+  if (d.rows >= 4) {
+    d.h = load4(zh, row);
+    d.l = load4(zl, row);
+    if (NDIMS == 3) d.b = __ldg(reinterpret_cast<const int4*>(bins + row));
+    return d;
+  }
+  int b[4] = {0, 0, 0, 0};
+  uint32_t h[4] = {0, 0, 0, 0}, l[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    if (r < d.rows) {
+      h[r] = zh[row + r];
+      l[r] = zl[row + r];
+      if (NDIMS == 3) b[r] = bins[row + r];
+    }
+  }
+  d.b = make_int4(b[0], b[1], b[2], b[3]);
+  d.h = make_uint4(h[0], h[1], h[2], h[3]);
+  d.l = make_uint4(l[0], l[1], l[2], l[3]);
+  return d;
+}
+
+// Hits of a quad's rows for the query with header `hd` over `tab`, as bits
+// 0..3; rows at or past n are 0.
+template <int NDIMS>
+__device__ __forceinline__ uint32_t bquad_bits(const BQuad& d, const int4& hd,
+                                               const uint32_t* tab) {
+  const uint32_t* bounds = tab + hd.x;
+  const int* entry_of = reinterpret_cast<const int*>(tab + hd.y);
+  const uint32_t bits =
+      row_hit<NDIMS>(d.b.x, d.h.x, d.l.x, bounds, entry_of, hd.z, hd.w) |
+      (row_hit<NDIMS>(d.b.y, d.h.y, d.l.y, bounds, entry_of, hd.z, hd.w) << 1) |
+      (row_hit<NDIMS>(d.b.z, d.h.z, d.l.z, bounds, entry_of, hd.z, hd.w) << 2) |
+      (row_hit<NDIMS>(d.b.w, d.h.w, d.l.w, bounds, entry_of, hd.z, hd.w) << 3);
+  return d.rows >= 4 ? bits : (d.rows <= 0 ? 0u : bits & ((1u << d.rows) - 1u));
+}
+
+// The block's copy of the query headers (shared memory).
+__device__ __forceinline__ void stage_headers(const uint32_t* table, int nq, int4* hdr) {
+  const int4* h = reinterpret_cast<const int4*>(table);
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) hdr[q] = h[q];
+}
+
+template <int NDIMS>
+__global__ void __launch_bounds__(kThreads)
+zscan_batched_count_kernel(const int* __restrict__ bins,
+                           const uint32_t* __restrict__ zh,
+                           const uint32_t* __restrict__ zl, long long n,
+                           const uint32_t* __restrict__ tab, int nq,
+                           int* __restrict__ out) {
+  __shared__ int4 hdr[kMaxBatch];
+  __shared__ int counts[kWarps][kMaxBatch];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  stage_headers(tab, nq, hdr);
+  for (int q = lane; q < kMaxBatch; q += 32) counts[warp][q] = 0;
+  __syncthreads();
+  const long long quads = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // the warp's first quad: every lane of a warp runs the same iterations,
+  // as __reduce_add_sync needs; lanes past the end count nothing
+  for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < quads; base += stride) {
+    const BQuad d = load_bquad<NDIMS>(bins, zh, zl, 4 * (base + lane), n);
+    for (int q = 0; q < nq; ++q) {
+      const int c = __reduce_add_sync(0xffffffffu, __popc(bquad_bits<NDIMS>(d, hdr[q], tab)));
+      if (lane == 0) counts[warp][q] += c;
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += counts[w][q];
+    if (t) atomicAdd(out + q, t);
+  }
+}
+
+template <int NDIMS>
+__global__ void __launch_bounds__(kThreads)
+zscan_batched_mask_kernel(const int* __restrict__ bins,
+                          const uint32_t* __restrict__ zh,
+                          const uint32_t* __restrict__ zl, long long n,
+                          const uint32_t* __restrict__ tab, int nq,
+                          uint8_t* __restrict__ out) {
+  __shared__ int4 hdr[kMaxBatch];
+  stage_headers(tab, nq, hdr);
+  __syncthreads();
+  const long long quads = (n + 3) / 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < quads; i += stride) {
+    const BQuad d = load_bquad<NDIMS>(bins, zh, zl, 4 * i, n);
+    for (int q = 0; q < nq; ++q) store_bits(out, n, q, 4 * i, bquad_bits<NDIMS>(d, hdr[q], tab));
+  }
+}
+
+template <int NDIMS>
+void launch_batched(const int* bins, const uint32_t* zh, const uint32_t* zl,
+                    long long n, const uint32_t* table, int nq, int want_mask,
+                    void* out, cudaStream_t stream) {
+  const int grid = grid_for(n);
+  if (want_mask) {
+    zscan_batched_mask_kernel<NDIMS><<<grid, kThreads, 0, stream>>>(
+        bins, zh, zl, n, table, nq, static_cast<uint8_t*>(out));
+  } else {
+    zscan_batched_count_kernel<NDIMS><<<grid, kThreads, 0, stream>>>(
+        bins, zh, zl, n, table, nq, static_cast<int*>(out));
   }
 }
 
@@ -234,6 +362,36 @@ extern "C" int gm_zscan(const int* bins, const uint32_t* zh, const uint32_t* zl,
     } else {
       launch<2>(nullptr, zh, zl, n, table, n_entries, 0, 0, want_mask, out,
                 stream);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the batched scan (bound with ctypes). `table` is
+// DEVICE memory of `words` uint32 laid out as above for nq queries,
+// 1 <= nq <= 64; `bins` is null for n_dims == 2. For the count, `out` is
+// nq int32 that this call zeroes on `stream` first; for the mask, nq * n
+// bytes, row q holding query q's hits. Returns cudaGetLastError() after
+// the launch (0 = launched), or cudaErrorInvalidValue for arguments the
+// kernels do not take.
+extern "C" int gm_zscan_batched(const int* bins, const uint32_t* zh,
+                                const uint32_t* zl, long long n,
+                                const uint32_t* table, int words, int nq,
+                                int n_dims, int want_mask, void* out,
+                                void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (nq < 1 || nq > kMaxBatch || words < 4 * nq || (n_dims != 2 && n_dims != 3) ||
+      (n_dims == 3 && bins == nullptr && n > 0))
+    return (int)cudaErrorInvalidValue;
+  if (!want_mask) {
+    cudaError_t e = cudaMemsetAsync(out, 0, sizeof(int) * nq, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n > 0) {
+    if (n_dims == 3) {
+      launch_batched<3>(bins, zh, zl, n, table, nq, want_mask, out, stream);
+    } else {
+      launch_batched<2>(nullptr, zh, zl, n, table, nq, want_mask, out, stream);
     }
   }
   return (int)cudaGetLastError();

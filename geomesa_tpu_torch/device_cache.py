@@ -33,10 +33,14 @@ mask and selection in torch ops, ``ops/knn.py``) and
 ``ops/window.py``); each ANDs in a base filter's mask from the
 filter-scan kernel and the auth verdict.
 
+The device query scheduler's fused loose paths (``fused_loose_counts``,
+``fused_loose_query``) answer a group of compatible loose queries in one
+launch of the batched dim-scan or interleaved-scan kernel.
+
 Not in the port yet; each raises ``NotImplementedError`` naming its
-ROADMAP item: the Q-batched fused loose paths, streaming and sharded
-indexes, window pairs and joins, and the stats the host sketches serve
-(Cardinality, TopK, Frequency, Z3Histogram).
+ROADMAP item: streaming and sharded indexes, window pairs and joins, and
+the stats the host sketches serve (Cardinality, TopK, Frequency,
+Z3Histogram).
 """
 
 from __future__ import annotations
@@ -966,13 +970,129 @@ class DeviceIndex:
         return (self._host_batch.take(idx.cpu().numpy()),
                 np.sqrt(d2.cpu().numpy().astype(np.float64)))
 
+    # -- micro-batch scan fusion (the device query scheduler) ----------------
+
+    def fused_loose_counts(self, queries, loose: "bool | None" = None):
+        """Answer Q compatible loose queries in ONE batched launch: the
+        queries' bounds stack along a leading query axis (Q padded to a
+        power of two, R, bins and ranges to the group's maxima, all with
+        never-matching entries) and one pass over the key planes returns
+        every count -- the batched dim scan or interleaved scan kernel, or
+        for the xz kinds the range masks' torch ops, query by query.
+        Results equal ``[count(q, loose=True) for q in queries]``. Returns
+        None when the group cannot fuse -- no queries, labeled rows staged
+        (auth tables are per request), loose mode off, nothing staged, a
+        filter the key planes cannot answer, mixed scan engines or a z2
+        query in a z3 group -- and the caller runs the queries serially."""
+        out = self._fused_loose(queries, loose, want="count")
+        if out is None:
+            return None
+        return [int(v) for v in out.cpu().tolist()]
+
+    def fused_loose_query(self, queries, loose: "bool | None" = None):
+        """Batched sibling of :meth:`query`: one launch computes the (Q, n)
+        hit matrix, then one host take per query demuxes the rows. Returns
+        a list of FeatureBatch aligned with ``queries``, or None when the
+        group cannot fuse (see :meth:`fused_loose_counts`)."""
+        m = self._fused_loose(queries, loose, want="mask")
+        if m is None:
+            return None
+        m = m.cpu().numpy()
+        return [self._host_batch.take(np.nonzero(r)[0]) for r in m]
+
+    def _fused_loose(self, queries, loose, want: str):
+        """(Q,) int32 counts or the (Q, n) bool mask matrix of a fusable
+        group, on the device, or None. The counterpart tells the dim-plane
+        bounds by their length; the port's loose bounds carry their engine
+        as a tag (``"dim"``, ``"zscan"``, ``"xz"``), and a group fuses only
+        when all of its queries share one."""
+        from geomesa_tpu_torch.failpoints import fail_point
+
+        fail_point("fail.device.launch")  # chaos: fused resident launch
+        if not queries:
+            return None
+        if VIS_ID in self._cols:
+            return None
+        if not self._resolve_loose(loose) or len(self) == 0:
+            return None
+        lbs = []
+        for q in queries:
+            lb = self._loose_bounds(self._parse(q))
+            if lb is None:
+                return None
+            lbs.append(lb)
+        if len({lb[0] for lb in lbs}) != 1:
+            return None  # mixed engines: serial
+        qcap = bucket_cap(len(lbs))
+        if lbs[0][0] == "dim":
+            return self._fused_dim(lbs, qcap, want)
+        return self._fused_compare(lbs, qcap, want)
+
+    def _fused_dim(self, lbs, qcap: int, want: str):
+        """Stacked dim-plane launch: each query vector pads to the group's
+        largest R with never-matching bt ranges (the ``z3_dim_plane_qarr``
+        padding), the queries to ``qcap`` with fully inverted vectors."""
+        rs = [lb[2] for lb in lbs]
+        r = max(rs)
+        if r and 0 in rs:
+            return None  # a z2 (no bt plane) query cannot join a z3 group
+        qmat = np.empty((qcap, 4 + 2 * r), np.uint32)
+        qmat[:] = np.array([1, 0, 1, 0] + [0xFFFFFFFF, 0] * r, np.uint32)
+        for i, lb in enumerate(lbs):
+            qa = np.asarray(lb[1], np.uint32)
+            qmat[i, : len(qa)] = qa
+        planes = (self._cols[Z_NX], self._cols[Z_NY])
+        if r:
+            planes += (self._cols[Z_BT],)
+        fn = zscan.batched_dimscan_count if want == "count" else zscan.batched_dimscan_mask
+        return fn(qmat, *planes)[: len(lbs)]
+
+    def _fused_compare(self, lbs, qcap: int, want: str):
+        """Stacked masked-compare / range-list launch: each query's bounds
+        pad to the group's bin and range maxima, and the queries to
+        ``qcap``, with entries that match nothing (ids -1, inverted
+        ranges); ids < 0 never match in the port."""
+        kind = self._z_kind
+        binned = kind in ("z3", "xz3")
+        bs = [np.asarray(lb[1]) for lb in lbs]
+        if binned:
+            ids = [np.asarray(lb[2]) for lb in lbs]
+            bmax = max(len(i) for i in ids)  # a power of two already (pad_bins)
+            if kind == "xz3":
+                rmax = max(b.shape[1] for b in bs)
+                bs = [zscan.pad_ranges(b, min_r=rmax) for b in bs]
+                tail = (rmax, 4)
+            else:
+                tail = (3, 6)
+            bounds = np.zeros((qcap, bmax) + tail, np.uint32)
+            idm = np.full((qcap, bmax), -1, np.int32)
+            for i, (b, bi) in enumerate(zip(bs, ids)):
+                bounds[i, : len(bi)] = b
+                idm[i, : len(bi)] = bi
+        else:
+            if kind == "xz2":
+                rmax = max(b.shape[0] for b in bs)
+                bs = [zscan.pad_ranges(b, min_r=rmax) for b in bs]
+                never = np.broadcast_to(zscan._NEVER_RANGE, (rmax, 4))
+            else:  # z2 masked compare: (2, 6) rows, lo_lo = 1 > hi = 0
+                never = np.zeros((2, 6), np.uint32)
+                never[:, 3] = 1
+            bounds = np.empty((qcap,) + never.shape, np.uint32)
+            bounds[:] = never
+            for i, b in enumerate(bs):
+                bounds[i] = b
+            idm = None
+        hi, lo = self._cols[Z_HI], self._cols[Z_LO]
+        bins = self._cols[Z_BIN] if binned else None
+        if kind in ("z3", "z2"):  # the batched interleaved-scan kernel
+            fn = zscan.batched_zscan_count if want == "count" else zscan.batched_zscan_mask
+            return fn(bounds, idm, hi, lo, bins=bins)[: len(lbs)]
+        bm = zscan.batched_kind_mask(kind)  # the xz range masks: torch ops
+        m = bm(hi, lo, bins, bounds, idm) if binned else bm(hi, lo, bounds)
+        m = m[: len(lbs)]
+        return m.sum(dim=1, dtype=torch.int32) if want == "count" else m
+
     # -- later slices --------------------------------------------------------
-
-    def fused_loose_counts(self, queries, loose=None):
-        raise NotImplementedError(_later("Q-batched fused loose paths"))
-
-    def fused_loose_query(self, queries, loose=None):
-        raise NotImplementedError(_later("Q-batched fused loose paths"))
 
     def refresh_delta(self, batch):
         raise NotImplementedError(_later("StreamingDeviceIndex"))

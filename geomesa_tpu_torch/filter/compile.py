@@ -316,14 +316,14 @@ class CompiledFilter:
         """int32 count of the device part over the staged columns."""
         if self.program is not None:
             return filter_scan.filter_scan_count(self.program, cols)
-        kernels.DEVICE_FN_CALLS["count"] += 1
+        kernels.count_device_fn("count")
         return self.device_fn(cols).sum(dtype=torch.int32)
 
     def mask(self, cols: dict) -> torch.Tensor:
         """bool mask of the device part over the staged columns."""
         if self.program is not None:
             return filter_scan.filter_scan_mask(self.program, cols)
-        kernels.DEVICE_FN_CALLS["mask"] += 1
+        kernels.count_device_fn("mask")
         return self.device_fn(cols)
 
     def host_mask(self, batch: FeatureBatch) -> np.ndarray:

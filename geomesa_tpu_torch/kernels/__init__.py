@@ -2,17 +2,21 @@
 
 ``LAUNCHES`` counts, per kernel variant, the launches its wrapper made
 (the wrappers in ``ops/zscan.py``, ``ops/filter_scan.py`` and
-``ops/density.py`` add one where they launch, and nowhere else):
-``dimscan_*`` (``csrc/dimscan.cu``), ``dimscan_baked_*``
-(``csrc/dimscan_baked.cu``), ``zscan_*`` (``csrc/zscan.cu``),
+``ops/density.py`` call :func:`count_launch` where they launch, and
+nowhere else): ``dimscan_*`` and ``dimscan_batched_*``
+(``csrc/dimscan.cu``), ``dimscan_baked_*`` (``csrc/dimscan_baked.cu``),
+``zscan_*`` and ``zscan_batched_*`` (``csrc/zscan.cu``),
 ``filter_scan_*`` (``csrc/filter_scan.cu``), ``density_*``
-(``csrc/density.cu``).
+(``csrc/density.cu``). The scheduler's workers launch from several
+threads at once, so counts change only under a lock.
 ``DEVICE_FN_CALLS`` counts exact scans that went to the plain
 ``device_fn`` because the filter-scan encoder refused the filter (the
 counterpart's ``PallasUnsupported`` route).
 """
 
 from __future__ import annotations
+
+import threading
 
 KERNEL_NAMES = (
     "dimscan_z3_count",
@@ -29,16 +33,38 @@ KERNEL_NAMES = (
     "filter_scan_mask",
     "density_count",
     "density_weighted",
+    "dimscan_batched_z3_count",
+    "dimscan_batched_z3_mask",
+    "dimscan_batched_z2_count",
+    "dimscan_batched_z2_mask",
+    "zscan_batched_z3_count",
+    "zscan_batched_z3_mask",
+    "zscan_batched_z2_count",
+    "zscan_batched_z2_mask",
 )
 
 LAUNCHES: dict = {k: 0 for k in KERNEL_NAMES}
 DEVICE_FN_CALLS: dict = {"count": 0, "mask": 0}
+_counts_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``, counted under the lock."""
+    with _counts_lock:
+        LAUNCHES[name] += 1
+
+
+def count_device_fn(kind: str) -> None:
+    """One exact scan served by the plain ``device_fn``."""
+    with _counts_lock:
+        DEVICE_FN_CALLS[kind] += 1
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, DEVICE_FN_CALLS):
-        for k in d:
-            d[k] = 0
+    with _counts_lock:
+        for d in (LAUNCHES, DEVICE_FN_CALLS):
+            for k in d:
+                d[k] = 0
 
 
 def on_cuda(t) -> bool:

@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds)
 for ``sm_90a``. Libraries land in ``geomesa_tpu_torch/_build/``, named by
-a hash of the source and the flags, so an edited source rebuilds and an
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and an
 unchanged one loads the existing file. :func:`build_all` starts one
-``nvcc`` per source at once and waits for all of them.
+``nvcc`` per source at once and waits for all of them. Each entry point's
+``argtypes``/``restype`` (:data:`SIGNATURES`) are bound once, when its
+library loads: the wrappers call them from several threads at once.
 
 Nothing here runs at import: the host without a card imports every
 module of the port.
@@ -25,6 +28,29 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("dimscan", "dimscan_baked", "zscan", "filter_scan", "density")
+
+_P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+# every C entry point of each source: (argtypes, restype); a pointer, the
+# stream included, is c_void_p (a plain int would cut it to 32 bits)
+SIGNATURES = {
+    "dimscan": {
+        "gm_dimscan": ([_P] * 3 + [_LL, _P, _I, _I, _P, _P], _I),
+        "gm_dimscan_batched": ([_P] * 3 + [_LL, _P, _I, _I, _I, _P, _P], _I),
+    },
+    "dimscan_baked": {
+        "gm_dimscan_baked": ([_P] * 3 + [_LL, _P, _P, _I, _I, _P, _P], _I),
+    },
+    "zscan": {
+        "gm_zscan": ([_P] * 3 + [_LL, _P] + [_I] * 5 + [_P, _P], _I),
+        "gm_zscan_batched": ([_P] * 3 + [_LL, _P, _I, _I, _I, _I, _P, _P], _I),
+    },
+    "filter_scan": {
+        "gm_filter_scan": ([_P, _I, _P, _I, _I, _LL, _I, _P, _P], _I),
+    },
+    "density": {
+        "gm_density": ([_P] * 4 + [_LL] + [_D] * 6 + [_I] * 4 + [_P, _P], _I),
+    },
+}
 
 # -fmad=false: the filter scan's float32 distance and crossing tests and the
 # density kernel's float64 pixel math must round every product and sum on
@@ -52,7 +78,9 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) count as part of every source
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
@@ -100,6 +128,9 @@ def _load_locked(name: str):
     if lib is None:
         _finish(name, _start(name))
         lib = ctypes.CDLL(str(_target(name)))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _libs[name] = lib
     return lib
 

@@ -1,0 +1,129 @@
+"""Metrics registry of the port's serving path.
+
+Counterpart of ``geomesa_tpu/metrics.py``, trimmed to the core (Counter,
+Gauge, Histogram with labels, one process-global registry) and the
+metrics the device query scheduler and its watchdog write: queue depth,
+wait time, queries, launches, fused queries, rejections, expirations,
+worker failures, drains and watchdog timeouts. The Prometheus exposition
+and every other family of the counterpart are left out.
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+
+
+class _Metric:
+    def __init__(self, name: str, help_: str, kind: str):
+        self.name = name
+        self.help = help_
+        self.kind = kind
+        self._values: dict = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def labels(**labels) -> tuple:
+        return tuple(sorted(labels.items()))
+
+
+class Counter(_Metric):
+    def __init__(self, name, help_=""):
+        super().__init__(name, help_, "counter")
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        key = self.labels(**labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels) -> float:
+        return self._values.get(self.labels(**labels), 0.0)
+
+
+class Gauge(_Metric):
+    def __init__(self, name, help_=""):
+        super().__init__(name, help_, "gauge")
+
+    def set(self, v: float, **labels) -> None:
+        with self._lock:
+            self._values[self.labels(**labels)] = float(v)
+
+    def value(self, **labels) -> float:
+        return self._values.get(self.labels(**labels), 0.0)
+
+
+DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 60.0)
+
+
+class Histogram(_Metric):
+    """Bucketed histogram: per label set the count of each ``le`` bucket
+    (the last slot is +Inf), the sum and the number of observations."""
+
+    def __init__(self, name, help_="", buckets=DEFAULT_BUCKETS):
+        super().__init__(name, help_, "histogram")
+        self.buckets = tuple(sorted(buckets))
+
+    def observe(self, v: float, **labels) -> None:
+        key = self.labels(**labels)
+        with self._lock:
+            st = self._values.setdefault(
+                key, {"counts": [0] * (len(self.buckets) + 1), "sum": 0.0, "n": 0})
+            st["counts"][bisect_left(self.buckets, v)] += 1
+            st["sum"] += v
+            st["n"] += 1
+
+    def stats(self, **labels) -> dict:
+        return self._values.get(self.labels(**labels), {"counts": [], "sum": 0.0, "n": 0})
+
+
+class MetricsRegistry:
+    def __init__(self):
+        self._metrics: dict = {}
+        self._lock = threading.Lock()
+
+    def counter(self, name: str, help_: str = "") -> Counter:
+        return self._get(name, lambda: Counter(name, help_), Counter)
+
+    def gauge(self, name: str, help_: str = "") -> Gauge:
+        return self._get(name, lambda: Gauge(name, help_), Gauge)
+
+    def histogram(self, name: str, help_: str = "", buckets=DEFAULT_BUCKETS) -> Histogram:
+        return self._get(name, lambda: Histogram(name, help_, buckets), Histogram)
+
+    def _get(self, name, factory, cls):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = factory()
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} is a {m.kind}")
+            return m
+
+
+REGISTRY = MetricsRegistry()
+
+# device query scheduler (sched/): queue pressure, wait time, fusion
+# factor (sched_queries_total / sched_launches_total) and shed load
+sched_queue_depth = REGISTRY.gauge(
+    "geomesa_sched_queue_depth", "requests waiting in the scheduler queue")
+sched_queries = REGISTRY.counter(
+    "geomesa_sched_queries_total", "requests executed by the scheduler")
+sched_launches = REGISTRY.counter(
+    "geomesa_sched_launches_total", "device scan launches dispatched")
+sched_fused = REGISTRY.counter(
+    "geomesa_sched_fused_queries_total", "queries answered by a shared (fused) device launch")
+sched_rejected = REGISTRY.counter(
+    "geomesa_sched_rejections_total", "requests rejected at admission")
+sched_expired = REGISTRY.counter(
+    "geomesa_sched_deadline_expired_total", "requests that expired before or during execution")
+sched_wait_seconds = REGISTRY.histogram(
+    "geomesa_sched_wait_seconds", "queue wait before execution")
+sched_worker_failures = REGISTRY.counter(
+    "geomesa_sched_worker_failures_total",
+    "scheduler worker crashes survived (requests failed typed, worker kept serving)")
+sched_drains = REGISTRY.counter(
+    "geomesa_sched_drains_total",
+    "graceful drains completed (admission stopped, in-flight finished)")
+resilience_watchdog_timeouts = REGISTRY.counter(
+    "geomesa_resilience_watchdog_timeouts_total",
+    "stuck device launches failed by the scheduler watchdog")

@@ -33,8 +33,6 @@ rtol 1e-6.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from geomesa_tpu_torch import kernels
@@ -175,11 +173,7 @@ def _launch(x, y, env, width, height, mask, weights, engine=None,
     if engine not in engines(width, height, weighted):
         raise ValueError(f"the {engine} engine cannot take a {'weighted' if weighted else 'counted'} "
                          f"{width}x{height} grid")
-    lib = _build.load("density")
-    fn = lib.gm_density
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_double] * 6 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.load("density").gm_density
     dev = x.device
     n = int(x.shape[0])
     with torch.cuda.device(dev):
@@ -199,7 +193,7 @@ def _launch(x, y, env, width, height, mask, weights, engine=None,
             )
             name = "density_count" if weights is None else "density_weighted"
             kernels.check_status(rc, name)
-            kernels.LAUNCHES[name] += 1
+            kernels.count_launch(name)
     return acc.to(torch.float32).reshape(height, width)
 
 

@@ -25,7 +25,6 @@ unsigned lo) words with During/Between bounds taken by ceil/floor.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from dataclasses import dataclass, field
 
@@ -498,14 +497,7 @@ def _launch(prog: Program, ts: list, want_mask: bool) -> torch.Tensor:
 
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("filter-scan planes must be 16-byte aligned")
-    lib = _build.load("filter_scan")
-    fn = lib.gm_filter_scan
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _build.load("filter_scan").gm_filter_scan
     dev = ts[0].device
     n = int(ts[0].shape[0])
     ptrs = np.array([t.data_ptr() for t in ts], np.uint64)
@@ -523,7 +515,7 @@ def _launch(prog: Program, ts: list, want_mask: bool) -> torch.Tensor:
         )
     name = f"filter_scan_{'mask' if want_mask else 'count'}"
     kernels.check_status(rc, name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count_launch(name)
     return out
 
 

@@ -32,8 +32,6 @@ compares on uint32, so the plain versions widen unsigned words to int64.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -226,13 +224,7 @@ def _launch_dimscan(qarr, planes, want_mask: bool) -> torch.Tensor:
         raise ValueError(f"{n} rows exceed the int32 count range")
     if any(p.data_ptr() % 16 for p in planes):
         raise ValueError("dim-scan planes must be 16-byte aligned")
-    lib = _build.load("dimscan")
-    fn = lib.gm_dimscan
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _build.load("dimscan").gm_dimscan
     q = np.ascontiguousarray(qarr, np.uint32)
     bt = planes[2] if len(planes) == 3 else None
     with torch.cuda.device(nx.device):
@@ -249,7 +241,7 @@ def _launch_dimscan(qarr, planes, want_mask: bool) -> torch.Tensor:
         )
     name = f"dimscan_{'z3' if bt is not None else 'z2'}_{'mask' if want_mask else 'count'}"
     kernels.check_status(rc, name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count_launch(name)
     return out
 
 
@@ -270,6 +262,90 @@ def dimscan_mask(qarr: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
         return _launch_dimscan(qarr, planes, want_mask=True)
     _check_dim_args(qarr, planes)
     return dimscan_plain(qarr, nx, ny, bt)
+
+
+# -- the Q-batched dim scan (the scheduler's fused loose paths) --------------
+
+MAX_BATCH = 64  # queries one batched launch answers
+
+
+def batched_dim_mask_rt(n_ranges: int):
+    """Plain PyTorch version of the Q-batched dim scan: a function of
+    ``(nx, ny, bt, qmat)`` (``(nx, ny, qmat)`` when ``n_ranges`` is 0, the
+    z2 scan) that stacks :func:`dimscan_plain` of each row of ``qmat``, the
+    (Q, 4 + 2R) uint32 stack of query vectors, into a (Q, n) bool mask. The
+    counterpart vmaps its XLA single-query mask the same way."""
+    def run(*args):
+        *planes, qmat = args
+        if len(planes) != (2 if n_ranges == 0 else 3):
+            raise ValueError(f"R = {n_ranges} takes {2 if n_ranges == 0 else 3} planes")
+        return torch.stack([dimscan_plain(row, *planes) for row in np.asarray(qmat, np.uint32)])
+
+    return run
+
+
+def _check_qmat(qmat, planes) -> int:
+    q = np.asarray(qmat)
+    if q.dtype != np.uint32 or q.ndim != 2:
+        raise TypeError("qmat must be a 2-D uint32 array")
+    if not 1 <= q.shape[0] <= MAX_BATCH:
+        raise ValueError(f"{q.shape[0]} queries: a batched launch takes 1 to {MAX_BATCH}")
+    return _check_dim_args(q[0], planes)
+
+
+def _launch_dimscan_batched(qmat, planes, want_mask: bool) -> torch.Tensor:
+    from geomesa_tpu_torch.kernels import _build
+
+    r = _check_qmat(qmat, planes)
+    nx = planes[0]
+    n = nx.shape[0]
+    if n > _MAX_ROWS:
+        raise ValueError(f"{n} rows exceed the int32 count range")
+    if any(p.data_ptr() % 16 for p in planes):
+        raise ValueError("dim-scan planes must be 16-byte aligned")
+    fn = _build.load("dimscan").gm_dimscan_batched
+    nq = qmat.shape[0]
+    bt = planes[2] if len(planes) == 3 else None
+    dev = nx.device
+    with torch.cuda.device(dev):
+        q = torch.from_numpy(np.ascontiguousarray(qmat, np.uint32)).to(dev)
+        out = (
+            torch.empty((nq, n), dtype=torch.bool, device=dev)
+            if want_mask
+            else torch.empty(nq, dtype=torch.int32, device=dev)
+        )
+        rc = fn(
+            nx.data_ptr(), planes[1].data_ptr(),
+            bt.data_ptr() if bt is not None else None,
+            n, q.data_ptr(), nq, r, int(want_mask), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    name = f"dimscan_batched_{'z3' if bt is not None else 'z2'}_{'mask' if want_mask else 'count'}"
+    kernels.check_status(rc, name)
+    kernels.count_launch(name)
+    return out
+
+
+def batched_dimscan_count(qmat: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
+    """(Q,) int32 hit counts of the Q queries of ``qmat`` (each row a query
+    vector of :func:`dimscan_count`, 1 <= Q <= 64) in one pass over the
+    planes: the kernel ``gm_dimscan_batched`` for CUDA planes, the plain
+    version for CPU planes."""
+    planes = (nx, ny) if bt is None else (nx, ny, bt)
+    if kernels.on_cuda(nx):
+        return _launch_dimscan_batched(qmat, planes, want_mask=False)
+    r = _check_qmat(qmat, planes)
+    return batched_dim_mask_rt(r)(*planes, qmat).sum(dim=1, dtype=torch.int32)
+
+
+def batched_dimscan_mask(qmat: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
+    """(Q, n) bool hit masks, row q for query q; routing as
+    :func:`batched_dimscan_count`."""
+    planes = (nx, ny) if bt is None else (nx, ny, bt)
+    if kernels.on_cuda(nx):
+        return _launch_dimscan_batched(qmat, planes, want_mask=True)
+    r = _check_qmat(qmat, planes)
+    return batched_dim_mask_rt(r)(*planes, qmat)
 
 
 # -- baked-constant dim scan (the cross-check engine) ------------------------
@@ -297,11 +373,6 @@ def _launch_dimscan_baked(q: np.ndarray, ranges: np.ndarray, planes, want_mask: 
     if n > _MAX_ROWS:
         raise ValueError(f"{n} rows exceed the int32 count range")
     fn = _build.load("dimscan_baked").gm_dimscan_baked
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(nx.device):
         out = (
             torch.empty(n, dtype=torch.bool, device=nx.device)
@@ -315,7 +386,7 @@ def _launch_dimscan_baked(q: np.ndarray, ranges: np.ndarray, planes, want_mask: 
         )
     name = f"dimscan_baked_{'mask' if want_mask else 'count'}"
     kernels.check_status(rc, name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count_launch(name)
     return out
 
 
@@ -771,6 +842,20 @@ def kind_mask_fn(kind: str):
     }[kind]
 
 
+def _check_key_planes(n_dims: int, bins, z_hi, z_lo) -> None:
+    planes = [z_hi, z_lo] + ([] if bins is None else [bins])
+    if (bins is None) != (n_dims == 2):
+        raise ValueError("a binned scan takes the bin plane, an unbinned one does not")
+    n, dev = z_hi.shape, z_hi.device
+    for p in planes:
+        if p.dim() != 1 or p.shape != n or p.device != dev or not p.is_contiguous():
+            raise ValueError("key planes must be contiguous 1-D of one length on one device")
+    if z_hi.dtype != torch.uint32 or z_lo.dtype != torch.uint32:
+        raise TypeError("z_hi/z_lo must be uint32")
+    if bins is not None and bins.dtype != torch.int32:
+        raise TypeError("the bin plane must be int32")
+
+
 class _ZScan:
     """One interleaved-scan query: bounds (and bin ids, None for z2)
     checked once, and packed once per device into the uint32 table the
@@ -801,21 +886,8 @@ class _ZScan:
             return z2_zscan_mask(z_hi, z_lo, self.bounds[0])
         return z3_zscan_lookup(z_hi, z_lo, bins, self.bounds, self.first, self.entry_of)
 
-    def _check(self, bins, z_hi, z_lo) -> None:
-        planes = [z_hi, z_lo] + ([] if bins is None else [bins])
-        if (bins is None) != (self.n_dims == 2):
-            raise ValueError("a binned scan takes the bin plane, an unbinned one does not")
-        n, dev = z_hi.shape, z_hi.device
-        for p in planes:
-            if p.dim() != 1 or p.shape != n or p.device != dev or not p.is_contiguous():
-                raise ValueError("key planes must be contiguous 1-D of one length on one device")
-        if z_hi.dtype != torch.uint32 or z_lo.dtype != torch.uint32:
-            raise TypeError("z_hi/z_lo must be uint32")
-        if bins is not None and bins.dtype != torch.int32:
-            raise TypeError("the bin plane must be int32")
-
     def run(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
-        self._check(bins, z_hi, z_lo)
+        _check_key_planes(self.n_dims, bins, z_hi, z_lo)
         if not kernels.on_cuda(z_hi):
             m = self.plain(bins, z_hi, z_lo)
             return m if want_mask else m.sum(dtype=torch.int32)
@@ -835,11 +907,6 @@ class _ZScan:
         if tab is None:
             tab = self._dev[dev] = torch.from_numpy(self._table).to(dev)
         fn = _build.load("zscan").gm_zscan
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
         with torch.cuda.device(dev):
             out = (
                 torch.empty(n, dtype=torch.bool, device=dev)
@@ -854,8 +921,118 @@ class _ZScan:
             )
         name = f"zscan_z{self.n_dims}_{'mask' if want_mask else 'count'}"
         kernels.check_status(rc, name)
-        kernels.LAUNCHES[name] += 1
+        kernels.count_launch(name)
         return out
+
+
+def batched_kind_mask(kind: str):
+    """Plain Q-batched key-plane mask for an index-key kind: the
+    single-query mask of :func:`kind_mask_fn` run for each query and
+    stacked into (Q, n). Binned kinds take ``(hi, lo, bins, bounds[Q, ...],
+    ids[Q, B])``, unbinned ``(hi, lo, bounds[Q, ...])``, as the
+    counterpart's vmap does. The interleaved kinds' kernel is
+    :func:`batched_zscan_count` / :func:`batched_zscan_mask`; the xz range
+    masks are torch ops, as the counterpart's are XLA ops, so this is their
+    batched form on any device."""
+    mf = kind_mask_fn(kind)
+    if kind in ("z3", "xz3"):
+        return lambda hi, lo, bins, bounds, ids: torch.stack(
+            [mf(hi, lo, bins, b, i) for b, i in zip(bounds, ids)])
+    return lambda hi, lo, bounds: torch.stack([mf(hi, lo, b) for b in bounds])
+
+
+class _BatchedZScan:
+    """Q interleaved-scan queries packed once into the one uint32 table the
+    batched kernel reads: per query a header ``(bounds offset, bin-table
+    offset, first bin, span)``, then per query its bound entries
+    (``n_dims * 6`` words each) and, binned, its int32 bin-to-entry table
+    (:func:`entry_table`). Bounds are (Q, B, 3, 6) with ids (Q, B), -1 for
+    padding, or (Q, 2, 6) with ids None for z2."""
+
+    def __init__(self, bounds, bin_ids):
+        self.n_dims = 2 if bin_ids is None else 3
+        b = np.ascontiguousarray(bounds, np.uint32)
+        nq = b.shape[0] if b.ndim else 0
+        if not 1 <= nq <= MAX_BATCH:
+            raise ValueError(f"{nq} queries: a batched launch takes 1 to {MAX_BATCH}")
+        if bin_ids is None:
+            if b.shape != (nq, 2, 6):
+                raise ValueError(f"z2 bounds {b.shape} are not (Q, 2, 6)")
+            b = b.reshape(nq, 1, 2, 6)
+            ids = np.zeros((nq, 1), np.int32)
+        else:
+            ids = np.ascontiguousarray(bin_ids, np.int32)
+            if ids.ndim != 2 or b.shape != (nq, ids.shape[1], 3, 6) or not ids.shape[1]:
+                raise ValueError(f"bounds {b.shape} and ids {ids.shape} are not (Q, B, 3, 6), (Q, B)")
+            if ids.shape[1] > ZSCAN_MAX_ENTRIES:
+                raise ValueError(f"{ids.shape[1]} bound entries exceed {ZSCAN_MAX_ENTRIES}")
+        self.bounds, self.ids, self.nq = b, ids, nq
+        header = np.zeros((nq, 4), np.int64)
+        parts: list = []
+        off = 4 * nq
+        for q in range(nq):
+            first, entry_of = (0, np.zeros(0, np.int32)) if bin_ids is None else entry_table(ids[q])
+            header[q] = (off, off + b[q].size, first, len(entry_of))
+            parts += [b[q].reshape(-1), entry_of.view(np.uint32)]
+            off += b[q].size + len(entry_of)
+        self.table = np.concatenate([header.astype(np.int32).view(np.uint32).reshape(-1)] + parts)
+
+    def plain(self, bins, z_hi, z_lo) -> torch.Tensor:
+        if self.n_dims == 2:
+            return batched_kind_mask("z2")(z_hi, z_lo, self.bounds[:, 0])
+        return batched_kind_mask("z3")(z_hi, z_lo, bins, self.bounds, self.ids)
+
+    def run(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
+        _check_key_planes(self.n_dims, bins, z_hi, z_lo)
+        if not kernels.on_cuda(z_hi):
+            m = self.plain(bins, z_hi, z_lo)
+            return m if want_mask else m.sum(dim=1, dtype=torch.int32)
+        return self._launch(bins, z_hi, z_lo, want_mask)
+
+    def _launch(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
+        from geomesa_tpu_torch.kernels import _build
+
+        n = z_hi.shape[0]
+        if n > _MAX_ROWS:
+            raise ValueError(f"{n} rows exceed the int32 count range")
+        planes = [z_hi, z_lo] + ([] if bins is None else [bins])
+        if any(p.data_ptr() % 16 for p in planes):
+            raise ValueError("key planes must be 16-byte aligned")
+        fn = _build.load("zscan").gm_zscan_batched
+        dev = z_hi.device
+        with torch.cuda.device(dev):
+            tab = torch.from_numpy(self.table).to(dev)
+            out = (
+                torch.empty((self.nq, n), dtype=torch.bool, device=dev)
+                if want_mask
+                else torch.empty(self.nq, dtype=torch.int32, device=dev)
+            )
+            rc = fn(
+                None if bins is None else bins.data_ptr(), z_hi.data_ptr(),
+                z_lo.data_ptr(), n, tab.data_ptr(), len(self.table), self.nq,
+                self.n_dims, int(want_mask), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        name = f"zscan_batched_z{self.n_dims}_{'mask' if want_mask else 'count'}"
+        kernels.check_status(rc, name)
+        kernels.count_launch(name)
+        return out
+
+
+def batched_zscan_count(bounds, bin_ids, z_hi, z_lo, bins=None) -> torch.Tensor:
+    """(Q,) int32 hit counts of Q interleaved-scan queries in one pass over
+    the key planes: z3 with (Q, B, 3, 6) bounds, (Q, B) ids (-1: padding,
+    never matches) and the bin plane; z2 with (Q, 2, 6) bounds, ids and
+    bins None. Each query's ids >= 0 must be distinct and span at most
+    ``ZSCAN_MAX_SPAN`` bins. The kernel ``gm_zscan_batched`` for CUDA
+    planes, :func:`batched_kind_mask` for CPU planes."""
+    return _BatchedZScan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=False)
+
+
+def batched_zscan_mask(bounds, bin_ids, z_hi, z_lo, bins=None) -> torch.Tensor:
+    """(Q, n) bool hit masks, row q for query q; arguments and routing as
+    :func:`batched_zscan_count`."""
+    return _BatchedZScan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=True)
 
 
 def build_z3_pallas_scan(bounds: np.ndarray, bin_ids: np.ndarray):

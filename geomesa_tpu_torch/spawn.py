@@ -1,0 +1,70 @@
+"""The one place the port's serving code creates threads.
+
+Counterpart of ``geomesa_tpu/spawn.py``, trimmed to ``spawn_thread`` and
+the context it carries. Contextvars are per thread, so a raw
+``threading.Thread`` drops the request contexts the observability layers
+live on: the submitting request's tracing span (``tracing.py``), its cost
+collector (``ledger.py``) and its degradation collector
+(``resilience.py``). ``spawn_thread`` captures them on the spawning thread
+and attaches them around the target; ``context=False`` declares a
+service thread (the scheduler's workers and watchdog), a loop that
+outlives any request and attaches each work item's context itself. The
+counterpart's compile scope and runtime context checker measure XLA
+compiles; the port has no compiler, and carries neither.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+
+__all__ = ["RequestContext", "spawn_thread"]
+
+
+class RequestContext:
+    """One captured set of per-request contexts: tracing span, cost
+    collector, degradation collector (each may be None)."""
+
+    __slots__ = ("trace", "cost", "degraded")
+
+    def __init__(self, trace=None, cost=None, degraded=None):
+        self.trace = trace
+        self.cost = cost
+        self.degraded = degraded
+
+    @staticmethod
+    def capture() -> "RequestContext":
+        """Snapshot the calling thread's context set."""
+        from geomesa_tpu_torch import ledger, resilience, tracing
+
+        return RequestContext(
+            trace=tracing.capture(),
+            cost=ledger.capture_cost(),
+            degraded=resilience.capture_degraded(),
+        )
+
+    @contextmanager
+    def attach(self):
+        """Install the captured set around a worker's work item."""
+        from geomesa_tpu_torch import ledger, resilience, tracing
+
+        with tracing.attach(self.trace), ledger.attach_cost(self.cost), \
+                resilience.attach_degraded(self.degraded):
+            yield
+
+
+def spawn_thread(target, *, name: str, args=(), kwargs=None, daemon: bool = True,
+                 context: bool = True) -> threading.Thread:
+    """The ``threading.Thread`` factory (returned unstarted). ``context=True``
+    captures the spawner's request contexts now and attaches them around
+    ``target``; ``context=False`` declares a service thread. Every thread
+    gets a name."""
+    ctx = RequestContext.capture() if context else None
+    run = target
+    if ctx is not None:
+        def run(*a, **kw):
+            with ctx.attach():
+                return target(*a, **kw)
+
+    return threading.Thread(target=run, args=tuple(args), kwargs=dict(kwargs) if kwargs else {},
+                            name=name, daemon=daemon)

@@ -201,17 +201,18 @@ def test_later_slices_raise():
     assert not inter._dim_mode and Z_NX not in inter._cols
     assert inter.count(Z3_QUERIES[0], loose=True) >= inter.count(Z3_QUERIES[0])
     di = DeviceIndex(store, "t", device="cpu")
-    with pytest.raises(NotImplementedError, match="fused"):
-        di.fused_loose_counts([Z3_QUERIES[0]])
     with pytest.raises(NotImplementedError, match="host sketches"):
         di.stats("INCLUDE", 'TopK("name")')
     with pytest.raises(NotImplementedError, match="StreamingDeviceIndex"):
         di.refresh_delta(None)
-    # the DE-9IM relations, non-point schemas and kNN are in the port now:
-    # they answer as the JAX package does
+    # the DE-9IM relations, non-point schemas, kNN and the fused loose paths
+    # are in the port now: they answer as the JAX package does
     from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
 
     jdi = JIndex(JStore(JBatch.from_columns(JSFT.create("t", Z3_SPEC), cols)), "t", z_planes=True)
+    assert di.fused_loose_counts([Z3_QUERIES[0]]) is jdi.fused_loose_counts([Z3_QUERIES[0]])
+    assert inter.fused_loose_counts(Z3_QUERIES[:3], loose=True) == jdi.fused_loose_counts(
+        Z3_QUERIES[:3], loose=True)
     np.testing.assert_array_equal(di.knn(0.0, 0.0, 5)[0].fids, jdi.knn(0.0, 0.0, 5)[0].fids)
     for ecql in ("RELATE(geom, POINT(0 0), 'T********')",
                  "TOUCHES(geom, POLYGON((-60 -30, 60 -30, 60 30, -60 30, -60 -30)))",

@@ -1,7 +1,7 @@
 """The port stands alone: ``geomesa_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package (also on a non-point xz2 workload
-and the kNN, tube and proximity processes),
-and entry points never fall back to the CPU on their own."""
+import neither JAX nor the JAX package (also on a non-point xz2 workload,
+the kNN, tube and proximity processes, and a scheduler run with fused
+groups), and entry points never fall back to the CPU on their own."""
 
 import os
 import re
@@ -81,6 +81,18 @@ assert 0 < len(tb) <= len(ldi.window_union_query([[-25, -25, 25, 25]], auths=("A
 pb, pd = proximity_search(store, "t", [(0.0, 0.0), (30.0, -30.0)], 8.0, base_filter="count < 8",
                           device_index=ldi, auths=("A",))
 assert len(pb) > 0 and (pd <= 8.0).all()
+from geomesa_tpu_torch.sched import FusableQuery, QueryScheduler, SchedConfig
+sched = QueryScheduler(SchedConfig(max_inflight=2, fusion_window_ms=5.0, default_deadline_ms=None))
+tiles = [f"BBOX(geom, {x}, {y}, {x + 20}, {y + 20}) AND dtg DURING "
+         "2020-01-03T00:00:00Z/2020-01-09T00:00:00Z" for x, y in ((-40, -40), (-10, 0), (10, 10))]
+reqs = [sched.submit(fuse=FusableQuery(ix, t, op, loose=True))
+        for ix in (di, inter) for t in tiles for op in ("count", "query")]
+got = [sched.wait(r) for r in reqs]
+sched.close(timeout=5.0)
+want = [f(t) for ix in (di, inter) for t in tiles
+        for f in (lambda t, ix=ix: ix.count(t, loose=True), lambda t, ix=ix: ix.query(t, loose=True))]
+assert [g if isinstance(g, int) else sorted(g.fids) for g in got] == \
+    [w if isinstance(w, int) else sorted(w.fids) for w in want]
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -109,10 +121,17 @@ _FORBIDDEN = re.compile(
 )
 
 
-@pytest.mark.parametrize(
-    "path",
-    sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
-)
+SOURCES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+
+
+def test_the_scan_covers_the_scheduler_modules():
+    for rel in ("conf.py", "spawn.py", "failpoints.py", "metrics.py", "tracing.py",
+                "resilience.py", "ledger.py", "sched/__init__.py", "sched/fusion.py",
+                "sched/scheduler.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     text = (ROOT / path).read_text()
     hits = [m.group(0) for m in _FORBIDDEN.finditer(text)]

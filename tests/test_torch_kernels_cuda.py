@@ -10,6 +10,9 @@ JAX, and ``tests/conftest.py`` loads it, so run this file there with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py``.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,23 @@ pytestmark = pytest.mark.cuda
 MAXI = (1 << 21) - 1
 SENT = 0xFFFFFFFF
 T0 = 1_577_836_800_000
+
+
+
+
+def _load_chip_smoke():
+    """``chip_smoke.py`` at the repo's root (importing it runs nothing):
+    the batched-scan tests use its case generators, ``batch_qmat`` and
+    ``batch_zbounds``, so that the card's end-to-end check and these tests
+    draw their cases from one copy."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_CASES = _load_chip_smoke()
 
 
 @pytest.fixture(scope="module")
@@ -492,6 +512,126 @@ def test_zscan_z3_many_bins_matches_plain(dev, n, b, layout):
     want = zscan.z3_zscan_mask(planes[1], planes[2], planes[0], bounds, ids)
     torch.cuda.synchronize()
     assert torch.equal(got_m, want) and int(got_c) == int(want.sum())
+
+
+# -- the Q-batched scans of the scheduler's fused loose paths ---------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("nq", [1, 3, 8, 64])
+@pytest.mark.parametrize("r", [0, 1, 2, 4, 8])
+def test_batched_dimscan_kernel_matches_plain(dev, n, nq, r):
+    rng = np.random.default_rng(7 * n + 11 * nq + r)
+    nx = rng.integers(0, MAXI + 1, n).astype(np.uint32)
+    ny = rng.integers(0, MAXI + 1, n).astype(np.uint32)
+    bt = rng.integers(0, 8 << 21, n).astype(np.uint32)
+    bt[: min(n, 2)] = SENT
+    nx[-1:] = MAXI
+    qmat = _CASES.batch_qmat(rng, nq, r, 8 << 21)
+    planes = [_u32(nx, dev), _u32(ny, dev)] + ([_u32(bt, dev)] if r else [])
+    z = "z3" if r else "z2"
+    before = dict(kernels.LAUNCHES)
+    got_c = zscan.batched_dimscan_count(qmat, *planes)
+    got_m = zscan.batched_dimscan_mask(qmat, *planes)
+    want = zscan.batched_dim_mask_rt(r)(*planes, qmat)
+    torch.cuda.synchronize()
+    assert got_m.shape == (nq, n) and got_m.dtype == torch.bool and torch.equal(got_m, want)
+    assert got_c.dtype == torch.int32 and torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+    # each row equals the single-query kernel's mask
+    for i in range(nq):
+        assert torch.equal(got_m[i], zscan.dimscan_mask(qmat[i], *planes))
+    if nq > 2:
+        assert int(got_c[-1]) == 0
+    assert kernels.LAUNCHES[f"dimscan_batched_{z}_count"] == before[f"dimscan_batched_{z}_count"] + 1
+    assert kernels.LAUNCHES[f"dimscan_batched_{z}_mask"] == before[f"dimscan_batched_{z}_mask"] + 1
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("nq", [1, 3, 8, 64])
+def test_batched_zscan_z3_kernel_matches_plain(dev, n, nq):
+    rng, bins, (h3, l3), _ = zscan_case(n, 16, seed=3 * n + nq)
+    bounds, ids = _CASES.batch_zbounds(rng, nq, 16)
+    planes = (_u32(h3, dev), _u32(l3, dev))
+    b = torch.from_numpy(bins).to(dev)
+    before = dict(kernels.LAUNCHES)
+    got_c = zscan.batched_zscan_count(bounds, ids, *planes, bins=b)
+    got_m = zscan.batched_zscan_mask(bounds, ids, *planes, bins=b)
+    want = zscan.batched_kind_mask("z3")(*planes, b, bounds, ids)
+    torch.cuda.synchronize()
+    assert got_m.shape == (nq, n) and torch.equal(got_m, want)
+    assert torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+    for i in range(nq):  # each row equals the single-query kernel's mask
+        assert torch.equal(got_m[i], zscan.build_z3_pallas_scan(bounds[i], ids[i])[1](b, *planes))
+    if nq > 2:
+        assert int(got_c[-1]) == 0
+    assert kernels.LAUNCHES["zscan_batched_z3_count"] == before["zscan_batched_z3_count"] + 1
+    assert kernels.LAUNCHES["zscan_batched_z3_mask"] == before["zscan_batched_z3_mask"] + 1
+
+
+def test_batched_zscan_z3_table_past_shared_memory(dev):
+    """64 queries of 64 bins each: a packed table larger than the 48 KB of
+    shared memory a block gets by default, which the kernel reads in place."""
+    rng, bins, (h3, l3), _ = zscan_case((1 << 20) + 3, 128, seed=99)
+    bounds = np.stack([zscan_bounds(rng, 128, 64, random_words=False)[0] for _ in range(64)])
+    ids = np.stack([(2600 + rng.permutation(128)[:64]).astype(np.int32) for _ in range(64)])
+    assert len(zscan._BatchedZScan(bounds, ids).table) > 10 * 1024
+    planes = (_u32(h3, dev), _u32(l3, dev))
+    b = torch.from_numpy(bins).to(dev)
+    got_m = zscan.batched_zscan_mask(bounds, ids, *planes, bins=b)
+    got_c = zscan.batched_zscan_count(bounds, ids, *planes, bins=b)
+    want = zscan.batched_kind_mask("z3")(*planes, b, bounds, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want) and torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("nq", [1, 3, 8, 64])
+def test_batched_zscan_z2_kernel_matches_plain(dev, n, nq):
+    from geomesa_tpu_torch.curves.zorder import MAX_MASK_2D
+
+    rng, _, _, (h2, l2) = zscan_case(n, 4, seed=5 * n + nq)
+    bounds = np.empty((nq, 2, 6), np.uint32)
+    for i in range(nq):
+        if i % 2:
+            bounds[i] = rng.integers(0, 1 << 32, (2, 6), dtype=np.uint64).astype(np.uint32)
+        else:
+            lo, hi = np.sort(rng.integers(0, MAX_MASK_2D + 1, (2, 2)), axis=0)
+            bounds[i] = zscan.z2_dim_bounds(tuple(lo), tuple(hi))
+    if nq > 2:
+        bounds[-1] = 0
+        bounds[-1, :, 3] = 1  # lo_lo 1 > hi 0: the fused paths' z2 padding
+    planes = (_u32(h2, dev), _u32(l2, dev))
+    got_c = zscan.batched_zscan_count(bounds, None, *planes)
+    got_m = zscan.batched_zscan_mask(bounds, None, *planes)
+    want = zscan.batched_kind_mask("z2")(*planes, bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want) and torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+    if nq > 2:
+        assert int(got_c[-1]) == 0
+
+
+def test_device_index_fused_paths_on_the_card(dev):
+    """The fused loose paths of DeviceIndex on the card equal its serial
+    loose answers, on dim planes and the interleaved layout, z3 and z2."""
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    rng = np.random.default_rng(4)
+    n = 200_003
+    xy = rng.uniform([-60, -40], [60, 40], (n, 2)).astype(np.float32).astype(np.float64)
+    cols = {"dtg": rng.integers(T0, T0 + 30 * 86_400_000, n), "geom": xy}
+    tiles = [f"BBOX(geom, {x}, {y}, {x + 4}, {y + 3})" for x, y in rng.uniform(-55, 35, (11, 2))]
+    for spec, days in (("dtg:Date,*geom:Point:srid=4326", True), ("*geom:Point:srid=4326", False)):
+        sft = SimpleFeatureType.create("t", spec)
+        c = cols if days else {"geom": xy}
+        qs = [t + (f" AND dtg DURING 2020-01-{3 + i:02d}T00:00:00Z/2020-01-{4 + i:02d}T06:00:00Z"
+                   if days else "") for i, t in enumerate(tiles)]
+        for dim in (None, False):
+            di = DeviceIndex(BatchStore(FeatureBatch.from_columns(sft, c)), "t", z_planes=True,
+                             dim_planes=dim, device=dev)
+            assert di.fused_loose_counts(qs, loose=True) == [di.count(q, loose=True) for q in qs]
+            for q, got in zip(qs, di.fused_loose_query(qs, loose=True)):
+                np.testing.assert_array_equal(got.fids, di.query(q, loose=True).fids)
 
 
 # -- the AIS processes' torch ops (no TPU kernel behind them): the card's
