@@ -116,7 +116,7 @@ Phases:
      their own, the torch ops that replace no TPU kernel (the xz range
      masks, the card key encode, the kNN pass at k = 10 and 8192 and the
      union mask of 16 and 256 tube windows at 2^26 AIS rows); the batched
-     scans at Q in {1, 8, 64} (the z3 dim scan at R = 1 and 2) with phase
+     scans at Q in {1, 4, 8, 64} (the z3 dim scan at R = 1 and 2) with phase
      3f's tile queries, beside Q launches of the single-query kernel.
 
 Prints the kernel table as one JSON line, the card line, and last
@@ -385,18 +385,66 @@ def batch_zbounds(rng, nq, n_bins):
     return out_b, out_i
 
 
-BATCH_QS = (1, 3, 8, 16, 64)
+BATCH_QS = (1, 3, 8, 16, 47, 64)
+
+
+def ordered_words(rng, shape):
+    """Random-word bounds with lo <= hi in every dimension: masked records
+    that stay in the table (an entry with lo > hi is dropped as empty)."""
+    b = rng.integers(0, 1 << 32, shape + (6,), dtype=np.uint64).astype(np.uint32)
+    lo, hi = b[..., 2:4].copy(), b[..., 4:6].copy()
+    swap = (lo[..., 0] > hi[..., 0]) | ((lo[..., 0] == hi[..., 0]) & (lo[..., 1] > hi[..., 1]))
+    b[..., 2:4], b[..., 4:6] = np.where(swap[..., None], hi, lo), np.where(swap[..., None], lo, hi)
+    return b
+
+
+def batch_zforms(rng, n_bins):
+    """Groups that put the batched interleaved scan's packer on each of its
+    ways: (name, bounds (Q, B, 3, 6), ids (Q, B)): flat groups (at most
+    FLAT_MAX_RECORDS records, every row tests every record) of cell boxes
+    (two queries a bin: compact; one record a bin: masked,
+    MASKED_MAX_MEET) and of random words, binned groups (the bin index) of each form and
+    mixed, and groups of 64 queries x 64 bins, cell boxes and random words,
+    whose tables exceed one launch's and split by queries."""
+    from geomesa_tpu_torch.ops import zscan
+
+    maxi = (1 << 21) - 1
+
+    def cells(shape):
+        lo, hi = np.sort(rng.integers(0, maxi + 1, (2,) + shape + (3,)), axis=0)
+        out = np.empty(shape + (3, 6), np.uint32)
+        for i in np.ndindex(*shape):
+            out[i] = zscan.z3_dim_bounds(tuple(lo[i]), tuple(hi[i]))
+        return out
+
+    def ids(nq, b):
+        return np.stack([(2600 + rng.permutation(n_bins)[:b]).astype(np.int32) for _ in range(nq)])
+
+    mixed = cells((13, 6))
+    mixed[1::2] = ordered_words(rng, (6, 6, 3))
+    return [("flat, compact", cells((2, 2)), np.tile(ids(1, 2), (2, 1))),
+            ("flat, cell boxes one a bin (masked)", cells((1, 3)), ids(1, 3)),
+            ("flat, masked", ordered_words(rng, (2, 2, 3)), ids(2, 2)),
+            ("binned, compact", cells((13, 6)), ids(13, 6)),
+            ("binned, masked", ordered_words(rng, (13, 6, 3)), ids(13, 6)),
+            ("binned, mixed", mixed, ids(13, 6)),
+            ("split, compact", cells((64, 64)), ids(64, 64)),
+            ("split, masked", ordered_words(rng, (64, 64, 3)), ids(64, 64))]
 
 
 def check_batched_scans(dev, errs: Errs):
     """The Q-batched scans of the scheduler's fused paths against their
     plain versions (per-query loops of the single-query plain versions):
-    the dim scan at Q in {1, 3, 8, 16, 64} and R in {0, 1, 2, 4, 8}, the
-    interleaved z3 scan over mixed bin layouts (up to 8 entries a query,
-    padded, gapped, all-padded queries) and its z2 variant, at n in
-    {1, 1000, 2^20+17}; rows in bin -1 never match."""
+    the dim scan at Q in {1, 3, 8, 16, 47, 64} and R in {0, 1, 2, 4, 8},
+    the interleaved z3 scan over mixed bin layouts (up to 8 entries a
+    query, padded, gapped, all-padded queries) and its z2 variant, at n in
+    {1, 1000, 2^20+17}; then the interleaved z3 scan's compact and masked
+    records under both ways of finding a row's records and split into
+    several launches (2^20+17 rows), each against the reference and the
+    plain version on the packed layout; rows in bin -1 never match."""
     import torch
 
+    from geomesa_tpu_torch import kernels
     from geomesa_tpu_torch.curves.z2 import Z2SFC
     from geomesa_tpu_torch.curves.z3 import Z3SFC
     from geomesa_tpu_torch.curves.zorder import MAX_MASK_2D, u64_hi_lo
@@ -441,6 +489,7 @@ def check_batched_scans(dev, errs: Errs):
             for i in range(nq):
                 lo, hi = np.sort(rng.integers(0, MAX_MASK_2D + 1, (2, 2)), axis=0)
                 b2[i] = zscan.z2_dim_bounds(tuple(lo), tuple(hi))
+            b2[1::3] = ordered_words(rng, (len(b2[1::3]), 2))
             if nq > 2:
                 b2[-1] = 0
                 b2[-1, :, 3] = 1  # the fused paths' z2 padding: lo_lo 1 > hi 0
@@ -450,9 +499,36 @@ def check_batched_scans(dev, errs: Errs):
             errs.check("zscan_batched_z2_count", zscan.batched_zscan_count(b2, None, h2, l2),
                        want.sum(dim=1, dtype=torch.int32), f"n={n} Q={nq}")
             cases += 2
+    # the packer's ways, at 2^20 + 17 rows over 128 week bins
+    bins = (2600 + rng.integers(0, 128, n)).astype(np.int32)
+    bins[:3] = -1
+    b3 = torch.from_numpy(bins).to(dev)
+    ways = []
+    for name, bounds, ids in batch_zforms(rng, 128):
+        pk = zscan.batched_zscan(bounds, ids)
+        want = zscan.batched_kind_mask("z3")(h3, l3, b3, bounds, ids)
+        what = f"{name}, Q={len(ids)}, n={n}"
+        before = dict(kernels.LAUNCHES)
+        errs.check("zscan_batched_z3_mask", pk.run(b3, h3, l3, want_mask=True), want, what)
+        errs.check("zscan_batched_z3_count", pk.run(b3, h3, l3, want_mask=False),
+                   want.sum(dim=1, dtype=torch.int32), what)
+        errs.check("zscan_batched_z3_mask", pk.plain(b3, h3, l3), want, f"{what}, plain on the packed layout")
+        for k in ("zscan_batched_z3_mask", "zscan_batched_z3_count"):
+            if kernels.LAUNCHES[k] - before[k] != len(pk.launches):
+                raise AssertionError(f"{what}: {k} launched {kernels.LAUNCHES[k] - before[k]} times "
+                                     f"for {len(pk.launches)} packed tables")
+        lcs = pk.launches
+        ways.append((name, len(lcs), sorted({"binned" if lc.binned else "flat" for lc in lcs}),
+                     sum(lc.nc for lc in lcs), sum(lc.nm for lc in lcs)))
+        cases += 1
     torch.cuda.synchronize()
+    got = {w for _, k, finding, nc, nm in ways for w in finding + ["compact"] * (nc > 0)
+           + ["masked"] * (nm > 0) + ["split"] * (k > 1)}
+    if got != {"flat", "binned", "compact", "masked", "split"}:
+        raise AssertionError(f"the batched interleaved scan's checks reached only {sorted(got)}")
     log(f"batched scans: {cases} cases (dim scan Q in {list(BATCH_QS)} x R in 0-8, "
-        f"interleaved z3 and z2), kernel == plain bit for bit")
+        f"interleaved z3 and z2; the packer's ways {ways} as (case, launches, finding, "
+        f"compact records, masked records)), kernel == plain bit for bit")
 
 
 def launch_floor(dev) -> None:
@@ -2460,9 +2536,13 @@ def check_sched(tag, run, serial) -> dict:
     """Every answer equals the serial one; the launches the drive made
     equal, kernel by kernel, the launches its spans show (one batched
     launch per fused group, one single-query launch per request served
-    alone); no group of two or more fell back to serial (a failed or
-    declined fused launch); nothing rejected or expired. Returns the launch
-    counts."""
+    alone); each batched launch carried its group's queries (the widths
+    the kernels saw, ``kernels.BATCH_WIDTHS``, equal the groups'); no group
+    of two or more fell back to serial (a failed or declined fused launch);
+    nothing rejected or expired. Returns the launch counts, and the widths
+    under "widths"."""
+    from geomesa_tpu_torch import kernels
+
     done, sched = run["done"], run["sched"]
     for key, op, q, v, _, _, _ in done:
         want = serial[(key, op, q)]
@@ -2480,6 +2560,20 @@ def check_sched(tag, run, serial) -> dict:
         name = SCHED_KERNELS[(key, op)][1]
         calls[name] = calls.get(name, 0) + 1
     launches = read_launches(f"scheduler ({tag})", calls)
+    # each batched launch carries its group's queries and no padding: the
+    # widths the kernels saw equal the fused groups' widths in the spans
+    spans: dict = {}
+    for key, op, _, _, _, launch, fused in done:
+        if fused > 1:
+            spans[(key, op, launch)] = fused
+    want_widths: dict = {}
+    for (key, op, _), fused in spans.items():
+        w = want_widths.setdefault(SCHED_KERNELS[(key, op)][0], {})
+        w[fused] = w.get(fused, 0) + 1
+    widths = {k: dict(sorted(v.items())) for k, v in kernels.BATCH_WIDTHS.items() if v}
+    if widths != {k: dict(sorted(v.items())) for k, v in want_widths.items()}:
+        raise AssertionError(f"{tag}: batched launch widths {widths} != the spans' {want_widths}")
+    launches["widths"] = widths
     riders = sum(1 for *_, fused in done if fused > 1)
     if sched.fused_queries != riders or sched.launches != len(groups) + len(alone):
         raise AssertionError(f"{tag}: fused_queries {sched.fused_queries} / launches "
@@ -2522,17 +2616,17 @@ def run_sched_path(dev, cols, di3, di2, di3i, di2i) -> dict:
         run = drive_sched(idx, pans, feats, cfg)
         torch.cuda.synchronize()
         launches = check_sched(tag, run, serial)
+        widths = launches.pop("widths")
         for k, v in launches.items():
             out["launches"][k] += v
         snap, done = run["snap"], run["done"]
         lat = [x[4] for x in done]
-        widths = sorted({x[5]: x[6] for x in done if x[6] > 1}.values())
         log(f"phase 3f {tag}: {n_req} requests in {run['wall'] * 1e3:.1f} ms "
             f"({n_req / run['wall']:.1f} requests/s), {snap['launches']} launches, fusion factor "
-            f"{snap['fusion_factor']}, {snap['fused_queries']} fused queries, fused widths "
-            f"{widths}; latency submit to completion p50 {pct(lat, 50):.3f} ms p99 {pct(lat, 99):.3f} ms "
+            f"{snap['fusion_factor']}, {snap['fused_queries']} fused queries; latency submit to completion p50 {pct(lat, 50):.3f} ms p99 {pct(lat, 99):.3f} ms "
             f"(counts p50 {pct([x[4] for x in done if x[1] == 'count'], 50):.3f} ms, features p50 "
             f"{pct([x[4] for x in done if x[1] == 'query'], 50):.3f} ms) [{CARD}]")
+        log(f"phase 3f {tag}: Q of every batched launch, as {{Q: launches}} per kernel: {widths}")
         out[tag] = {"requests": n_req, "wall_s": run["wall"], "launches": snap["launches"],
                     "fusion_factor": snap["fusion_factor"], "fused_queries": snap["fused_queries"],
                     "p50_ms": pct(lat, 50), "p99_ms": pct(lat, 99), "widths": widths}
@@ -2576,23 +2670,62 @@ def _program_ops(prog) -> int:
     return ops
 
 
-def zscan_ops(lb, bins) -> int:
-    """Integer operations the interleaved scan's function needs on this
-    data, whatever implements it: per row one bin lookup (a subtract, an
-    unsigned range check and a table load: 4), and for a row whose bin has
-    an entry that entry's masked compares (18: per dimension an AND pair
-    and two 64-bit compares of two 32-bit compares each, the ANDs between
-    them folded into the compares); z2 rows pay the masked compares of 2
-    dimensions (12) and no lookup."""
+# ALU operations of the interleaved scan's steps (see zscan_ops): one
+# dimension's 64-bit masked compare (an AND pair and two 64-bit compares of
+# two 32-bit compares each); one de-interleaved dimension's 32-bit compare
+# pair; one dimension's de-interleave of a 64-bit key (per 32-bit half a
+# mask and 4 masks, its 4 multiplies on the FMA pipe; 3 merges); a bin
+# lookup (a subtract, a range check, a load and a test).
+MASKED_DIM_OPS, COMPACT_DIM_OPS, DEINTERLEAVE_DIM_OPS, LOOKUP_OPS = 6, 2, 13, 4
+
+
+def zscan_ops(lbs, hi, lo, bins=None) -> int:
+    """The least ALU work of the interleaved scan's function on this data
+    for the queries ``lbs`` (their loose bounds), whatever implements it.
+    A z3 row looks its bin up once; z2 rows have no bins. An entry of the
+    row's bin (z2: every query's) is tested a dimension at a time, in
+    order, until one fails, and an entry with lo > hi in a dimension is
+    empty and needs nothing. With E the dimensions a row's entries so need
+    and D the dimensions of its key that some entry reaches, the row takes
+    the cheaper way: E masked compares, or D de-interleaved dimensions and
+    E compare pairs on them. The multiplies run on the FMA pipe beside the
+    ALU and are fewer than its operations, so the ALU's count over its rate
+    is the least time. E and D are counted on these rows."""
     import torch
 
-    ids = lb[2]
-    n = bins.shape[0]
-    if ids is None:  # z2: one entry, 2 dims
-        return 12 * n
-    real = torch.from_numpy(ids[ids >= 0]).to(bins.device)
-    in_window = int(torch.isin(bins, real).sum())
-    return 4 * n + 18 * in_window
+    from geomesa_tpu_torch.ops.int64lanes import widen_u32
+
+    z = (widen_u32(hi) << 32) | widen_u32(lo)
+    by_bin = {}  # bin (None: z2) -> (n_dims, 6) bounds of its entries
+    for lb in lbs:
+        if lb[2] is None:
+            by_bin.setdefault(None, []).append(np.asarray(lb[1]).reshape(-1, 6))
+        else:
+            for b, i in zip(lb[1], lb[2]):
+                if i >= 0:
+                    by_bin.setdefault(int(i), []).append(np.asarray(b).reshape(-1, 6))
+    ops = 0 if bins is None else LOOKUP_OPS * z.shape[0]
+    for b, entries in by_bin.items():
+        zb = z if b is None else z[bins == b]
+        need = torch.zeros_like(zb)  # E
+        reach = [torch.zeros(zb.shape, dtype=torch.bool, device=zb.device) for _ in entries[0]]
+        for e in entries:
+            w = e.astype(np.uint64)
+            mask, elo, ehi = ((w[:, k] << np.uint64(32)) | w[:, k + 1] for k in (0, 2, 4))
+            if (elo > ehi).any():
+                continue
+            if max(mask.max(), ehi.max()) >= 1 << 63:
+                raise ValueError("zscan_ops takes bounds below 2^63, as every key is")
+            alive = torch.ones_like(reach[0])
+            for d in range(len(e)):
+                reach[d] |= alive
+                need += alive
+                zm = zb & int(mask[d])
+                alive = alive & (zm >= int(elo[d])) & (zm <= int(ehi[d]))
+        deint = sum(r.to(torch.int64) for r in reach)  # D
+        ops += int(torch.minimum(MASKED_DIM_OPS * need,
+                                 COMPACT_DIM_OPS * need + DEINTERLEAVE_DIM_OPS * deint).sum())
+    return ops
 
 
 def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs) -> list:
@@ -2678,7 +2811,7 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     lb = di3i._loose_bounds(parse_ecql(queries[3][0]))
     zc, zm, ops3 = di3i._loose_args(lb)
     bounds, ids = lb[1], lb[2]
-    zops = zscan_ops(lb, ops3[0])
+    zops = zscan_ops([lb], ops3[1], ops3[2], ops3[0])
     log(f"zscan_z3 timing window: {queries[3][0]} ({int((ids >= 0).sum())} bins, "
         f"{len(ids)} entries)")
     row("zscan_z3_count", zs_src, f"{rzs} (pallas_call :942)", lambda: zc(*ops3),
@@ -2689,11 +2822,12 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
         12 * n, n, zops, plain_iters=2)
     lb2 = di2i._loose_bounds(parse_ecql(z2_queries[0]))
     z2c, z2m, ops2 = di2i._loose_args(lb2)
+    z2ops = zscan_ops([lb2], *ops2)
     row("zscan_z2_count", zs_src, f"{rzs} (pallas_call :942; z2 variant of zscan.py:97)",
         lambda: z2c(*ops2),
-        lambda: zscan.z2_zscan_mask(*ops2, lb2[1]).sum(dtype=torch.int32), 8 * n, 4, 12 * n)
+        lambda: zscan.z2_zscan_mask(*ops2, lb2[1]).sum(dtype=torch.int32), 8 * n, 4, z2ops)
     row("zscan_z2_mask", zs_src, f"{rzs} (pallas_call :960; z2 variant of zscan.py:97)",
-        lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, 12 * n)
+        lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, z2ops)
 
     # the interleaved scan over many bins: the wide day-binned index, a
     # 28-day world window (29 day bins), rows of their own
@@ -2702,7 +2836,7 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     wc, wm, opsw = diw._loose_args(lbw)
     bw, iw = lbw[1], lbw[2]
     nb = int((iw >= 0).sum())
-    zops_w = zscan_ops(lbw, opsw[0])
+    zops_w = zscan_ops([lbw], opsw[1], opsw[2], opsw[0])
     case = f"{nb} day bins ({len(iw)} entries), the wide index"
     row("zscan_z3_count", zs_src, f"{rzs} (pallas_call :942)", lambda: wc(*opsw),
         lambda: zscan.z3_zscan_mask(opsw[1], opsw[2], opsw[0], bw, iw).sum(dtype=torch.int32),
@@ -2728,13 +2862,17 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
 
 def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
     """Phase 4 for the batched scans, at the main path's 2^26 rows with
-    phase 3f's tile queries: Q in {1, 8, 64}, the z3 dim scan at R = 1 and
+    phase 3f's tile queries: Q in {1, 4, 8, 64}, the z3 dim scan at R = 1 and
     at R = 2 (each query's bt range split in two: the same rows), the z2
     dim scan, the interleaved z3 scan (2 week bins; 1 or 2 entries a
     query) and its z2 variant on the phase 3c indexes; count and mask.
     Beside each: Q launches of the single-query kernel (the yardstick) and
     the bound, the larger of the bytes (the planes once, the output) and
-    the operations (Q x the single query's per-row work)."""
+    the operations (the dim scans: Q x the single query's per-row work;
+    the interleaved scans: :func:`zscan_ops`); the interleaved rows also
+    time the launch alone (``launch_ms``: the group packed and its table
+    on the card before the timed loop) beside the call (``ms``: packing,
+    upload and launch)."""
     import torch
 
     from geomesa_tpu_torch.filter.ecql import parse_ecql
@@ -2746,9 +2884,11 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
              for k in ("z3", "z2", "z3i")}
     rows = []
 
-    def brow(name, replaces, kern, plain, single, nbytes, ops, q, case, iters, plain_iters):
+    def brow(name, replaces, kern, plain, single, nbytes, ops, q, case, iters, plain_iters,
+             launch=None):
         errs.check(name, kern(), plain(), f"phase 4 {case}")
         ms = time_ms(kern, iters)
+        launch_ms = None if launch is None else time_ms(launch, iters)
         single_ms = time_ms(single, max(2, iters // 4), warm=1)
         plain_ms = time_ms(plain, plain_iters, warm=1)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2762,6 +2902,11 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
             "case": case, "q": q, "single_ms": single_ms,
         })
+        if launch is not None:
+            errs.check(name, launch(), plain(), f"phase 4 {case}, the launch alone")
+            rows[-1]["launch_ms"] = launch_ms
+            log(f"{name} ({case}): the launch alone (table packed and on the card) "
+                f"{launch_ms:.4f} ms ({100 * max(t_bytes, t_ops) / launch_ms:.1f}% of the bound) [{CARD}]")
         log(f"{name} ({case}): {ms:.4f} ms; {q} single-query launches {single_ms:.4f} ms; bound "
             f"{bound:.4f} ms (bytes {t_bytes:.4f}, operations {t_ops:.4f}; {100 * bound / ms:.1f}% "
             f"of it); plain version {plain_ms:.3f} ms [{CARD}]")
@@ -2780,7 +2925,7 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
     q2 = np.stack([di2._loose_bounds(parse_ecql(q))[1] for q in tiles["z2"][:64]])
     zb = [di3i._loose_bounds(parse_ecql(q)) for q in tiles["z3i"][:64]]
     z2b = [di2i._loose_bounds(parse_ecql(q.split(" AND ")[0])) for q in tiles["z3i"][:64]]
-    for nq in (1, 8, 64):
+    for nq in (1, 4, 8, 64):
         it, pit = (50, 3) if nq < 64 else (20, 1)
         for r, qm in ((1, q3[:nq]), (2, split[:nq])):
             ops = nq * (4 + 2 * r) * n
@@ -2811,8 +2956,10 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
         for i, lb in enumerate(lbs):
             bounds[i, : len(lb[2])], ids[i, : len(lb[2])] = lb[1], lb[2]
         hi, lo, bins = di3i._cols["__zhi"], di3i._cols["__zlo"], di3i._cols["__zbin"]
-        zops = sum(zscan_ops(lb, bins) for lb in lbs)
+        zops = zscan_ops(lbs, hi, lo, bins)
         entries = int((ids >= 0).sum())
+        pk = zscan.batched_zscan(bounds, ids)
+        pk.device_table(dev)
         for kind in ("count", "mask"):
             fn = zscan.batched_zscan_count if kind == "count" else zscan.batched_zscan_mask
             plain = (lambda b=bounds, i=ids: zscan.batched_kind_mask("z3")(hi, lo, bins, b, i).sum(
@@ -2823,9 +2970,12 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
                  lambda fn=fn, b=bounds, i=ids: fn(b, i, hi, lo, bins=bins), plain,
                  lambda single=single: [f(bins, hi, lo) for f in single],
                  12 * n + (4 * nq if kind == "count" else nq * n), zops, nq,
-                 f"Q={nq}, {entries} bin entries of 2 week bins (B={bmax}), 2^26 rows", it, pit)
+                 f"Q={nq}, {entries} bin entries of 2 week bins (B={bmax}), 2^26 rows", it, pit,
+                 launch=lambda pk=pk, m=kind == "mask": pk.run(bins, hi, lo, want_mask=m))
         b2 = np.stack([lb[1] for lb in z2b[:nq]])
         h2, l2 = di2i._cols["__zhi"], di2i._cols["__zlo"]
+        pk2 = zscan.batched_zscan(b2, None)
+        pk2.device_table(dev)
         for kind in ("count", "mask"):
             fn = zscan.batched_zscan_count if kind == "count" else zscan.batched_zscan_mask
             plain = (lambda b=b2: zscan.batched_kind_mask("z2")(h2, l2, b).sum(dim=1, dtype=torch.int32)) \
@@ -2833,8 +2983,9 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
             single = [di2i._loose_args(lb)[0 if kind == "count" else 1] for lb in z2b[:nq]]
             brow(f"zscan_batched_z2_{kind}", rkind, lambda fn=fn, b=b2: fn(b, None, h2, l2), plain,
                  lambda single=single: [f(h2, l2) for f in single],
-                 8 * n + (4 * nq if kind == "count" else nq * n), nq * 12 * n, nq,
-                 f"Q={nq}, 2^26 rows", it, pit)
+                 8 * n + (4 * nq if kind == "count" else nq * n), zscan_ops(z2b[:nq], h2, l2), nq,
+                 f"Q={nq}, 2^26 rows", it, pit,
+                 launch=lambda pk=pk2, m=kind == "mask": pk.run(None, h2, l2, want_mask=m))
         torch.cuda.empty_cache()
     return rows
 

@@ -30,6 +30,7 @@
 // one build serves every window. The count reduces per warp and per block,
 // then adds with one integer atomic per block: exact and order-independent.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -188,147 +189,412 @@ void launch(const int* bins, const uint32_t* zh, const uint32_t* zl,
 // -- the Q-batched interleaved scan -------------------------------------------
 //
 // Q queries over the same key planes in one pass: the fused loose count and
-// mask of the device query scheduler. The reference computes them with an
-// XLA vmap of z3_zscan_mask / z2_zscan_mask (geomesa_tpu/ops/zscan.py:816,
-// batched_kind_mask), not with a Pallas kernel. Each thread loads its quad
-// of rows (bin, hi and lo words) once and looks each query's entry up in
-// that query's bin table, as the single-query kernel does. The packed
-// table holds per query a header {bounds offset, bin-table offset, first
-// bin, span} (4 words each, nq of them first), then each query's bound
-// entries and bin table (ops/zscan.py _BatchedZScan builds it); z2 queries
-// have one entry and no bin table. Blocks read the table in place through
-// the read-only cache (64 queries of 2 week bins take 11 KB, 64 of many
-// bins and long spans more than shared memory holds); only the headers are
-// copied to shared memory. Padding never matches: a
-// query's ids < 0 have no place in its bin table, and a padded query has
-// an empty table. The count reduces each query per warp into per-warp
-// counters in shared memory, then one atomic per block and query; the mask
-// writes a (Q, n) byte matrix, one contiguous row per query.
+// mask of the device query scheduler. Replaces the XLA vmap of
+// z3_zscan_mask / z2_zscan_mask that the reference runs for them
+// (geomesa_tpu/ops/zscan.py:816, batched_kind_mask); it has no Pallas
+// kernel.
+//
+// The host packs a group once (ops/zscan.py _BatchedZScan): only the real
+// queries and their real entries (ids < 0 and entries with lo > hi in a
+// dimension are dropped), as flat lists of records that carry their bin
+// (0 for z2) and query. An entry whose masks are the dimension masks and
+// whose bounds lie inside them (every cell box) is a compact record of 8
+// words: per dimension the de-interleaved lo and hi (21 bits z3, 31 bits
+// z2, whose third pair is 0), then bin and query. It matches exactly when
+// the row's de-interleaved coordinates lie between them, as compaction is
+// an order-preserving bijection on the values inside a mask. Any other
+// entry, and a cell box where no row can meet more than one record (the
+// de-interleave costs more than one masked compare: MASKED_MAX_MEET), is a
+// masked record of 24 words: bin, query, 2 unused, then per dimension the
+// 6 masked-compare words of entry_hit. A z3 launch of more
+// than a few records (FLAT_MAX_RECORDS) sorts them by bin and ends its
+// table with a bin index: per bin of its span, where its compact and its
+// masked records start (int2).
+//
+// Bound on this card: the larger of the bytes (the planes once, 12 B a row
+// z3, 8 B z2, and 1 B a row and query for the mask) and the compares' ALU
+// operations, which grow with the records a row meets (z2: all of them;
+// z3: its bin's).
+// The first design read, per row and query, the query's bin table and its
+// entry's 18 bound words from device memory through the read-only cache:
+// about 44 instructions a row and query, 13% of the bound at Q = 64. Here:
+// - each block copies its launch's table (at most 96 KB, so that two
+//   blocks fit an SM) into shared memory once; a group past that is cut by
+//   queries into several launches;
+// - a thread loads a quad of rows and, when the group has compact records,
+//   de-interleaves each key's first dimension (12 integer operations and 8
+//   multiplies z3, the multiplies on their own pipe: gather), and its other
+//   dimensions once, only when a record's first dimension holds the row;
+// - with a bin index, each row reads only its own bin's records, a
+//   dimension (8 bytes) at a time while it passes. Those shared-memory
+//   reads bound this path when a warp's rows lie in many bins, as rows
+//   staged in arrival order do; most rows leave a record after its first
+//   dimension. Rows of one bin read the same words, a broadcast;
+// - without one (z2, or a few records) every row tests every record, with
+//   its bin, all lanes reading the same word at once;
+// - hits gather in a 64-bit word per row, bit q for query q. The count
+//   adds those words into vertical counters (bit planes; a carry ripples
+//   only for a row with a hit), reduces them across the warp at most every
+//   255 quads and adds one integer atomic per block and query: exact and
+//   order-independent. The mask transposes a quad's 4 words by byte
+//   permutes and writes each query's 4 bytes with one store into the
+//   (Q, n) byte matrix.
 
 constexpr int kMaxBatch = 64;
 constexpr int kWarps = kThreads / 32;
+constexpr int kCompactWords = 8;
+constexpr int kMaskedWords = 24;
+constexpr long long kMaxTableBytes = 96 * 1024;
 
-struct BQuad {
-  int4 b;
-  uint4 h, l;
-  long long rows;
+// A thread's 4 rows: bins (-1 past n: no record has a bin below 0), key
+// words and de-interleaved coordinates.
+struct Rows {
+  int b[4];
+  uint32_t h[4], l[4];
+  uint32_t c[3][4];
+  uint32_t rest;  // rows whose coordinates past the first are set
 };
 
 template <int NDIMS>
-__device__ __forceinline__ BQuad load_bquad(const int* bins, const uint32_t* zh,
-                                            const uint32_t* zl, long long row,
-                                            long long n) {
-  BQuad d;
-  d.rows = n - row;
-  d.b = make_int4(0, 0, 0, 0);
-  if (d.rows >= 4) {
-    d.h = load4(zh, row);
-    d.l = load4(zl, row);
-    if (NDIMS == 3) d.b = __ldg(reinterpret_cast<const int4*>(bins + row));
-    return d;
+__device__ __forceinline__ void load_rows(Rows& d, const int* bins, const uint32_t* zh,
+                                          const uint32_t* zl, long long row, long long n) {
+  if (row + 4 <= n) {
+    const uint4 h = load4(zh, row), l = load4(zl, row);
+    int4 b = make_int4(0, 0, 0, 0);
+    if (NDIMS == 3) b = __ldg(reinterpret_cast<const int4*>(bins + row));
+    d.h[0] = h.x; d.h[1] = h.y; d.h[2] = h.z; d.h[3] = h.w;
+    d.l[0] = l.x; d.l[1] = l.y; d.l[2] = l.z; d.l[3] = l.w;
+    d.b[0] = b.x; d.b[1] = b.y; d.b[2] = b.z; d.b[3] = b.w;
+    return;
   }
-  int b[4] = {0, 0, 0, 0};
-  uint32_t h[4] = {0, 0, 0, 0}, l[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    if (r < d.rows) {
-      h[r] = zh[row + r];
-      l[r] = zl[row + r];
-      if (NDIMS == 3) b[r] = bins[row + r];
+  for (int r = 0; r < 4; ++r) {
+    const bool in = row + r < n;
+    d.h[r] = in ? zh[row + r] : 0u;
+    d.l[r] = in ? zl[row + r] : 0u;
+    d.b[r] = in ? (NDIMS == 3 ? bins[row + r] : 0) : -1;
+  }
+}
+
+// The K bits of v & M at positions S k + o (S = 3 or 2), moved up to
+// [T, T + K): each of the 4 steps copies the word with a multiply by
+// (1 + 2^s), which carries nothing (no bit lands on another), and keeps the
+// wanted copies, so half the work runs on the multiplier's pipe. The masks
+// are worked out and checked against curves/zorder.py's combine for every
+// key word.
+template <uint32_t M, uint32_t A, uint32_t MA, uint32_t B, uint32_t MB, uint32_t C,
+          uint32_t MC, uint32_t D, uint32_t MD>
+__device__ __forceinline__ uint32_t gather(uint32_t v) {
+  v &= M;
+  v = (v * A) & MA;
+  v = (v * B) & MB;
+  v = (v * C) & MC;
+  return (v * D) & MD;
+}
+
+// Row r's coordinates from its key z = h:l, as curves/zorder.py's combine
+// of (z >> d): z3 dimension d takes bits 3k + d (11 or 10 of them in l, the
+// rest in h), z2 dimension d bits 2k + d. The first dimension comes for
+// every live row (coord_x); the others only for a row that passes some
+// record's first dimension (coord_rest, once; `rest` marks such rows).
+template <int NDIMS>
+__device__ __forceinline__ void coord_x(Rows& d, int r) {
+  const uint32_t h = d.h[r], l = d.l[r];
+  if (NDIMS == 3) {  // l field [20, 31), h field [19, 29)
+    const uint32_t xl = gather<0x49249249u, 5, 0x61861861u, 17, 0x78078070u, 257, 0x7f800070u,
+                               65537, 0x7ff00000u>(l);
+    const uint32_t xh = gather<0x12492492u, 5, 0x18618618u, 17, 0x1e01e018u, 257, 0x1fe00018u,
+                               65537, 0x1ff80000u>(h);
+    d.c[0][r] = (xl >> 20) | (xh >> 8);
+  } else {  // l field [15, 31), h field [15, 30)
+    const uint32_t xl = gather<0x55555555u, 3, 0x66666666u, 5, 0x78787878u, 17, 0x7f807f80u,
+                               257, 0x7fff8000u>(l);
+    const uint32_t xh = gather<0x15555555u, 3, 0x26666666u, 5, 0x38787878u, 17, 0x3f807f80u,
+                               257, 0x3fff8000u>(h);
+    d.c[0][r] = (xl >> 15) | (xh << 1);
+  }
+}
+
+template <int NDIMS>
+__device__ __forceinline__ void coord_rest(Rows& d, int r) {
+  if ((d.rest >> r) & 1u) return;
+  d.rest |= 1u << r;
+  const uint32_t h = d.h[r], l = d.l[r];
+  if (NDIMS == 3) {  // l y [21, 32) t [20, 30); h y [20, 30) t [20, 31)
+    const uint32_t yl = gather<0x92492492u, 5, 0xc30c30c2u, 17, 0xf00f00e0u, 257, 0xff0000e0u,
+                               65537, 0xffe00000u>(l);
+    const uint32_t yh = gather<0x24924924u, 5, 0x30c30c30u, 17, 0x3c03c030u, 257, 0x3fc00030u,
+                               65537, 0x3ff00000u>(h);
+    const uint32_t tl = gather<0x24924924u, 5, 0x30c30c30u, 17, 0x3c03c030u, 257, 0x3fc00030u,
+                               65537, 0x3ff00000u>(l);
+    const uint32_t th = gather<0x49249249u, 5, 0x61861861u, 17, 0x78078070u, 257, 0x7f800070u,
+                               65537, 0x7ff00000u>(h);
+    d.c[1][r] = (yl >> 21) | (yh >> 9);
+    d.c[2][r] = (tl >> 20) | (th >> 10);
+  } else {  // l y [16, 32), h y [16, 31)
+    const uint32_t yl = gather<0xaaaaaaaau, 3, 0xccccccccu, 5, 0xf0f0f0f0u, 17, 0xff00ff00u,
+                               257, 0xffff0000u>(l);
+    const uint32_t yh = gather<0x2aaaaaaau, 3, 0x4cccccccu, 5, 0x70f0f0f0u, 17, 0x7f00ff00u,
+                               257, 0x7fff0000u>(h);
+    d.c[1][r] = (yl >> 16) | yh;
+  }
+}
+
+// Whether row r, inside compact record (a, b) = (lo0, hi0, lo1, hi1),
+// (lo2, hi2, bin, query) in its first dimension, lies in the others.
+template <int NDIMS>
+__device__ __forceinline__ bool compact_rest(const uint4& a, const uint4& b, Rows& d, int r) {
+  coord_rest<NDIMS>(d, r);
+  bool ok = d.c[1][r] >= a.z && d.c[1][r] <= a.w;
+  if (NDIMS == 3) ok = ok && d.c[2][r] >= b.x && d.c[2][r] <= b.y;
+  return ok;
+}
+
+template <int NDIMS>
+__device__ __forceinline__ uint32_t masked_hit(const uint32_t* e, const Rows& d, int r) {
+  return entry_hit<NDIMS>(((unsigned long long)d.h[r] << 32) | d.l[r], e + 4);
+}
+
+// Row r's records [c0, c1) and [m0, m1): bit q of hits[r] for each one it
+// lies in (the caller gives the records of row r's bin). A compact record
+// is read a dimension at a time (8 bytes) and only while the row passes:
+// most rows leave after the first, which halves the shared-memory reads
+// that bound this path (lanes of rows in other bins read other records).
+template <int NDIMS>
+__device__ __forceinline__ void row_records(const uint32_t* comp, int c0, int c1,
+                                            const uint32_t* mskd, int m0, int m1,
+                                            Rows& d, int r, unsigned long long& hits) {
+  for (int i = c0; i < c1; ++i) {
+    const uint2* e = reinterpret_cast<const uint2*>(comp + (long long)i * kCompactWords);
+    const uint2 x = e[0];
+    if (d.c[0][r] < x.x || d.c[0][r] > x.y) continue;
+    coord_rest<NDIMS>(d, r);
+    const uint2 y = e[1];
+    if (d.c[1][r] < y.x || d.c[1][r] > y.y) continue;
+    if (NDIMS == 3) {
+      const uint2 t = e[2];
+      if (d.c[2][r] < t.x || d.c[2][r] > t.y) continue;
+    }
+    hits |= 1ull << e[3].y;
+  }
+  for (int i = m0; i < m1; ++i) {
+    const uint32_t* e = mskd + (long long)i * kMaskedWords;
+    if (masked_hit<NDIMS>(e, d, r)) hits |= 1ull << e[1];
+  }
+}
+
+// Every record against the rows of its bin (z2: every live row), each
+// record's words read by all lanes at once.
+template <int NDIMS>
+__device__ __forceinline__ void flat_records(const uint32_t* comp, int nc, const uint32_t* mskd,
+                                             int nm, Rows& d, uint32_t live,
+                                             unsigned long long (&hits)[4]) {
+  for (int i = 0; i < nc; ++i) {
+    const uint4 a = *reinterpret_cast<const uint4*>(comp + (long long)i * kCompactWords);
+    const uint4 b = *reinterpret_cast<const uint4*>(comp + (long long)i * kCompactWords + 4);
+    const unsigned long long bit = 1ull << b.w;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t in = (live >> r) & 1u;
+      if (NDIMS == 3) in &= (uint32_t)(d.b[r] == (int)b.z);
+      in &= (uint32_t)(d.c[0][r] >= a.x) & (uint32_t)(d.c[0][r] <= a.y);
+      if (in && compact_rest<NDIMS>(a, b, d, r)) hits[r] |= bit;
     }
   }
-  d.b = make_int4(b[0], b[1], b[2], b[3]);
-  d.h = make_uint4(h[0], h[1], h[2], h[3]);
-  d.l = make_uint4(l[0], l[1], l[2], l[3]);
-  return d;
+  for (int i = 0; i < nm; ++i) {
+    const uint32_t* e = mskd + (long long)i * kMaskedWords;
+    const unsigned long long bit = 1ull << e[1];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      uint32_t in = (live >> r) & 1u;
+      if (NDIMS == 3) in &= (uint32_t)(d.b[r] == (int)e[0]);
+      if (in & masked_hit<NDIMS>(e, d, r)) hits[r] |= bit;
+    }
+  }
 }
 
-// Hits of a quad's rows for the query with header `hd` over `tab`, as bits
-// 0..3; rows at or past n are 0.
-template <int NDIMS>
-__device__ __forceinline__ uint32_t bquad_bits(const BQuad& d, const int4& hd,
-                                               const uint32_t* tab) {
-  const uint32_t* bounds = tab + hd.x;
-  const int* entry_of = reinterpret_cast<const int*>(tab + hd.y);
-  const uint32_t bits =
-      row_hit<NDIMS>(d.b.x, d.h.x, d.l.x, bounds, entry_of, hd.z, hd.w) |
-      (row_hit<NDIMS>(d.b.y, d.h.y, d.l.y, bounds, entry_of, hd.z, hd.w) << 1) |
-      (row_hit<NDIMS>(d.b.z, d.h.z, d.l.z, bounds, entry_of, hd.z, hd.w) << 2) |
-      (row_hit<NDIMS>(d.b.w, d.h.w, d.l.w, bounds, entry_of, hd.z, hd.w) << 3);
-  return d.rows >= 4 ? bits : (d.rows <= 0 ? 0u : bits & ((1u << d.rows) - 1u));
+// Vertical counters: bit q of plane i is bit i of query q's count; adding a
+// row's hit word ripples a carry through the planes.
+constexpr int kPlanes = 10;
+constexpr int kFlushQuads = (1 << kPlanes) / 4 - 1;  // a thread's quads between flushes
+
+__device__ __forceinline__ void count_hits(unsigned long long (&p)[kPlanes],
+                                           unsigned long long v) {
+#pragma unroll
+  for (int i = 0; i < kPlanes; ++i) {
+    if (!v) break;
+    const unsigned long long carry = p[i] & v;
+    p[i] ^= v;
+    v = carry;
+  }
 }
 
-// The block's copy of the query headers (shared memory).
-__device__ __forceinline__ void stage_headers(const uint32_t* table, int nq, int4* hdr) {
-  const int4* h = reinterpret_cast<const int4*>(table);
-  for (int q = threadIdx.x; q < nq; q += blockDim.x) hdr[q] = h[q];
+// The warp's counts into its counters in shared memory; the planes restart.
+__device__ __forceinline__ void flush_counts(unsigned long long (&p)[kPlanes], int nq,
+                                             int* wcount, int lane) {
+  unsigned long long any = 0;
+#pragma unroll
+  for (int i = 0; i < kPlanes; ++i) any |= p[i];
+  if (__any_sync(0xffffffffu, any != 0)) {
+    for (int q = 0; q < nq; ++q) {
+      int v = 0;
+#pragma unroll
+      for (int i = 0; i < kPlanes; ++i) v |= (int)((p[i] >> q) & 1ull) << i;
+      v = __reduce_add_sync(0xffffffffu, v);
+      if (lane == 0) wcount[q] += v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPlanes; ++i) p[i] = 0;
 }
 
-template <int NDIMS>
+// The quad's bytes of every query: byte r of query q's word is bit q of
+// hits[r]. Bytes 8k..8k+7 of the 4 hit words transpose (a byte permute) to
+// word g_k, whose bit j of byte r is query 8k + j's hit of row r.
+__device__ __forceinline__ void store_quad(uint8_t* out, long long n, int nq, long long row,
+                                           const unsigned long long (&hits)[4]) {
+  const bool aligned = row + 4 <= n && (n & 3) == 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (8 * k >= nq) break;
+    const int sh = k < 4 ? 0 : 32;
+    const uint32_t sel = (uint32_t)(k & 3) | ((uint32_t)(4 + (k & 3)) << 4);
+    uint32_t g = __byte_perm(__byte_perm((uint32_t)(hits[0] >> sh), (uint32_t)(hits[1] >> sh), sel),
+                             __byte_perm((uint32_t)(hits[2] >> sh), (uint32_t)(hits[3] >> sh), sel),
+                             0x5410);
+    const int jn = min(8, nq - 8 * k);
+    uint8_t* p = out + (long long)(8 * k) * n + row;
+    for (int j = 0; j < jn; ++j, g >>= 1, p += n) {
+      if (aligned) {
+        *reinterpret_cast<uint32_t*>(p) = g & 0x01010101u;
+      } else {
+        for (int r = 0; r < 4 && row + r < n; ++r) p[r] = (g >> (8 * r)) & 1u;
+      }
+    }
+  }
+}
+
+// BINNED: the table ends with the bin index (span + 1 int2: where bin
+// first + i's compact and masked records start) and each row reads the
+// records of its own bin; else every row tests every record (with its bin,
+// z3). [first, first + span) holds every record's bin.
+template <int NDIMS, bool MASK, bool BINNED>
 __global__ void __launch_bounds__(kThreads)
-zscan_batched_count_kernel(const int* __restrict__ bins,
-                           const uint32_t* __restrict__ zh,
-                           const uint32_t* __restrict__ zl, long long n,
-                           const uint32_t* __restrict__ tab, int nq,
-                           int* __restrict__ out) {
-  __shared__ int4 hdr[kMaxBatch];
-  __shared__ int counts[kWarps][kMaxBatch];
+zscan_group_kernel(const int* __restrict__ bins, const uint32_t* __restrict__ zh,
+                   const uint32_t* __restrict__ zl, long long n,
+                   const uint32_t* __restrict__ table, int words, int nq, int nc, int nm,
+                   int first, int span, void* __restrict__ out) {
+  extern __shared__ uint4 stab[];
+  __shared__ int counts[MASK ? 1 : kWarps][kMaxBatch];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  stage_headers(tab, nq, hdr);
-  for (int q = lane; q < kMaxBatch; q += 32) counts[warp][q] = 0;
+  const uint4* t4 = reinterpret_cast<const uint4*>(table);
+  for (int i = threadIdx.x; i < words / 4; i += blockDim.x) stab[i] = t4[i];
+  if (!MASK)
+    for (int q = lane; q < kMaxBatch; q += 32) counts[warp][q] = 0;
   __syncthreads();
+  const uint32_t* comp = reinterpret_cast<const uint32_t*>(stab);
+  const uint32_t* mskd = comp + (long long)nc * kCompactWords;
+  const int2* index = reinterpret_cast<const int2*>(mskd + (long long)nm * kMaskedWords);
+  int* wcount = counts[MASK ? 0 : warp];
+  unsigned long long planes[kPlanes];
+#pragma unroll
+  for (int i = 0; i < kPlanes; ++i) planes[i] = 0;
+  int since = 0;
   const long long quads = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   // the warp's first quad: every lane of a warp runs the same iterations,
-  // as __reduce_add_sync needs; lanes past the end count nothing
+  // as the count's warp reductions need; lanes past the end have no live row
   for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
        base < quads; base += stride) {
-    const BQuad d = load_bquad<NDIMS>(bins, zh, zl, 4 * (base + lane), n);
-    for (int q = 0; q < nq; ++q) {
-      const int c = __reduce_add_sync(0xffffffffu, __popc(bquad_bits<NDIMS>(d, hdr[q], tab)));
-      if (lane == 0) counts[warp][q] += c;
+    const long long row = 4 * (base + lane);
+    Rows d;
+    load_rows<NDIMS>(d, bins, zh, zl, row, n);
+    unsigned long long hits[4] = {0ull, 0ull, 0ull, 0ull};
+    int2 from[4], to[4];
+    uint32_t live = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // live: a bin inside the span (in 64 bits, so that no bin wraps into
+      // it) that, with the index, has records
+      const unsigned long long off =
+          (unsigned long long)((long long)d.b[r] - (long long)first);
+      bool ok = off < (unsigned long long)span;
+      from[r] = to[r] = make_int2(0, 0);
+      if (BINNED && ok) {
+        from[r] = index[off];
+        to[r] = index[off + 1];
+        ok = from[r].x != to[r].x || from[r].y != to[r].y;
+      }
+      live |= (uint32_t)ok << r;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) d.c[k][r] = 0u;
+      if (BINNED && ok && nc > 0) coord_x<NDIMS>(d, r);
+    }
+    d.rest = 0;
+    if (!BINNED && nc > 0 && live) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) coord_x<NDIMS>(d, r);
+    }
+    if (BINNED) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if ((live >> r) & 1u)
+          row_records<NDIMS>(comp, from[r].x, to[r].x, mskd, from[r].y, to[r].y, d, r, hits[r]);
+      }
+    } else if (live) {
+      flat_records<NDIMS>(comp, nc, mskd, nm, d, live, hits);
+    }
+    if (MASK) {
+      if (row < n) store_quad(static_cast<uint8_t*>(out), n, nq, row, hits);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) count_hits(planes, hits[r]);
+      if (++since == kFlushQuads) {
+        flush_counts(planes, nq, wcount, lane);
+        since = 0;
+      }
     }
   }
-  __syncthreads();
-  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-    int t = 0;
+  if (!MASK) {
+    flush_counts(planes, nq, wcount, lane);
+    __syncthreads();
+    for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+      int t = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += counts[w][q];
-    if (t) atomicAdd(out + q, t);
+      for (int w = 0; w < kWarps; ++w) t += counts[w][q];
+      if (t) atomicAdd(static_cast<int*>(out) + q, t);
+    }
   }
 }
 
-template <int NDIMS>
-__global__ void __launch_bounds__(kThreads)
-zscan_batched_mask_kernel(const int* __restrict__ bins,
-                          const uint32_t* __restrict__ zh,
-                          const uint32_t* __restrict__ zl, long long n,
-                          const uint32_t* __restrict__ tab, int nq,
-                          uint8_t* __restrict__ out) {
-  __shared__ int4 hdr[kMaxBatch];
-  stage_headers(tab, nq, hdr);
-  __syncthreads();
-  const long long quads = (n + 3) / 4;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < quads; i += stride) {
-    const BQuad d = load_bquad<NDIMS>(bins, zh, zl, 4 * i, n);
-    for (int q = 0; q < nq; ++q) store_bits(out, n, q, 4 * i, bquad_bits<NDIMS>(d, hdr[q], tab));
-  }
+template <int NDIMS, bool MASK, bool BINNED>
+cudaError_t launch_group(const int* bins, const uint32_t* zh, const uint32_t* zl, long long n,
+                         const uint32_t* table, int words, int nq, int nc, int nm, int first,
+                         int span, void* out, cudaStream_t stream) {
+  auto kern = zscan_group_kernel<NDIMS, MASK, BINNED>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxTableBytes);
+  if (attr != cudaSuccess) return attr;
+  kern<<<grid_for(n), kThreads, (size_t)words * sizeof(uint32_t), stream>>>(
+      bins, zh, zl, n, table, words, nq, nc, nm, first, span, out);
+  return cudaGetLastError();
 }
 
 template <int NDIMS>
-void launch_batched(const int* bins, const uint32_t* zh, const uint32_t* zl,
-                    long long n, const uint32_t* table, int nq, int want_mask,
-                    void* out, cudaStream_t stream) {
-  const int grid = grid_for(n);
-  if (want_mask) {
-    zscan_batched_mask_kernel<NDIMS><<<grid, kThreads, 0, stream>>>(
-        bins, zh, zl, n, table, nq, static_cast<uint8_t*>(out));
-  } else {
-    zscan_batched_count_kernel<NDIMS><<<grid, kThreads, 0, stream>>>(
-        bins, zh, zl, n, table, nq, static_cast<int*>(out));
+cudaError_t launch_batched(const int* bins, const uint32_t* zh, const uint32_t* zl,
+                           long long n, const uint32_t* table, int words, int nq, int nc,
+                           int nm, int first, int span, bool binned, bool mask, void* out,
+                           cudaStream_t stream) {
+  if (mask) {
+    return binned ? launch_group<NDIMS, true, true>(bins, zh, zl, n, table, words, nq, nc, nm,
+                                                    first, span, out, stream)
+                  : launch_group<NDIMS, true, false>(bins, zh, zl, n, table, words, nq, nc, nm,
+                                                     first, span, out, stream);
   }
+  return binned ? launch_group<NDIMS, false, true>(bins, zh, zl, n, table, words, nq, nc, nm,
+                                                   first, span, out, stream)
+                : launch_group<NDIMS, false, false>(bins, zh, zl, n, table, words, nq, nc, nm,
+                                                    first, span, out, stream);
 }
 
 }  // namespace
@@ -367,20 +633,31 @@ extern "C" int gm_zscan(const int* bins, const uint32_t* zh, const uint32_t* zl,
   return (int)cudaGetLastError();
 }
 
+
 // Plain C entry point of the batched scan (bound with ctypes). `table` is
-// DEVICE memory of `words` uint32 laid out as above for nq queries,
-// 1 <= nq <= 64; `bins` is null for n_dims == 2. For the count, `out` is
-// nq int32 that this call zeroes on `stream` first; for the mask, nq * n
-// bytes, row q holding query q's hits. Returns cudaGetLastError() after
-// the launch (0 = launched), or cudaErrorInvalidValue for arguments the
-// kernels do not take.
+// DEVICE memory of `words` uint32, 16-byte aligned, laid out as above for
+// nq queries (1 <= nq <= 64, record queries < nq): n_compact compact
+// records, n_masked masked records, then, binned, the bin index of span + 1
+// int2 padded to a multiple of 4 words. Every record's bin lies in [first,
+// first + span); z2 (n_dims 2, `bins` null) takes first 0, span 1 and no
+// index. For the count, `out` is nq int32 that this call zeroes on
+// `stream` first; for the mask, nq * n bytes, row q holding query q's
+// hits. Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int gm_zscan_batched(const int* bins, const uint32_t* zh,
                                 const uint32_t* zl, long long n,
                                 const uint32_t* table, int words, int nq,
-                                int n_dims, int want_mask, void* out,
+                                int n_compact, int n_masked, int first, int span,
+                                int binned, int n_dims, int want_mask, void* out,
                                 void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (nq < 1 || nq > kMaxBatch || words < 4 * nq || (n_dims != 2 && n_dims != 3) ||
+  const long long index_words = binned ? (2LL * (span + 1LL) + 3) / 4 * 4 : 0;
+  const long long need = (long long)n_compact * kCompactWords +
+                         (long long)n_masked * kMaskedWords + index_words;
+  if (nq < 1 || nq > kMaxBatch || (n_dims != 2 && n_dims != 3) || n_compact < 0 ||
+      n_masked < 0 || n_compact + n_masked < 1 || span < 1 || words != need ||
+      need * (long long)sizeof(uint32_t) > kMaxTableBytes ||
+      (n_dims == 2 && (binned || first != 0 || span != 1)) ||
       (n_dims == 3 && bins == nullptr && n > 0))
     return (int)cudaErrorInvalidValue;
   if (!want_mask) {
@@ -388,11 +665,13 @@ extern "C" int gm_zscan_batched(const int* bins, const uint32_t* zh,
     if (e != cudaSuccess) return (int)e;
   }
   if (n > 0) {
-    if (n_dims == 3) {
-      launch_batched<3>(bins, zh, zl, n, table, nq, want_mask, out, stream);
-    } else {
-      launch_batched<2>(nullptr, zh, zl, n, table, nq, want_mask, out, stream);
-    }
+    const cudaError_t e =
+        n_dims == 3
+            ? launch_batched<3>(bins, zh, zl, n, table, words, nq, n_compact, n_masked, first,
+                                span, binned != 0, want_mask != 0, out, stream)
+            : launch_batched<2>(nullptr, zh, zl, n, table, words, nq, n_compact, n_masked, 0,
+                                1, false, want_mask != 0, out, stream);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

@@ -180,3 +180,49 @@ def encode_3d_hi_lo_t(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor):
     pair (counterpart: ``encode_3d_hi_lo_jax``)."""
     z = _split_3d_t(x) | (_split_3d_t(y) << 1) | (_split_3d_t(t) << 2)
     return _hi_lo_t(z)
+
+
+# ---------------------------------------------------------------------------
+# torch decodes: the (hi, lo) uint32 key words back to coordinates
+# ---------------------------------------------------------------------------
+
+
+def _key_t(z_hi: torch.Tensor, z_lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) uint32 words -> the 64-bit key as int64, bits kept (a key
+    with bit 63 set is negative; every decode masks that bit off)."""
+    hi = z_hi.view(torch.int32).to(torch.int64)
+    return (hi << 32) | (z_lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+
+
+def _combine_3d_t(z: torch.Tensor) -> torch.Tensor:
+    x = z & _M3_INT[4]
+    x = (x ^ (x >> 2)) & _M3_INT[3]
+    x = (x ^ (x >> 4)) & _M3_INT[2]
+    x = (x ^ (x >> 8)) & _M3_INT[1]
+    x = (x ^ (x >> 16)) & _M3_INT[0]
+    return (x ^ (x >> 32)) & MAX_MASK_3D
+
+
+def _combine_2d_t(z: torch.Tensor) -> torch.Tensor:
+    x = z & _M2_INT[5]
+    x = (x ^ (x >> 1)) & _M2_INT[4]
+    x = (x ^ (x >> 2)) & _M2_INT[3]
+    x = (x ^ (x >> 4)) & _M2_INT[2]
+    x = (x ^ (x >> 8)) & _M2_INT[1]
+    x = (x ^ (x >> 16)) & _M2_INT[0]
+    return (x ^ (x >> 32)) & MAX_MASK_2D
+
+
+def decode_3d_hi_lo_t(z_hi: torch.Tensor, z_lo: torch.Tensor):
+    """(x, y, t) int64 21-bit coordinates of (hi, lo) uint32 Z3 key words:
+    :func:`decode_3d_np` on the card's key layout. The arithmetic shifts
+    of a negative key bring in ones only above the masks' top bit."""
+    z = _key_t(z_hi, z_lo)
+    return _combine_3d_t(z), _combine_3d_t(z >> 1), _combine_3d_t(z >> 2)
+
+
+def decode_2d_hi_lo_t(z_hi: torch.Tensor, z_lo: torch.Tensor):
+    """(x, y) int64 31-bit coordinates of (hi, lo) uint32 Z2 key words:
+    :func:`decode_2d_np` on the card's key layout."""
+    z = _key_t(z_hi, z_lo)
+    return _combine_2d_t(z), _combine_2d_t(z >> 1)

@@ -974,11 +974,11 @@ class DeviceIndex:
 
     def fused_loose_counts(self, queries, loose: "bool | None" = None):
         """Answer Q compatible loose queries in ONE batched launch: the
-        queries' bounds stack along a leading query axis (Q padded to a
-        power of two, R, bins and ranges to the group's maxima, all with
-        never-matching entries) and one pass over the key planes returns
-        every count -- the batched dim scan or interleaved scan kernel, or
-        for the xz kinds the range masks' torch ops, query by query.
+        group's queries, and no padding query, go to one pass over the key
+        planes that returns every count -- the batched dim scan (R padded
+        to the group's maximum with never-matching ranges), the batched
+        interleaved scan (each query's real entries), or for the xz kinds
+        the range masks' torch ops, query by query.
         Results equal ``[count(q, loose=True) for q in queries]``. Returns
         None when the group cannot fuse -- no queries, labeled rows staged
         (auth tables are per request), loose mode off, nothing staged, a
@@ -1023,21 +1023,20 @@ class DeviceIndex:
             lbs.append(lb)
         if len({lb[0] for lb in lbs}) != 1:
             return None  # mixed engines: serial
-        qcap = bucket_cap(len(lbs))
         if lbs[0][0] == "dim":
-            return self._fused_dim(lbs, qcap, want)
-        return self._fused_compare(lbs, qcap, want)
+            return self._fused_dim(lbs, want)
+        return self._fused_compare(lbs, want)
 
-    def _fused_dim(self, lbs, qcap: int, want: str):
-        """Stacked dim-plane launch: each query vector pads to the group's
-        largest R with never-matching bt ranges (the ``z3_dim_plane_qarr``
-        padding), the queries to ``qcap`` with fully inverted vectors."""
+    def _fused_dim(self, lbs, want: str):
+        """Stacked dim-plane launch of the group's queries: each query
+        vector pads to the group's largest R with never-matching bt ranges
+        (the ``z3_dim_plane_qarr`` padding); no query is added."""
         rs = [lb[2] for lb in lbs]
         r = max(rs)
         if r and 0 in rs:
             return None  # a z2 (no bt plane) query cannot join a z3 group
-        qmat = np.empty((qcap, 4 + 2 * r), np.uint32)
-        qmat[:] = np.array([1, 0, 1, 0] + [0xFFFFFFFF, 0] * r, np.uint32)
+        qmat = np.empty((len(lbs), 4 + 2 * r), np.uint32)
+        qmat[:, 4:] = np.array([0xFFFFFFFF, 0] * r, np.uint32)
         for i, lb in enumerate(lbs):
             qa = np.asarray(lb[1], np.uint32)
             qmat[i, : len(qa)] = qa
@@ -1045,51 +1044,37 @@ class DeviceIndex:
         if r:
             planes += (self._cols[Z_BT],)
         fn = zscan.batched_dimscan_count if want == "count" else zscan.batched_dimscan_mask
-        return fn(qmat, *planes)[: len(lbs)]
+        return fn(qmat, *planes)
 
-    def _fused_compare(self, lbs, qcap: int, want: str):
-        """Stacked masked-compare / range-list launch: each query's bounds
-        pad to the group's bin and range maxima, and the queries to
-        ``qcap``, with entries that match nothing (ids -1, inverted
-        ranges); ids < 0 never match in the port."""
+    def _fused_compare(self, lbs, want: str):
+        """One launch over the group's queries for the interleaved kinds:
+        each query's real bound entries go to the batched kernel's packer
+        as they are (nothing padded; ids < 0 never match in the port). The
+        xz kinds stack their range masks' torch ops: each query's ranges
+        and bins pad to the group's maxima with entries that match nothing
+        (inverted ranges, ids -1)."""
         kind = self._z_kind
-        binned = kind in ("z3", "xz3")
+        hi, lo = self._cols[Z_HI], self._cols[Z_LO]
+        bins = self._cols[Z_BIN] if kind in ("z3", "xz3") else None
+        if kind in ("z3", "z2"):  # the batched interleaved-scan kernel
+            scan = zscan.batched_zscan_group(
+                [lb[1] for lb in lbs], [lb[2] for lb in lbs] if kind == "z3" else None)
+            return scan.run(bins, hi, lo, want_mask=want == "mask")
         bs = [np.asarray(lb[1]) for lb in lbs]
-        if binned:
+        if kind == "xz3":
             ids = [np.asarray(lb[2]) for lb in lbs]
             bmax = max(len(i) for i in ids)  # a power of two already (pad_bins)
-            if kind == "xz3":
-                rmax = max(b.shape[1] for b in bs)
-                bs = [zscan.pad_ranges(b, min_r=rmax) for b in bs]
-                tail = (rmax, 4)
-            else:
-                tail = (3, 6)
-            bounds = np.zeros((qcap, bmax) + tail, np.uint32)
-            idm = np.full((qcap, bmax), -1, np.int32)
+            rmax = max(b.shape[1] for b in bs)
+            bounds = np.zeros((len(lbs), bmax, rmax, 4), np.uint32)
+            idm = np.full((len(lbs), bmax), -1, np.int32)
             for i, (b, bi) in enumerate(zip(bs, ids)):
-                bounds[i, : len(bi)] = b
+                bounds[i, : len(bi)] = zscan.pad_ranges(b, min_r=rmax)
                 idm[i, : len(bi)] = bi
+            m = zscan.batched_kind_mask(kind)(hi, lo, bins, bounds, idm)
         else:
-            if kind == "xz2":
-                rmax = max(b.shape[0] for b in bs)
-                bs = [zscan.pad_ranges(b, min_r=rmax) for b in bs]
-                never = np.broadcast_to(zscan._NEVER_RANGE, (rmax, 4))
-            else:  # z2 masked compare: (2, 6) rows, lo_lo = 1 > hi = 0
-                never = np.zeros((2, 6), np.uint32)
-                never[:, 3] = 1
-            bounds = np.empty((qcap,) + never.shape, np.uint32)
-            bounds[:] = never
-            for i, b in enumerate(bs):
-                bounds[i] = b
-            idm = None
-        hi, lo = self._cols[Z_HI], self._cols[Z_LO]
-        bins = self._cols[Z_BIN] if binned else None
-        if kind in ("z3", "z2"):  # the batched interleaved-scan kernel
-            fn = zscan.batched_zscan_count if want == "count" else zscan.batched_zscan_mask
-            return fn(bounds, idm, hi, lo, bins=bins)[: len(lbs)]
-        bm = zscan.batched_kind_mask(kind)  # the xz range masks: torch ops
-        m = bm(hi, lo, bins, bounds, idm) if binned else bm(hi, lo, bounds)
-        m = m[: len(lbs)]
+            rmax = max(b.shape[0] for b in bs)
+            bounds = np.stack([zscan.pad_ranges(b, min_r=rmax) for b in bs])
+            m = zscan.batched_kind_mask(kind)(hi, lo, bounds)
         return m.sum(dim=1, dtype=torch.int32) if want == "count" else m
 
     # -- later slices --------------------------------------------------------

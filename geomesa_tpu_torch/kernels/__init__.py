@@ -44,14 +44,18 @@ KERNEL_NAMES = (
 )
 
 LAUNCHES: dict = {k: 0 for k in KERNEL_NAMES}
+BATCH_WIDTHS: dict = {k: {} for k in KERNEL_NAMES if "_batched_" in k}
 DEVICE_FN_CALLS: dict = {"count": 0, "mask": 0}
 _counts_lock = threading.Lock()
 
 
-def count_launch(name: str) -> None:
-    """One launch of kernel ``name``, counted under the lock."""
+def count_launch(name: str, q: "int | None" = None) -> None:
+    """One launch of kernel ``name``, counted under the lock; a batched
+    kernel's launch also gives its number of queries ``q``."""
     with _counts_lock:
         LAUNCHES[name] += 1
+        if q is not None:
+            BATCH_WIDTHS[name][q] = BATCH_WIDTHS[name].get(q, 0) + 1
 
 
 def count_device_fn(kind: str) -> None:
@@ -65,6 +69,8 @@ def reset_counts() -> None:
         for d in (LAUNCHES, DEVICE_FN_CALLS):
             for k in d:
                 d[k] = 0
+        for w in BATCH_WIDTHS.values():
+            w.clear()
 
 
 def on_cuda(t) -> bool:

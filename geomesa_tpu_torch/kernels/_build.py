@@ -42,7 +42,7 @@ SIGNATURES = {
     },
     "zscan": {
         "gm_zscan": ([_P] * 3 + [_LL, _P] + [_I] * 5 + [_P, _P], _I),
-        "gm_zscan_batched": ([_P] * 3 + [_LL, _P, _I, _I, _I, _I, _P, _P], _I),
+        "gm_zscan_batched": ([_P] * 3 + [_LL, _P] + [_I] * 9 + [_P, _P], _I),
     },
     "filter_scan": {
         "gm_filter_scan": ([_P, _I, _P, _I, _I, _LL, _I, _P, _P], _I),

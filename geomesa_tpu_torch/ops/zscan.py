@@ -32,6 +32,8 @@ compares on uint32, so the plain versions widen unsigned words to int64.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -214,6 +216,14 @@ def _check_dim_planes(planes) -> None:
 _MAX_ROWS = 2**31 - 1 - 1024  # counts are int32
 
 
+def _upload(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array on ``dev`` without a stream synchronisation: a pinned
+    copy, then a non-blocking copy on the current stream. PyTorch's pinned
+    allocator keeps the pinned block from reuse until that copy has run,
+    so the caller may drop it at once."""
+    return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+
+
 def _launch_dimscan(qarr, planes, want_mask: bool) -> torch.Tensor:
     from geomesa_tpu_torch.kernels import _build
 
@@ -308,7 +318,7 @@ def _launch_dimscan_batched(qmat, planes, want_mask: bool) -> torch.Tensor:
     bt = planes[2] if len(planes) == 3 else None
     dev = nx.device
     with torch.cuda.device(dev):
-        q = torch.from_numpy(np.ascontiguousarray(qmat, np.uint32)).to(dev)
+        q = _upload(np.ascontiguousarray(qmat, np.uint32), dev)
         out = (
             torch.empty((nq, n), dtype=torch.bool, device=dev)
             if want_mask
@@ -322,7 +332,7 @@ def _launch_dimscan_batched(qmat, planes, want_mask: bool) -> torch.Tensor:
         )
     name = f"dimscan_batched_{'z3' if bt is not None else 'z2'}_{'mask' if want_mask else 'count'}"
     kernels.check_status(rc, name)
-    kernels.count_launch(name)
+    kernels.count_launch(name, q=nq)
     return out
 
 
@@ -941,46 +951,225 @@ def batched_kind_mask(kind: str):
     return lambda hi, lo, bounds: torch.stack([mf(hi, lo, b) for b in bounds])
 
 
-class _BatchedZScan:
-    """Q interleaved-scan queries packed once into the one uint32 table the
-    batched kernel reads: per query a header ``(bounds offset, bin-table
-    offset, first bin, span)``, then per query its bound entries
-    (``n_dims * 6`` words each) and, binned, its int32 bin-to-entry table
-    (:func:`entry_table`). Bounds are (Q, B, 3, 6) with ids (Q, B), -1 for
-    padding, or (Q, 2, 6) with ids None for z2."""
+# The batched kernel's table (csrc/zscan.cu gm_zscan_batched): a launch's
+# table lives in one block's shared memory, at most 96 KB (two blocks of
+# 256 threads an SM); records of 8 (compact) and 24 (masked) words; a
+# binned launch of more than FLAT_MAX_RECORDS records adds a bin index.
+# Both thresholds below come from tools/zscan_batched_probe.py's A/B of the
+# ways: up to 5 records, every row testing every record was no slower than
+# the index, count and mask.
+BATCH_TABLE_BYTES = 96 * 1024
+FLAT_MAX_RECORDS = 5
+# Cell boxes stay masked records when no row can meet more than this many
+# of the group's records (z2: all of them; z3: those of the row's bin) and
+# the group's masked table fits one launch: the de-interleave that compact
+# records need costs more than so few masked compares.
+MASKED_MAX_MEET = 1
+_COMPACT_WORDS, _MASKED_WORDS = 8, 24
+# packing keeps every record as [bin, query, ...]; the table holds a compact
+# record as [lo0, hi0, lo1, hi1, lo2, hi2, bin, query], one dimension per 8 bytes
+_COMPACT_ORDER = [2, 3, 4, 5, 6, 7, 0, 1]
 
-    def __init__(self, bounds, bin_ids):
-        self.n_dims = 2 if bin_ids is None else 3
-        b = np.ascontiguousarray(bounds, np.uint32)
-        nq = b.shape[0] if b.ndim else 0
+
+def _u64(hi, lo) -> np.ndarray:
+    return (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
+
+
+# each dimension's interleaved bit positions, by number of dimensions
+_DIM_MASKS = {
+    3: np.array([int(zorder.split_3d_np(zorder.MAX_MASK_3D)) << d for d in range(3)], np.uint64),
+    2: np.array([int(zorder.split_2d_np(zorder.MAX_MASK_2D)) << d for d in range(2)], np.uint64),
+}
+
+
+def _compact(v: np.ndarray, n_dims: int) -> np.ndarray:
+    """(E, n_dims) uint64 spread bounds -> the de-interleaved coordinates."""
+    comb = zorder.combine_3d_np if n_dims == 3 else zorder.combine_2d_np
+    return comb(v >> np.arange(n_dims, dtype=np.uint64)).astype(np.uint32)
+
+
+class _Launch(NamedTuple):
+    """One launch of a packed group: queries [q0, q1) (record queries are
+    local, q - q0), nc compact and nm masked records, the records' bins in
+    [first, first + span), a bin index or not, and the launch's table at
+    ``offset`` words of the group's table."""
+
+    q0: int
+    q1: int
+    nc: int
+    nm: int
+    first: int
+    span: int
+    binned: bool
+    offset: int
+    words: int
+
+
+class _BatchedZScan:
+    """A group of Q interleaved-scan queries, packed once for the batched
+    kernel: only the real entries (ids >= 0; none with lo > hi in a
+    dimension), as flat lists of records, each with its bin and query.
+    Cell-box entries become compact records ``[(lo_d, hi_d) per dimension,
+    bin, q]`` of de-interleaved coordinates (``curves/zorder.py``) in 8
+    words (z2: the third pair 0), unless ``MASKED_MAX_MEET`` keeps them
+    masked; any other entry a masked record ``[bin, q, 0, 0, (mask_hi,
+    mask_lo, lo_hi, lo_lo, hi_hi, hi_lo) per dimension]`` of 24 words. Queries are cut into launches whose table fits
+    ``BATCH_TABLE_BYTES``; a query with no record answers 0 and starts or
+    ends no launch. A binned launch (z3, more than ``FLAT_MAX_RECORDS``
+    records) sorts its records by bin and appends the bin index, per bin of
+    its span the int32 pair (first compact, first masked record).
+
+    Entries come flat: ``qid`` (E,) query of each entry, ``ids`` (E,) bin
+    ids (None for z2), ``bounds`` (E, n_dims, 6) uint32. Each query's ids
+    >= 0 must be distinct, at most ``ZSCAN_MAX_ENTRIES`` and span at most
+    ``ZSCAN_MAX_SPAN`` bins."""
+
+    def __init__(self, n_dims: int, nq: int, qid, ids, bounds):
         if not 1 <= nq <= MAX_BATCH:
             raise ValueError(f"{nq} queries: a batched launch takes 1 to {MAX_BATCH}")
-        if bin_ids is None:
-            if b.shape != (nq, 2, 6):
-                raise ValueError(f"z2 bounds {b.shape} are not (Q, 2, 6)")
-            b = b.reshape(nq, 1, 2, 6)
-            ids = np.zeros((nq, 1), np.int32)
-        else:
-            ids = np.ascontiguousarray(bin_ids, np.int32)
-            if ids.ndim != 2 or b.shape != (nq, ids.shape[1], 3, 6) or not ids.shape[1]:
-                raise ValueError(f"bounds {b.shape} and ids {ids.shape} are not (Q, B, 3, 6), (Q, B)")
-            if ids.shape[1] > ZSCAN_MAX_ENTRIES:
-                raise ValueError(f"{ids.shape[1]} bound entries exceed {ZSCAN_MAX_ENTRIES}")
-        self.bounds, self.ids, self.nq = b, ids, nq
-        header = np.zeros((nq, 4), np.int64)
-        parts: list = []
-        off = 4 * nq
-        for q in range(nq):
-            first, entry_of = (0, np.zeros(0, np.int32)) if bin_ids is None else entry_table(ids[q])
-            header[q] = (off, off + b[q].size, first, len(entry_of))
-            parts += [b[q].reshape(-1), entry_of.view(np.uint32)]
-            off += b[q].size + len(entry_of)
-        self.table = np.concatenate([header.astype(np.int32).view(np.uint32).reshape(-1)] + parts)
+        b = np.ascontiguousarray(bounds, np.uint32).reshape(-1, n_dims, 6)
+        qid = np.asarray(qid, np.int64)
+        ids = np.zeros(len(b), np.int64) if ids is None else np.asarray(ids, np.int64)
+        if not (len(qid) == len(ids) == len(b)) or (len(qid) and not 0 <= qid.min() <= qid.max() < nq):
+            raise ValueError("entries need one query id in [0, Q) and one bin id each")
+        self.n_dims, self.nq = n_dims, nq
+        real = ids >= 0
+        if n_dims == 3:
+            _check_query_bins(qid[real], ids[real], nq)
+        lo, hi, mask = (_u64(b[:, :, k], b[:, :, k + 1]) for k in (2, 4, 0))
+        keep = real & (lo <= hi).all(1)
+        dm = _DIM_MASKS[n_dims]
+        cell = ((mask == dm) & ((lo & ~dm) == 0) & ((hi & ~dm) == 0)).all(1)
+        if keep.any():
+            kept = ids[keep]
+            meet = np.unique(kept, return_counts=True)[1].max()
+            index = _index_words(kept.max() - kept.min() + 1) if n_dims == 3 else 0
+            if meet <= MASKED_MAX_MEET and \
+                    4 * (_MASKED_WORDS * len(kept) + index) <= BATCH_TABLE_BYTES:
+                cell[:] = False
+        comp, mskd = keep & cell, keep & ~cell
+        nc = int(comp.sum())
+        crec = np.zeros((nc, _COMPACT_WORDS), np.int64)
+        crec[:, 0], crec[:, 1] = ids[comp], qid[comp]
+        lohi = _compact(np.concatenate([lo[comp], hi[comp]]), n_dims)
+        crec[:, 2: 2 + 2 * n_dims: 2], crec[:, 3: 3 + 2 * n_dims: 2] = lohi[:nc], lohi[nc:]
+        mrec = np.zeros((int(mskd.sum()), _MASKED_WORDS), np.int64)
+        mrec[:, 0], mrec[:, 1] = ids[mskd], qid[mskd]
+        mrec[:, 4: 4 + 6 * n_dims] = b[mskd].reshape(-1, 6 * n_dims)
+        self.launches, tables = self._cut(crec, mrec)
+        self.table = (np.concatenate(tables) if tables else np.zeros(0, np.int64)) \
+            .astype(np.uint32)
+        covered = np.zeros(nq, bool)
+        for lc in self.launches:
+            covered[lc.q0: lc.q1] = True
+        self.idle = np.nonzero(~covered)[0]  # queries no launch answers: 0
+        self._dev: dict = {}
+
+    def _cut(self, crec: np.ndarray, mrec: np.ndarray):
+        """The launches and their tables: from each query with records, as
+        many queries as fit one table."""
+        nq, binned_kind = self.nq, self.n_dims == 3
+        ncq = np.bincount(crec[:, 1], minlength=nq)
+        nmq = np.bincount(mrec[:, 1], minlength=nq)
+        recs = ncq + nmq
+        nbytes = 4 * (_COMPACT_WORDS * ncq + _MASKED_WORDS * nmq)
+        bins = np.concatenate([crec[:, 0], mrec[:, 0]])
+        qs = np.concatenate([crec[:, 1], mrec[:, 1]])
+        qmin = np.full(nq, np.iinfo(np.int64).max)
+        qmax = np.full(nq, np.iinfo(np.int64).min)
+        np.minimum.at(qmin, qs, bins)
+        np.maximum.at(qmax, qs, bins)
+        launches, tables, offset, q0 = [], [], 0, 0
+        while True:
+            todo = np.nonzero(recs[q0:])[0]
+            if not len(todo):
+                return launches, tables
+            q0 += int(todo[0])
+            n_rec = np.cumsum(recs[q0:])
+            span = np.maximum.accumulate(qmax[q0:]) - np.minimum.accumulate(qmin[q0:]) + 1
+            binned = binned_kind & (n_rec > FLAT_MAX_RECORDS)
+            index = np.where(binned, 4 * _index_words(span), 0)
+            fits = np.cumsum(nbytes[q0:]) + index <= BATCH_TABLE_BYTES
+            k = len(fits) if fits.all() else int(np.argmin(fits))
+            q1 = q0 + int(np.nonzero(recs[q0: q0 + max(k, 1)])[0][-1]) + 1
+            table, lc = self._table(crec, mrec, q0, q1, bool(binned[q1 - q0 - 1]), offset)
+            launches.append(lc)
+            tables.append(table)
+            offset += lc.words
+            q0 = q1
+
+    def _table(self, crec, mrec, q0: int, q1: int, binned: bool, offset: int):
+        c = crec[(crec[:, 1] >= q0) & (crec[:, 1] < q1)]
+        m = mrec[(mrec[:, 1] >= q0) & (mrec[:, 1] < q1)]
+        c[:, 1] -= q0
+        m[:, 1] -= q0
+        bins = np.concatenate([c[:, 0], m[:, 0]])
+        first, span = int(bins.min()), int(bins.max() - bins.min()) + 1
+        parts = []
+        if binned:
+            c = c[np.lexsort((c[:, 1], c[:, 0]))]
+            m = m[np.lexsort((m[:, 1], m[:, 0]))]
+            edges = np.arange(span + 1)
+            index = np.zeros(_index_words(span), np.int64)
+            index[0: 2 * (span + 1): 2] = np.searchsorted(c[:, 0] - first, edges)
+            index[1: 2 * (span + 1): 2] = np.searchsorted(m[:, 0] - first, edges)
+            parts = [index]
+        table = np.concatenate([c[:, _COMPACT_ORDER].reshape(-1), m.reshape(-1)] + parts)
+        if len(table) * 4 > BATCH_TABLE_BYTES:  # one query's records alone
+            raise ValueError(f"a query's table of {4 * len(table)} B exceeds {BATCH_TABLE_BYTES} B")
+        return table, _Launch(q0, q1, len(c), len(m), first, span, binned, offset, len(table))
+
+    def _records(self, lc: _Launch):
+        """(compact (nc, 8), masked (nm, 24), bin index (span + 1, 2) or
+        None) of a launch, read back from the packed table."""
+        t = self.table[lc.offset: lc.offset + lc.words]
+        nc, nm = _COMPACT_WORDS * lc.nc, _MASKED_WORDS * lc.nm
+        c = t[:nc].reshape(-1, _COMPACT_WORDS)
+        m = t[nc: nc + nm].reshape(-1, _MASKED_WORDS)
+        index = t[nc + nm: nc + nm + 2 * (lc.span + 1)].view(np.int32).reshape(-1, 2) \
+            if lc.binned else None
+        return c, m, index
 
     def plain(self, bins, z_hi, z_lo) -> torch.Tensor:
-        if self.n_dims == 2:
-            return batched_kind_mask("z2")(z_hi, z_lo, self.bounds[:, 0])
-        return batched_kind_mask("z3")(z_hi, z_lo, bins, self.bounds, self.ids)
+        """Plain PyTorch version on the packed layout: the (Q, n) bool
+        masks, each launch's records read from its table and, binned, found
+        through its bin index; the keys de-interleaved by
+        ``curves/zorder.py``. Equal to :func:`batched_kind_mask`, the
+        semantic reference, for entries the packer takes."""
+        n, dev = z_hi.shape[0], z_hi.device
+        out = torch.zeros((self.nq, n), dtype=torch.bool, device=dev)
+        if not self.launches:
+            return out
+        decode = zorder.decode_3d_hi_lo_t if self.n_dims == 3 else zorder.decode_2d_hi_lo_t
+        coords = decode(z_hi, z_lo)
+        zh, zl = widen_u32(z_hi), widen_u32(z_lo)
+        bn = torch.zeros(n, dtype=torch.int64, device=dev) if bins is None else bins.to(torch.int64)
+
+        def compact_hit(rec):
+            hit = None
+            for d in range(self.n_dims):
+                h = (coords[d] >= int(rec[2 * d])) & (coords[d] <= int(rec[2 * d + 1]))
+                hit = h if hit is None else hit & h
+            return hit
+
+        def masked_hit(rec):
+            return _dims_mask(zh, zl, rec[4: 4 + 6 * self.n_dims].reshape(self.n_dims, 6),
+                              self.n_dims)
+
+        for lc in self.launches:
+            c, m, index = self._records(lc)
+            groups = [(np.arange(len(c)), np.arange(len(m)), None)]
+            if index is not None:  # per bin of the span that has records
+                groups = [(np.arange(index[i, 0], index[i + 1, 0]),
+                           np.arange(index[i, 1], index[i + 1, 1]), lc.first + i)
+                          for i in np.nonzero(np.any(np.diff(index, axis=0) > 0, axis=1))[0]]
+            for cs, ms, bin_id in groups:
+                for recs, (at_bin, at_q), hit in ((c[cs], (6, 7), compact_hit),
+                                                  (m[ms], (0, 1), masked_hit)):
+                    for rec in recs:
+                        b = int(rec[at_bin]) if bin_id is None else bin_id
+                        out[lc.q0 + int(rec[at_q])] |= (bn == b) & hit(rec)
+        return out
 
     def run(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
         _check_key_planes(self.n_dims, bins, z_hi, z_lo)
@@ -988,6 +1177,13 @@ class _BatchedZScan:
             m = self.plain(bins, z_hi, z_lo)
             return m if want_mask else m.sum(dim=1, dtype=torch.int32)
         return self._launch(bins, z_hi, z_lo, want_mask)
+
+    def device_table(self, dev) -> torch.Tensor:
+        """The packed table on ``dev``, uploaded once (see :func:`_upload`)."""
+        t = self._dev.get(dev)
+        if t is None:
+            t = self._dev[dev] = _upload(self.table, dev)
+        return t
 
     def _launch(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
         from geomesa_tpu_torch.kernels import _build
@@ -998,41 +1194,110 @@ class _BatchedZScan:
         planes = [z_hi, z_lo] + ([] if bins is None else [bins])
         if any(p.data_ptr() % 16 for p in planes):
             raise ValueError("key planes must be 16-byte aligned")
-        fn = _build.load("zscan").gm_zscan_batched
         dev = z_hi.device
-        with torch.cuda.device(dev):
-            tab = torch.from_numpy(self.table).to(dev)
-            out = (
-                torch.empty((self.nq, n), dtype=torch.bool, device=dev)
-                if want_mask
-                else torch.empty(self.nq, dtype=torch.int32, device=dev)
-            )
-            rc = fn(
-                None if bins is None else bins.data_ptr(), z_hi.data_ptr(),
-                z_lo.data_ptr(), n, tab.data_ptr(), len(self.table), self.nq,
-                self.n_dims, int(want_mask), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
         name = f"zscan_batched_z{self.n_dims}_{'mask' if want_mask else 'count'}"
-        kernels.check_status(rc, name)
-        kernels.count_launch(name)
+        with torch.cuda.device(dev):
+            if want_mask:
+                out = torch.empty((self.nq, n), dtype=torch.bool, device=dev)
+                for q in self.idle:
+                    out[int(q)].zero_()
+            else:
+                make = torch.zeros if len(self.idle) else torch.empty
+                out = make(self.nq, dtype=torch.int32, device=dev)
+            if not self.launches:
+                return out
+            tab = self.device_table(dev)
+            fn = _build.load("zscan").gm_zscan_batched
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for lc in self.launches:
+                rc = fn(
+                    None if bins is None else bins.data_ptr(), z_hi.data_ptr(),
+                    z_lo.data_ptr(), n, tab.data_ptr() + 4 * lc.offset, lc.words,
+                    lc.q1 - lc.q0, lc.nc, lc.nm, lc.first, lc.span, int(lc.binned),
+                    self.n_dims, int(want_mask),
+                    out.data_ptr() + (lc.q0 * n if want_mask else 4 * lc.q0), stream,
+                )
+                kernels.check_status(rc, name)
+                kernels.count_launch(name, q=lc.q1 - lc.q0)
         return out
+
+
+def _index_words(span):
+    """Words of a bin index over ``span`` bins: span + 1 int32 pairs,
+    padded to a multiple of 4 (16-byte records and loads)."""
+    return (2 * (np.asarray(span) + 1) + 3) // 4 * 4
+
+
+def _check_query_bins(qid: np.ndarray, ids: np.ndarray, nq: int) -> None:
+    """Each query's real ids: distinct, at most ZSCAN_MAX_ENTRIES, over at
+    most ZSCAN_MAX_SPAN bins."""
+    if not len(ids):
+        return
+    order = np.lexsort((ids, qid))
+    q, i = qid[order], ids[order]
+    if np.any((q[1:] == q[:-1]) & (i[1:] == i[:-1])):
+        raise ValueError("a query's bound entries share a bin")
+    if np.bincount(qid, minlength=nq).max() > ZSCAN_MAX_ENTRIES:
+        raise ValueError(f"a query has more than {ZSCAN_MAX_ENTRIES} bound entries")
+    lo = np.full(nq, np.iinfo(np.int64).max)
+    hi = np.full(nq, np.iinfo(np.int64).min)
+    np.minimum.at(lo, qid, ids)
+    np.maximum.at(hi, qid, ids)
+    used = lo <= hi
+    if np.any(hi[used] - lo[used] + 1 > ZSCAN_MAX_SPAN):
+        raise ValueError(f"a query's bound entries span more than {ZSCAN_MAX_SPAN} bins")
+
+
+def batched_zscan(bounds, bin_ids) -> _BatchedZScan:
+    """Pack a group given as stacked arrays: z3 bounds (Q, B, 3, 6) with ids
+    (Q, B), -1 for padding; z2 bounds (Q, 2, 6) with ids None."""
+    b = np.ascontiguousarray(bounds, np.uint32)
+    nq = b.shape[0] if b.ndim else 0
+    if not 1 <= nq <= MAX_BATCH:
+        raise ValueError(f"{nq} queries: a batched launch takes 1 to {MAX_BATCH}")
+    if bin_ids is None:
+        if b.shape != (nq, 2, 6):
+            raise ValueError(f"z2 bounds {b.shape} are not (Q, 2, 6)")
+        return _BatchedZScan(2, nq, np.arange(nq), None, b)
+    ids = np.ascontiguousarray(bin_ids, np.int32)
+    if ids.ndim != 2 or b.shape != (nq, ids.shape[1], 3, 6) or not ids.shape[1]:
+        raise ValueError(f"bounds {b.shape} and ids {ids.shape} are not (Q, B, 3, 6), (Q, B)")
+    if ids.shape[1] > ZSCAN_MAX_ENTRIES:
+        raise ValueError(f"{ids.shape[1]} bound entries exceed {ZSCAN_MAX_ENTRIES}")
+    qid = np.repeat(np.arange(nq), ids.shape[1])
+    return _BatchedZScan(3, nq, qid, ids.reshape(-1), b.reshape(-1, 3, 6))
+
+
+def batched_zscan_group(bounds: list, bin_ids: "list | None") -> _BatchedZScan:
+    """Pack a group given query by query, as the fused loose paths hold it:
+    z3 a list of (B_q, 3, 6) bounds and of (B_q,) ids; z2 a list of (2, 6)
+    bounds and ids None. Nothing is padded."""
+    nq = len(bounds)
+    if not 1 <= nq <= MAX_BATCH:
+        raise ValueError(f"{nq} queries: a batched launch takes 1 to {MAX_BATCH}")
+    if bin_ids is None:
+        return _BatchedZScan(2, nq, np.arange(nq), None, np.stack(bounds))
+    if len(bin_ids) != nq or any(len(b) != len(i) for b, i in zip(bounds, bin_ids)):
+        raise ValueError("each query needs one bounds row per bin id")
+    qid = np.repeat(np.arange(nq), [len(i) for i in bin_ids])
+    return _BatchedZScan(3, nq, qid, np.concatenate(bin_ids), np.concatenate(bounds))
 
 
 def batched_zscan_count(bounds, bin_ids, z_hi, z_lo, bins=None) -> torch.Tensor:
     """(Q,) int32 hit counts of Q interleaved-scan queries in one pass over
-    the key planes: z3 with (Q, B, 3, 6) bounds, (Q, B) ids (-1: padding,
-    never matches) and the bin plane; z2 with (Q, 2, 6) bounds, ids and
-    bins None. Each query's ids >= 0 must be distinct and span at most
-    ``ZSCAN_MAX_SPAN`` bins. The kernel ``gm_zscan_batched`` for CUDA
-    planes, :func:`batched_kind_mask` for CPU planes."""
-    return _BatchedZScan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=False)
+    the key planes (one launch per table that fits, see
+    :class:`_BatchedZScan`): z3 with (Q, B, 3, 6) bounds, (Q, B) ids (-1:
+    padding, never matches) and the bin plane; z2 with (Q, 2, 6) bounds,
+    ids and bins None. Each query's ids >= 0 must be distinct and span at
+    most ``ZSCAN_MAX_SPAN`` bins. The kernel ``gm_zscan_batched`` for CUDA
+    planes, :meth:`_BatchedZScan.plain` for CPU planes."""
+    return batched_zscan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=False)
 
 
 def batched_zscan_mask(bounds, bin_ids, z_hi, z_lo, bins=None) -> torch.Tensor:
     """(Q, n) bool hit masks, row q for query q; arguments and routing as
     :func:`batched_zscan_count`."""
-    return _BatchedZScan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=True)
+    return batched_zscan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=True)
 
 
 def build_z3_pallas_scan(bounds: np.ndarray, bin_ids: np.ndarray):

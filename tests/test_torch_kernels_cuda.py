@@ -546,46 +546,136 @@ def test_batched_dimscan_kernel_matches_plain(dev, n, nq, r):
     assert kernels.LAUNCHES[f"dimscan_batched_{z}_mask"] == before[f"dimscan_batched_{z}_mask"] + 1
 
 
+def _batched_launches(name, run):
+    """Run ``run()`` and return the launches of kernel ``name`` it made and
+    the widths (queries) they carried."""
+    before = kernels.LAUNCHES[name]
+    widths = dict(kernels.BATCH_WIDTHS[name])
+    out = run()
+    after = kernels.BATCH_WIDTHS[name]
+    grew = {q: after[q] - widths.get(q, 0) for q in after if after[q] != widths.get(q, 0)}
+    return out, kernels.LAUNCHES[name] - before, grew
+
+
+def _ordered(bounds):
+    """Random-word bounds with lo <= hi in every dimension (swapped where
+    not), so that no entry drops out as empty."""
+    lo, hi = bounds[..., 2:4].copy(), bounds[..., 4:6].copy()
+    swap = (lo[..., 0] > hi[..., 0]) | ((lo[..., 0] == hi[..., 0]) & (lo[..., 1] > hi[..., 1]))
+    bounds[..., 2:4] = np.where(swap[..., None], hi, lo)
+    bounds[..., 4:6] = np.where(swap[..., None], lo, hi)
+    return bounds
+
+
+def _check_batched_zscan(pk, planes, b, want):
+    """The kernel's count and mask for packed group ``pk`` equal ``want``
+    (the semantic reference) and the plain version on the packed layout,
+    bit for bit; one launch per packed table, each with its queries."""
+    z = f"z{pk.n_dims}"
+    got_c, nc, wc = _batched_launches(f"zscan_batched_{z}_count",
+                                      lambda: pk.run(b, *planes, want_mask=False))
+    got_m, nm, wm = _batched_launches(f"zscan_batched_{z}_mask",
+                                      lambda: pk.run(b, *planes, want_mask=True))
+    torch.cuda.synchronize()
+    n = planes[0].shape[0]
+    assert got_m.shape == (pk.nq, n) and got_m.dtype == torch.bool and torch.equal(got_m, want)
+    assert got_c.dtype == torch.int32 and torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(pk.plain(b, *planes), want)
+    widths = {}
+    for lc in pk.launches:
+        widths[lc.q1 - lc.q0] = widths.get(lc.q1 - lc.q0, 0) + 1
+    assert nc == nm == len(pk.launches) and wc == wm == widths
+
+
 @pytest.mark.parametrize("n", [0, 1, 5, (1 << 20) + 3])
-@pytest.mark.parametrize("nq", [1, 3, 8, 64])
+@pytest.mark.parametrize("nq", [1, 3, 8, 47, 64])
 def test_batched_zscan_z3_kernel_matches_plain(dev, n, nq):
     rng, bins, (h3, l3), _ = zscan_case(n, 16, seed=3 * n + nq)
     bounds, ids = _CASES.batch_zbounds(rng, nq, 16)
     planes = (_u32(h3, dev), _u32(l3, dev))
     b = torch.from_numpy(bins).to(dev)
-    before = dict(kernels.LAUNCHES)
+    want = zscan.batched_kind_mask("z3")(*planes, b, bounds, ids)
+    _check_batched_zscan(zscan.batched_zscan(bounds, ids), planes, b, want)
     got_c = zscan.batched_zscan_count(bounds, ids, *planes, bins=b)
     got_m = zscan.batched_zscan_mask(bounds, ids, *planes, bins=b)
-    want = zscan.batched_kind_mask("z3")(*planes, b, bounds, ids)
     torch.cuda.synchronize()
-    assert got_m.shape == (nq, n) and torch.equal(got_m, want)
-    assert torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(got_m, want) and torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
     for i in range(nq):  # each row equals the single-query kernel's mask
         assert torch.equal(got_m[i], zscan.build_z3_pallas_scan(bounds[i], ids[i])[1](b, *planes))
     if nq > 2:
         assert int(got_c[-1]) == 0
-    assert kernels.LAUNCHES["zscan_batched_z3_count"] == before["zscan_batched_z3_count"] + 1
-    assert kernels.LAUNCHES["zscan_batched_z3_mask"] == before["zscan_batched_z3_mask"] + 1
+
+
+@pytest.mark.parametrize("n", [1, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("form", ["compact", "masked", "mixed"])
+@pytest.mark.parametrize("finding", ["flat", "binned"])
+def test_batched_zscan_z3_entry_forms(dev, n, form, finding):
+    """Both record forms (cell boxes compact, random words masked, and
+    both in one group) under both ways of finding a row's records: every
+    record per row (at most FLAT_MAX_RECORDS of them; the flat group's two
+    queries share their bins, so its cell boxes pack compact) and the bin
+    index."""
+    rng, bins, (h3, l3), _ = zscan_case(n, 16, seed=n + len(form) + len(finding))
+    nq, per = (2, 2) if finding == "flat" else (13, 6)
+    bounds = np.empty((nq, per, 3, 6), np.uint32)
+    for q in range(nq):
+        cells = form == "compact" or (form == "mixed" and q % 2 == 0)
+        bounds[q] = _ordered(zscan_bounds(rng, 16, per, random_words=not cells)[0])
+    ids = np.stack([(2600 + rng.permutation(16)[:per]).astype(np.int32) for _ in range(nq)])
+    if finding == "flat":
+        ids[1] = ids[0]
+    pk = zscan.batched_zscan(bounds, ids)
+    assert [lc.binned for lc in pk.launches] == [finding == "binned"]
+    assert (pk.launches[0].nc > 0, pk.launches[0].nm > 0) == (form != "masked", form != "compact")
+    planes = (_u32(h3, dev), _u32(l3, dev))
+    b = torch.from_numpy(bins).to(dev)
+    _check_batched_zscan(pk, planes, b, zscan.batched_kind_mask("z3")(*planes, b, bounds, ids))
+
+
+@pytest.mark.parametrize("n", [1, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("n_dims", [2, 3])
+def test_batched_zscan_cell_boxes_one_a_bin_launch_masked(dev, n, n_dims):
+    """Cell boxes that no row can meet two of (z2: one query; z3: one
+    query's three bins) pack as masked records; the kernel equals the
+    plain versions."""
+    from geomesa_tpu_torch.curves.zorder import MAX_MASK_2D
+
+    rng, bins, k3, k2 = zscan_case(n, 16, seed=7 * n + n_dims)
+    planes = tuple(_u32(a, dev) for a in (k3 if n_dims == 3 else k2))
+    if n_dims == 3:
+        bounds = _ordered(zscan_bounds(rng, 16, 3, random_words=False)[0])[None]
+        ids = (2600 + rng.permutation(16)[:3]).astype(np.int32)[None]
+        b = torch.from_numpy(bins).to(dev)
+        want = zscan.batched_kind_mask("z3")(*planes, b, bounds, ids)
+    else:
+        lo, hi = np.sort(rng.integers(0, MAX_MASK_2D + 1, (2, 2)), axis=0)
+        bounds, ids, b = zscan.z2_dim_bounds(tuple(lo), tuple(hi))[None], None, None
+        want = zscan.batched_kind_mask("z2")(*planes, bounds)
+    pk = zscan.batched_zscan(bounds, ids)
+    assert [(lc.nc, lc.nm) for lc in pk.launches] == [(0, 3 if n_dims == 3 else 1)]
+    _check_batched_zscan(pk, planes, b, want)
 
 
 def test_batched_zscan_z3_table_past_shared_memory(dev):
-    """64 queries of 64 bins each: a packed table larger than the 48 KB of
-    shared memory a block gets by default, which the kernel reads in place."""
+    """64 queries of 64 bins each: cell boxes, then random words, tables
+    past one block's shared memory, which the wrapper splits by queries
+    into several launches."""
     rng, bins, (h3, l3), _ = zscan_case((1 << 20) + 3, 128, seed=99)
-    bounds = np.stack([zscan_bounds(rng, 128, 64, random_words=False)[0] for _ in range(64)])
-    ids = np.stack([(2600 + rng.permutation(128)[:64]).astype(np.int32) for _ in range(64)])
-    assert len(zscan._BatchedZScan(bounds, ids).table) > 10 * 1024
     planes = (_u32(h3, dev), _u32(l3, dev))
     b = torch.from_numpy(bins).to(dev)
-    got_m = zscan.batched_zscan_mask(bounds, ids, *planes, bins=b)
-    got_c = zscan.batched_zscan_count(bounds, ids, *planes, bins=b)
-    want = zscan.batched_kind_mask("z3")(*planes, b, bounds, ids)
-    torch.cuda.synchronize()
-    assert torch.equal(got_m, want) and torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+    ids = np.stack([(2600 + rng.permutation(128)[:64]).astype(np.int32) for _ in range(64)])
+    for random_words in (False, True):
+        bounds = _ordered(np.stack([zscan_bounds(rng, 128, 64, random_words=random_words)[0]
+                                    for _ in range(64)]))
+        pk = zscan.batched_zscan(bounds, ids)
+        assert len(pk.launches) > 1 and all(lc.binned for lc in pk.launches)
+        assert 4 * len(pk.table) > zscan.BATCH_TABLE_BYTES
+        want = zscan.batched_kind_mask("z3")(*planes, b, bounds, ids)
+        _check_batched_zscan(pk, planes, b, want)
 
 
 @pytest.mark.parametrize("n", [0, 1, 5, (1 << 20) + 3])
-@pytest.mark.parametrize("nq", [1, 3, 8, 64])
+@pytest.mark.parametrize("nq", [1, 3, 8, 47, 64])
 def test_batched_zscan_z2_kernel_matches_plain(dev, n, nq):
     from geomesa_tpu_torch.curves.zorder import MAX_MASK_2D
 
@@ -601,11 +691,12 @@ def test_batched_zscan_z2_kernel_matches_plain(dev, n, nq):
         bounds[-1] = 0
         bounds[-1, :, 3] = 1  # lo_lo 1 > hi 0: the fused paths' z2 padding
     planes = (_u32(h2, dev), _u32(l2, dev))
-    got_c = zscan.batched_zscan_count(bounds, None, *planes)
-    got_m = zscan.batched_zscan_mask(bounds, None, *planes)
     want = zscan.batched_kind_mask("z2")(*planes, bounds)
+    pk = zscan.batched_zscan(bounds, None)
+    _check_batched_zscan(pk, planes, None, want)
+    got_c = zscan.batched_zscan_count(bounds, None, *planes)
     torch.cuda.synchronize()
-    assert torch.equal(got_m, want) and torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
     if nq > 2:
         assert int(got_c[-1]) == 0
 

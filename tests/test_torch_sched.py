@@ -9,7 +9,8 @@ query bounds are exact in float32 and every row dates after 1970 (a row in
 bin -1 is the one place where the packages differ: see
 ``test_bin_before_1970_never_matches_padding``). Checked, bit for bit: the
 fused counts and fid sets equal the JAX package's and the port's own
-serial loose answers at Q in {1, 3, 8} (3 pads to 4), each decline rule
+serial loose answers at Q in {1, 3, 8} (the JAX package pads 3 to 4, the
+port launches 3), each decline rule
 returns None in both, and the batched plain versions equal per-query
 loops of the single-query plain versions. Then the scheduler semantics of
 ``tests/test_sched.py`` and the scheduler tests of
@@ -173,9 +174,10 @@ def test_mixed_r_buckets_in_one_group():
             r = 2
         split.append(("dim", qa, r))
     want = [tdi.count(t, loose=True) for t in qs]
-    assert [int(v) for v in tdi._fused_dim(split, 8, "count")] == want
-    assert [int(v) for v in np.asarray(jdi._fused_dim(split, 8, "count"))] == want
-    m = tdi._fused_dim(split, 8, "mask")
+    assert [int(v) for v in tdi._fused_dim(split, "count")] == want
+    assert [int(v) for v in np.asarray(jdi._fused_dim(split, 8, "count"))[: len(qs)]] == want
+    m = tdi._fused_dim(split, "mask")
+    assert m.shape == (len(qs), len(tdi))
     for t, row in zip(qs, m):
         np.testing.assert_array_equal(row.numpy(), tdi.mask(t, loose=True))
 
@@ -245,7 +247,8 @@ def test_decline_a_z2_query_in_a_z3_group(z3dim):
     jdi, tdi, qs = z3dim
     lb = tdi._loose_bounds(parse_ecql(qs[0]))
     z2 = ("dim", lb[1][:4].copy(), 0)
-    assert _both(jdi, tdi, lambda d: d._fused_dim([lb, z2], 2, "count")) == (None, None)
+    assert jdi._fused_dim([lb, z2], 2, "count") is None
+    assert tdi._fused_dim([lb, z2], "count") is None
 
 
 def test_decline_a_window_past_64_bins():
@@ -363,11 +366,15 @@ def test_batched_plain_masks_equal_per_query_loops(kind):
 
 
 def test_batched_zscan_table_layout():
-    """The packed table the batched kernel reads: each query's header
-    points at its bound entries and its bin table, and looking a row's
-    entry up there (``z3_zscan_lookup``) gives the semantic mask."""
+    """The packed table the batched kernel reads: only real entries (ids
+    >= 0, none empty in a dimension) as records of their query, cell boxes
+    compact (each dimension's de-interleaved lo and hi; some bin holds two
+    queries' records) and random words
+    masked; a padded query starts no launch; a binned launch's index finds
+    each bin's records; and the records, read back from the table, give
+    the semantic mask query by query."""
     from geomesa_tpu_torch.curves.z3 import Z3SFC
-    from geomesa_tpu_torch.curves.zorder import u64_hi_lo
+    from geomesa_tpu_torch.curves.zorder import decode_3d_np, u64_hi_lo
 
     rng = np.random.default_rng(5)
     n = 3001
@@ -375,25 +382,44 @@ def test_batched_zscan_table_layout():
         rng.uniform(-180, 180, n), rng.uniform(-90, 90, n), rng.uniform(0, 604_800, n))))
     bins = torch.from_numpy((2600 + rng.integers(0, 12, n)).astype(np.int32))
     maxi = (1 << 21) - 1
-    bounds = np.zeros((4, 4, 3, 6), np.uint32)
-    ids = np.full((4, 4), -1, np.int32)
-    for q, b in enumerate((1, 2, 4, 3)):
+    bounds = np.zeros((5, 4, 3, 6), np.uint32)
+    ids = np.full((5, 4), -1, np.int32)
+    boxes = {}
+    for q, b in enumerate((1, 2, 4, 3, 0)):
         for e in range(b):
             lo, hi = np.sort(rng.integers(0, maxi + 1, (2, 3)), axis=0)
             bounds[q, e] = zscan.z3_dim_bounds(tuple(lo), tuple(hi))
+            boxes[(q, e)] = (lo, hi)
         ids[q, :b] = 2600 + rng.permutation(12)[:b]
-    ids[3] = -1  # a padded query
-    bz = zscan._BatchedZScan(bounds, ids)
-    hdr = bz.table[: 16].view(np.int32).reshape(4, 4)
-    for q in range(4):
-        boff, toff, first, span = (int(v) for v in hdr[q])
-        b = bz.table[boff: boff + 4 * 18].reshape(4, 3, 6)
-        entry_of = bz.table[toff: toff + span].view(np.int32)
-        want_first, want_table = zscan.entry_table(ids[q])
-        assert first == want_first and np.array_equal(entry_of, want_table)
-        got = zscan.z3_zscan_lookup(h, l, bins, b, first, entry_of)
-        assert torch.equal(got, zscan.z3_zscan_mask(h, l, bins, bounds[q], ids[q]))
-    assert hdr[3, 3] == 0  # the padded query has an empty bin table
+    ids[3] = ids[2, [1, 0, 2, 3]]  # bins that hold two queries' records: cell boxes pack compact
+    ids[3, 3] = -1
+    bounds[2, 3] = rng.integers(0, 1 << 32, (3, 6), dtype=np.uint64).astype(np.uint32)
+    bounds[2, 3, :, 2:4], bounds[2, 3, :, 4:6] = 0, 0xFFFFFFFF  # random masks, lo <= hi
+    bounds[1, 1, 0, 2:4] = bounds[1, 1, 0, 4:6] + np.array([0, 1], np.uint32)  # lo > hi: empty
+    pk = zscan.batched_zscan(bounds, ids)
+    assert [(lc.q0, lc.q1, lc.nc, lc.nm, lc.binned) for lc in pk.launches] == [(0, 4, 8, 1, True)]
+    assert list(pk.idle) == [4]  # the padded query: no launch
+    c, m, index = pk._records(pk.launches[0])
+    first = pk.launches[0].first
+    assert first == int(ids[ids >= 0].min())
+    for rec in c:  # (lo_d, hi_d) per dimension, bin, query
+        q = int(rec[7])
+        e = int(np.nonzero(ids[q] == rec[6])[0][0])
+        lo, hi = boxes[(q, e)]
+        assert list(rec[:6]) == [v for d in range(3) for v in (lo[d], hi[d])]
+        assert (q, e) != (1, 1)
+    assert list(m[0, :2]) == [ids[2, 3], 2] and np.array_equal(m[0, 4:22], bounds[2, 3].reshape(-1))
+    for i in range(len(index) - 1):  # each bin's records, compact then masked
+        assert all(r[6] == first + i for r in c[index[i, 0]: index[i + 1, 0]])
+        assert all(r[0] == first + i for r in m[index[i, 1]: index[i + 1, 1]])
+    assert index[-1].tolist() == [len(c), len(m)]
+    coords = decode_3d_np(np.asarray(zscan._u64(h.numpy(), l.numpy())))
+    assert np.array_equal(np.stack(coords), np.stack([v.numpy() for v in
+                                                       zscan.zorder.decode_3d_hi_lo_t(h, l)]))
+    got = pk.plain(bins, h, l)
+    for q in range(5):
+        assert torch.equal(got[q], zscan.z3_zscan_mask(h, l, bins, bounds[q], ids[q]))
+    assert torch.equal(got, zscan.batched_kind_mask("z3")(h, l, bins, bounds, ids))
 
 
 def test_batched_launch_limits():
@@ -434,13 +460,17 @@ def test_count_launch_is_exact_under_threads():
 
 
 def test_every_entry_point_has_a_signature():
-    """Each C entry point of csrc/ is bound once at load, from SIGNATURES."""
+    """Each C entry point of csrc/ is bound once at load, from SIGNATURES,
+    with one argtype per parameter (ctypes passes surplus arguments
+    unconverted, which cuts pointers)."""
     from geomesa_tpu_torch.kernels import _build
 
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        entry = set(re.findall(r'extern "C" int (gm_\w+)\(', src))
-        assert entry == set(_build.SIGNATURES[name]), name
+        entry = dict(re.findall(r'extern "C" int (gm_\w+)\(([^)]*)\)', src))
+        assert set(entry) == set(_build.SIGNATURES[name]), name
+        for fn, params in entry.items():
+            assert len(params.split(",")) == len(_build.SIGNATURES[name][fn][0]), fn
     assert all(k in kernels.LAUNCHES for k in (
         "dimscan_batched_z3_count", "dimscan_batched_z2_mask", "zscan_batched_z3_mask",
         "zscan_batched_z2_count"))
