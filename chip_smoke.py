@@ -31,7 +31,12 @@ Phases:
      scans of the scheduler's fused paths (the dim scan at Q in {1, 3, 8,
      16, 64} and R in {0, 1, 2, 4, 8}, the interleaved z3 scan over mixed
      bin layouts and its z2 variant, padded queries among them) against
-     per-query loops of the plain versions, bit for bit; then the fixed
+     per-query loops of the plain versions, bit for bit; the validity
+     operand of the five scans that take one (the dim scan, the
+     interleaved scan, the filter scan, both batched scans at Q in {1, 4,
+     64}) at 2^26 rows, count and mask, against the plain version ANDed
+     with the plane: a null pointer, a plane of ones, 50% live at random,
+     the last 2^20 rows dead, no row live; then the fixed
      cost of one filter-scan launch (an empty CUDA event pair, 0 and 4,096
      rows beside 2^20 and 2^21, and the host's time to issue each call);
   3. the main path at full size: a GDELT-shaped resident Z3 point type
@@ -106,6 +111,23 @@ Phases:
      serial, nothing is rejected or expired; per-request latency p50/p99
      (submit to the scheduler completing the request), requests/s
      and the fusion factor, fused and unfused;
+  3g. the streaming index: phase 3's 2^26 rows staged into
+     StreamingDeviceIndex(z_planes=True, capacity=2^26 + stream.memtable.rows)
+     (capacity 2^27, dim planes), fed through attach_live: 64 Puts of 2^14
+     new rows, 64 Removes evicting 2^20 random fids, 16 Puts moving 2^12
+     held rows to another city (p50/p99 of each, restages 1,
+     delta_appends 80); then phase 3's 32 queries (count loose and exact,
+     query exact and loose), the 9 density and 4 stats calls, 64 fused
+     loose tile counts, 4 fused loose tile queries and 2 kNN calls, every
+     answer against numpy over the live rows (kept from the messages
+     alone) and against a DeviceIndex staged anew from them; a burst of
+     256 fused loose counts through QueryScheduler beside a thread that
+     appends and evicts away from every tile (each count equals the
+     restaged index's); the same feed, reduced, on 2^24-row interleaved
+     z3, z2 and interleaved z2 streaming indexes; growth (capacity 2^22
+     -> 2^24) and compaction (55% dead) at 2^22 rows, with their restage
+     seconds. Every scan launch of a streaming drive read the validity
+     plane (``kernels.VALID_LAUNCHES``);
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -117,7 +139,11 @@ Phases:
      masks, the card key encode, the kNN pass at k = 10 and 8192 and the
      union mask of 16 and 256 tube windows at 2^26 AIS rows); the batched
      scans at Q in {1, 4, 8, 64} (the z3 dim scan at R = 1 and 2) with phase
-     3f's tile queries, beside Q launches of the single-query kernel.
+     3f's tile queries, beside Q launches of the single-query kernel;
+     and beside each scan row (the batched ones at Q = 4 and 64) the same
+     launch under a validity plane of 50% live rows (``"valid": true``;
+     every row carries ``valid_launches``, its phase 3g launches with the
+     plane).
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -529,6 +555,142 @@ def check_batched_scans(dev, errs: Errs):
     log(f"batched scans: {cases} cases (dim scan Q in {list(BATCH_QS)} x R in 0-8, "
         f"interleaved z3 and z2; the packer's ways {ways} as (case, launches, finding, "
         f"compact records, masked records)), kernel == plain bit for bit")
+
+
+VALID_QS = (1, 4, 64)  # the batched scans' widths under a validity plane
+
+
+def valid_patterns(n, dev, seed):
+    """(name, plane) of the validity cases: a null pointer, a plane of
+    ones (every row live: equal to the null pointer), 50% live at random,
+    the last min(n, 2^20) rows dead, no row live."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tail = torch.ones(n, dtype=torch.bool, device=dev)
+    tail[max(0, n - (1 << 20)):] = False
+    return [("null", None), ("ones", torch.ones(n, dtype=torch.bool, device=dev)),
+            ("half live", torch.rand(n, generator=gen, device=dev) < 0.5),
+            ("last 2^20 dead", tail), ("none live", torch.zeros(n, dtype=torch.bool, device=dev))]
+
+
+def validity_cases(dev, n, seed, qs=VALID_QS) -> list:
+    """The five kernels that take a validity operand, on random planes of
+    n rows made on the card: (kernel prefix, case, run(valid, mask) -> the
+    count or the mask, plain() -> the plain version's mask without
+    validity). The dim scan at R = 2 and z2; the interleaved scan over 16
+    week bins and z2; the filter scan of a bbox+during program; the batched
+    scans at Q in ``qs`` (query vectors and bounds from batch_qmat and
+    batch_zbounds)."""
+    import torch
+
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.compile import compile_filter
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.ops import filter_scan, zscan
+
+    maxi, span = (1 << 21) - 1, 12 << 21
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def u32(hi):
+        if hi is None:  # random words
+            return torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32).view(torch.uint32)
+        return torch.randint(0, hi, (n,), generator=gen, device=dev).to(torch.int32).view(torch.uint32)
+
+    nx, ny, bt = u32(maxi + 1), u32(maxi + 1), u32(span)
+    hi, lo = u32(None), u32(None)
+    bins = torch.randint(2600, 2616, (n,), generator=gen, device=dev, dtype=torch.int32)
+    cases = []
+    for r, ps in ((2, (nx, ny, bt)), (0, (nx, ny))):
+        q = batch_qmat(rng, 1, r, span)[0]
+        z = "z3" if r else "z2"
+        cases.append((f"dimscan_{z}", f"R={r}",
+                      lambda v, m, q=q, ps=ps: (zscan.dimscan_mask if m else zscan.dimscan_count)(
+                          q, *ps, valid=v),
+                      lambda q=q, ps=ps: zscan.dimscan_plain(q, *ps)))
+    bounds = np.stack([zscan.z3_dim_bounds(tuple(a), tuple(b)) for a, b in (
+        np.sort(rng.integers(0, maxi + 1, (2, 3)), axis=0) for _ in range(4))])
+    ids = (2600 + rng.permutation(16)[:4]).astype(np.int32)
+    c3, m3 = zscan.build_z3_pallas_scan(bounds, ids)
+    cases.append(("zscan_z3", "4 bin entries",
+                  lambda v, m: (m3 if m else c3)(bins, hi, lo, valid=v),
+                  lambda: zscan.z3_zscan_mask(hi, lo, bins, bounds, ids)))
+    a, b = np.sort(rng.integers(0, 1 << 31, (2, 2)), axis=0)
+    b2 = zscan.z2_dim_bounds(tuple(a), tuple(b))
+    c2, m2 = zscan.build_z2_zscan(b2)
+    cases.append(("zscan_z2", "one entry", lambda v, m: (m2 if m else c2)(hi, lo, valid=v),
+                  lambda: zscan.z2_zscan_mask(hi, lo, b2)))
+    sft = SimpleFeatureType.create("g", GDELT_SPEC)
+    prog = compile_filter(parse_ecql(
+        "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z"),
+        sft).program
+    dtg = torch.randint(T0, T0 + 60 * DAY, (n,), generator=gen, device=dev)
+    fcols = {"geom__x": (torch.rand(n, generator=gen, device=dev) * 360 - 180),
+             "geom__y": (torch.rand(n, generator=gen, device=dev) * 180 - 90),
+             "dtg__hi": (dtg >> 32).to(torch.int32),
+             "dtg__lo": (dtg & 0xFFFFFFFF).to(torch.int32).view(torch.uint32)}
+    fcols = {c: fcols[c] for c in prog.cols}
+    cases.append(("filter_scan", "bbox+during",
+                  lambda v, m: (filter_scan.filter_scan_mask if m else filter_scan.filter_scan_count)(
+                      prog, fcols, valid=v),
+                  lambda: filter_scan.run_program_plain(prog, fcols)))
+    for nq in qs:
+        for r, ps in ((1, (nx, ny, bt)), (0, (nx, ny))):
+            qm = batch_qmat(rng, nq, r, span)
+            z = "z3" if r else "z2"
+            cases.append((f"dimscan_batched_{z}", f"Q={nq} R={r}",
+                          lambda v, m, qm=qm, ps=ps: (zscan.batched_dimscan_mask if m else
+                                                      zscan.batched_dimscan_count)(qm, *ps, valid=v),
+                          lambda qm=qm, ps=ps, r=r: zscan.batched_dim_mask_rt(r)(*ps, qm)))
+        zb, zi = batch_zbounds(rng, nq, 16)
+        pk = zscan.batched_zscan(zb, zi)
+        cases.append(("zscan_batched_z3", f"Q={nq} B={zi.shape[1]}",
+                      lambda v, m, pk=pk: pk.run(bins, hi, lo, want_mask=m, valid=v),
+                      lambda zb=zb, zi=zi: zscan.batched_kind_mask("z3")(hi, lo, bins, zb, zi)))
+        zb2 = np.stack([zscan.z2_dim_bounds(tuple(a), tuple(b)) for a, b in (
+            np.sort(rng.integers(0, 1 << 31, (2, 2)), axis=0) for _ in range(nq))])
+        pk2 = zscan.batched_zscan(zb2, None)
+        cases.append(("zscan_batched_z2", f"Q={nq}",
+                      lambda v, m, pk=pk2: pk.run(None, hi, lo, want_mask=m, valid=v),
+                      lambda zb=zb2: zscan.batched_kind_mask("z2")(hi, lo, zb)))
+    return cases
+
+
+def check_validity(dev, errs: Errs, n, seed=SEED + 5, qs=VALID_QS, kinds=None) -> int:
+    """Each kernel's count and mask with a validity operand against its
+    plain version ANDed with the plane (``validity_cases`` x
+    ``valid_patterns``), bit for bit; a plane of ones equals the null
+    pointer. ``kinds`` keeps the cases whose kernel prefix it names.
+    Returns the number of comparisons."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+
+    pats = valid_patterns(n, dev, seed)
+    done = 0
+    for prefix, case, run, plain in validity_cases(dev, n, seed, qs):
+        if kinds is not None and prefix not in kinds:
+            continue
+        base = plain()
+        for pname, v in pats:
+            want = base if v is None else base & v
+            what = f"n={n} {case}, validity: {pname}"
+            before = kernels.VALID_LAUNCHES[f"{prefix}_mask"]
+            errs.check(f"{prefix}_mask", run(v, True), want, what)
+            errs.check(f"{prefix}_count", run(v, False).reshape(-1),
+                       want.sum(dim=-1, dtype=torch.int32).reshape(-1), what)
+            if v is not None and dev.type == "cuda" and \
+                    kernels.VALID_LAUNCHES[f"{prefix}_mask"] == before:
+                raise AssertionError(f"{prefix}_mask {what}: no launch read the plane")
+            done += 2
+        del base
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return done
 
 
 def launch_floor(dev) -> None:
@@ -1103,15 +1265,16 @@ def np_loose(q, planes):
     return m
 
 
-def host_z3_planes(cols):
-    """(nx, ny, bt) uint32 dim planes from the host quantizer."""
+def host_z3_planes(cols, base=None):
+    """(nx, ny, bt) uint32 dim planes from the host quantizer, the bt words
+    packed around ``base`` (default: the rows' least bin)."""
     from geomesa_tpu_torch.curves.binnedtime import to_binned_time
     from geomesa_tpu_torch.curves.z3 import Z3SFC
     from geomesa_tpu_torch.ops import zscan
 
     s3 = Z3SFC()
     bins, off = to_binned_time(cols["dtg"], s3.period)
-    rel = (bins - int(bins.min())).astype(np.uint32)
+    rel = (bins - int(bins.min() if base is None else base)).astype(np.uint32)
     hx = s3.lon.normalize(cols["geom"][:, 0]).astype(np.uint32)
     hy = s3.lat.normalize(cols["geom"][:, 1]).astype(np.uint32)
     hbt = (rel << np.uint32(21)) | s3.time.normalize(off).astype(np.uint32)
@@ -2640,6 +2803,457 @@ def run_sched_path(dev, cols, di3, di2, di3i, di2i) -> dict:
     return out
 
 
+# -- phase 3g: the streaming index ----------------------------------------------
+
+STREAM_APPENDS = 64  # Put messages of 2^14 new rows each
+STREAM_APPEND_ROWS = 1 << 14
+STREAM_EVICTED = 1 << 20  # random held fids, evicted through 64 Remove messages
+STREAM_UPSERTS = 16  # Put messages moving 2^12 held rows to another city
+STREAM_UPSERT_ROWS = 1 << 12
+STREAM_SMALL = 1 << 24  # the interleaved z3 and the z2 streaming indexes
+STREAM_GROW = 1 << 22  # rows of the growth and the compaction restages
+STREAM_BURST = 256  # fused loose counts through the scheduler beside a writer
+CORNER = (-179.9, -89.9, -179.5, -89.5)  # no tile reaches it: the burst's writer writes here
+
+
+class LiveFeed:
+    """A live layer's listener registry, what ``attach_live`` attaches to:
+    ``emit`` hands a Put, Remove or Clear message to every listener."""
+
+    def __init__(self):
+        self.listeners = []
+
+    def add_listener(self, fn):
+        self.listeners.append(fn)
+
+    def remove_listener(self, fn):
+        self.listeners.remove(fn)
+
+    def emit(self, msg):
+        for fn in list(self.listeners):
+            fn(msg)
+
+
+def delta_columns(n, seed, centers, box=None) -> dict:
+    """New rows shaped like make_columns at phase 3's city centres (90%
+    clustered, sigma 0.2 deg), or uniform inside ``box``; dtg over the same
+    60 days."""
+    rng = np.random.default_rng(seed)
+    if box is None:
+        c = centers[rng.integers(0, len(centers), n)]
+        xy = c + rng.normal(0.0, 0.2, (n, 2))
+        uni = rng.random(n) >= 0.9
+        xy[uni] = rng.uniform([-180.0, -90.0], [180.0, 90.0], (int(uni.sum()), 2))
+    else:
+        xy = rng.uniform(box[:2], box[2:], (n, 2))
+    xy = np.clip(xy, [-180.0, -90.0], [180.0, 90.0]).astype(np.float32).astype(np.float64)
+    return {"count": rng.integers(0, 1000, n).astype(np.int32),
+            "dtg": rng.integers(T0, T0 + 60 * DAY, n), "geom": xy}
+
+
+class Truth:
+    """The live rows kept in numpy from the messages alone, the oracle of a
+    streaming index: rows in arrival order (the index's staged order while
+    it does not restage), a live flag and fid -> row."""
+
+    def __init__(self, cols, fids, max_fid):
+        self.parts = [(fids, cols)]
+        self.n = len(fids)
+        self.alive = np.zeros(self.n + (1 << 21), bool)
+        self.alive[: self.n] = True
+        self.row_of = np.full(max_fid, -1, np.int64)
+        self.row_of[fids] = np.arange(self.n)
+
+    def put(self, cols, fids):
+        held = self.row_of[fids]
+        self.alive[held[held >= 0]] = False
+        self.parts.append((fids, cols))
+        self.row_of[fids] = np.arange(self.n, self.n + len(fids))
+        self.alive[self.n: self.n + len(fids)] = True
+        self.n += len(fids)
+
+    def remove(self, fids):
+        held = self.row_of[fids]
+        self.alive[held[held >= 0]] = False
+        self.row_of[fids] = -1
+
+    def live(self) -> dict:
+        """The live rows' columns, fids and float32 coordinates."""
+        keep = self.alive[: self.n]
+        cols = {k: np.concatenate([c[k] for _, c in self.parts])[keep]
+                for k in ("count", "dtg", "geom")}
+        cols["fid"] = np.concatenate([f for f, _ in self.parts])[keep]
+        cols["x"] = cols["geom"][:, 0].astype(np.float32)
+        cols["y"] = cols["geom"][:, 1].astype(np.float32)
+        return cols
+
+
+def feed_messages(rng, centers, n_base, appends, evicted, upserts, fid0, seed):
+    """The message plan: ``appends`` Puts of 2^14 new rows (fids from
+    ``fid0``), ``evicted`` random base fids in as many Removes as appends,
+    ``upserts`` Puts moving 2^12 held base rows each to another city; in
+    turn append, remove, and every ``appends // upserts``-th step an upsert.
+    Items are (kind, fids, columns)."""
+    perm = rng.permutation(n_base)
+    out = []
+    step = max(1, appends // max(upserts, 1))
+    per = evicted // appends
+    for i in range(appends):
+        fids = np.arange(fid0 + i * STREAM_APPEND_ROWS, fid0 + (i + 1) * STREAM_APPEND_ROWS)
+        out.append(("append", fids, delta_columns(STREAM_APPEND_ROWS, seed + i, centers)))
+        out.append(("evict", perm[i * per: (i + 1) * per], None))
+        if i % step == 0 and i // step < upserts:
+            u = i // step
+            moved = perm[evicted + u * STREAM_UPSERT_ROWS: evicted + (u + 1) * STREAM_UPSERT_ROWS]
+            city = centers[(u * 7 + 3) % len(centers)]
+            cols = delta_columns(STREAM_UPSERT_ROWS, seed + 1000 + u, city[None, :])
+            out.append(("upsert", moved, cols))
+    return out
+
+
+def apply_feed(feed, plan, truth) -> dict:
+    """Emit the plan's messages (Put for appends and upserts, Remove for
+    evictions), synchronising after each; the per-kind host latencies."""
+    import torch
+
+    from geomesa_tpu_torch.stream.log import Put, Remove
+
+    lat = {"append": [], "evict": [], "upsert": []}
+    for kind, fids, cols in plan:
+        t = time.perf_counter()
+        feed.emit(Remove(fids) if kind == "evict" else Put(cols, fids))
+        torch.cuda.synchronize()
+        lat[kind].append(time.perf_counter() - t)
+        if kind == "evict":
+            truth.remove(fids)
+        else:
+            truth.put(cols, fids)
+    return lat
+
+
+def _fresh(dev, live, spec, name, **kw):
+    """A DeviceIndex staged anew from the live rows (fids kept)."""
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    sft = SimpleFeatureType.create(name, spec)
+    keys = [a.name for a in sft.attributes]
+    b = FeatureBatch.from_columns(sft, {k: live[k] for k in keys}, live["fid"])
+    return DeviceIndex(BatchStore(b), name, z_planes=True, device=dev, **kw)
+
+
+def _stream(dev, cols, fids, spec, name, capacity, **kw):
+    from geomesa_tpu_torch.device_cache import StreamingDeviceIndex
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    sft = SimpleFeatureType.create(name, spec)
+    keys = [a.name for a in sft.attributes]
+    b = FeatureBatch.from_columns(sft, {k: cols[k] for k in keys}, fids)
+    return StreamingDeviceIndex(BatchStore(b), name, z_planes=True, capacity=capacity,
+                                device=dev, **kw)
+
+
+def drive_stream_queries(di, queries) -> "tuple[list, dict]":
+    """count (loose and exact) and query (exact and loose) of ``queries``
+    (ECQL, box, window or None) on a streaming index: (answers, per-call
+    host latencies)."""
+    lat = {k: [] for k in ("count_loose", "count_exact", "query_exact", "query_loose")}
+    res = []
+    for ecql, _, _ in queries:
+        out = {}
+        for key, fn in (("count_loose", lambda: di.count(ecql, loose=True)),
+                        ("count_exact", lambda: di.count(ecql, loose=False)),
+                        ("query_exact", lambda: di.query(ecql)),
+                        ("query_loose", lambda: di.query(ecql, loose=True))):
+            t = time.perf_counter()
+            out[key] = fn()
+            lat[key].append(time.perf_counter() - t)
+        res.append(out)
+    return res, lat
+
+
+def check_stream_queries(tag, di, fresh, live, queries, res, planes=None) -> None:
+    """The answers of :func:`drive_stream_queries`: exact ones against numpy
+    over the live rows, loose ones against numpy over the live rows' host
+    dim planes (``planes``; else covering the exact ones), every count
+    against ``fresh``, the index staged anew from the live rows."""
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+
+    def verify(a):
+        (ecql, b, w), out = a
+        em = np_exact(live["x"], live["y"], live["dtg"], b, w)
+        if out["count_exact"] != int(em.sum()) or not np.array_equal(
+                np.sort(out["query_exact"].fids), np.sort(live["fid"][em])):
+            raise AssertionError(f"{tag} {ecql}: exact answer != numpy over the live rows")
+        got_l = np.sort(out["query_loose"].fids)
+        if planes is not None:
+            lm = np_loose(di._loose_bounds(parse_ecql(ecql))[1], planes)
+            if not np.array_equal(got_l, np.sort(live["fid"][lm])):
+                raise AssertionError(f"{tag} {ecql}: loose fid set != numpy over the live rows")
+        if out["count_loose"] != len(got_l) or not np.isin(live["fid"][em], got_l).all():
+            raise AssertionError(f"{tag} {ecql}: the loose answer does not cover the exact one")
+        for loose, key in ((True, "count_loose"), (False, "count_exact")):
+            if fresh.count(ecql, loose=loose) != out[key]:
+                raise AssertionError(f"{tag} {ecql}: {key} != the restaged index's")
+        return int(em.sum())
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        hits = list(pool.map(verify, list(zip(queries, res))))
+    log(f"phase 3g {tag}: {len(queries)} queries == numpy over the live rows and the "
+        f"restaged index (exact hits median {int(np.median(hits))})")
+
+
+def check_fused(tag, di, fresh, tiles, counts, feats) -> None:
+    """Fused loose counts of ``tiles`` (at most 64) and the fused loose
+    query of the first 4 (the batched kernels with the plane) against the
+    serial loose answers and the restaged index's."""
+    serial = [di.count(q, loose=True) for q in tiles]
+    if counts is None or counts != serial or counts != fresh.fused_loose_counts(tiles, loose=True):
+        raise AssertionError(f"{tag}: fused loose counts != serial / restaged")
+    for q, b in zip(tiles[:4], feats):
+        if not np.array_equal(np.sort(b.fids), np.sort(fresh.query(q, loose=True).fids)):
+            raise AssertionError(f"{tag}: fused loose query != the restaged index's")
+
+
+def _valid_only(tag, launches, valid) -> None:
+    """Every scan launch of a streaming drive read the validity plane."""
+    bad = {k: (v, valid[k]) for k, v in launches.items()
+           if v and not k.startswith("density") and valid[k] != v}
+    if bad:
+        raise AssertionError(f"{tag}: launches without the validity plane: {bad}")
+
+
+def run_streaming_path(dev, cols, queries, traffic) -> dict:
+    """Phase 3g (module docstring): the streaming index at 2^26 rows fed
+    through attach_live, its drive checked against numpy and a restaged
+    index; the 2^24 interleaved z3 and z2 indexes; growth and compaction;
+    the scheduler burst beside a writer."""
+    import threading
+
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.bucketing import bucket_cap
+    from geomesa_tpu_torch.conf import sys_prop
+    from geomesa_tpu_torch.device_cache import VIS_ID
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.sched import FusableQuery, QueryScheduler, SchedConfig
+    from geomesa_tpu_torch.stream.log import Put, Remove
+
+    out = {"launches": {k: 0 for k in kernels.KERNEL_NAMES},
+           "valid": {k: 0 for k in kernels.KERNEL_NAMES}}
+
+    def add_launches(tag):
+        launches, valid = dict(kernels.LAUNCHES), dict(kernels.VALID_LAUNCHES)
+        _valid_only(tag, launches, valid)
+        for k in launches:
+            out["launches"][k] += launches[k]
+            out["valid"][k] += valid[k]
+
+    centers = cols["_centers"]
+    n = len(cols["count"])
+    rng = np.random.default_rng(SEED + 40)
+    # -- the dim-plane z3 index at 2^26 rows ---------------------------------
+    t = time.time()
+    cap = n + int(sys_prop("stream.memtable.rows"))
+    di = _stream(dev, cols, np.arange(n), GDELT_SPEC, "gdelt", cap)
+    torch.cuda.synchronize()
+    stage_s = time.time() - t
+    if not (di._dim_mode and di._cap == bucket_cap(cap) and VIS_ID not in di._cols):
+        raise AssertionError(f"phase 3g: dim mode {di._dim_mode}, capacity {di._cap}")
+    log(f"phase 3g: staged {n:,} rows into capacity {di._cap:,} in {stage_s:.2f} s "
+        f"({di.nbytes / 1e9:.3f} GB resident, validity plane included) [{CARD}]")
+    feed = LiveFeed()
+    detach = di.attach_live(feed)
+    truth = Truth({k: cols[k] for k in ("count", "dtg", "geom")}, np.arange(n), n + (1 << 21))
+    plan = feed_messages(rng, centers, n, STREAM_APPENDS, STREAM_EVICTED, STREAM_UPSERTS, n, SEED + 41)
+    kernels.reset_counts()
+    lat = apply_feed(feed, plan, truth)
+    for kind, v in lat.items():
+        log(f"phase 3g latency {kind} ({len(v)} messages, {dict(append=STREAM_APPEND_ROWS, evict=STREAM_EVICTED // STREAM_APPENDS, upsert=STREAM_UPSERT_ROWS)[kind]:,} rows each): "
+            f"p50 {pct(v, 50):.3f} ms p99 {pct(v, 99):.3f} ms [{CARD}]")
+    live = truth.live()
+    if di.restages != 1 or di.delta_appends != STREAM_APPENDS + STREAM_UPSERTS or len(di) != len(live["fid"]):
+        raise AssertionError(f"phase 3g: restages {di.restages}, delta_appends {di.delta_appends}, "
+                             f"{len(di)} rows vs {len(live['fid'])} live")
+    log(f"phase 3g: restages {di.restages}, delta_appends {di.delta_appends}; {di._staged_len():,} "
+        f"staged rows, {len(di):,} live")
+    out["latency"] = {k: {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99), "n": len(v)} for k, v in lat.items()}
+    out["restages"], out["delta_appends"] = di.restages, di.delta_appends
+    # the drive: phase 3's queries, density, stats, fused tiles and kNN
+    dcalls = [c if c[1] == "z3" else (c[0], "z3") + c[2:] for c in density_calls(queries)]
+    scalls = stats_calls(queries)
+    tiles = [q for pan in traffic[0] for key, q in pan if key == "z3"][:64]
+    targets = [(tuple(centers[0]), 10), (tuple(centers[5]), 1000)]
+    kernels.reset_counts()
+    res, lat_q = drive_stream_queries(di, queries)
+    grids = [di.density(ecql, Envelope(*env), w, h, weight_attr=weight, loose=loose)
+             for _, _, ecql, loose, env, (w, h), weight, _, _ in dcalls]
+    seqs = [di.stats(ecql, STATS_SPEC, loose=loose).to_json() for _, ecql, loose, _, _, _ in scalls]
+    knn = [di.knn(px, py, k) for (px, py), k in targets]
+    fused = di.fused_loose_counts(tiles, loose=True)
+    fused_q = di.fused_loose_query(tiles[:4], loose=True)
+    add_launches("phase 3g z3")
+    planes = host_z3_planes(live, base=di._bt_base)
+    t = time.time()
+    fresh = _fresh(dev, live, GDELT_SPEC, "gdelt")
+    log(f"phase 3g: the restaged index of the live rows in {time.time() - t:.2f} s")
+    check_stream_queries("z3 2^26", di, fresh, live, queries, res, planes)
+    check_fused("z3 2^26", di, fresh, tiles, fused, fused_q)
+    check_density_path(live, di, di, planes, planes, dcalls, grids, scalls, seqs)
+    for (tag, _, ecql, loose, env, (w, h), weight, _, _), g in zip(dcalls, grids):
+        want = fresh.density(ecql, Envelope(*env), w, h, weight_attr=weight, loose=loose)
+        if not same_grid(g, want, weight is not None):
+            raise AssertionError(f"phase 3g density {tag}: grid != the restaged index's")
+    for (tag, ecql, loose, *_), got in zip(scalls, seqs):
+        if got != fresh.stats(ecql, STATS_SPEC, loose=loose).to_json():
+            raise AssertionError(f"phase 3g stats {tag}: != the restaged index's")
+    for ((px, py), k), got in zip(targets, knn):
+        rows, d2 = np_knn(live["x"], live["y"], px, py, 45.0, k)
+        check_knn(f"phase 3g knn k={k}", (got[0], got[1]), (live["fid"][rows], d2))
+    for key, v in lat_q.items():
+        log(f"phase 3g latency z3 {key}: p50 {pct(v, 50):.3f} ms p99 {pct(v, 99):.3f} ms [{CARD}]")
+    out["query_latency"] = {k: {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99)} for k, v in lat_q.items()}
+    del fresh, planes
+    torch.cuda.empty_cache()
+
+    # -- the scheduler burst beside a writer -----------------------------------
+    burst = [q for pan in traffic[0] for key, q in pan if key == "z3"][:STREAM_BURST]
+    stop, errors = threading.Event(), []
+    written = []
+
+    def writer():
+        try:
+            for k in range(16):
+                f0 = n + STREAM_APPENDS * STREAM_APPEND_ROWS + k * STREAM_APPEND_ROWS
+                fids = np.arange(f0, f0 + STREAM_APPEND_ROWS)
+                c = delta_columns(STREAM_APPEND_ROWS, SEED + 500 + k, None, box=CORNER)
+                feed.emit(Put(c, fids))
+                written.append((fids, c))
+                if k:
+                    feed.emit(Remove(written[k - 1][0][:STREAM_UPSERT_ROWS]))
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        finally:
+            stop.set()
+
+    kernels.reset_counts()
+    sched = QueryScheduler(SchedConfig(max_queue=SCHED_MAX_QUEUE))
+    th = threading.Thread(target=writer)
+    t = time.perf_counter()
+    th.start()
+    try:
+        reqs = [sched.submit(fuse=FusableQuery(di, q, "count", loose=True)) for q in burst]
+        got = [sched.wait(r) for r in reqs]
+        th.join()
+        wall = time.perf_counter() - t
+        again = [sched.wait(sched.submit(fuse=FusableQuery(di, q, "count", loose=True)))
+                 for q in burst]
+        snap = sched.snapshot()
+    finally:
+        sched.close(timeout=10.0)
+    if errors:
+        raise errors[0]
+    add_launches("phase 3g burst")
+    detach()
+    for fids, c in written:
+        truth.put(c, fids)
+    for fids, _ in written[:-1]:
+        truth.remove(fids[:STREAM_UPSERT_ROWS])
+    live = truth.live()
+    fresh = _fresh(dev, live, GDELT_SPEC, "gdelt")
+    want = fresh.fused_loose_counts(burst[:64], loose=True) + fresh.fused_loose_counts(
+        burst[64:128], loose=True) + fresh.fused_loose_counts(burst[128:192], loose=True) + \
+        fresh.fused_loose_counts(burst[192:], loose=True)
+    if got != want or again != want or len(di) != len(live["fid"]):
+        raise AssertionError("phase 3g burst: counts beside the writer != the restaged index's")
+    log(f"phase 3g burst: {len(burst)} fused loose counts beside a writer (16 Puts of "
+        f"{STREAM_APPEND_ROWS:,} rows, 15 Removes of {STREAM_UPSERT_ROWS:,}) in {wall * 1e3:.1f} ms, {snap['launches']} launches, fusion "
+        f"factor {snap['fusion_factor']}, fallbacks {snap.get('fusion_fallbacks', 0)}; every count "
+        f"== the restaged index's [{CARD}]")
+    del fresh, di, truth, live
+    torch.cuda.empty_cache()
+
+    # -- 2^24 rows: the interleaved z3, the z2 on dim planes, the interleaved z2
+    small = {k: cols[k][:STREAM_SMALL] for k in ("count", "dtg", "geom")}
+    z2_queries = [(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})", b, None) for _, b, _ in queries[:8]]
+    z2_tiles = [q.split(" AND ")[0] for q in tiles]
+    for tag, spec, name, qs, tl, kw in (
+            ("z3 interleaved", GDELT_SPEC, "gdelt", queries[:8], tiles, {"dim_planes": False}),
+            ("z2", Z2_SPEC, "points", z2_queries, z2_tiles, {}),
+            ("z2 interleaved", Z2_SPEC, "points", z2_queries, z2_tiles, {"dim_planes": False})):
+        sdi = _stream(dev, small, np.arange(STREAM_SMALL), spec, name,
+                      STREAM_SMALL + int(sys_prop("stream.memtable.rows")), **kw)
+        if sdi._dim_mode == ("dim_planes" in kw):
+            raise AssertionError(f"phase 3g {tag}: dim mode {sdi._dim_mode}")
+        feed = LiveFeed()
+        sdi.attach_live(feed)
+        truth = Truth(small, np.arange(STREAM_SMALL), STREAM_SMALL + (1 << 21))
+        plan = feed_messages(rng, centers, STREAM_SMALL, 16, STREAM_EVICTED // 4, 4, STREAM_SMALL,
+                             SEED + 60)
+        kernels.reset_counts()
+        lat = apply_feed(feed, plan, truth)
+        live = truth.live()
+        if sdi.restages != 1 or len(sdi) != len(live["fid"]):
+            raise AssertionError(f"phase 3g {tag}: restages {sdi.restages}, {len(sdi)} rows")
+        res, lat_q = drive_stream_queries(sdi, qs)
+        counts = sdi.fused_loose_counts(tl, loose=True)
+        feats = sdi.fused_loose_query(tl[:4], loose=True)
+        add_launches(f"phase 3g {tag}")
+        fresh = _fresh(dev, live, spec, name, **kw)
+        check_stream_queries(tag, sdi, fresh, live, qs, res)
+        check_fused(tag, sdi, fresh, tl, counts, feats)
+        log(f"phase 3g {tag} 2^24: append p50 {pct(lat['append'], 50):.3f} ms, evict p50 "
+            f"{pct(lat['evict'], 50):.3f} ms, upsert p50 {pct(lat['upsert'], 50):.3f} ms; restages "
+            f"{sdi.restages}, delta_appends {sdi.delta_appends}; count p50 loose "
+            f"{pct(lat_q['count_loose'], 50):.3f} ms exact {pct(lat_q['count_exact'], 50):.3f} ms [{CARD}]")
+        del sdi, truth, live, fresh
+        torch.cuda.empty_cache()
+
+    # -- growth and compaction at 2^22 rows --------------------------------------
+    grow = {k: cols[k][:STREAM_GROW] for k in ("count", "dtg", "geom")}
+    gdi = _stream(dev, grow, np.arange(STREAM_GROW), GDELT_SPEC, "gdelt", STREAM_GROW)
+    truth = Truth(grow, np.arange(STREAM_GROW), STREAM_GROW + (1 << 21))
+    c = delta_columns(STREAM_APPEND_ROWS, SEED + 70, centers)
+    fids = np.arange(STREAM_GROW, STREAM_GROW + STREAM_APPEND_ROWS)
+    kernels.reset_counts()
+    t = time.perf_counter()
+    gdi.append(FeatureBatch.from_columns(gdi.sft, c, fids))
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t
+    truth.put(c, fids)
+    if gdi.restages != 2 or gdi._cap != bucket_cap(2 * (STREAM_GROW + STREAM_APPEND_ROWS)):
+        raise AssertionError(f"phase 3g growth: restages {gdi.restages}, capacity {gdi._cap}")
+    gone = rng.permutation(STREAM_GROW)[: int(0.55 * STREAM_GROW)]
+    t = time.perf_counter()
+    gdi.evict(gone)
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t
+    truth.remove(gone)
+    if gdi.restages != 3 or gdi._n_dead != 0:
+        raise AssertionError(f"phase 3g compaction: restages {gdi.restages}, {gdi._n_dead} dead")
+    live = truth.live()
+    res, _ = drive_stream_queries(gdi, queries[:8])
+    add_launches("phase 3g growth")
+    check_stream_queries("z3 2^22 after growth and compaction", gdi,
+                         _fresh(dev, live, GDELT_SPEC, "gdelt"), live, queries[:8], res)
+    log(f"phase 3g restage seconds at {STREAM_GROW:,} rows: growth {grow_s:.3f} s (capacity "
+        f"{STREAM_GROW:,} -> {gdi._cap:,}), "
+        f"compaction {compact_s:.3f} s (55% dead) [{CARD}]")
+    out["growth_s"], out["compaction_s"] = grow_s, compact_s
+    del gdi
+    torch.cuda.empty_cache()
+    log(json.dumps({"stream": {k: out[k] for k in ("latency", "query_latency", "restages",
+                                                   "delta_appends", "growth_s", "compaction_s")},
+                    "card": CARD}))
+    return out
+
+
 # -- phase 4: kernel timings --------------------------------------------------
 
 
@@ -2728,9 +3342,13 @@ def zscan_ops(lbs, hi, lo, bins=None) -> int:
     return ops
 
 
-def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs) -> list:
+def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, valid_launches,
+                 errs: Errs) -> list:
     """Time each kernel at the main path's shapes; compare it with its
-    plain version on those inputs too."""
+    plain version on those inputs too. Each scan has a second row with a
+    validity plane (50% of the rows live at random, ``"valid": true``):
+    its bound adds the plane's 1 B/row and one AND a row, its launches are
+    the main path's launches that read a plane."""
     import torch
 
     from geomesa_tpu_torch.curves.z3 import Z3SFC
@@ -2749,8 +3367,15 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     fbytes = 4 * len(cf.program.cols)
     rows = []
 
+    n_all = len(di3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    half = torch.rand(n_all, generator=gen, device=dev) < 0.5
+
     def row(name, source, replaces, kern, plain, in_bytes, out_bytes, ops, plain_iters=5,
-            case=None):
+            case=None, valid=None):
+        """One kernel row; with ``valid`` (a function of the plane returning
+        the (kernel, plain) pair), a second row under the plane."""
         got, want = kern(), plain()
         errs.check(name, got.reshape(-1), want.reshape(-1), f"main-path shapes {case or ''}")
         ms = time_ms(kern, 50)
@@ -2766,6 +3391,13 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
         })
         if case:
             rows[-1]["case"] = case
+        if valid is not None:
+            vk, vp = valid(half)
+            vcase = f"{case + ', ' if case else ''}validity plane, 50% live"
+            row(name, source, replaces, vk, vp, in_bytes + n_all, out_bytes, ops + n_all,
+                plain_iters, vcase)
+            rows[-1]["valid"] = True
+            rows[-1]["launches"] = valid_launches[name]
         log(f"{name}{f' ({case})' if case else ''}: {ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms: bytes {t_bytes:.4f}, "
             f"operations {t_ops:.4f}; {(in_bytes + out_bytes) / ms / 1e6:.1f} GB/s, "
             f"{n / ms / 1e6:.2f} G rows/s); plain version {plain_ms:.3f} ms (not a yardstick) "
@@ -2776,20 +3408,23 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     rz3 = "geomesa_tpu/ops/zscan.py:548 build_z3_dimscan_rt"
     rz2 = "geomesa_tpu/ops/zscan.py:438 build_z2_dimscan_rt"
     rfs = "geomesa_tpu/ops/pallas_scan.py:203 build_pallas_scan"
-    row("dimscan_z3_count", dim_src, f"{rz3} (pallas_call :643)",
-        lambda: zscan.dimscan_count(q3, *p3),
-        lambda: zscan.dimscan_plain(q3, *p3).sum(dtype=torch.int32),
-        12 * n, 4, n * (4 + 2 * r3))
-    row("dimscan_z3_mask", dim_src, f"{rz3} (pallas_call :669)",
-        lambda: zscan.dimscan_mask(q3, *p3), lambda: zscan.dimscan_plain(q3, *p3),
-        12 * n, n, n * (4 + 2 * r3))
-    row("dimscan_z2_count", dim_src, f"{rz2} (pallas_call :498)",
-        lambda: zscan.dimscan_count(q2, *p2),
-        lambda: zscan.dimscan_plain(q2, *p2).sum(dtype=torch.int32),
-        8 * n, 4, n * 4)
-    row("dimscan_z2_mask", dim_src, f"{rz2} (pallas_call :521)",
-        lambda: zscan.dimscan_mask(q2, *p2), lambda: zscan.dimscan_plain(q2, *p2),
-        8 * n, n, n * 4)
+    def dim(q, p, mask):
+        def pair(v=None):
+            kern = (lambda: zscan.dimscan_mask(q, *p, valid=v)) if mask else (
+                lambda: zscan.dimscan_count(q, *p, valid=v))
+            plain = (lambda: zscan.dimscan_plain(q, *p, valid=v)) if mask else (
+                lambda: zscan.dimscan_plain(q, *p, valid=v).sum(dtype=torch.int32))
+            return kern, plain
+        return pair
+
+    row("dimscan_z3_count", dim_src, f"{rz3} (pallas_call :643)", *dim(q3, p3, False)(),
+        12 * n, 4, n * (4 + 2 * r3), valid=dim(q3, p3, False))
+    row("dimscan_z3_mask", dim_src, f"{rz3} (pallas_call :669)", *dim(q3, p3, True)(),
+        12 * n, n, n * (4 + 2 * r3), valid=dim(q3, p3, True))
+    row("dimscan_z2_count", dim_src, f"{rz2} (pallas_call :498)", *dim(q2, p2, False)(),
+        8 * n, 4, n * 4, valid=dim(q2, p2, False))
+    row("dimscan_z2_mask", dim_src, f"{rz2} (pallas_call :521)", *dim(q2, p2, True)(),
+        8 * n, n, n * 4, valid=dim(q2, p2, True))
 
     # the baked dim scan on the same window, beside the runtime kernel
     w = window_ms(queries[0][2])
@@ -2814,20 +3449,31 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     zops = zscan_ops([lb], ops3[1], ops3[2], ops3[0])
     log(f"zscan_z3 timing window: {queries[3][0]} ({int((ids >= 0).sum())} bins, "
         f"{len(ids)} entries)")
+    def zs3(v):
+        return (lambda: zc(*ops3, valid=v), lambda: (zscan.z3_zscan_mask(
+            ops3[1], ops3[2], ops3[0], bounds, ids) & v).sum(dtype=torch.int32))
+
+    def zs3m(v):
+        return (lambda: zm(*ops3, valid=v),
+                lambda: zscan.z3_zscan_mask(ops3[1], ops3[2], ops3[0], bounds, ids) & v)
+
     row("zscan_z3_count", zs_src, f"{rzs} (pallas_call :942)", lambda: zc(*ops3),
         lambda: zscan.z3_zscan_mask(ops3[1], ops3[2], ops3[0], bounds, ids).sum(dtype=torch.int32),
-        12 * n, 4, zops, plain_iters=2)
+        12 * n, 4, zops, plain_iters=2, valid=zs3)
     row("zscan_z3_mask", zs_src, f"{rzs} (pallas_call :960)", lambda: zm(*ops3),
         lambda: zscan.z3_zscan_mask(ops3[1], ops3[2], ops3[0], bounds, ids),
-        12 * n, n, zops, plain_iters=2)
+        12 * n, n, zops, plain_iters=2, valid=zs3m)
     lb2 = di2i._loose_bounds(parse_ecql(z2_queries[0]))
     z2c, z2m, ops2 = di2i._loose_args(lb2)
     z2ops = zscan_ops([lb2], *ops2)
     row("zscan_z2_count", zs_src, f"{rzs} (pallas_call :942; z2 variant of zscan.py:97)",
         lambda: z2c(*ops2),
-        lambda: zscan.z2_zscan_mask(*ops2, lb2[1]).sum(dtype=torch.int32), 8 * n, 4, z2ops)
+        lambda: zscan.z2_zscan_mask(*ops2, lb2[1]).sum(dtype=torch.int32), 8 * n, 4, z2ops,
+        valid=lambda v: (lambda: z2c(*ops2, valid=v),
+                         lambda: (zscan.z2_zscan_mask(*ops2, lb2[1]) & v).sum(dtype=torch.int32)))
     row("zscan_z2_mask", zs_src, f"{rzs} (pallas_call :960; z2 variant of zscan.py:97)",
-        lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, z2ops)
+        lambda: z2m(*ops2), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]), 8 * n, n, z2ops,
+        valid=lambda v: (lambda: z2m(*ops2, valid=v), lambda: zscan.z2_zscan_mask(*ops2, lb2[1]) & v))
 
     # the interleaved scan over many bins: the wide day-binned index, a
     # 28-day world window (29 day bins), rows of their own
@@ -2852,15 +3498,20 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, errs: Errs
     row("filter_scan_count", fs_src, f"{rfs} (pallas_call :284)",
         lambda: filter_scan.filter_scan_count(cf.program, fcols),
         lambda: filter_scan.run_program_plain(cf.program, fcols).sum(dtype=torch.int32),
-        fbytes * n, 4, ops)
+        fbytes * n, 4, ops,
+        valid=lambda v: (lambda: filter_scan.filter_scan_count(cf.program, fcols, valid=v),
+                         lambda: filter_scan.run_program_plain(cf.program, fcols, valid=v).sum(
+                             dtype=torch.int32)))
     row("filter_scan_mask", fs_src, f"{rfs} (pallas_call :304)",
         lambda: filter_scan.filter_scan_mask(cf.program, fcols),
         lambda: filter_scan.run_program_plain(cf.program, fcols),
-        fbytes * n, n, ops)
+        fbytes * n, n, ops,
+        valid=lambda v: (lambda: filter_scan.filter_scan_mask(cf.program, fcols, valid=v),
+                         lambda: filter_scan.run_program_plain(cf.program, fcols, valid=v)))
     return rows
 
 
-def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
+def batched_rows(dev, sched, idx, launches, valid_launches, errs: Errs) -> list:
     """Phase 4 for the batched scans, at the main path's 2^26 rows with
     phase 3f's tile queries: Q in {1, 4, 8, 64}, the z3 dim scan at R = 1 and
     at R = 2 (each query's bt range split in two: the same rows), the z2
@@ -2872,7 +3523,10 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
     the interleaved scans: :func:`zscan_ops`); the interleaved rows also
     time the launch alone (``launch_ms``: the group packed and its table
     on the card before the timed loop) beside the call (``ms``: packing,
-    upload and launch)."""
+    upload and launch). At Q = 4 and 64 (phase 3f's widths) each kernel
+    has rows under a validity plane too (50% live, ``"valid": true``: 1
+    B/row and one AND a row more in the bound; Q single launches with the
+    plane beside them)."""
     import torch
 
     from geomesa_tpu_torch.filter.ecql import parse_ecql
@@ -2885,7 +3539,7 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
     rows = []
 
     def brow(name, replaces, kern, plain, single, nbytes, ops, q, case, iters, plain_iters,
-             launch=None):
+             launch=None, valid=False):
         errs.check(name, kern(), plain(), f"phase 4 {case}")
         ms = time_ms(kern, iters)
         launch_ms = None if launch is None else time_ms(launch, iters)
@@ -2902,6 +3556,9 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
             "case": case, "q": q, "single_ms": single_ms,
         })
+        if valid:
+            rows[-1]["valid"] = True
+            rows[-1]["launches"] = valid_launches[name]
         if launch is not None:
             errs.check(name, launch(), plain(), f"phase 4 {case}, the launch alone")
             rows[-1]["launch_ms"] = launch_ms
@@ -2915,6 +3572,9 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
     rkind = "geomesa_tpu/ops/zscan.py:816 batched_kind_mask (an XLA vmap of z3_zscan_mask / z2_zscan_mask; no pallas_call)"
     di3, di2, di3i, di2i = idx["z3"], idx["z2"], idx["z3i"], idx["z2i"]
     n = len(di3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    half = torch.rand(n, generator=gen, device=dev) < 0.5
     p3 = (di3._cols["__znx"], di3._cols["__zny"], di3._cols["__zbt"])
     p2 = (di2._cols["__znx"], di2._cols["__zny"])
     q3 = np.stack([di3._loose_bounds(parse_ecql(q))[1] for q in tiles["z3"][:64]])
@@ -2925,6 +3585,58 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
     q2 = np.stack([di2._loose_bounds(parse_ecql(q))[1] for q in tiles["z2"][:64]])
     zb = [di3i._loose_bounds(parse_ecql(q)) for q in tiles["z3i"][:64]]
     z2b = [di2i._loose_bounds(parse_ecql(q.split(" AND ")[0])) for q in tiles["z3i"][:64]]
+    def validity_brows(nq, it, pit):
+        v = half
+        vc = f"Q={nq}, 2^26 rows, validity plane, 50% live"
+        qm, r = q3[:nq], 1
+        for kind in ("count", "mask"):
+            m = kind == "mask"
+            fn = zscan.batched_dimscan_mask if m else zscan.batched_dimscan_count
+            one = zscan.dimscan_mask if m else zscan.dimscan_count
+            brow(f"dimscan_batched_z3_{kind}", rdim, lambda fn=fn: fn(qm, *p3, valid=v),
+                 (lambda: zscan.batched_dim_mask_rt(r)(*p3, qm, valid=v)) if m else (
+                     lambda: zscan.batched_dim_mask_rt(r)(*p3, qm, valid=v).sum(dim=1, dtype=torch.int32)),
+                 lambda one=one: [one(x, *p3, valid=v) for x in qm],
+                 13 * n + (nq * n if m else 4 * nq), nq * (4 + 2 * r) * n + n, nq, f"{vc} R=1",
+                 it, pit, valid=True)
+            fn2 = zscan.batched_dimscan_mask if m else zscan.batched_dimscan_count
+            brow(f"dimscan_batched_z2_{kind}", rdim, lambda fn=fn2: fn(q2[:nq], *p2, valid=v),
+                 (lambda: zscan.batched_dim_mask_rt(0)(*p2, q2[:nq], valid=v)) if m else (
+                     lambda: zscan.batched_dim_mask_rt(0)(*p2, q2[:nq], valid=v).sum(dim=1, dtype=torch.int32)),
+                 lambda one=one: [one(x, *p2, valid=v) for x in q2[:nq]],
+                 9 * n + (nq * n if m else 4 * nq), nq * 4 * n + n, nq, vc, it, pit, valid=True)
+        lbs = zb[:nq]
+        bmax = max(len(lb[2]) for lb in lbs)
+        bounds = np.zeros((nq, bmax, 3, 6), np.uint32)
+        ids = np.full((nq, bmax), -1, np.int32)
+        for i, lb in enumerate(lbs):
+            bounds[i, : len(lb[2])], ids[i, : len(lb[2])] = lb[1], lb[2]
+        hi, lo, bins = di3i._cols["__zhi"], di3i._cols["__zlo"], di3i._cols["__zbin"]
+        pk = zscan.batched_zscan(bounds, ids)
+        pk.device_table(dev)
+        b2 = np.stack([lb[1] for lb in z2b[:nq]])
+        h2, l2 = di2i._cols["__zhi"], di2i._cols["__zlo"]
+        pk2 = zscan.batched_zscan(b2, None)
+        pk2.device_table(dev)
+        for kind in ("count", "mask"):
+            m = kind == "mask"
+            base3 = lambda: zscan.batched_kind_mask("z3")(hi, lo, bins, bounds, ids) & v  # noqa: E731
+            single = [di3i._loose_args(lb)[1 if m else 0] for lb in lbs]
+            brow(f"zscan_batched_z3_{kind}", rkind,
+                 lambda m=m: pk.run(bins, hi, lo, want_mask=m, valid=v),
+                 base3 if m else (lambda: base3().sum(dim=1, dtype=torch.int32)),
+                 lambda single=single: [f(bins, hi, lo, valid=v) for f in single],
+                 13 * n + (nq * n if m else 4 * nq), zscan_ops(lbs, hi, lo, bins) + n, nq,
+                 vc, it, pit, valid=True)
+            base2 = lambda: zscan.batched_kind_mask("z2")(h2, l2, b2) & v  # noqa: E731
+            single2 = [di2i._loose_args(lb)[1 if m else 0] for lb in z2b[:nq]]
+            brow(f"zscan_batched_z2_{kind}", rkind,
+                 lambda m=m: pk2.run(None, h2, l2, want_mask=m, valid=v),
+                 base2 if m else (lambda: base2().sum(dim=1, dtype=torch.int32)),
+                 lambda single=single2: [f(h2, l2, valid=v) for f in single],
+                 9 * n + (nq * n if m else 4 * nq), zscan_ops(z2b[:nq], h2, l2) + n, nq,
+                 vc, it, pit, valid=True)
+
     for nq in (1, 4, 8, 64):
         it, pit = (50, 3) if nq < 64 else (20, 1)
         for r, qm in ((1, q3[:nq]), (2, split[:nq])):
@@ -2986,6 +3698,8 @@ def batched_rows(dev, sched, idx, launches, errs: Errs) -> list:
                  8 * n + (4 * nq if kind == "count" else nq * n), zscan_ops(z2b[:nq], h2, l2), nq,
                  f"Q={nq}, 2^26 rows", it, pit,
                  launch=lambda pk=pk2, m=kind == "mask": pk.run(None, h2, l2, want_mask=m))
+        if nq in (4, 64):
+            validity_brows(nq, it, pit)
         torch.cuda.empty_cache()
     return rows
 
@@ -3281,6 +3995,12 @@ def main() -> int:
     check_density(dev, errs)
     check_ais_ops(dev)
     check_batched_scans(dev, errs)
+    tv = time.time()
+    nv = check_validity(dev, errs, N_ROWS)
+    log(f"phase 2 validity: {nv} count and mask comparisons at {N_ROWS:,} rows (patterns "
+        f"{[p for p, _ in valid_patterns(1, dev, 0)]}, batched at Q in {list(VALID_QS)}) in "
+        f"{time.time() - tv:.1f} s")
+    torch.cuda.empty_cache()
     log(f"phase 2: kernels == plain versions, bit-exact (weighted density: rtol 1e-6) "
         f"({time.time() - t:.1f} s)")
     launch_floor(dev)
@@ -3306,18 +4026,32 @@ def main() -> int:
     t = time.time()
     sched = run_sched_path(dev, cols, di3, di2, inter["di3i"], inter["di2i"])
     log(f"phase 3f: the scheduler in {time.time() - t:.1f} s")
+    t = time.time()
+    stream = run_streaming_path(dev, cols, queries, sched["traffic"])
+    log(f"phase 3g: the streaming index in {time.time() - t:.1f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
                 + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) + sched["launches"][k]
-                for k in main_launches}
+                + stream["launches"][k] for k in main_launches}
+    valid_launches = stream["valid"]
+    missing = sorted(k for k in ("dimscan_z3_count", "dimscan_batched_z3_count", "zscan_z3_count",
+                                 "zscan_batched_z3_count", "filter_scan_count")
+                     if not valid_launches[k])
+    if missing:
+        raise AssertionError(f"phase 3g: no launch of {missing} read the validity plane")
 
-    rows = kernel_table(dev, di3, di2, inter, queries, z2q, launches, errs)
+    rows = kernel_table(dev, di3, di2, inter, queries, z2q, launches, valid_launches, errs)
     rows += density_rows(dev, di3, launches, errs)
     env_rows, ops_rows = xz_rows(dev, xz, launches, errs)
     rows += env_rows
     rows += batched_rows(dev, sched, {"z3": di3, "z2": di2, "z3i": inter["di3i"],
-                                      "z2i": inter["di2i"]}, launches, errs)
+                                      "z2i": inter["di2i"]}, launches, valid_launches, errs)
+    for r in rows:
+        r.setdefault("valid", False)
+        r["valid_launches"] = valid_launches[r["name"]]
     missing = sorted(set(launches) - {r["name"] for r in rows})
+    missing += sorted(k for k, v in valid_launches.items() if v and not any(
+        r["name"] == k and r["valid"] for r in rows))
     if missing:
         raise AssertionError(f"the kernels line lacks {missing}")
     ops_rows += ais_ops_rows(dev, ais)

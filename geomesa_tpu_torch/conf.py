@@ -2,7 +2,9 @@
 
 Counterpart of ``geomesa_tpu/conf.py``, trimmed to the keys of the device
 query scheduler (``sched.*``), the launch watchdog and circuit breaker
-(``resilience.*``). Each key has a
+(``resilience.*``), the loose-bbox default of the resident index
+(``query.loose.bbox``) and the memtable size that hints a streaming
+index's capacity (``stream.memtable.rows``). Each key has a
 default, an environment override (``GEOMESA_TPU_<NAME>`` with dots as
 underscores) and a programmatic override for tests (``set_prop`` /
 ``clear_prop`` or the ``prop_override`` context manager); the override wins
@@ -36,6 +38,12 @@ _DEFS = {
     "resilience.breaker.failures": (5, int),
     "resilience.breaker.cooldown.s": (5.0, float),
     "resilience.launch.timeout.s": (30.0, float),
+    # answer bbox(+during) queries straight from the index key at cell
+    # granularity when a call passes loose=None (ref geomesa.loose.bbox)
+    "query.loose.bbox": (False, _parse_bool),
+    # rows a live layer buffers before it compacts: a resident streaming
+    # index takes it as headroom in its capacity hint
+    "stream.memtable.rows": (1 << 15, int),
 }
 
 _overrides: dict = {}

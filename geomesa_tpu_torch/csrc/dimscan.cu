@@ -23,6 +23,12 @@
 // reduces per warp (__reduce_add_sync) and per block, then does one
 // integer atomicAdd per block: integer addition is order-independent, so
 // the count is exact and deterministic although blocks run in no order.
+//
+// Validity (a streaming index's live rows, valid.cuh): with a plane, a row
+// counts, and its mask byte is set, only where its verdict and its validity
+// byte are both set; 1 B/row more to read, one 32-bit load a quad. The read
+// is a template parameter chosen by the pointer on the host, so a launch
+// without a plane runs the code it ran before.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,6 +36,7 @@
 namespace {
 
 #include "quad.cuh"
+#include "valid.cuh"
 
 constexpr int kMaxQ = 20;  // 4 + 2 * 8 ranges
 
@@ -111,18 +118,21 @@ __device__ __forceinline__ uint32_t quad_hits(const uint32_t* nx,
   return quad_bits<NR>(load_quad<NR>(nx, ny, bt, row, n), q);
 }
 
-template <int NR>
+template <int NR, bool VALID>
 __global__ void __launch_bounds__(kThreads)
 dimscan_count_kernel(const uint32_t* __restrict__ nx,
                      const uint32_t* __restrict__ ny,
-                     const uint32_t* __restrict__ bt, long long n,
+                     const uint32_t* __restrict__ bt,
+                     const uint8_t* __restrict__ valid, long long n,
                      DimQuery q, int* __restrict__ out) {
   const long long quads = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   int c = 0;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < quads; i += stride) {
-    c += __popc(quad_hits<NR>(nx, ny, bt, 4 * i, n, q));
+    uint32_t bits = quad_hits<NR>(nx, ny, bt, 4 * i, n, q);
+    if (VALID) bits &= valid_bits(valid, 4 * i, n);
+    c += __popc(bits);
   }
   c = __reduce_add_sync(0xffffffffu, c);
   __shared__ int warp_sums[kThreads / 32];
@@ -136,11 +146,12 @@ dimscan_count_kernel(const uint32_t* __restrict__ nx,
   }
 }
 
-template <int NR>
+template <int NR, bool VALID>
 __global__ void __launch_bounds__(kThreads)
 dimscan_mask_kernel(const uint32_t* __restrict__ nx,
                     const uint32_t* __restrict__ ny,
-                    const uint32_t* __restrict__ bt, long long n,
+                    const uint32_t* __restrict__ bt,
+                    const uint8_t* __restrict__ valid, long long n,
                     DimQuery q, uint8_t* __restrict__ out) {
   const long long quads = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -148,6 +159,7 @@ dimscan_mask_kernel(const uint32_t* __restrict__ nx,
        i < quads; i += stride) {
     const long long row = 4 * i;
     uint32_t bits = quad_hits<NR>(nx, ny, bt, row, n, q);
+    if (VALID) bits &= valid_bits(valid, row, n);
     if (row + 4 <= n) {
       // one byte (0 or 1) per row, 4 rows per 32-bit store
       uint32_t w = (bits & 1u) | ((bits >> 1 & 1u) << 8) |
@@ -159,17 +171,28 @@ dimscan_mask_kernel(const uint32_t* __restrict__ nx,
   }
 }
 
-template <int NR>
-void launch(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
-            long long n, const DimQuery& q, int want_mask, void* out,
-            cudaStream_t stream) {
+template <int NR, bool VALID>
+void launch_v(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
+              const uint8_t* valid, long long n, const DimQuery& q, int want_mask,
+              void* out, cudaStream_t stream) {
   const int grid = grid_for(n);
   if (want_mask) {
-    dimscan_mask_kernel<NR><<<grid, kThreads, 0, stream>>>(
-        nx, ny, bt, n, q, static_cast<uint8_t*>(out));
+    dimscan_mask_kernel<NR, VALID><<<grid, kThreads, 0, stream>>>(
+        nx, ny, bt, valid, n, q, static_cast<uint8_t*>(out));
   } else {
-    dimscan_count_kernel<NR><<<grid, kThreads, 0, stream>>>(
-        nx, ny, bt, n, q, static_cast<int*>(out));
+    dimscan_count_kernel<NR, VALID><<<grid, kThreads, 0, stream>>>(
+        nx, ny, bt, valid, n, q, static_cast<int*>(out));
+  }
+}
+
+template <int NR>
+void launch(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
+            const uint8_t* valid, long long n, const DimQuery& q, int want_mask,
+            void* out, cudaStream_t stream) {
+  if (valid) {
+    launch_v<NR, true>(nx, ny, bt, valid, n, q, want_mask, out, stream);
+  } else {
+    launch_v<NR, false>(nx, ny, bt, valid, n, q, want_mask, out, stream);
   }
 }
 
@@ -189,7 +212,9 @@ void launch(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
 // (__reduce_add_sync, the warp's lanes stepping through the rows together)
 // into per-warp counters in shared memory, then one atomic per block and
 // query. The mask writes Q bytes a row: a (Q, n) matrix, one contiguous row
-// of n bytes per query, so that a query's host take reads one row.
+// of n bytes per query, so that a query's host take reads one row. With a
+// validity plane, each quad's hit bits of every query are ANDed with its
+// rows' validity bits before the counts and the mask.
 
 constexpr int kMaxBatch = 64;
 constexpr int kWarps = kThreads / 32;
@@ -200,11 +225,12 @@ __device__ __forceinline__ void stage_queries(const uint32_t* qmat, int nq,
   for (int i = threadIdx.x; i < nq * (4 + 2 * NR); i += blockDim.x) s[i] = qmat[i];
 }
 
-template <int NR>
+template <int NR, bool VALID>
 __global__ void __launch_bounds__(kThreads)
 dimscan_batched_count_kernel(const uint32_t* __restrict__ nx,
                              const uint32_t* __restrict__ ny,
-                             const uint32_t* __restrict__ bt, long long n,
+                             const uint32_t* __restrict__ bt,
+                             const uint8_t* __restrict__ valid, long long n,
                              const uint32_t* __restrict__ qmat, int nq,
                              int* __restrict__ out) {
   constexpr int W = 4 + 2 * NR;
@@ -221,8 +247,13 @@ dimscan_batched_count_kernel(const uint32_t* __restrict__ nx,
   for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
        base < quads; base += stride) {
     const Quad d = load_quad<NR>(nx, ny, bt, 4 * (base + lane), n);
+    // without a plane the AND is not compiled: it cost an operation a
+    // query and quad, and wide groups are bound by operations
+    const uint32_t vb = VALID ? valid_bits(valid, 4 * (base + lane), n) : 0u;
     for (int q = 0; q < nq; ++q) {
-      const int c = __reduce_add_sync(0xffffffffu, __popc(quad_bits<NR>(d, sq + q * W)));
+      uint32_t bits = quad_bits<NR>(d, sq + q * W);
+      if (VALID) bits &= vb;
+      const int c = __reduce_add_sync(0xffffffffu, __popc(bits));
       if (lane == 0) counts[warp][q] += c;
     }
   }
@@ -235,11 +266,12 @@ dimscan_batched_count_kernel(const uint32_t* __restrict__ nx,
   }
 }
 
-template <int NR>
+template <int NR, bool VALID>
 __global__ void __launch_bounds__(kThreads)
 dimscan_batched_mask_kernel(const uint32_t* __restrict__ nx,
                             const uint32_t* __restrict__ ny,
-                            const uint32_t* __restrict__ bt, long long n,
+                            const uint32_t* __restrict__ bt,
+                            const uint8_t* __restrict__ valid, long long n,
                             const uint32_t* __restrict__ qmat, int nq,
                             uint8_t* __restrict__ out) {
   constexpr int W = 4 + 2 * NR;
@@ -251,21 +283,37 @@ dimscan_batched_mask_kernel(const uint32_t* __restrict__ nx,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < quads; i += stride) {
     const Quad d = load_quad<NR>(nx, ny, bt, 4 * i, n);
-    for (int q = 0; q < nq; ++q) store_bits(out, n, q, 4 * i, quad_bits<NR>(d, sq + q * W));
+    const uint32_t vb = VALID ? valid_bits(valid, 4 * i, n) : 0u;
+    for (int q = 0; q < nq; ++q) {
+      uint32_t bits = quad_bits<NR>(d, sq + q * W);
+      if (VALID) bits &= vb;
+      store_bits(out, n, q, 4 * i, bits);
+    }
+  }
+}
+
+template <int NR, bool VALID>
+void launch_batched_v(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
+                      const uint8_t* valid, long long n, const uint32_t* qmat, int nq,
+                      int want_mask, void* out, cudaStream_t stream) {
+  const int grid = grid_for(n);
+  if (want_mask) {
+    dimscan_batched_mask_kernel<NR, VALID><<<grid, kThreads, 0, stream>>>(
+        nx, ny, bt, valid, n, qmat, nq, static_cast<uint8_t*>(out));
+  } else {
+    dimscan_batched_count_kernel<NR, VALID><<<grid, kThreads, 0, stream>>>(
+        nx, ny, bt, valid, n, qmat, nq, static_cast<int*>(out));
   }
 }
 
 template <int NR>
 void launch_batched(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
-                    long long n, const uint32_t* qmat, int nq, int want_mask,
-                    void* out, cudaStream_t stream) {
-  const int grid = grid_for(n);
-  if (want_mask) {
-    dimscan_batched_mask_kernel<NR><<<grid, kThreads, 0, stream>>>(
-        nx, ny, bt, n, qmat, nq, static_cast<uint8_t*>(out));
+                    const uint8_t* valid, long long n, const uint32_t* qmat, int nq,
+                    int want_mask, void* out, cudaStream_t stream) {
+  if (valid) {
+    launch_batched_v<NR, true>(nx, ny, bt, valid, n, qmat, nq, want_mask, out, stream);
   } else {
-    dimscan_batched_count_kernel<NR><<<grid, kThreads, 0, stream>>>(
-        nx, ny, bt, n, qmat, nq, static_cast<int*>(out));
+    launch_batched_v<NR, false>(nx, ny, bt, valid, n, qmat, nq, want_mask, out, stream);
   }
 }
 
@@ -273,11 +321,12 @@ void launch_batched(const uint32_t* nx, const uint32_t* ny, const uint32_t* bt,
 
 // Plain C entry point (bound with ctypes). `qarr` is HOST memory holding
 // 4 + 2 * n_ranges uint32 words; it is copied into the kernel parameters.
-// For the count, `out` is one int32 that this call zeroes on `stream`
+// `valid` is null (every row live) or n bytes, 4-byte aligned, 0 for a dead
+// row. For the count, `out` is one int32 that this call zeroes on `stream`
 // first. Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for an n_ranges the template does not cover.
 extern "C" int gm_dimscan(const uint32_t* nx, const uint32_t* ny,
-                          const uint32_t* bt, long long n,
+                          const uint32_t* bt, const uint8_t* valid, long long n,
                           const uint32_t* qarr, int n_ranges, int want_mask,
                           void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -291,11 +340,11 @@ extern "C" int gm_dimscan(const uint32_t* nx, const uint32_t* ny,
   }
   if (n > 0) {
     switch (n_ranges) {
-      case 0: launch<0>(nx, ny, bt, n, q, want_mask, out, stream); break;
-      case 1: launch<1>(nx, ny, bt, n, q, want_mask, out, stream); break;
-      case 2: launch<2>(nx, ny, bt, n, q, want_mask, out, stream); break;
-      case 4: launch<4>(nx, ny, bt, n, q, want_mask, out, stream); break;
-      case 8: launch<8>(nx, ny, bt, n, q, want_mask, out, stream); break;
+      case 0: launch<0>(nx, ny, bt, valid, n, q, want_mask, out, stream); break;
+      case 1: launch<1>(nx, ny, bt, valid, n, q, want_mask, out, stream); break;
+      case 2: launch<2>(nx, ny, bt, valid, n, q, want_mask, out, stream); break;
+      case 4: launch<4>(nx, ny, bt, valid, n, q, want_mask, out, stream); break;
+      case 8: launch<8>(nx, ny, bt, valid, n, q, want_mask, out, stream); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -303,13 +352,13 @@ extern "C" int gm_dimscan(const uint32_t* nx, const uint32_t* ny,
 }
 
 // Plain C entry point of the batched scan (bound with ctypes). `qmat` is
-// DEVICE memory: nq rows of 4 + 2 * n_ranges uint32 words, 1 <= nq <= 64.
-// For the count, `out` is nq int32 that this call zeroes on `stream`
-// first; for the mask, nq * n bytes, row q holding query q's hits. Returns
+// DEVICE memory: nq rows of 4 + 2 * n_ranges uint32 words, 1 <= nq <= 64;
+// `valid` as for gm_dimscan. For the count, `out` is nq int32 that this
+// call zeroes on `stream` first; for the mask, nq * n bytes, row q holding query q's hits. Returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int gm_dimscan_batched(const uint32_t* nx, const uint32_t* ny,
-                                  const uint32_t* bt, long long n,
+                                  const uint32_t* bt, const uint8_t* valid, long long n,
                                   const uint32_t* qmat, int nq, int n_ranges,
                                   int want_mask, void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -321,11 +370,11 @@ extern "C" int gm_dimscan_batched(const uint32_t* nx, const uint32_t* ny,
   }
   if (n > 0) {
     switch (n_ranges) {
-      case 0: launch_batched<0>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
-      case 1: launch_batched<1>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
-      case 2: launch_batched<2>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
-      case 4: launch_batched<4>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
-      case 8: launch_batched<8>(nx, ny, bt, n, qmat, nq, want_mask, out, stream); break;
+      case 0: launch_batched<0>(nx, ny, bt, valid, n, qmat, nq, want_mask, out, stream); break;
+      case 1: launch_batched<1>(nx, ny, bt, valid, n, qmat, nq, want_mask, out, stream); break;
+      case 2: launch_batched<2>(nx, ny, bt, valid, n, qmat, nq, want_mask, out, stream); break;
+      case 4: launch_batched<4>(nx, ny, bt, valid, n, qmat, nq, want_mask, out, stream); break;
+      case 8: launch_batched<8>(nx, ny, bt, valid, n, qmat, nq, want_mask, out, stream); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else if (n_ranges != 0 && n_ranges != 1 && n_ranges != 2 && n_ranges != 4 &&

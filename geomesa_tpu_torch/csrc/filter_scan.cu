@@ -27,11 +27,19 @@
 // instruction on the same column hits L1), reads the planes in place, and
 // masks the ragged tail itself. The count reduces per warp and per block
 // and adds once per block with an integer atomic (exact, deterministic).
+//
+// Validity (a streaming index's live rows, valid.cuh): with a plane, a row
+// counts, and its mask byte is set, only where the program's verdict and
+// its validity byte are both set; 1 B/row more, one 32-bit load a quad. The
+// read is a template parameter chosen by the pointer on the host, so a
+// launch without a plane runs the code it ran before.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+#include "valid.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kMaxCols = 64;
@@ -268,10 +276,11 @@ __device__ __forceinline__ void load_program(const uint32_t* __restrict__ prog,
   __syncthreads();
 }
 
+template <bool VALID>
 __global__ void __launch_bounds__(kThreads)
-filter_scan_count_kernel(Cols cols, const uint32_t* __restrict__ prog,
-                         int n_instr, int n_const, long long n,
-                         int* __restrict__ out) {
+filter_scan_count_kernel(Cols cols, const uint8_t* __restrict__ valid,
+                         const uint32_t* __restrict__ prog, int n_instr,
+                         int n_const, long long n, int* __restrict__ out) {
   extern __shared__ uint32_t sm[];
   load_program(prog, n_instr * kInstrWords + n_const, sm);
   const int* ins = reinterpret_cast<const int*>(sm);
@@ -281,7 +290,9 @@ filter_scan_count_kernel(Cols cols, const uint32_t* __restrict__ prog,
   int c = 0;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < quads; i += stride) {
-    c += __popc(eval_quad(cols, ins, n_instr, K, 4 * i, n));
+    uint32_t bits = eval_quad(cols, ins, n_instr, K, 4 * i, n);
+    if (VALID) bits &= valid_bits(valid, 4 * i, n);
+    c += __popc(bits);
   }
   c = __reduce_add_sync(0xffffffffu, c);
   __shared__ int warp_sums[kThreads / 32];
@@ -295,10 +306,11 @@ filter_scan_count_kernel(Cols cols, const uint32_t* __restrict__ prog,
   }
 }
 
+template <bool VALID>
 __global__ void __launch_bounds__(kThreads)
-filter_scan_mask_kernel(Cols cols, const uint32_t* __restrict__ prog,
-                        int n_instr, int n_const, long long n,
-                        uint8_t* __restrict__ out) {
+filter_scan_mask_kernel(Cols cols, const uint8_t* __restrict__ valid,
+                        const uint32_t* __restrict__ prog, int n_instr,
+                        int n_const, long long n, uint8_t* __restrict__ out) {
   extern __shared__ uint32_t sm[];
   load_program(prog, n_instr * kInstrWords + n_const, sm);
   const int* ins = reinterpret_cast<const int*>(sm);
@@ -308,7 +320,8 @@ filter_scan_mask_kernel(Cols cols, const uint32_t* __restrict__ prog,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < quads; i += stride) {
     const long long row = 4 * i;
-    const uint32_t bits = eval_quad(cols, ins, n_instr, K, row, n);
+    uint32_t bits = eval_quad(cols, ins, n_instr, K, row, n);
+    if (VALID) bits &= valid_bits(valid, row, n);
     if (row + 4 <= n) {
       const uint32_t w = (bits & 1u) | ((bits >> 1 & 1u) << 8) |
                          ((bits >> 2 & 1u) << 16) | ((bits >> 3 & 1u) << 24);
@@ -334,17 +347,33 @@ int grid_for(long long n) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
+template <bool VALID>
+void launch(const Cols& cols, const uint8_t* valid, const uint32_t* prog, int n_instr,
+            int n_const, long long n, int want_mask, void* out, cudaStream_t stream) {
+  const int grid = grid_for(n);
+  const size_t smem = (size_t)(n_instr * kInstrWords + n_const) * sizeof(uint32_t);
+  if (want_mask) {
+    filter_scan_mask_kernel<VALID><<<grid, kThreads, smem, stream>>>(
+        cols, valid, prog, n_instr, n_const, n, static_cast<uint8_t*>(out));
+  } else {
+    filter_scan_count_kernel<VALID><<<grid, kThreads, smem, stream>>>(
+        cols, valid, prog, n_instr, n_const, n, static_cast<int*>(out));
+  }
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `col_ptrs` is HOST memory with
 // n_cols device pointers (copied into the kernel parameters); `prog` is a
 // DEVICE buffer of n_instr * 8 instruction words followed by n_const
-// constant words. For the count, `out` is one int32 that this call zeroes
-// on `stream` first. Returns cudaGetLastError() after the launch.
+// constant words; `valid` is null (every row live) or n bytes, 4-byte
+// aligned, 0 for a dead row. For the count, `out` is one int32 that this
+// call zeroes on `stream` first. Returns cudaGetLastError() after the
+// launch.
 extern "C" int gm_filter_scan(const unsigned long long* col_ptrs, int n_cols,
-                              const uint32_t* prog, int n_instr, int n_const,
-                              long long n, int want_mask, void* out,
-                              void* stream_ptr) {
+                              const uint8_t* valid, const uint32_t* prog,
+                              int n_instr, int n_const, long long n,
+                              int want_mask, void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int words = n_instr * kInstrWords + n_const;
   if (n_cols < 0 || n_cols > kMaxCols || n_instr < 1 || n_const < 0 ||
@@ -358,14 +387,10 @@ extern "C" int gm_filter_scan(const unsigned long long* col_ptrs, int n_cols,
     if (e != cudaSuccess) return (int)e;
   }
   if (n > 0) {
-    const int grid = grid_for(n);
-    const size_t smem = (size_t)words * sizeof(uint32_t);
-    if (want_mask) {
-      filter_scan_mask_kernel<<<grid, kThreads, smem, stream>>>(
-          cols, prog, n_instr, n_const, n, static_cast<uint8_t*>(out));
+    if (valid) {
+      launch<true>(cols, valid, prog, n_instr, n_const, n, want_mask, out, stream);
     } else {
-      filter_scan_count_kernel<<<grid, kThreads, smem, stream>>>(
-          cols, prog, n_instr, n_const, n, static_cast<int*>(out));
+      launch<false>(cols, valid, prog, n_instr, n_const, n, want_mask, out, stream);
     }
   }
   return (int)cudaGetLastError();

@@ -29,6 +29,12 @@
 // bins, 8 KB) are runtime data staged once per block in shared memory, so
 // one build serves every window. The count reduces per warp and per block,
 // then adds with one integer atomic per block: exact and order-independent.
+//
+// Validity (a streaming index's live rows, valid.cuh): with a plane, a row
+// counts, and its mask byte is set, only where its verdict and its validity
+// byte are both set; 1 B/row more, one 32-bit load a quad. The read is a
+// template parameter chosen by the pointer on the host, so a launch without
+// a plane runs the code it ran before.
 
 #include <climits>
 #include <cstdint>
@@ -37,6 +43,7 @@
 namespace {
 
 #include "quad.cuh"
+#include "valid.cuh"
 
 constexpr int kMaxEntries = 512;
 constexpr int kMaxSpan = 2048;
@@ -112,11 +119,12 @@ __device__ __forceinline__ void stage_table(const uint32_t* table, int nb,
   __syncthreads();
 }
 
-template <int NDIMS>
+template <int NDIMS, bool VALID>
 __global__ void __launch_bounds__(kThreads)
 zscan_count_kernel(const int* __restrict__ bins,
                    const uint32_t* __restrict__ zh,
-                   const uint32_t* __restrict__ zl, long long n,
+                   const uint32_t* __restrict__ zl,
+                   const uint8_t* __restrict__ valid, long long n,
                    const uint32_t* __restrict__ table, int nb, int first,
                    int span, int* __restrict__ out) {
   extern __shared__ uint32_t s[];
@@ -128,7 +136,9 @@ zscan_count_kernel(const int* __restrict__ bins,
   int c = 0;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < quads; i += stride) {
-    c += __popc(quad_hits<NDIMS>(bins, zh, zl, 4 * i, n, tab, entry_of, first, span));
+    uint32_t bits = quad_hits<NDIMS>(bins, zh, zl, 4 * i, n, tab, entry_of, first, span);
+    if (VALID) bits &= valid_bits(valid, 4 * i, n);
+    c += __popc(bits);
   }
   c = __reduce_add_sync(0xffffffffu, c);
   __shared__ int warp_sums[kThreads / 32];
@@ -142,11 +152,12 @@ zscan_count_kernel(const int* __restrict__ bins,
   }
 }
 
-template <int NDIMS>
+template <int NDIMS, bool VALID>
 __global__ void __launch_bounds__(kThreads)
 zscan_mask_kernel(const int* __restrict__ bins,
                   const uint32_t* __restrict__ zh,
-                  const uint32_t* __restrict__ zl, long long n,
+                  const uint32_t* __restrict__ zl,
+                  const uint8_t* __restrict__ valid, long long n,
                   const uint32_t* __restrict__ table, int nb, int first,
                   int span, uint8_t* __restrict__ out) {
   extern __shared__ uint32_t s[];
@@ -158,7 +169,8 @@ zscan_mask_kernel(const int* __restrict__ bins,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < quads; i += stride) {
     const long long row = 4 * i;
-    const uint32_t bits = quad_hits<NDIMS>(bins, zh, zl, row, n, tab, entry_of, first, span);
+    uint32_t bits = quad_hits<NDIMS>(bins, zh, zl, row, n, tab, entry_of, first, span);
+    if (VALID) bits &= valid_bits(valid, row, n);
     if (row + 4 <= n) {
       // one byte (0 or 1) per row, 4 rows per 32-bit store
       const uint32_t w = (bits & 1u) | ((bits >> 1 & 1u) << 8) |
@@ -170,19 +182,31 @@ zscan_mask_kernel(const int* __restrict__ bins,
   }
 }
 
-template <int NDIMS>
-void launch(const int* bins, const uint32_t* zh, const uint32_t* zl,
-            long long n, const uint32_t* table, int nb, int first, int span,
-            int want_mask, void* out, cudaStream_t stream) {
+template <int NDIMS, bool VALID>
+void launch_v(const int* bins, const uint32_t* zh, const uint32_t* zl, const uint8_t* valid,
+              long long n, const uint32_t* table, int nb, int first, int span,
+              int want_mask, void* out, cudaStream_t stream) {
   const int grid = grid_for(n);
   // room for one entry at least: a row without an entry reads entry 0
   const size_t smem = ((size_t)(nb > 0 ? nb : 1) * NDIMS * 6 + span) * sizeof(uint32_t);
   if (want_mask) {
-    zscan_mask_kernel<NDIMS><<<grid, kThreads, smem, stream>>>(
-        bins, zh, zl, n, table, nb, first, span, static_cast<uint8_t*>(out));
+    zscan_mask_kernel<NDIMS, VALID><<<grid, kThreads, smem, stream>>>(
+        bins, zh, zl, valid, n, table, nb, first, span, static_cast<uint8_t*>(out));
   } else {
-    zscan_count_kernel<NDIMS><<<grid, kThreads, smem, stream>>>(
-        bins, zh, zl, n, table, nb, first, span, static_cast<int*>(out));
+    zscan_count_kernel<NDIMS, VALID><<<grid, kThreads, smem, stream>>>(
+        bins, zh, zl, valid, n, table, nb, first, span, static_cast<int*>(out));
+  }
+}
+
+template <int NDIMS>
+void launch(const int* bins, const uint32_t* zh, const uint32_t* zl, const uint8_t* valid,
+            long long n, const uint32_t* table, int nb, int first, int span,
+            int want_mask, void* out, cudaStream_t stream) {
+  if (valid) {
+    launch_v<NDIMS, true>(bins, zh, zl, valid, n, table, nb, first, span, want_mask, out, stream);
+  } else {
+    launch_v<NDIMS, false>(bins, zh, zl, valid, n, table, nb, first, span, want_mask, out,
+                           stream);
   }
 }
 
@@ -239,6 +263,8 @@ void launch(const int* bins, const uint32_t* zh, const uint32_t* zl,
 //   order-independent. The mask transposes a quad's 4 words by byte
 //   permutes and writes each query's 4 bytes with one store into the
 //   (Q, n) byte matrix.
+// - with a validity plane, a dead row is not live: it meets no record, so
+//   its hit word is 0 for the counters and the mask.
 
 constexpr int kMaxBatch = 64;
 constexpr int kWarps = kThreads / 32;
@@ -478,10 +504,11 @@ __device__ __forceinline__ void store_quad(uint8_t* out, long long n, int nq, lo
 // first + i's compact and masked records start) and each row reads the
 // records of its own bin; else every row tests every record (with its bin,
 // z3). [first, first + span) holds every record's bin.
-template <int NDIMS, bool MASK, bool BINNED>
+template <int NDIMS, bool MASK, bool BINNED, bool VALID>
 __global__ void __launch_bounds__(kThreads)
 zscan_group_kernel(const int* __restrict__ bins, const uint32_t* __restrict__ zh,
-                   const uint32_t* __restrict__ zl, long long n,
+                   const uint32_t* __restrict__ zl, const uint8_t* __restrict__ valid,
+                   long long n,
                    const uint32_t* __restrict__ table, int words, int nq, int nc, int nm,
                    int first, int span, void* __restrict__ out) {
   extern __shared__ uint4 stab[];
@@ -512,13 +539,14 @@ zscan_group_kernel(const int* __restrict__ bins, const uint32_t* __restrict__ zh
     unsigned long long hits[4] = {0ull, 0ull, 0ull, 0ull};
     int2 from[4], to[4];
     uint32_t live = 0;
+    const uint32_t vb = VALID ? valid_bits(valid, row, n) : 0xfu;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      // live: a bin inside the span (in 64 bits, so that no bin wraps into
-      // it) that, with the index, has records
+      // live: a valid row whose bin lies inside the span (in 64 bits, so
+      // that no bin wraps into it) and, with the index, has records
       const unsigned long long off =
           (unsigned long long)((long long)d.b[r] - (long long)first);
-      bool ok = off < (unsigned long long)span;
+      bool ok = off < (unsigned long long)span && ((vb >> r) & 1u);
       from[r] = to[r] = make_int2(0, 0);
       if (BINNED && ok) {
         from[r] = index[off];
@@ -567,34 +595,46 @@ zscan_group_kernel(const int* __restrict__ bins, const uint32_t* __restrict__ zh
   }
 }
 
-template <int NDIMS, bool MASK, bool BINNED>
-cudaError_t launch_group(const int* bins, const uint32_t* zh, const uint32_t* zl, long long n,
-                         const uint32_t* table, int words, int nq, int nc, int nm, int first,
-                         int span, void* out, cudaStream_t stream) {
-  auto kern = zscan_group_kernel<NDIMS, MASK, BINNED>;
+template <int NDIMS, bool MASK, bool BINNED, bool VALID>
+cudaError_t launch_group(const int* bins, const uint32_t* zh, const uint32_t* zl,
+                         const uint8_t* valid, long long n, const uint32_t* table, int words,
+                         int nq, int nc, int nm, int first, int span, void* out,
+                         cudaStream_t stream) {
+  auto kern = zscan_group_kernel<NDIMS, MASK, BINNED, VALID>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxTableBytes);
   if (attr != cudaSuccess) return attr;
   kern<<<grid_for(n), kThreads, (size_t)words * sizeof(uint32_t), stream>>>(
-      bins, zh, zl, n, table, words, nq, nc, nm, first, span, out);
+      bins, zh, zl, valid, n, table, words, nq, nc, nm, first, span, out);
   return cudaGetLastError();
+}
+
+template <int NDIMS, bool VALID>
+cudaError_t launch_batched_v(const int* bins, const uint32_t* zh, const uint32_t* zl,
+                             const uint8_t* valid, long long n, const uint32_t* table, int words,
+                             int nq, int nc, int nm, int first, int span, bool binned, bool mask,
+                             void* out, cudaStream_t stream) {
+  if (mask) {
+    return binned ? launch_group<NDIMS, true, true, VALID>(bins, zh, zl, valid, n, table, words,
+                                                           nq, nc, nm, first, span, out, stream)
+                  : launch_group<NDIMS, true, false, VALID>(bins, zh, zl, valid, n, table, words,
+                                                            nq, nc, nm, first, span, out, stream);
+  }
+  return binned ? launch_group<NDIMS, false, true, VALID>(bins, zh, zl, valid, n, table, words,
+                                                          nq, nc, nm, first, span, out, stream)
+                : launch_group<NDIMS, false, false, VALID>(bins, zh, zl, valid, n, table, words,
+                                                           nq, nc, nm, first, span, out, stream);
 }
 
 template <int NDIMS>
 cudaError_t launch_batched(const int* bins, const uint32_t* zh, const uint32_t* zl,
-                           long long n, const uint32_t* table, int words, int nq, int nc,
-                           int nm, int first, int span, bool binned, bool mask, void* out,
-                           cudaStream_t stream) {
-  if (mask) {
-    return binned ? launch_group<NDIMS, true, true>(bins, zh, zl, n, table, words, nq, nc, nm,
-                                                    first, span, out, stream)
-                  : launch_group<NDIMS, true, false>(bins, zh, zl, n, table, words, nq, nc, nm,
-                                                     first, span, out, stream);
-  }
-  return binned ? launch_group<NDIMS, false, true>(bins, zh, zl, n, table, words, nq, nc, nm,
-                                                   first, span, out, stream)
-                : launch_group<NDIMS, false, false>(bins, zh, zl, n, table, words, nq, nc, nm,
-                                                    first, span, out, stream);
+                           const uint8_t* valid, long long n, const uint32_t* table, int words,
+                           int nq, int nc, int nm, int first, int span, bool binned, bool mask,
+                           void* out, cudaStream_t stream) {
+  return valid ? launch_batched_v<NDIMS, true>(bins, zh, zl, valid, n, table, words, nq, nc, nm,
+                                               first, span, binned, mask, out, stream)
+               : launch_batched_v<NDIMS, false>(bins, zh, zl, valid, n, table, words, nq, nc, nm,
+                                                first, span, binned, mask, out, stream);
 }
 
 }  // namespace
@@ -602,12 +642,13 @@ cudaError_t launch_batched(const int* bins, const uint32_t* zh, const uint32_t* 
 // Plain C entry point (bound with ctypes). `table` is DEVICE memory laid
 // out as above (n_entries entries of n_dims * 6 words, then, binned, the
 // span int32 words of the bin table from bin `first`); `bins` is null for
-// n_dims == 2, which takes one entry and no bin table. For the count,
-// `out` is one int32 that this call zeroes on `stream` first. Returns
+// n_dims == 2, which takes one entry and no bin table; `valid` is null
+// (every row live) or n bytes, 4-byte aligned, 0 for a dead row. For the
+// count, `out` is one int32 that this call zeroes on `stream` first. Returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int gm_zscan(const int* bins, const uint32_t* zh, const uint32_t* zl,
-                        long long n, const uint32_t* table, int n_entries,
+                        const uint8_t* valid, long long n, const uint32_t* table, int n_entries,
                         int first, int span, int n_dims, int want_mask,
                         void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -623,10 +664,10 @@ extern "C" int gm_zscan(const int* bins, const uint32_t* zh, const uint32_t* zl,
   }
   if (n > 0) {
     if (n_dims == 3) {
-      launch<3>(bins, zh, zl, n, table, n_entries, first, span, want_mask,
+      launch<3>(bins, zh, zl, valid, n, table, n_entries, first, span, want_mask,
                 out, stream);
     } else {
-      launch<2>(nullptr, zh, zl, n, table, n_entries, 0, 0, want_mask, out,
+      launch<2>(nullptr, zh, zl, valid, n, table, n_entries, 0, 0, want_mask, out,
                 stream);
     }
   }
@@ -640,12 +681,12 @@ extern "C" int gm_zscan(const int* bins, const uint32_t* zh, const uint32_t* zl,
 // records, n_masked masked records, then, binned, the bin index of span + 1
 // int2 padded to a multiple of 4 words. Every record's bin lies in [first,
 // first + span); z2 (n_dims 2, `bins` null) takes first 0, span 1 and no
-// index. For the count, `out` is nq int32 that this call zeroes on
-// `stream` first; for the mask, nq * n bytes, row q holding query q's
+// index; `valid` as for gm_zscan. For the count, `out` is nq int32 that
+// this call zeroes on `stream` first; for the mask, nq * n bytes, row q holding query q's
 // hits. Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int gm_zscan_batched(const int* bins, const uint32_t* zh,
-                                const uint32_t* zl, long long n,
+                                const uint32_t* zl, const uint8_t* valid, long long n,
                                 const uint32_t* table, int words, int nq,
                                 int n_compact, int n_masked, int first, int span,
                                 int binned, int n_dims, int want_mask, void* out,
@@ -667,10 +708,10 @@ extern "C" int gm_zscan_batched(const int* bins, const uint32_t* zh,
   if (n > 0) {
     const cudaError_t e =
         n_dims == 3
-            ? launch_batched<3>(bins, zh, zl, n, table, words, nq, n_compact, n_masked, first,
-                                span, binned != 0, want_mask != 0, out, stream)
-            : launch_batched<2>(nullptr, zh, zl, n, table, words, nq, n_compact, n_masked, 0,
-                                1, false, want_mask != 0, out, stream);
+            ? launch_batched<3>(bins, zh, zl, valid, n, table, words, nq, n_compact, n_masked,
+                                first, span, binned != 0, want_mask != 0, out, stream)
+            : launch_batched<2>(nullptr, zh, zl, valid, n, table, words, nq, n_compact,
+                                n_masked, 0, 1, false, want_mask != 0, out, stream);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();

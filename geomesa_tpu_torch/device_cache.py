@@ -37,15 +37,30 @@ The device query scheduler's fused loose paths (``fused_loose_counts``,
 ``fused_loose_query``) answer a group of compatible loose queries in one
 launch of the batched dim-scan or interleaved-scan kernel.
 
+``StreamingDeviceIndex`` keeps a live store's appends, evictions and
+upserts resident without a restage: fixed-capacity buffers behind a bool
+validity plane. Every scan above reads the subclass hooks
+(``_host_rows``, ``_host_valid``, ``_device_valid``, ``_staged_len``):
+each launch covers the staged rows only, and the count and mask kernels
+(dim scan, interleaved scan, filter scan and both batched scans) take the
+validity plane as an operand; density, kNN and the window union get it
+through ``_and_seen``. Build one over a store, feed it through
+``append``/``evict``/``upsert``/``refresh_delta`` or ``attach_live``
+(Put, Remove, Clear messages of ``stream/log.py``), and query it as a
+``DeviceIndex``.
+
 Not in the port yet; each raises ``NotImplementedError`` naming its
-ROADMAP item: streaming and sharded indexes, window pairs and joins, and
-the stats the host sketches serve (Cardinality, TopK, Frequency,
-Z3Histogram).
+ROADMAP item: sharded indexes, window pairs and joins, BIN output
+(``window_pairs_query``, ``bin_export``, ``bin_rider``: item 4), the AOT
+warmup (``warmup``, ``warmup_plan``: item 5), and the stats the host
+sketches serve (Cardinality, TopK, Frequency, Z3Histogram).
 """
 
 from __future__ import annotations
 
+import threading
 import warnings
+from contextlib import contextmanager
 from functools import partial
 
 import numpy as np
@@ -58,6 +73,7 @@ from geomesa_tpu_torch.curves.binnedtime import (
     offset_to_millis,
 )
 from geomesa_tpu_torch.device import resolve_device
+from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.keyplanes import encode_inputs, schema_kind
@@ -91,6 +107,11 @@ _AUTH_TABLES_MAX = 256  # cached auth sets (request input: bounded)
 
 class _VisOverflow(Exception):
     """The label vocabulary exceeded VIS_VOCAB_MAX."""
+
+
+class _BtRebase(Exception):
+    """A delta's period bins fall outside the window the staged bt plane
+    is packed around: the bt plane repacks in a full restage."""
 
 
 def _later(item: str) -> str:
@@ -154,8 +175,12 @@ class DeviceIndex:
     counterpart. ``dim_planes`` picks the key layout: None (the default)
     stages dim planes when the bins pack and the interleaved key
     otherwise, False always the interleaved key, True dim planes or a
-    ``ValueError``. Runs on ``cuda:0`` unless ``device`` says otherwise;
-    ``device="cpu"`` runs the kernels' plain versions on the host.
+    ``ValueError``. With ``loose=None`` a call reads the
+    ``query.loose.bbox`` property (off by default). ``columns`` names the
+    attribute planes to stage (default: every plane the scans can read);
+    a filter over a plane left out is evaluated on the host. Runs on
+    ``cuda:0`` unless ``device`` says otherwise; ``device="cpu"`` runs
+    the kernels' plain versions on the host.
 
     Visibility (per-auth resident serving, ref Accumulo cell visibility):
     staging keeps EVERY row plus a compact label-id plane (the distinct
@@ -175,6 +200,7 @@ class DeviceIndex:
         self,
         store,
         type_name: str,
+        columns: "list[str] | None" = None,
         z_planes: bool = False,
         dim_planes: "bool | None" = None,
         device=None,
@@ -183,7 +209,7 @@ class DeviceIndex:
         self.store = store
         self.type_name = type_name
         self.sft = store.get_schema(type_name)
-        self._planes = _stageable_planes(self.sft)
+        self._planes = list(columns) if columns else _stageable_planes(self.sft)
         self._want_z = z_planes
         self._dim_pref = dim_planes
         self._reset_vis()
@@ -279,6 +305,25 @@ class DeviceIndex:
         self._reset()
         self._host_batch, self._cols = self._stage_checked(res.batch)
 
+    def refresh_delta(self, batch) -> str:
+        """Fold freshly appended rows into the resident planes. This index
+        has no validity plane or capacity headroom, so its move is a full
+        restage from the store; ``StreamingDeviceIndex`` appends in place.
+        Returns the mode taken (``"delta"`` / ``"restage"``) and counts it
+        on ``geomesa_stream_delta_refreshes_total``."""
+        from geomesa_tpu_torch import metrics
+
+        self.refresh()
+        metrics.stream_delta_refreshes.inc(mode="restage")
+        return "restage"
+
+    def attach_live(self, live_store):
+        """Restage on every change a live layer applies (``live_store``
+        has ``add_listener``, and may have ``remove_listener``). Returns a
+        callable of no arguments that detaches the listener."""
+        listener = lambda _msg: self.refresh()  # noqa: E731
+        return _attach(live_store, listener)
+
     def _stage_checked(self, batch):
         """(batch, cols) with the vocabulary-overflow route, decided on the
         host before anything is staged: on overflow, per-auth residency is
@@ -304,7 +349,7 @@ class DeviceIndex:
             ids = self._vis_ids(batch)
         cols = self._stage_batch(batch)
         if ids is not None:
-            cols[VIS_ID] = to_tensor(ids, self.device)
+            cols[VIS_ID] = self._up(ids)
         self._visid_np = ids
         return batch, cols
 
@@ -375,10 +420,28 @@ class DeviceIndex:
             return m
         return m & self._auth_table(auths)[0][self._visid_np[: len(m)]]
 
+    #: stage through pinned, non-blocking copies (a streaming index's
+    #: deltas); full stagings copy from pageable memory
+    _pin_uploads = False
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> tensor on the index's device, bits unchanged, on
+        the current stream. With ``_pin_uploads`` on a card the copy goes
+        through pinned memory without a host synchronisation (PyTorch's
+        pinned allocator keeps the block until the copy has run)."""
+        if not (self._pin_uploads and self.device.type == "cuda"):
+            return to_tensor(a, self.device)
+        t = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+        return t.to(self.device, non_blocking=True)
+
     def _stage_batch(self, batch) -> dict:
-        """Attribute planes + (optionally) key planes for a batch."""
+        """Attribute planes + (optionally) key planes for a batch. The key
+        layout is decided when nothing is staged yet (``_bin_range`` None:
+        an install); a delta keeps it and packs its bt words around the
+        staged base (:class:`_BtRebase` when they do not fit). Widens the
+        staged bin range."""
         host = stage_columns_host(batch, self._planes)
-        cols = {k: to_tensor(v, self.device) for k, v in host.items()}
+        cols = {k: self._up(v) for k, v in host.items()}
         if not self._want_z:
             return cols
         kind, sfc = schema_kind(self.sft)
@@ -387,7 +450,8 @@ class DeviceIndex:
         coords, bins = encode_inputs(
             batch, kind, sfc, self.sft.geom_field, self.sft.dtg_field
         )
-        self._dim_mode = self._dim_usable(kind, sfc, bins)
+        if self._bin_range is None:
+            self._dim_mode = self._dim_usable(kind, sfc, bins)
         self._z_kind = kind
         if not self._dim_mode:
             cols.update(self._interleaved_planes(sfc, coords, bins))
@@ -435,7 +499,7 @@ class DeviceIndex:
 
     def _quantize(self, dim, values: np.ndarray) -> torch.Tensor:
         # float64 on the device: the counterpart quantizes under scoped x64
-        return dim.normalize_t(torch.from_numpy(values).to(self.device))
+        return dim.normalize_t(self._up(values))
 
     def _dim_planes_z2(self, sfc, coords) -> dict:
         x, y = coords
@@ -449,25 +513,29 @@ class DeviceIndex:
         xz code encoded on the device (float64 math, bit for bit the host
         ``sfc.index``) and the int32 period bins."""
         hi, lo = sfc.index_hi_lo(
-            *(torch.from_numpy(np.asarray(c, np.float64)).to(self.device) for c in coords)
+            *(self._up(np.asarray(c, np.float64)) for c in coords)
         )
         planes = {Z_HI: hi, Z_LO: lo}
         if bins is not None:
-            planes[Z_BIN] = to_tensor(np.asarray(bins, np.int32), self.device)
+            planes[Z_BIN] = self._up(np.asarray(bins, np.int32))
         return planes
 
     def _dim_planes_for(self, sfc, coords, bins) -> dict:
         if bins is None or len(bins) == 0:
             e = torch.empty(0, dtype=torch.uint32, device=self.device)
             return {Z_NX: e, Z_NY: e.clone(), Z_BT: e.clone()}
-        self._bt_base = int(bins.min())
+        lo, hi = int(bins.min()), int(bins.max())
+        if self._bt_base is None:
+            self._bt_base = lo  # the first non-empty batch sets the base
+        if lo < self._bt_base or hi - self._bt_base >= zscan.BT_BIN_SPAN - 1:
+            raise _BtRebase()
         x, y, off = coords
         nx, ny, bt = zscan.z3_dim_planes(
             sfc,
             self._quantize(sfc.lon, x),
             self._quantize(sfc.lat, y),
             self._quantize(sfc.time, off),
-            torch.from_numpy(np.asarray(bins, np.int64)).to(self.device),
+            self._up(np.asarray(bins, np.int64)),
             self._bt_base,
         )
         return {Z_NX: nx, Z_NY: ny, Z_BT: bt}
@@ -479,6 +547,25 @@ class DeviceIndex:
     def nbytes(self) -> int:
         """Resident device bytes."""
         return int(sum(t.numel() * t.element_size() for t in self._cols.values()))
+
+    # -- subclass hooks ------------------------------------------------------
+
+    def _host_rows(self):
+        """Host mirror aligned row for row with the device planes."""
+        return self._host_batch
+
+    def _host_valid(self) -> "np.ndarray | None":
+        """Validity over the host mirror's rows; None: every row live."""
+        return None
+
+    def _device_valid(self) -> "torch.Tensor | None":
+        """The bool validity plane over the staged rows, the operand of
+        every count and mask launch; None: every row live."""
+        return None
+
+    def _staged_len(self) -> int:
+        """Rows staged on the device (live and dead)."""
+        return len(self._host_batch)
 
     # -- loose (key-only) scans --------------------------------------------
 
@@ -584,7 +671,7 @@ class DeviceIndex:
         """(count_fn, mask_fn, operands) for a ``_loose_bounds`` result: the
         one place that pairs a loose scan with its resident planes, so
         ``count``, ``mask``, ``_fused_agg`` and ``loose_scan_kernel`` run the
-        same kernel."""
+        same kernel. Both functions take the planes and ``valid=``."""
         if lb[0] == "dim":
             _, qarr, r = lb
             ops = (self._cols[Z_NX], self._cols[Z_NY])
@@ -598,7 +685,10 @@ class DeviceIndex:
         return count_fn, mask_fn, ops  # "zscan" and "xz": one operand order
 
     def _resolve_loose(self, loose: "bool | None") -> bool:
-        # None: the counterpart's query.loose.bbox default (off)
+        if loose is None:
+            from geomesa_tpu_torch.conf import sys_prop
+
+            loose = bool(sys_prop("query.loose.bbox"))
         return bool(loose) and self._z_kind is not None
 
     # -- queries -----------------------------------------------------------
@@ -623,62 +713,84 @@ class DeviceIndex:
             self._compiled[key] = compile_filter(f, self.sft)
         return self._compiled[key]
 
+    def _resident(self, compiled) -> bool:
+        """Whether every plane the filter's device part reads is staged (a
+        ``columns=`` list may leave some out: the host evaluates those
+        filters)."""
+        return all(c in self._cols for c in compiled.device_cols)
+
     def _resident_subset(self, compiled) -> dict:
         return {c: self._cols[c] for c in compiled.device_cols}
 
+    def _host_mask(self, compiled) -> np.ndarray:
+        """The filter over the host mirror, dead rows False."""
+        m = compiled.host_mask(self._host_rows())
+        hv = self._host_valid()
+        return m if hv is None else m & hv
+
     def count(self, query, loose: "bool | None" = None, auths=None) -> int:
         """Fused device count; exact when the filter is fully on device,
-        else it falls through to query(). With loose=True bbox(+during)
+        else it falls through to query(). With loose=True (or, for
+        loose=None, the ``query.loose.bbox`` property) bbox(+during)
         filters are answered at cell granularity from the key planes.
         ``auths`` applies per-request row security against the staged
         label-id plane (None/() hides labeled rows: fail closed)."""
+        from geomesa_tpu_torch.failpoints import fail_point
+
+        fail_point("fail.device.launch")  # chaos: resident count launch
         f = self._parse(query)
         if VIS_ID in self._cols:
             # labeled data: the auth table must AND into the device mask
-            if len(self) == 0:
+            if self._staged_len() == 0:
                 return 0
             n = self._fused_agg(f, loose, lambda cols, m: int(m.sum()), auths=auths)
             if n is not None:
                 return n
             return int(self.mask(f, loose=loose, auths=auths).sum())
+        dv = self._device_valid()
         if self._resolve_loose(loose):
             lb = self._loose_bounds(f)
             if lb is not None:
                 count_fn, _, ops = self._loose_args(lb)
-                return int(count_fn(*ops))
+                return int(count_fn(*ops, valid=dv))
         compiled = self._compiled_for(f)
-        if not compiled.device_cols:
-            return int(compiled.host_mask(self._host_batch).sum())
+        if not compiled.device_cols or not self._resident(compiled):
+            return int(self._host_mask(compiled).sum())
         if not compiled.fully_on_device:
             return len(self.query(f))
-        return int(compiled.count(self._resident_subset(compiled)))
+        return int(compiled.count(self._resident_subset(compiled), valid=dv))
 
     def mask(self, query, loose: "bool | None" = None, auths=None) -> np.ndarray:
-        """Boolean hit mask over the staged rows (host array). When a
-        label-id plane is staged, the per-request ``auths`` verdict is
-        ANDed in (fail closed on None/())."""
+        """Boolean hit mask over the staged rows (host array); dead rows
+        (evicted, in a streaming index) are False. When a label-id plane
+        is staged, the per-request ``auths`` verdict is ANDed in (fail
+        closed on None/())."""
+        from geomesa_tpu_torch.failpoints import fail_point
+
+        fail_point("fail.device.launch")  # chaos: resident scan launch
         f = self._parse(query)
+        dv = self._device_valid()
         if self._resolve_loose(loose):
             lb = self._loose_bounds(f)
             if lb is not None:
                 _, mask_fn, ops = self._loose_args(lb)
-                return self._apply_auths_np(mask_fn(*ops).cpu().numpy(), auths)
+                return self._apply_auths_np(mask_fn(*ops, valid=dv).cpu().numpy(), auths)
         compiled = self._compiled_for(f)
-        if not compiled.device_cols:
-            return self._apply_auths_np(compiled.host_mask(self._host_batch), auths)
-        m = compiled.mask(self._resident_subset(compiled)).cpu().numpy()
+        if not compiled.device_cols or not self._resident(compiled):
+            return self._apply_auths_np(self._host_mask(compiled), auths)
+        m = compiled.mask(self._resident_subset(compiled), valid=dv).cpu().numpy()
         if not compiled.fully_on_device:
             idx = np.nonzero(m)[0]
             out = np.zeros(len(m), dtype=bool)
             if len(idx):
-                keep = compiled.residual_mask(self._host_batch.take(idx))
+                keep = compiled.residual_mask(self._host_rows().take(idx))
                 out[idx[keep]] = True
             m = out
         return self._apply_auths_np(m, auths)
 
     def query(self, query, loose: "bool | None" = None, auths=None):
         """FeatureBatch of hits (host-side take over the device mask)."""
-        return self._host_batch.take(
+        return self._host_rows().take(
             np.nonzero(self.mask(query, loose=loose, auths=auths))[0]
         )
 
@@ -686,9 +798,10 @@ class DeviceIndex:
         """(count_fn, operands): the kernel wrapper and resident planes that
         ``count(query, loose=True)`` launches, so a benchmark can time the
         serving path's own kernel. None when the key planes cannot answer
-        the filter or a label-id plane would change the result."""
+        the filter or a validity or label-id plane would change the
+        result."""
         lb = self._loose_bounds(self._parse(query))
-        if lb is None or VIS_ID in self._cols:
+        if lb is None or self._device_valid() is not None or VIS_ID in self._cols:
             return None
         count_fn, _, ops = self._loose_args(lb)
         return count_fn, ops
@@ -699,16 +812,17 @@ class DeviceIndex:
         """The filter's mask on the device as a function of no arguments
         that launches it (and returns None for INCLUDE: every row), or None
         when the filter is not fully on the device. Nothing launches here."""
+        dv = self._device_valid()
         lb = self._loose_bounds(f) if self._resolve_loose(loose) else None
         if lb is not None:
             _, mask_fn, ops = self._loose_args(lb)
-            return lambda: mask_fn(*ops)
+            return lambda: mask_fn(*ops, valid=dv)
         if f is ast.Include and self._cols:
             return lambda: None
         compiled = self._compiled_for(f)
-        if not (compiled.device_cols and compiled.fully_on_device):
+        if not (compiled.device_cols and compiled.fully_on_device and self._resident(compiled)):
             return None
-        return lambda: compiled.mask(self._resident_subset(compiled))
+        return lambda: compiled.mask(self._resident_subset(compiled), valid=dv)
 
     def _fused_agg(self, f, loose, agg_build, auths=None):
         """The pushdown-aggregation hook: the filter mask, computed next to
@@ -717,20 +831,30 @@ class DeviceIndex:
         the loose key scan (``loose=True`` and a filter the key planes
         answer: the dim scan or the interleaved scan), None for INCLUDE
         (every row; the consumer skips the read), or the exact filter scan (the filter-scan kernel, or the plain
-        ``device_fn`` for a filter the encoder refuses); with a label-id
-        plane staged, the auth verdict gathered by label id is ANDed in.
+        ``device_fn`` for a filter the encoder refuses), each launch reading
+        the validity plane; with a label-id plane staged, the auth verdict
+        gathered by label id is ANDed in.
         Returns None when the filter is not fully on the device: the caller
         then takes its host path. The counterpart jits one dispatch per
         (filter, kind, aggregation); PyTorch runs eagerly, so only the
         filter's compiled program is cached (per ``repr(f)``)."""
+        from geomesa_tpu_torch.failpoints import fail_point
+
+        fail_point("fail.device.launch")  # chaos: fused-agg launch
         mask = self._device_mask(f, loose)
         if mask is None:
             return None
         return agg_build(self._cols, self._and_seen(mask(), auths))
 
     def _and_seen(self, m, auths):
-        """Mask ``m`` (None: every row) ANDed with the per-request auth
-        verdict gathered by label id, when a label-id plane is staged."""
+        """The rows a request sees: mask ``m`` -- None for every staged
+        row, else a mask whose launch already read the validity plane --
+        with, for None, the validity plane (when one is staged), ANDed with
+        the per-request auth verdict gathered by label id (when a label-id
+        plane is staged). The one place the aggregations, kNN and the
+        window union take validity and auths."""
+        if m is None:
+            m = self._device_valid()
         if VIS_ID not in self._cols:
             return m
         seen = self._auth_table(auths)[1][self._cols[VIS_ID]]
@@ -763,7 +887,7 @@ class DeviceIndex:
                 device_parts.append(("hist", s))  # every plane is numeric
             else:
                 host_parts.append(s)
-        if len(self) == 0:
+        if self._staged_len() == 0:
             return seq  # nothing staged: zero-size reductions have no identity
         outs = self._fused_agg(
             f, loose,
@@ -786,7 +910,7 @@ class DeviceIndex:
                 s.counts += outs[i]
         if host_parts:
             # the fused mask already evaluated the filter: reuse it
-            rows = self._host_batch.take(np.nonzero(outs["__mask"])[0])
+            rows = self._host_rows().take(np.nonzero(outs["__mask"])[0])
             for s in host_parts:
                 _observe_on_batch(s, rows)
         return seq
@@ -796,7 +920,7 @@ class DeviceIndex:
         every row), keyed by part index (two stats over one attribute must
         not share a slot): (min, max) for MinMax, the int64 bin counts for
         Histogram; ``__count`` always, ``__mask`` (host) for host parts."""
-        n = len(self)
+        n = self._staged_len()
         out: dict = {"__count": n if m is None else int(m.sum())}
         if need_mask:
             out["__mask"] = np.ones(n, bool) if m is None else m.cpu().numpy()
@@ -902,7 +1026,7 @@ class DeviceIndex:
         return fn is not None, fn
 
     def _empty(self):
-        return self._host_batch.take(np.array([], np.int64))
+        return self._host_rows().take(np.array([], np.int64))
 
     def window_union_query(self, envs, times=None, auths=None, base=None):
         """Candidate rows inside ANY of m runtime windows: the coarse pass of
@@ -912,8 +1036,8 @@ class DeviceIndex:
         ``envs``: (m, 4) ``[xmin, ymin, xmax, ymax]``; ``times``: optional
         (m, 2) int64 ``[t_lo, t_hi]`` epoch ms, inclusive, tested against
         the default date's lanes. ``base``: an optional filter whose exact
-        device mask (the filter-scan kernel) is ANDed in; ``auths`` as in
-        ``count``. Bounds widen one float32 ulp outward (candidate
+        device mask (the filter-scan kernel, reading the validity plane) is
+        ANDed in; ``auths`` as in ``count``. Bounds widen one float32 ulp outward (candidate
         semantics: callers refine). Returns the matching host rows in row
         order, or None when the point planes, the date lanes for
         ``times``, or a fully device-expressible ``base`` are missing."""
@@ -929,13 +1053,13 @@ class DeviceIndex:
         ok, base_fn = self._base_mask(base)
         if not ok:
             return None  # base not on the device: the store path instead
-        if len(self) == 0:
+        if self._staged_len() == 0:
             return self._empty()
         m = union_mask(*planes, widen(envs), *lanes, times=times)
-        if base_fn is not None:
-            m &= base_fn()
-        m = self._and_seen(m, auths)
-        return self._host_batch.take(np.nonzero(m.cpu().numpy())[0])
+        seen = self._and_seen(None if base_fn is None else base_fn(), auths)
+        if seen is not None:
+            m &= seen
+        return self._host_rows().take(np.nonzero(m.cpu().numpy())[0])
 
     def bbox_window_query(self, xmin, ymin, xmax, ymax, auths=None):
         """A bbox query with runtime bounds, the probe of the expanding-window
@@ -962,12 +1086,12 @@ class DeviceIndex:
         ok, base_fn = self._base_mask(query)
         if not ok:
             return None
-        if len(self) == 0:
+        if self._staged_len() == 0:
             return self._empty(), np.array([], np.float64)
         q = knn_ops.query_vector(px, py, max_radius_deg, knn_ops.lon_factor(py), self.device)
         m = self._and_seen(None if base_fn is None else base_fn(), auths)
         idx, d2 = knn_ops.knn(*planes, q, k, mask=m)
-        return (self._host_batch.take(idx.cpu().numpy()),
+        return (self._host_rows().take(idx.cpu().numpy()),
                 np.sqrt(d2.cpu().numpy().astype(np.float64)))
 
     # -- micro-batch scan fusion (the device query scheduler) ----------------
@@ -998,14 +1122,16 @@ class DeviceIndex:
         if m is None:
             return None
         m = m.cpu().numpy()
-        return [self._host_batch.take(np.nonzero(r)[0]) for r in m]
+        rows = self._host_rows()
+        return [rows.take(np.nonzero(r)[0]) for r in m]
 
     def _fused_loose(self, queries, loose, want: str):
         """(Q,) int32 counts or the (Q, n) bool mask matrix of a fusable
         group, on the device, or None. The counterpart tells the dim-plane
         bounds by their length; the port's loose bounds carry their engine
         as a tag (``"dim"``, ``"zscan"``, ``"xz"``), and a group fuses only
-        when all of its queries share one."""
+        when all of its queries share one. Counts and masks both read the
+        validity plane in the launch."""
         from geomesa_tpu_torch.failpoints import fail_point
 
         fail_point("fail.device.launch")  # chaos: fused resident launch
@@ -1013,7 +1139,7 @@ class DeviceIndex:
             return None
         if VIS_ID in self._cols:
             return None
-        if not self._resolve_loose(loose) or len(self) == 0:
+        if not self._resolve_loose(loose) or self._staged_len() == 0:
             return None
         lbs = []
         for q in queries:
@@ -1044,7 +1170,7 @@ class DeviceIndex:
         if r:
             planes += (self._cols[Z_BT],)
         fn = zscan.batched_dimscan_count if want == "count" else zscan.batched_dimscan_mask
-        return fn(qmat, *planes)
+        return fn(qmat, *planes, valid=self._device_valid())
 
     def _fused_compare(self, lbs, want: str):
         """One launch over the group's queries for the interleaved kinds:
@@ -1056,10 +1182,11 @@ class DeviceIndex:
         kind = self._z_kind
         hi, lo = self._cols[Z_HI], self._cols[Z_LO]
         bins = self._cols[Z_BIN] if kind in ("z3", "xz3") else None
+        dv = self._device_valid()
         if kind in ("z3", "z2"):  # the batched interleaved-scan kernel
             scan = zscan.batched_zscan_group(
                 [lb[1] for lb in lbs], [lb[2] for lb in lbs] if kind == "z3" else None)
-            return scan.run(bins, hi, lo, want_mask=want == "mask")
+            return scan.run(bins, hi, lo, want_mask=want == "mask", valid=dv)
         bs = [np.asarray(lb[1]) for lb in lbs]
         if kind == "xz3":
             ids = [np.asarray(lb[2]) for lb in lbs]
@@ -1075,9 +1202,391 @@ class DeviceIndex:
             rmax = max(b.shape[0] for b in bs)
             bounds = np.stack([zscan.pad_ranges(b, min_r=rmax) for b in bs])
             m = zscan.batched_kind_mask(kind)(hi, lo, bounds)
+        if dv is not None:
+            m &= dv
         return m.sum(dim=1, dtype=torch.int32) if want == "count" else m
 
     # -- later slices --------------------------------------------------------
 
-    def refresh_delta(self, batch):
-        raise NotImplementedError(_later("StreamingDeviceIndex"))
+    def window_pairs_query(self, envs, auths=None, base=None):
+        raise NotImplementedError(_later("item 4, window pairs and joins (window_pairs_query)"))
+
+    def bin_export(self, query, track_attr, dtg_attr=None, geom_attr=None,
+                   label_attr=None, sort=False, loose=None, auths=None):
+        raise NotImplementedError(_later("item 4, BIN output (bin_export)"))
+
+    def bin_rider(self, query, track_attr, dtg_attr=None, geom_attr=None,
+                  label_attr=None, sort=False, loose=None, auths=None):
+        raise NotImplementedError(_later("item 4, BIN output (bin_rider)"))
+
+    def warmup_plan(self, k: int = 10, density_px: int = 256, knn_kmax=None, fusion_max=None):
+        raise NotImplementedError(_later("item 5, the server seam (warmup_plan)"))
+
+    def warmup(self, k: int = 10, density_px: int = 256) -> dict:
+        raise NotImplementedError(_later("item 5, the server seam (warmup)"))
+
+
+def _attach(live_store, listener):
+    """Register ``listener`` with a live layer; the returned callable of no
+    arguments unregisters it (when the layer can), releasing the index."""
+    live_store.add_listener(listener)
+
+    def detach() -> None:
+        remove = getattr(live_store, "remove_listener", None)
+        if remove is not None:
+            remove(listener)
+
+    return detach
+
+
+class _FidIndex:
+    """fid -> staged row for a streaming index's live rows. The fids of an
+    install that are dense non-negative integers (a store's sequential
+    ids) go into a direct table, one numpy gather a lookup and no Python
+    object per row (an install stages tens of millions); the fids appended
+    later, and any other install's, go into a dict that takes precedence.
+    A fid maps to its last staged row, as a dict filled in row order
+    would; a row whose validity bit is clear maps to nothing."""
+
+    def __init__(self, fids: np.ndarray):
+        self._table = None
+        self._later: dict = {}
+        n = len(fids)
+        if n and fids.dtype.kind in "iu" and fids.min() >= 0 and fids.max() < 4 * n + 4096:
+            rows = np.arange(n)
+            self._table = np.full(int(fids.max()) + 1, -1, np.int64)
+            self._table[fids] = rows
+            if (self._table[fids] != rows).any():  # duplicate fids: the last row wins
+                np.maximum.at(self._table, fids, rows)
+        else:
+            self._later = {f: i for i, f in enumerate(fids.tolist())}
+
+    def add(self, fids: np.ndarray, first_row: int) -> None:
+        for i, f in enumerate(fids.tolist()):
+            self._later[f] = first_row + i
+
+    def rows(self, fids, valid: np.ndarray) -> np.ndarray:
+        """The staged rows of ``fids`` that are live; -1 for a fid not held."""
+        fids = np.asarray(fids)
+        out = np.full(len(fids), -1, np.int64)
+        if self._table is not None and len(fids):
+            keys = fids if fids.dtype.kind != "O" else np.asarray(fids.tolist())
+            if keys.dtype.kind in "iu":
+                hit = (keys >= 0) & (keys < len(self._table))
+                out[hit] = self._table[keys[hit]]
+        if self._later:
+            for i, f in enumerate(fids.tolist()):
+                r = self._later.get(f)
+                if r is not None:
+                    out[i] = r
+        live = out >= 0
+        live[live] = valid[out[live]]
+        out[~live] = -1
+        return out
+
+
+class StreamingDeviceIndex(DeviceIndex):
+    """Delta-refreshed resident index: appends, evictions and upserts touch
+    only the changed rows instead of restaging every plane (counterpart:
+    ``StreamingDeviceIndex`` in ``geomesa_tpu/device_cache.py``; ref role:
+    a Kafka consumer keeping its cache warm).
+
+    >>> di = StreamingDeviceIndex(store, "gdelt", z_planes=True)
+    >>> di.append(batch)          # new fids: copied in place, validity set
+    >>> di.evict(fids)            # validity bits cleared, nothing restaged
+    >>> di.upsert(batch)          # evict the fids it holds, then append
+    >>> detach = di.attach_live(live)   # Put -> upsert, Remove -> evict
+
+    Device planes live in buffers of a fixed capacity (a power of two of
+    at least ``max(rows, capacity, MIN_DELTA_ROWS)``) beside a bool
+    validity plane. An append copies its rows into the buffers after the
+    staged ones and sets their validity bits; an eviction clears bits
+    through one index tensor. Every scan launches over the staged rows
+    only (contiguous views of the buffers' first ``_staged_len()`` rows)
+    with the validity plane as the kernels' operand, so masks have one
+    entry per staged row and dead rows are False. An append that would
+    overflow the capacity compacts the live rows and restages them at
+    double capacity; dead rows past ``compact_threshold`` of the staged
+    ones compact in place. A delta restages in full, as the counterpart's
+    does, when its labels overflow the vocabulary, its bins fall outside
+    the packed bt window, or it brings a plane the buffers lack (the first
+    labeled rows). One re-entrant lock guards every mutation and every
+    scan, so a scan's rows and mask come from one snapshot; launches and
+    copies run on the calling thread's current stream.
+    """
+
+    #: smallest capacity, and the headroom the growth test keeps for a delta
+    MIN_DELTA_ROWS = 256
+
+    def __init__(
+        self,
+        store,
+        type_name: str,
+        columns: "list[str] | None" = None,
+        capacity: "int | None" = None,
+        compact_threshold: float = 0.5,
+        z_planes: bool = False,
+        dim_planes: "bool | None" = None,
+        device=None,
+    ):
+        self._capacity_hint = capacity
+        self.compact_threshold = compact_threshold
+        self.restages = 0  # full restages (init, growth, compaction, fallbacks)
+        self.delta_appends = 0  # appends served in place
+        self._lock = threading.RLock()
+        super().__init__(store, type_name, columns, z_planes=z_planes,
+                         dim_planes=dim_planes, device=device)
+
+    # -- staging -----------------------------------------------------------
+
+    def refresh(self) -> None:
+        with self._lock:
+            if self.store is None:
+                raise RuntimeError("an index built from planes has no store")
+            res = self.store.query(self.type_name, ast.Include, raw_visibility=True)
+            self._install(res.batch)
+
+    def _install(self, batch, min_cap: int = 0) -> None:
+        """Full (re)stage of ``batch`` into fresh capacity buffers."""
+        self._reset()
+        batch, cols = self._stage_checked(batch)
+        n = len(batch)
+        cap = bucket_cap(max(n, min_cap, self._capacity_hint or 0, self.MIN_DELTA_ROWS))
+        self._bufs = {}
+        for k, v in cols.items():
+            buf = torch.empty(cap, dtype=v.dtype, device=self.device)
+            buf[:n].copy_(v)
+            self._bufs[k] = buf
+        del cols
+        self._valid = torch.zeros(cap, dtype=torch.bool, device=self.device)
+        self._valid[:n] = True
+        self._cap, self._n, self._n_dead = cap, n, 0
+        self._parts = [batch]
+        self._host_cache = batch
+        self._valid_np = np.zeros(cap, dtype=bool)  # host mirror of the plane
+        self._valid_np[:n] = True
+        self._fids = _FidIndex(batch.fids)
+        self._set_views()
+        self.restages += 1
+
+    def _set_views(self) -> None:
+        """The base class's planes: views of the buffers' staged rows."""
+        self._cols = {k: b[: self._n] for k, b in self._bufs.items()}
+
+    def _host(self):
+        if self._host_cache is None:
+            self._host_cache = FeatureBatch.concat(self._parts)
+            self._parts = [self._host_cache]
+        return self._host_cache
+
+    def _live_rows(self):
+        """Host batch of the live (not evicted) rows, in staged order."""
+        return self._host().take(np.nonzero(self._host_valid())[0])
+
+    def _rows_of(self, fids) -> np.ndarray:
+        """The live staged rows of ``fids`` (-1: not held)."""
+        return self._fids.rows(fids, self._valid_np)
+
+    def _restage_with(self, batch, grow: bool = False) -> None:
+        """Restage the live rows and ``batch``: at double the merged rows'
+        capacity to grow, else at the current capacity."""
+        merged = FeatureBatch.concat([self._live_rows(), batch])
+        self._install(merged, min_cap=2 * len(merged) if grow else self._cap)
+
+    @contextmanager
+    def _pinned(self):
+        """Uploads through pinned memory, as a delta's are."""
+        self._pin_uploads = True
+        try:
+            yield
+        finally:
+            self._pin_uploads = False
+
+    # -- deltas ------------------------------------------------------------
+
+    def append(self, batch) -> None:
+        """Stage only the new rows, in place. Fids must be new: use
+        ``upsert`` when a batch may overwrite rows."""
+        with self._lock:
+            self._append_locked(batch)
+
+    def _stage_delta(self, batch):
+        """(planes, label ids) of a delta, uploaded through pinned memory;
+        raises _BtRebase or _VisOverflow for a delta that needs a full
+        restage."""
+        with self._pinned():
+            cols = self._stage_batch(batch)
+            ids = self._vis_ids(batch)
+            if ids is not None:
+                cols[VIS_ID] = self._up(ids)
+        return cols, ids
+
+    def _append_locked(self, batch) -> None:
+        m = len(batch)
+        if m == 0:
+            return
+        if self._n + max(bucket_cap(m), self.MIN_DELTA_ROWS) > self._cap:
+            # grow: compact out dead rows, double the capacity for headroom
+            self._restage_with(batch, grow=True)
+            return
+        try:
+            delta, ids = self._stage_delta(batch)  # widens _bin_range / vocabulary
+        except (_VisOverflow, _BtRebase):
+            # a vocabulary overflow applies the public-only route to every
+            # row; bins outside the packed window repack the bt plane
+            self._restage_with(batch)
+            return
+        if set(delta) != set(self._bufs):
+            # a plane the buffers lack (the first labeled rows) or a key
+            # layout decided anew after an empty install: dropping it would
+            # serve labeled rows as public
+            self._restage_with(batch)
+            return
+        n = self._n
+        for k, buf in self._bufs.items():
+            buf[n: n + m].copy_(delta[k])
+        self._valid[n: n + m] = True
+        self._parts.append(batch)
+        self._host_cache = None
+        self._valid_np[n: n + m] = True
+        if ids is not None:
+            self._visid_np = ids if self._visid_np is None else np.concatenate(
+                [self._visid_np, ids])
+        self._fids.add(batch.fids, n)
+        self._n = n + m
+        self._set_views()
+        self.delta_appends += 1
+
+    def evict(self, fids) -> None:
+        """Drop rows by fid: validity bits cleared on the device, no
+        restage (unless dead rows pass ``compact_threshold``)."""
+        with self._lock:
+            self._evict_locked(fids)
+
+    def _evict_locked(self, fids) -> None:
+        self._evict_rows(self._rows_of(fids))
+
+    def _evict_rows(self, rows: np.ndarray) -> None:
+        idx = np.unique(rows[rows >= 0])
+        if not len(idx):
+            return
+        self._valid_np[idx] = False
+        self._n_dead += len(idx)
+        with self._pinned():
+            self._valid[self._up(idx)] = False
+        if self._n_dead > self.compact_threshold * max(self._n, 1):
+            self._install(self._live_rows(), min_cap=self._cap)
+
+    def upsert(self, batch) -> None:
+        """Evict the rows of the batch's fids this index holds, then append."""
+        with self._lock:
+            self._evict_rows(self._rows_of(batch.fids))
+            self._append_locked(batch)
+
+    def clear(self) -> None:
+        """Drop every row (one empty restage)."""
+        with self._lock:
+            self._install(self._parts[0].take(np.array([], dtype=np.int64)))
+
+    def refresh_delta(self, batch) -> str:
+        """Streamed-append hook: fresh fids append in place. A batch with a
+        fid this index holds is ambiguous (a duplicate-fid append, which
+        the store serves as two rows, or a re-delivery): the store's view
+        decides, so the index restages from it. Returns ``"delta"`` or
+        ``"restage"`` and counts it on the metric."""
+        from geomesa_tpu_torch import metrics
+
+        with self._lock:
+            if (self._rows_of(batch.fids) >= 0).any():
+                self.refresh()
+                mode = "restage"
+            else:
+                before = self.restages
+                self._append_locked(batch)
+                mode = "restage" if self.restages > before else "delta"
+        metrics.stream_delta_refreshes.inc(mode=mode)
+        return mode
+
+    def attach_live(self, live_store):
+        """Apply a live layer's messages as deltas: Put upserts its rows,
+        Remove evicts its fids, anything else (Clear) restages from the
+        store. Returns a callable of no arguments that detaches."""
+        from geomesa_tpu_torch.stream.log import Put, Remove
+
+        def listener(msg):
+            if isinstance(msg, Put):
+                self.upsert(FeatureBatch.from_columns(self.sft, msg.columns, msg.fids))
+            elif isinstance(msg, Remove):
+                self.evict(np.asarray(msg.fids))
+            else:
+                self.refresh()
+
+        return _attach(live_store, listener)
+
+    # -- scans: the base class's, under the lock -----------------------------
+
+    def count(self, query, loose: "bool | None" = None, auths=None) -> int:
+        with self._lock:
+            return super().count(query, loose=loose, auths=auths)
+
+    def mask(self, query, loose: "bool | None" = None, auths=None) -> np.ndarray:
+        with self._lock:
+            return super().mask(query, loose=loose, auths=auths)
+
+    def query(self, query, loose: "bool | None" = None, auths=None):
+        # one lock span across the mask and the take: one snapshot
+        with self._lock:
+            return super().query(query, loose=loose, auths=auths)
+
+    def stats(self, query, spec: str, loose: "bool | None" = None, auths=None):
+        with self._lock:
+            return super().stats(query, spec, loose=loose, auths=auths)
+
+    def density(self, query, envelope, width: int, height: int,
+                weight_attr: "str | None" = None, loose: "bool | None" = None, auths=None):
+        with self._lock:
+            return super().density(query, envelope, width, height,
+                                   weight_attr=weight_attr, loose=loose, auths=auths)
+
+    def window_union_query(self, envs, times=None, auths=None, base=None):
+        # bbox_window_query delegates here: this lock covers both
+        with self._lock:
+            return super().window_union_query(envs, times=times, auths=auths, base=base)
+
+    def knn(self, px: float, py: float, k: int, query=None, auths=None,
+            max_radius_deg: float = 45.0):
+        with self._lock:
+            return super().knn(px, py, k, query=query, auths=auths,
+                               max_radius_deg=max_radius_deg)
+
+    def fused_loose_counts(self, queries, loose: "bool | None" = None):
+        with self._lock:
+            return super().fused_loose_counts(queries, loose=loose)
+
+    def fused_loose_query(self, queries, loose: "bool | None" = None):
+        # one lock span across the launch and the host takes
+        with self._lock:
+            return super().fused_loose_query(queries, loose=loose)
+
+    # -- hooks ---------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return self._n - self._n_dead
+
+    @property
+    def nbytes(self) -> int:
+        """Resident device bytes: the capacity buffers and the validity plane."""
+        return int(sum(b.numel() * b.element_size() for b in self._bufs.values())
+                   + self._valid.numel())
+
+    def _host_rows(self):
+        return self._host()
+
+    def _host_valid(self):
+        return self._valid_np[: self._n]
+
+    def _device_valid(self):
+        return self._valid[: self._n]
+
+    def _staged_len(self) -> int:
+        return self._n

@@ -1,8 +1,8 @@
 """FeatureBatch: the columnar SimpleFeature collection.
 
 Copy of ``geomesa_tpu/features/batch.py``, trimmed to what the port uses:
-``from_columns``, ``column``, ``point_coords``, ``bboxes``, ``take``,
-``__len__`` and the reserved visibility column. Column conventions are
+``from_columns``, ``concat``, ``column``, ``point_coords``, ``bboxes``,
+``take``, ``__len__`` and the reserved visibility column. Column conventions are
 the counterpart's:
 
 - Point geometry  -> (n, 2) float64 array [x, y]
@@ -73,6 +73,28 @@ class FeatureBatch:
         if len(fids) != n:
             raise ValueError("fids length mismatch")
         return FeatureBatch(sft, fids, out)
+
+    @staticmethod
+    def concat(batches: "list[FeatureBatch]") -> "FeatureBatch":
+        """Rows of ``batches`` in order, one batch. Unlabeled batches
+        mixed with labeled ones contribute public rows (label "")."""
+        if not batches:
+            raise ValueError("no batches")
+        names = set()
+        for b in batches:
+            names.update(b.columns)
+        cols = {}
+        for name in names:
+            parts = []
+            for b in batches:
+                if name in b.columns:
+                    parts.append(b.columns[name])
+                elif name == VIS_COLUMN:
+                    parts.append(np.array([""] * len(b), dtype=object))
+                else:
+                    raise KeyError(f"column {name!r} missing from a concatenated batch")
+            cols[name] = np.concatenate(parts)
+        return FeatureBatch(batches[0].sft, np.concatenate([b.fids for b in batches]), cols)
 
     def __len__(self) -> int:
         return len(self.fids)

@@ -312,19 +312,21 @@ class CompiledFilter:
     def fully_on_device(self) -> bool:
         return self.residual_part is ast.Include
 
-    def count(self, cols: dict) -> torch.Tensor:
-        """int32 count of the device part over the staged columns."""
+    def count(self, cols: dict, valid=None) -> torch.Tensor:
+        """int32 count of the device part over the staged columns' rows
+        that ``valid`` (a bool plane; None: every row) marks live."""
         if self.program is not None:
-            return filter_scan.filter_scan_count(self.program, cols)
+            return filter_scan.filter_scan_count(self.program, cols, valid=valid)
         kernels.count_device_fn("count")
-        return self.device_fn(cols).sum(dtype=torch.int32)
+        return kernels.and_valid(self.device_fn(cols), valid).sum(dtype=torch.int32)
 
-    def mask(self, cols: dict) -> torch.Tensor:
-        """bool mask of the device part over the staged columns."""
+    def mask(self, cols: dict, valid=None) -> torch.Tensor:
+        """bool mask of the device part over the staged columns, False on
+        rows ``valid`` marks dead."""
         if self.program is not None:
-            return filter_scan.filter_scan_mask(self.program, cols)
+            return filter_scan.filter_scan_mask(self.program, cols, valid=valid)
         kernels.count_device_fn("mask")
-        return self.device_fn(cols)
+        return kernels.and_valid(self.device_fn(cols), valid)
 
     def host_mask(self, batch: FeatureBatch) -> np.ndarray:
         """Exact full-filter mask (oracle path)."""

@@ -7,7 +7,9 @@ nowhere else): ``dimscan_*`` and ``dimscan_batched_*``
 (``csrc/dimscan.cu``), ``dimscan_baked_*`` (``csrc/dimscan_baked.cu``),
 ``zscan_*`` and ``zscan_batched_*`` (``csrc/zscan.cu``),
 ``filter_scan_*`` (``csrc/filter_scan.cu``), ``density_*``
-(``csrc/density.cu``). The scheduler's workers launch from several
+(``csrc/density.cu``). ``VALID_LAUNCHES`` counts, under the same names,
+the launches that read a validity plane (a streaming index's live rows:
+the scans take ``valid=``). The scheduler's workers launch from several
 threads at once, so counts change only under a lock.
 ``DEVICE_FN_CALLS`` counts exact scans that went to the plain
 ``device_fn`` because the filter-scan encoder refused the filter (the
@@ -17,6 +19,8 @@ counterpart's ``PallasUnsupported`` route).
 from __future__ import annotations
 
 import threading
+
+import torch
 
 KERNEL_NAMES = (
     "dimscan_z3_count",
@@ -44,16 +48,20 @@ KERNEL_NAMES = (
 )
 
 LAUNCHES: dict = {k: 0 for k in KERNEL_NAMES}
+VALID_LAUNCHES: dict = {k: 0 for k in KERNEL_NAMES}
 BATCH_WIDTHS: dict = {k: {} for k in KERNEL_NAMES if "_batched_" in k}
 DEVICE_FN_CALLS: dict = {"count": 0, "mask": 0}
 _counts_lock = threading.Lock()
 
 
-def count_launch(name: str, q: "int | None" = None) -> None:
+def count_launch(name: str, q: "int | None" = None, valid: bool = False) -> None:
     """One launch of kernel ``name``, counted under the lock; a batched
-    kernel's launch also gives its number of queries ``q``."""
+    kernel's launch also gives its number of queries ``q``, and a launch
+    that read a validity plane says so with ``valid``."""
     with _counts_lock:
         LAUNCHES[name] += 1
+        if valid:
+            VALID_LAUNCHES[name] += 1
         if q is not None:
             BATCH_WIDTHS[name][q] = BATCH_WIDTHS[name].get(q, 0) + 1
 
@@ -66,7 +74,7 @@ def count_device_fn(kind: str) -> None:
 
 def reset_counts() -> None:
     with _counts_lock:
-        for d in (LAUNCHES, DEVICE_FN_CALLS):
+        for d in (LAUNCHES, VALID_LAUNCHES, DEVICE_FN_CALLS):
             for k in d:
                 d[k] = 0
         for w in BATCH_WIDTHS.values():
@@ -86,3 +94,30 @@ def check_status(rc: int, what: str) -> None:
     is cudaGetLastError() after the launch)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def and_valid(m: torch.Tensor, valid) -> torch.Tensor:
+    """A plain version's hits ANDed with the validity operand (None: every
+    row live; else a bool plane over the last axis)."""
+    return m if valid is None else m & valid
+
+
+def check_valid(valid, n: int, dev) -> None:
+    """A validity operand (None: every row live) is a contiguous 1-D bool
+    tensor of the scan's ``n`` rows on its device."""
+    if valid is None:
+        return
+    if valid.dtype != torch.bool or valid.dim() != 1 or valid.shape[0] != n:
+        raise ValueError(f"valid must be a 1-D bool tensor of {n} rows")
+    if valid.device != dev or not valid.is_contiguous():
+        raise ValueError(f"valid must be contiguous on {dev}")
+
+
+def valid_ptr(valid):
+    """The kernels' validity pointer: None (null: every row live) or the
+    plane's address, which must be 4-byte aligned (4 rows a word)."""
+    if valid is None:
+        return None
+    if valid.data_ptr() % 4:
+        raise ValueError("the validity plane must be 4-byte aligned")
+    return valid.data_ptr()

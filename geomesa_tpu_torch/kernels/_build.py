@@ -31,21 +31,22 @@ SOURCES = ("dimscan", "dimscan_baked", "zscan", "filter_scan", "density")
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # every C entry point of each source: (argtypes, restype); a pointer, the
-# stream included, is c_void_p (a plain int would cut it to 32 bits)
+# stream and a null validity plane included, is c_void_p (a plain int
+# would cut it to 32 bits)
 SIGNATURES = {
     "dimscan": {
-        "gm_dimscan": ([_P] * 3 + [_LL, _P, _I, _I, _P, _P], _I),
-        "gm_dimscan_batched": ([_P] * 3 + [_LL, _P, _I, _I, _I, _P, _P], _I),
+        "gm_dimscan": ([_P] * 4 + [_LL, _P, _I, _I, _P, _P], _I),
+        "gm_dimscan_batched": ([_P] * 4 + [_LL, _P, _I, _I, _I, _P, _P], _I),
     },
     "dimscan_baked": {
         "gm_dimscan_baked": ([_P] * 3 + [_LL, _P, _P, _I, _I, _P, _P], _I),
     },
     "zscan": {
-        "gm_zscan": ([_P] * 3 + [_LL, _P] + [_I] * 5 + [_P, _P], _I),
-        "gm_zscan_batched": ([_P] * 3 + [_LL, _P] + [_I] * 9 + [_P, _P], _I),
+        "gm_zscan": ([_P] * 4 + [_LL, _P] + [_I] * 5 + [_P, _P], _I),
+        "gm_zscan_batched": ([_P] * 4 + [_LL, _P] + [_I] * 9 + [_P, _P], _I),
     },
     "filter_scan": {
-        "gm_filter_scan": ([_P, _I, _P, _I, _I, _LL, _I, _P, _P], _I),
+        "gm_filter_scan": ([_P, _I, _P, _P, _I, _I, _LL, _I, _P, _P], _I),
     },
     "density": {
         "gm_density": ([_P] * 4 + [_LL] + [_D] * 6 + [_I] * 4 + [_P, _P], _I),

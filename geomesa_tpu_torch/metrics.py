@@ -4,7 +4,8 @@ Counterpart of ``geomesa_tpu/metrics.py``, trimmed to the core (Counter,
 Gauge, Histogram with labels, one process-global registry) and the
 metrics the device query scheduler and its watchdog write: queue depth,
 wait time, queries, launches, fused queries, rejections, expirations,
-worker failures, drains and watchdog timeouts. The Prometheus exposition
+worker failures, drains and watchdog timeouts; and the streaming index's
+delta refreshes by mode. The Prometheus exposition
 and every other family of the counterpart are left out.
 """
 
@@ -127,3 +128,8 @@ sched_drains = REGISTRY.counter(
 resilience_watchdog_timeouts = REGISTRY.counter(
     "geomesa_resilience_watchdog_timeouts_total",
     "stuck device launches failed by the scheduler watchdog")
+stream_delta_refreshes = REGISTRY.counter(
+    "geomesa_stream_delta_refreshes_total",
+    "resident-index refreshes from streamed appends, by mode "
+    "(delta = incremental into the validity-planed buffers, "
+    "restage = fallback full restage)")

@@ -409,14 +409,16 @@ def _cmp_t(op: str, a, b):
     }[op](a, b)
 
 
-def run_program_plain(prog: Program, cols: dict, n: "int | None" = None) -> torch.Tensor:
+def run_program_plain(prog: Program, cols: dict, n: "int | None" = None,
+                      valid=None) -> torch.Tensor:
     """Plain PyTorch version of the filter scan: interpret ``prog`` with
-    tensor ops over whole columns and return the bool mask. Float32
-    arithmetic runs one rounded op at a time, as the kernel does."""
+    tensor ops over whole columns and return the bool mask, ANDed with
+    ``valid`` (a bool plane of live rows) when given. Float32 arithmetic
+    runs one rounded op at a time, as the kernel does."""
     ts = [cols[c] for c in prog.cols]
     if n is None:
-        n = int(ts[0].shape[0]) if ts else 0
-    dev = ts[0].device if ts else torch.device("cpu")
+        n = int(ts[0].shape[0]) if ts else (0 if valid is None else int(valid.shape[0]))
+    dev = ts[0].device if ts else (torch.device("cpu") if valid is None else valid.device)
     kf = prog.consts.view(np.float32)
     ki = prog.consts.view(np.int32)
 
@@ -470,7 +472,7 @@ def run_program_plain(prog: Program, cols: dict, n: "int | None" = None) -> torc
             raise ValueError(f"bad opcode {op}")
     if len(stack) != 1:
         raise ValueError(f"malformed program: stack holds {len(stack)} values")
-    return stack[0]
+    return kernels.and_valid(stack[0], valid)
 
 
 # -- kernel wrapper ----------------------------------------------------------
@@ -492,11 +494,12 @@ def _columns(prog: Program, cols: dict) -> list:
     return ts
 
 
-def _launch(prog: Program, ts: list, want_mask: bool) -> torch.Tensor:
+def _launch(prog: Program, ts: list, want_mask: bool, valid=None) -> torch.Tensor:
     from geomesa_tpu_torch.kernels import _build
 
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("filter-scan planes must be 16-byte aligned")
+    vptr = kernels.valid_ptr(valid)
     fn = _build.load("filter_scan").gm_filter_scan
     dev = ts[0].device
     n = int(ts[0].shape[0])
@@ -509,28 +512,32 @@ def _launch(prog: Program, ts: list, want_mask: bool) -> torch.Tensor:
             else torch.empty((), dtype=torch.int32, device=dev)
         )
         rc = fn(
-            ptrs.ctypes.data, len(ts), words.data_ptr(), prog.n_instr,
+            ptrs.ctypes.data, len(ts), vptr, words.data_ptr(), prog.n_instr,
             int(prog.consts.size), n, int(want_mask), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     name = f"filter_scan_{'mask' if want_mask else 'count'}"
     kernels.check_status(rc, name)
-    kernels.count_launch(name)
+    kernels.count_launch(name, valid=valid is not None)
     return out
 
 
-def filter_scan_count(prog: Program, cols: dict) -> torch.Tensor:
-    """int32 hit count of the program over the staged columns: the CUDA
-    kernel for CUDA planes, the plain version for CPU planes."""
+def filter_scan_count(prog: Program, cols: dict, valid=None) -> torch.Tensor:
+    """int32 hit count of the program over the staged columns' rows that
+    ``valid`` marks live (None: every row): the CUDA kernel for CUDA
+    planes, the plain version for CPU planes."""
     ts = _columns(prog, cols)
+    kernels.check_valid(valid, int(ts[0].shape[0]), ts[0].device)
     if kernels.on_cuda(ts[0]):
-        return _launch(prog, ts, want_mask=False)
-    return run_program_plain(prog, cols).sum(dtype=torch.int32)
+        return _launch(prog, ts, want_mask=False, valid=valid)
+    return run_program_plain(prog, cols, valid=valid).sum(dtype=torch.int32)
 
 
-def filter_scan_mask(prog: Program, cols: dict) -> torch.Tensor:
-    """bool hit mask; routing as :func:`filter_scan_count`."""
+def filter_scan_mask(prog: Program, cols: dict, valid=None) -> torch.Tensor:
+    """bool hit mask, False on dead rows; routing as
+    :func:`filter_scan_count`."""
     ts = _columns(prog, cols)
+    kernels.check_valid(valid, int(ts[0].shape[0]), ts[0].device)
     if kernels.on_cuda(ts[0]):
-        return _launch(prog, ts, want_mask=True)
-    return run_program_plain(prog, cols)
+        return _launch(prog, ts, want_mask=True, valid=valid)
+    return run_program_plain(prog, cols, valid=valid)

@@ -173,9 +173,10 @@ def z2_dim_plane_qarr(sfc, env) -> np.ndarray:
 # -- dim-scan kernel wrappers ------------------------------------------------
 
 
-def dimscan_plain(qarr: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
-    """Plain PyTorch version of the dim scan: the bool hit mask. Unsigned
-    words are widened to int64 (torch has no ordered uint32 compares)."""
+def dimscan_plain(qarr: np.ndarray, nx, ny, bt=None, valid=None) -> torch.Tensor:
+    """Plain PyTorch version of the dim scan: the bool hit mask, ANDed with
+    ``valid`` when given. Unsigned words are widened to int64 (torch has no
+    ordered uint32 compares)."""
     q = [int(v) for v in np.asarray(qarr, np.uint32)]
     a, b = widen_u32(nx), widen_u32(ny)
     m = (a >= q[0]) & (a <= q[1]) & (b >= q[2]) & (b <= q[3])
@@ -185,7 +186,7 @@ def dimscan_plain(qarr: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
         for k in range((len(q) - 4) // 2):
             tm |= (t >= q[4 + 2 * k]) & (t <= q[5 + 2 * k])
         m &= tm
-    return m
+    return kernels.and_valid(m, valid)
 
 
 def _check_dim_args(qarr, planes) -> int:
@@ -224,12 +225,13 @@ def _upload(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
 
 
-def _launch_dimscan(qarr, planes, want_mask: bool) -> torch.Tensor:
+def _launch_dimscan(qarr, planes, want_mask: bool, valid=None) -> torch.Tensor:
     from geomesa_tpu_torch.kernels import _build
 
     r = _check_dim_args(qarr, planes)
     nx = planes[0]
     n = nx.shape[0]
+    kernels.check_valid(valid, n, nx.device)
     if n > _MAX_ROWS:
         raise ValueError(f"{n} rows exceed the int32 count range")
     if any(p.data_ptr() % 16 for p in planes):
@@ -245,33 +247,37 @@ def _launch_dimscan(qarr, planes, want_mask: bool) -> torch.Tensor:
         )
         rc = fn(
             nx.data_ptr(), planes[1].data_ptr(),
-            bt.data_ptr() if bt is not None else None,
+            bt.data_ptr() if bt is not None else None, kernels.valid_ptr(valid),
             n, q.ctypes.data, r, int(want_mask), out.data_ptr(),
             torch.cuda.current_stream(nx.device).cuda_stream,
         )
     name = f"dimscan_{'z3' if bt is not None else 'z2'}_{'mask' if want_mask else 'count'}"
     kernels.check_status(rc, name)
-    kernels.count_launch(name)
+    kernels.count_launch(name, valid=valid is not None)
     return out
 
 
-def dimscan_count(qarr: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
-    """int32 hit count of the dim scan (z3 with ``bt``, z2 without): the
-    CUDA kernel for CUDA planes, the plain version for CPU planes."""
+def dimscan_count(qarr: np.ndarray, nx, ny, bt=None, valid=None) -> torch.Tensor:
+    """int32 hit count of the dim scan (z3 with ``bt``, z2 without) over
+    the rows ``valid`` marks live (None: every row): the CUDA kernel for
+    CUDA planes, the plain version for CPU planes."""
     planes = (nx, ny) if bt is None else (nx, ny, bt)
     if kernels.on_cuda(nx):
-        return _launch_dimscan(qarr, planes, want_mask=False)
+        return _launch_dimscan(qarr, planes, want_mask=False, valid=valid)
     _check_dim_args(qarr, planes)
-    return dimscan_plain(qarr, nx, ny, bt).sum(dtype=torch.int32)
+    kernels.check_valid(valid, nx.shape[0], nx.device)
+    return dimscan_plain(qarr, nx, ny, bt, valid).sum(dtype=torch.int32)
 
 
-def dimscan_mask(qarr: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
-    """bool hit mask of the dim scan; routing as :func:`dimscan_count`."""
+def dimscan_mask(qarr: np.ndarray, nx, ny, bt=None, valid=None) -> torch.Tensor:
+    """bool hit mask of the dim scan, False on dead rows; routing as
+    :func:`dimscan_count`."""
     planes = (nx, ny) if bt is None else (nx, ny, bt)
     if kernels.on_cuda(nx):
-        return _launch_dimscan(qarr, planes, want_mask=True)
+        return _launch_dimscan(qarr, planes, want_mask=True, valid=valid)
     _check_dim_args(qarr, planes)
-    return dimscan_plain(qarr, nx, ny, bt)
+    kernels.check_valid(valid, nx.shape[0], nx.device)
+    return dimscan_plain(qarr, nx, ny, bt, valid)
 
 
 # -- the Q-batched dim scan (the scheduler's fused loose paths) --------------
@@ -281,15 +287,17 @@ MAX_BATCH = 64  # queries one batched launch answers
 
 def batched_dim_mask_rt(n_ranges: int):
     """Plain PyTorch version of the Q-batched dim scan: a function of
-    ``(nx, ny, bt, qmat)`` (``(nx, ny, qmat)`` when ``n_ranges`` is 0, the
-    z2 scan) that stacks :func:`dimscan_plain` of each row of ``qmat``, the
-    (Q, 4 + 2R) uint32 stack of query vectors, into a (Q, n) bool mask. The
+    ``(nx, ny, bt, qmat, valid=None)`` (``(nx, ny, qmat, ...)`` when
+    ``n_ranges`` is 0, the z2 scan) that stacks :func:`dimscan_plain` of
+    each row of ``qmat``, the (Q, 4 + 2R) uint32 stack of query vectors,
+    into a (Q, n) bool mask, every row ANDed with ``valid``. The
     counterpart vmaps its XLA single-query mask the same way."""
-    def run(*args):
+    def run(*args, valid=None):
         *planes, qmat = args
         if len(planes) != (2 if n_ranges == 0 else 3):
             raise ValueError(f"R = {n_ranges} takes {2 if n_ranges == 0 else 3} planes")
-        return torch.stack([dimscan_plain(row, *planes) for row in np.asarray(qmat, np.uint32)])
+        return torch.stack([dimscan_plain(row, *planes, valid=valid)
+                            for row in np.asarray(qmat, np.uint32)])
 
     return run
 
@@ -303,12 +311,13 @@ def _check_qmat(qmat, planes) -> int:
     return _check_dim_args(q[0], planes)
 
 
-def _launch_dimscan_batched(qmat, planes, want_mask: bool) -> torch.Tensor:
+def _launch_dimscan_batched(qmat, planes, want_mask: bool, valid=None) -> torch.Tensor:
     from geomesa_tpu_torch.kernels import _build
 
     r = _check_qmat(qmat, planes)
     nx = planes[0]
     n = nx.shape[0]
+    kernels.check_valid(valid, n, nx.device)
     if n > _MAX_ROWS:
         raise ValueError(f"{n} rows exceed the int32 count range")
     if any(p.data_ptr() % 16 for p in planes):
@@ -326,36 +335,39 @@ def _launch_dimscan_batched(qmat, planes, want_mask: bool) -> torch.Tensor:
         )
         rc = fn(
             nx.data_ptr(), planes[1].data_ptr(),
-            bt.data_ptr() if bt is not None else None,
+            bt.data_ptr() if bt is not None else None, kernels.valid_ptr(valid),
             n, q.data_ptr(), nq, r, int(want_mask), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     name = f"dimscan_batched_{'z3' if bt is not None else 'z2'}_{'mask' if want_mask else 'count'}"
     kernels.check_status(rc, name)
-    kernels.count_launch(name, q=nq)
+    kernels.count_launch(name, q=nq, valid=valid is not None)
     return out
 
 
-def batched_dimscan_count(qmat: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
+def batched_dimscan_count(qmat: np.ndarray, nx, ny, bt=None, valid=None) -> torch.Tensor:
     """(Q,) int32 hit counts of the Q queries of ``qmat`` (each row a query
-    vector of :func:`dimscan_count`, 1 <= Q <= 64) in one pass over the
-    planes: the kernel ``gm_dimscan_batched`` for CUDA planes, the plain
-    version for CPU planes."""
+    vector of :func:`dimscan_count`, 1 <= Q <= 64) over the rows ``valid``
+    marks live (None: every row), in one pass over the planes: the kernel
+    ``gm_dimscan_batched`` for CUDA planes, the plain version for CPU
+    planes."""
     planes = (nx, ny) if bt is None else (nx, ny, bt)
     if kernels.on_cuda(nx):
-        return _launch_dimscan_batched(qmat, planes, want_mask=False)
+        return _launch_dimscan_batched(qmat, planes, want_mask=False, valid=valid)
     r = _check_qmat(qmat, planes)
-    return batched_dim_mask_rt(r)(*planes, qmat).sum(dim=1, dtype=torch.int32)
+    kernels.check_valid(valid, nx.shape[0], nx.device)
+    return batched_dim_mask_rt(r)(*planes, qmat, valid=valid).sum(dim=1, dtype=torch.int32)
 
 
-def batched_dimscan_mask(qmat: np.ndarray, nx, ny, bt=None) -> torch.Tensor:
-    """(Q, n) bool hit masks, row q for query q; routing as
-    :func:`batched_dimscan_count`."""
+def batched_dimscan_mask(qmat: np.ndarray, nx, ny, bt=None, valid=None) -> torch.Tensor:
+    """(Q, n) bool hit masks, row q for query q, False on dead rows;
+    routing as :func:`batched_dimscan_count`."""
     planes = (nx, ny) if bt is None else (nx, ny, bt)
     if kernels.on_cuda(nx):
-        return _launch_dimscan_batched(qmat, planes, want_mask=True)
+        return _launch_dimscan_batched(qmat, planes, want_mask=True, valid=valid)
     r = _check_qmat(qmat, planes)
-    return batched_dim_mask_rt(r)(*planes, qmat)
+    kernels.check_valid(valid, nx.shape[0], nx.device)
+    return batched_dim_mask_rt(r)(*planes, qmat, valid=valid)
 
 
 # -- baked-constant dim scan (the cross-check engine) ------------------------
@@ -828,17 +840,21 @@ def xz3_range_mask(xz_hi, xz_lo, bins, bounds, bin_ids) -> torch.Tensor:
 def build_xz_scan(bounds: np.ndarray, bin_ids: "np.ndarray | None"):
     """(count_fn, mask_fn) for one loose xz query, the ranges merged once:
     over (xz_hi, xz_lo) for xz2 (``bin_ids`` None), over (bins, xz_hi,
-    xz_lo) for xz3, the operand order of the interleaved scan. Torch ops
-    on the planes' device; the count is int32."""
+    xz_lo) for xz3, the operand order of the interleaved scan; ``valid=``
+    (a bool plane of live rows, None: every row) ANDs in. Torch ops on the
+    planes' device; the count is int32."""
     if bin_ids is None:
-        mask = _XZ2Ranges(*_real_ranges(bounds)).mask
+        ranges = _XZ2Ranges(*_real_ranges(bounds)).mask
     else:
         r3 = _XZ3Ranges(bounds, bin_ids)
 
-        def mask(bins, xz_hi, xz_lo):
+        def ranges(bins, xz_hi, xz_lo):
             return r3.mask(xz_hi, xz_lo, bins)
 
-    return (lambda *planes: mask(*planes).sum(dtype=torch.int32)), mask
+    def mask(*planes, valid=None):
+        return kernels.and_valid(ranges(*planes), valid)
+
+    return (lambda *planes, valid=None: mask(*planes, valid=valid).sum(dtype=torch.int32)), mask
 
 
 def kind_mask_fn(kind: str):
@@ -891,19 +907,21 @@ class _ZScan:
         self._table = np.concatenate([b.reshape(-1), self.entry_of.view(np.uint32)])
         self._dev: dict = {}
 
-    def plain(self, bins, z_hi, z_lo) -> torch.Tensor:
+    def plain(self, bins, z_hi, z_lo, valid=None) -> torch.Tensor:
         if self.n_dims == 2:
-            return z2_zscan_mask(z_hi, z_lo, self.bounds[0])
-        return z3_zscan_lookup(z_hi, z_lo, bins, self.bounds, self.first, self.entry_of)
+            return kernels.and_valid(z2_zscan_mask(z_hi, z_lo, self.bounds[0]), valid)
+        return kernels.and_valid(
+            z3_zscan_lookup(z_hi, z_lo, bins, self.bounds, self.first, self.entry_of), valid)
 
-    def run(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
+    def run(self, bins, z_hi, z_lo, want_mask: bool, valid=None) -> torch.Tensor:
         _check_key_planes(self.n_dims, bins, z_hi, z_lo)
+        kernels.check_valid(valid, z_hi.shape[0], z_hi.device)
         if not kernels.on_cuda(z_hi):
-            m = self.plain(bins, z_hi, z_lo)
+            m = self.plain(bins, z_hi, z_lo, valid)
             return m if want_mask else m.sum(dtype=torch.int32)
-        return self._launch(bins, z_hi, z_lo, want_mask)
+        return self._launch(bins, z_hi, z_lo, want_mask, valid)
 
-    def _launch(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
+    def _launch(self, bins, z_hi, z_lo, want_mask: bool, valid=None) -> torch.Tensor:
         from geomesa_tpu_torch.kernels import _build
 
         n = z_hi.shape[0]
@@ -925,13 +943,13 @@ class _ZScan:
             )
             rc = fn(
                 None if bins is None else bins.data_ptr(), z_hi.data_ptr(),
-                z_lo.data_ptr(), n, tab.data_ptr(), len(self.ids), self.first,
-                len(self.entry_of), self.n_dims, int(want_mask), out.data_ptr(),
+                z_lo.data_ptr(), kernels.valid_ptr(valid), n, tab.data_ptr(), len(self.ids),
+                self.first, len(self.entry_of), self.n_dims, int(want_mask), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         name = f"zscan_z{self.n_dims}_{'mask' if want_mask else 'count'}"
         kernels.check_status(rc, name)
-        kernels.count_launch(name)
+        kernels.count_launch(name, valid=valid is not None)
         return out
 
 
@@ -1130,12 +1148,13 @@ class _BatchedZScan:
             if lc.binned else None
         return c, m, index
 
-    def plain(self, bins, z_hi, z_lo) -> torch.Tensor:
+    def plain(self, bins, z_hi, z_lo, valid=None) -> torch.Tensor:
         """Plain PyTorch version on the packed layout: the (Q, n) bool
         masks, each launch's records read from its table and, binned, found
         through its bin index; the keys de-interleaved by
-        ``curves/zorder.py``. Equal to :func:`batched_kind_mask`, the
-        semantic reference, for entries the packer takes."""
+        ``curves/zorder.py``; every row ANDed with ``valid``. Equal to
+        :func:`batched_kind_mask`, the semantic reference, for entries the
+        packer takes."""
         n, dev = z_hi.shape[0], z_hi.device
         out = torch.zeros((self.nq, n), dtype=torch.bool, device=dev)
         if not self.launches:
@@ -1169,14 +1188,15 @@ class _BatchedZScan:
                     for rec in recs:
                         b = int(rec[at_bin]) if bin_id is None else bin_id
                         out[lc.q0 + int(rec[at_q])] |= (bn == b) & hit(rec)
-        return out
+        return kernels.and_valid(out, valid)
 
-    def run(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
+    def run(self, bins, z_hi, z_lo, want_mask: bool, valid=None) -> torch.Tensor:
         _check_key_planes(self.n_dims, bins, z_hi, z_lo)
+        kernels.check_valid(valid, z_hi.shape[0], z_hi.device)
         if not kernels.on_cuda(z_hi):
-            m = self.plain(bins, z_hi, z_lo)
+            m = self.plain(bins, z_hi, z_lo, valid)
             return m if want_mask else m.sum(dim=1, dtype=torch.int32)
-        return self._launch(bins, z_hi, z_lo, want_mask)
+        return self._launch(bins, z_hi, z_lo, want_mask, valid)
 
     def device_table(self, dev) -> torch.Tensor:
         """The packed table on ``dev``, uploaded once (see :func:`_upload`)."""
@@ -1185,7 +1205,7 @@ class _BatchedZScan:
             t = self._dev[dev] = _upload(self.table, dev)
         return t
 
-    def _launch(self, bins, z_hi, z_lo, want_mask: bool) -> torch.Tensor:
+    def _launch(self, bins, z_hi, z_lo, want_mask: bool, valid=None) -> torch.Tensor:
         from geomesa_tpu_torch.kernels import _build
 
         n = z_hi.shape[0]
@@ -1194,6 +1214,7 @@ class _BatchedZScan:
         planes = [z_hi, z_lo] + ([] if bins is None else [bins])
         if any(p.data_ptr() % 16 for p in planes):
             raise ValueError("key planes must be 16-byte aligned")
+        vptr = kernels.valid_ptr(valid)
         dev = z_hi.device
         name = f"zscan_batched_z{self.n_dims}_{'mask' if want_mask else 'count'}"
         with torch.cuda.device(dev):
@@ -1212,13 +1233,13 @@ class _BatchedZScan:
             for lc in self.launches:
                 rc = fn(
                     None if bins is None else bins.data_ptr(), z_hi.data_ptr(),
-                    z_lo.data_ptr(), n, tab.data_ptr() + 4 * lc.offset, lc.words,
+                    z_lo.data_ptr(), vptr, n, tab.data_ptr() + 4 * lc.offset, lc.words,
                     lc.q1 - lc.q0, lc.nc, lc.nm, lc.first, lc.span, int(lc.binned),
                     self.n_dims, int(want_mask),
                     out.data_ptr() + (lc.q0 * n if want_mask else 4 * lc.q0), stream,
                 )
                 kernels.check_status(rc, name)
-                kernels.count_launch(name, q=lc.q1 - lc.q0)
+                kernels.count_launch(name, q=lc.q1 - lc.q0, valid=valid is not None)
         return out
 
 
@@ -1283,21 +1304,22 @@ def batched_zscan_group(bounds: list, bin_ids: "list | None") -> _BatchedZScan:
     return _BatchedZScan(3, nq, qid, np.concatenate(bin_ids), np.concatenate(bounds))
 
 
-def batched_zscan_count(bounds, bin_ids, z_hi, z_lo, bins=None) -> torch.Tensor:
+def batched_zscan_count(bounds, bin_ids, z_hi, z_lo, bins=None, valid=None) -> torch.Tensor:
     """(Q,) int32 hit counts of Q interleaved-scan queries in one pass over
     the key planes (one launch per table that fits, see
     :class:`_BatchedZScan`): z3 with (Q, B, 3, 6) bounds, (Q, B) ids (-1:
     padding, never matches) and the bin plane; z2 with (Q, 2, 6) bounds,
     ids and bins None. Each query's ids >= 0 must be distinct and span at
-    most ``ZSCAN_MAX_SPAN`` bins. The kernel ``gm_zscan_batched`` for CUDA
-    planes, :meth:`_BatchedZScan.plain` for CPU planes."""
-    return batched_zscan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=False)
+    most ``ZSCAN_MAX_SPAN`` bins; ``valid`` (None: every row) marks the
+    live rows. The kernel ``gm_zscan_batched`` for CUDA planes,
+    :meth:`_BatchedZScan.plain` for CPU planes."""
+    return batched_zscan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=False, valid=valid)
 
 
-def batched_zscan_mask(bounds, bin_ids, z_hi, z_lo, bins=None) -> torch.Tensor:
-    """(Q, n) bool hit masks, row q for query q; arguments and routing as
-    :func:`batched_zscan_count`."""
-    return batched_zscan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=True)
+def batched_zscan_mask(bounds, bin_ids, z_hi, z_lo, bins=None, valid=None) -> torch.Tensor:
+    """(Q, n) bool hit masks, row q for query q, False on dead rows;
+    arguments and routing as :func:`batched_zscan_count`."""
+    return batched_zscan(bounds, bin_ids).run(bins, z_hi, z_lo, want_mask=True, valid=valid)
 
 
 def build_z3_pallas_scan(bounds: np.ndarray, bin_ids: np.ndarray):
@@ -1308,11 +1330,12 @@ def build_z3_pallas_scan(bounds: np.ndarray, bin_ids: np.ndarray):
     window), CPU planes take :func:`z3_zscan_lookup` (the kernel's table
     layout; :func:`z3_zscan_mask` is the semantic reference). The ids >= 0
     must be distinct and span at most ``ZSCAN_MAX_SPAN`` bins, as one
-    window's bins do. The count is int32."""
+    window's bins do. The count is int32; ``valid=`` (None: every row)
+    marks the live rows."""
     q = _ZScan(bounds, bin_ids)
     return (
-        lambda bins, z_hi, z_lo: q.run(bins, z_hi, z_lo, want_mask=False),
-        lambda bins, z_hi, z_lo: q.run(bins, z_hi, z_lo, want_mask=True),
+        lambda bins, z_hi, z_lo, valid=None: q.run(bins, z_hi, z_lo, False, valid),
+        lambda bins, z_hi, z_lo, valid=None: q.run(bins, z_hi, z_lo, True, valid),
     )
 
 
@@ -1322,6 +1345,6 @@ def build_z2_zscan(bounds: np.ndarray):
     version :func:`z2_zscan_mask`."""
     q = _ZScan(bounds, None)
     return (
-        lambda z_hi, z_lo: q.run(None, z_hi, z_lo, want_mask=False),
-        lambda z_hi, z_lo: q.run(None, z_hi, z_lo, want_mask=True),
+        lambda z_hi, z_lo, valid=None: q.run(None, z_hi, z_lo, False, valid),
+        lambda z_hi, z_lo, valid=None: q.run(None, z_hi, z_lo, True, valid),
     )

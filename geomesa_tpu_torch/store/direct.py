@@ -1,9 +1,11 @@
-"""BatchStore: a minimal read-only store over one in-memory FeatureBatch.
+"""BatchStore: a minimal store over one in-memory FeatureBatch.
 
 Counterpart of ``geomesa_tpu/store/direct.py`` (``BatchStore``): it holds
 only the batch and the schema, so ``DeviceIndex(BatchStore(batch), name)``
 stages directly with no host index build. Only full scans (Include) are
 served; filtered queries belong to the DeviceIndex staged on top.
+``write`` appends rows, as ``MemoryDataStore.write`` of the counterpart
+does for one type: a streaming index's restage reads them back.
 """
 
 from __future__ import annotations
@@ -25,12 +27,24 @@ class QueryResult:
 
 
 class BatchStore:
-    """Read-only single-type store over a FeatureBatch (no host indexes)."""
+    """Single-type store over a FeatureBatch (no host indexes)."""
 
     def __init__(self, batch: FeatureBatch, type_name: "str | None" = None):
         self.batch = batch
         self.sft: SimpleFeatureType = batch.sft
         self.type_name = type_name or self.sft.type_name
+
+    def write(self, type_name: str, columns_or_batch, fids=None) -> int:
+        """Append rows (a dict of columns, or a FeatureBatch) after the
+        batch's; a duplicate fid stays a second row. Returns the rows
+        written."""
+        if type_name != self.type_name:
+            raise KeyError(type_name)
+        batch = columns_or_batch
+        if not isinstance(batch, FeatureBatch):
+            batch = FeatureBatch.from_columns(self.sft, columns_or_batch, fids)
+        self.batch = FeatureBatch.concat([self.batch, batch])
+        return len(batch)
 
     @property
     def type_names(self) -> list:

@@ -203,8 +203,16 @@ def test_later_slices_raise():
     di = DeviceIndex(store, "t", device="cpu")
     with pytest.raises(NotImplementedError, match="host sketches"):
         di.stats("INCLUDE", 'TopK("name")')
-    with pytest.raises(NotImplementedError, match="StreamingDeviceIndex"):
-        di.refresh_delta(None)
+    # the base index's refresh_delta restages and says so, as the reference's does
+    assert di.refresh_delta(None) == "restage" and len(di) == 64
+    # entry points of later slices raise, naming their ROADMAP item
+    for call, item in ((lambda: di.window_pairs_query(np.zeros((1, 4))), "item 4"),
+                       (lambda: di.bin_export("INCLUDE", "count"), "item 4"),
+                       (lambda: di.bin_rider("INCLUDE", "count"), "item 4"),
+                       (lambda: di.warmup(), "item 5"),
+                       (lambda: di.warmup_plan(), "item 5")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
     # the DE-9IM relations, non-point schemas, kNN and the fused loose paths
     # are in the port now: they answer as the JAX package does
     from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
@@ -228,3 +236,115 @@ def test_later_slices_raise():
     for ecql in ("BBOX(geom, 0.5, 0.5, 2, 2)", "INTERSECTS(geom, POINT(0.75 0.25))"):
         for loose in (False, True):
             assert pdi.count(ecql, loose=loose) == jpdi.count(ecql, loose=loose)
+
+
+def _edge_cell_pair():
+    """The ``query.loose.bbox`` probe's case: 3,000 z3 rows, 2 inside a
+    box and 100 at 1e-5 deg west of its west edge, inside the edge's key
+    cell (the box's west edge sits mid-cell); the other 2,898 far away.
+    Coordinates and bounds float32-exact."""
+    from geomesa_tpu_torch.curves.z3 import Z3SFC
+
+    cell = 360.0 / (1 << 21)
+    x0 = float(np.float32((int((10.0 + 180.0) / cell) + 0.5) * cell - 180.0))
+    west = float(np.float32(x0 - 1e-5))
+    sfc = Z3SFC()
+    assert int(sfc.lon.normalize(west)) == int(sfc.lon.normalize(x0)) and west < x0
+    rng = np.random.default_rng(11)
+    n = 3000
+    xy = np.stack([rng.uniform(-170, -100, n), rng.uniform(-80, -10, n)], 1)
+    xy = xy.astype(np.float32).astype(np.float64)
+    xy[:2] = [[x0 + 0.5, 45.0], [x0 + 1.0, 46.0]]
+    xy[2:102, 0], xy[2:102, 1] = west, 45.25
+    cols = {"count": rng.integers(0, 1000, n), "geom": xy,
+            "dtg": np.full(n, T0 + 12 * DAY), "name": np.array(["a"] * n, dtype=object)}
+    jdi, tdi, _, _ = _pair(Z3_SPEC, cols)
+    q = (f"BBOX(geom, {x0!r}, 44, {x0 + 2.0!r}, 47) AND "
+         "dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z")
+    return jdi, tdi, q
+
+
+@pytest.mark.parametrize("prop", [False, True], ids=["off", "on"])
+def test_query_loose_bbox_property_resolves_loose_none(prop):
+    """With ``loose=None`` both packages read ``query.loose.bbox``, each
+    set through its own ``prop_override``: on, every entry point answers
+    the key planes' 102 rows, the edge cell's 100 included; off, the exact
+    2. The port's scheduler fuses ``loose=None`` requests exactly when the
+    property is on."""
+    from geomesa_tpu import conf as jconf
+    from geomesa_tpu_torch import conf
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.sched import FusableQuery
+
+    jdi, tdi, q = _edge_cell_pair()
+    want = 102 if prop else 2
+    env = Envelope(0.0, 40.0, 20.0, 50.0)
+    with conf.prop_override("query.loose.bbox", prop), \
+            jconf.prop_override("query.loose.bbox", prop):
+        for di in (jdi, tdi):
+            assert di.count(q) == want
+            assert len(di.query(q)) == want
+            assert di.stats(q, "Count()").stats[0].count == want
+            assert int(np.asarray(di.density(q, env, 64, 32)).sum()) == want
+        assert tdi.fused_loose_counts([q]) == jdi.fused_loose_counts([q]) == (
+            [want] if prop else None)
+        assert FusableQuery(tdi, q, "count").fusable is prop
+    assert tdi.count(q) == jdi.count(q) == 2  # the property's default is off
+
+
+def test_launch_failpoint_fails_count_mask_and_fused_agg():
+    """An armed ``fail.device.launch`` fails the resident count, mask (and
+    query, which takes the mask) and the pushdown aggregations (stats,
+    density) in both packages, as the reference's chaos runs expect."""
+    from geomesa_tpu import failpoints as jfp
+    from geomesa_tpu_torch import failpoints as tfp
+    from geomesa_tpu_torch.geom import Envelope
+
+    jdi, tdi, q = _edge_cell_pair()
+    env = Envelope(0.0, 40.0, 20.0, 50.0)
+    calls = (lambda di: di.count(q), lambda di: di.count(q, loose=True),
+             lambda di: di.mask(q), lambda di: di.query(q),
+             lambda di: di.stats(q, "Count()"), lambda di: di.density(q, env, 8, 8))
+    # the reference's hook also takes a cache key before the aggregation
+    agg = ((jdi, jfp, lambda f: jdi._fused_agg(f, False, ("count",), lambda cols, m: {})),
+           (tdi, tfp, lambda f: tdi._fused_agg(f, False, lambda cols, m: 0)))
+    for di, fp, fused_agg in agg:
+        with fp.failpoint_override("fail.device.launch", "raise"):
+            for call in calls:
+                with pytest.raises(fp.FailpointError):
+                    call(di)
+        with fp.failpoint_override("fail.device.launch", "raise:1"):
+            with pytest.raises(fp.FailpointError):
+                fused_agg(di._parse(q))
+        assert di.count(q) == 2  # disarmed
+
+
+def test_columns_names_the_staged_planes():
+    """``columns=`` stages only the named attribute planes, as in the
+    reference: a filter over a plane left out is answered on the host,
+    and the answers equal the reference's (streaming index too)."""
+    import warnings
+
+    from geomesa_tpu.device_cache import StreamingDeviceIndex as JStream
+    from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
+
+    from geomesa_tpu_torch.device_cache import StreamingDeviceIndex
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+
+    cols = _columns(3001, seed=9)
+    keep = ["geom__x", "geom__y"]
+    jstore = JStore(JBatch.from_columns(JSFT.create("t", Z3_SPEC), cols))
+    store = BatchStore(FeatureBatch.from_columns(SimpleFeatureType.create("t", Z3_SPEC), cols))
+    pairs = [(JIndex(jstore, "t", columns=keep, z_planes=True),
+              DeviceIndex(store, "t", columns=keep, z_planes=True, device="cpu")),
+             (JStream(jstore, "t", columns=keep, z_planes=True),
+              StreamingDeviceIndex(store, "t", columns=keep, z_planes=True, device="cpu"))]
+    for jdi, tdi in pairs:
+        assert "count" not in tdi._cols and "geom__x" in tdi._cols
+        for ecql in (Z3_QUERIES[0], Z3_QUERIES[11], "count > 500", "INCLUDE"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # the reference warns of host evaluation
+                for loose in (False, True):
+                    assert tdi.count(ecql, loose=loose) == jdi.count(ecql, loose=loose), ecql
+                np.testing.assert_array_equal(np.sort(tdi.query(ecql).fids),
+                                              np.sort(jdi.query(ecql).fids))

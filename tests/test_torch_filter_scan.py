@@ -243,3 +243,26 @@ def test_int64_lane_compare_matches_jax(op):
         want = np.asarray(cmp_jax(op, jnp.asarray(jh), jnp.asarray(jl), v))
         got = int64lanes.cmp(op, torch.from_numpy(th), torch.from_numpy(tl), v)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ecql", FILTERS[:12], ids=lambda s: s[:48])
+def test_validity_is_the_plain_mask_anded(data, ecql):
+    """The filter scan's plain version, count and mask with a validity
+    plane equal the plain version without one ANDed with the plane (the
+    device_fn route too, for a filter the encoder refuses)."""
+    _, _, sft, batch = data
+    tc = compile_filter(parse_ecql(ecql), sft)
+    if not tc.device_cols:
+        return
+    tcols = stage_columns(batch, list(tc.device_cols), "cpu")
+    n = len(batch)
+    base = tc.mask(tcols)
+    rng = np.random.default_rng(n)
+    tail = np.ones(n, bool)
+    tail[n // 2:] = False
+    for v in map(torch.from_numpy, (np.ones(n, bool), rng.random(n) < 0.5, tail,
+                                    np.zeros(n, bool))):
+        assert torch.equal(tc.mask(tcols, valid=v), base & v)
+        assert int(tc.count(tcols, valid=v)) == int((base & v).sum())
+        if tc.program is not None:
+            assert torch.equal(filter_scan.run_program_plain(tc.program, tcols, valid=v), base & v)

@@ -709,3 +709,29 @@ def test_dim_planes_preference_matches_the_reference():
         SimpleFeatureType.create("t", Z3_SPEC), _columns(512, seed=6)))
     assert DeviceIndex(narrow, "t", z_planes=True, device="cpu")._dim_mode
     assert not DeviceIndex(narrow, "t", z_planes=True, dim_planes=False, device="cpu")._dim_mode
+
+
+@pytest.mark.parametrize("case", SCAN_CASES[:4], ids=lambda c: f"n{c[0]}-{c[3]}d")
+def test_zscan_validity_is_the_plain_mask_anded(case):
+    """The interleaved scan's plain version (on the kernel's table
+    layout), count and mask with a validity plane equal the plain version
+    without one ANDed with the plane; also for the z2 variant."""
+    n, env, d0, days = case
+    rng, bins, hi, lo = _keys(n, n + days + 1)
+    w = (T0 + d0 * DAY + 3600_000, T0 + (d0 + days) * DAY)
+    bounds, ids = jz.pad_bins(*jz.z3_query_bounds(JZ3SFC(), *env, *w))
+    scan = tz._ZScan(bounds, ids)
+    count_fn, mask_fn = tz.build_z3_pallas_scan(bounds, ids)
+    planes = (_t(bins), _t(hi), _t(lo))
+    base = scan.plain(*planes)
+    z2 = tz._ZScan(tz.z2_dim_bounds((0, 0), (1 << 30, 1 << 30)), None)
+    c2, m2 = tz.build_z2_zscan(z2.bounds[0])
+    base2 = z2.plain(None, _t(hi), _t(lo))
+    tail = np.ones(n, bool)
+    tail[n // 2:] = False
+    for v in map(_t, (np.ones(n, bool), rng.random(n) < 0.5, tail, np.zeros(n, bool))):
+        assert torch.equal(scan.plain(*planes, valid=v), base & v)
+        assert torch.equal(mask_fn(*planes, valid=v), base & v)
+        assert int(count_fn(*planes, valid=v)) == int((base & v).sum())
+        assert torch.equal(m2(_t(hi), _t(lo), valid=v), base2 & v)
+        assert int(c2(_t(hi), _t(lo), valid=v)) == int((base2 & v).sum())

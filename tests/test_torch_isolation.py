@@ -93,6 +93,27 @@ want = [f(t) for ix in (di, inter) for t in tiles
         for f in (lambda t, ix=ix: ix.count(t, loose=True), lambda t, ix=ix: ix.query(t, loose=True))]
 assert [g if isinstance(g, int) else sorted(g.fids) for g in got] == \
     [w if isinstance(w, int) else sorted(w.fids) for w in want]
+from geomesa_tpu_torch.device_cache import StreamingDeviceIndex
+from geomesa_tpu_torch.stream.log import Put, Remove
+
+
+class Feed:
+    def __init__(self):
+        self.fns = []
+
+    def add_listener(self, fn):
+        self.fns.append(fn)
+
+
+sdi = StreamingDeviceIndex(BatchStore(batch), "t", z_planes=True, capacity=1024, device="cpu")
+feed = Feed()
+sdi.attach_live(feed)
+for fn in feed.fns:
+    fn(Put({k: v[:50] for k, v in cols.items() if k != VIS_COLUMN}, np.arange(n, n + 50)))
+    fn(Remove(np.arange(0, 20)))
+assert len(sdi) == n + 30 and sdi.restages == 1 and sdi.delta_appends == 1
+assert sdi.count(q, loose=True) >= sdi.count(q) == len(sdi.query(q))
+assert sdi.fused_loose_counts([q], loose=True) == [sdi.count(q, loose=True)]
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -837,3 +837,31 @@ def test_device_index_knn_and_windows_on_the_card(dev):
             np.testing.assert_array_equal(gu.fids, cpu.window_union_query(envs, times, auths=auths,
                                                                           base=base).fids)
             assert kernels.LAUNCHES["filter_scan_mask"] == (2 if base else 0)
+
+
+VALID_KINDS = ("dimscan_z3", "dimscan_z2", "zscan_z3", "zscan_z2", "filter_scan",
+               "dimscan_batched_z3", "dimscan_batched_z2", "zscan_batched_z3", "zscan_batched_z2")
+
+
+@pytest.mark.parametrize("n", [1, 5, 1000, (1 << 20) + 3])
+@pytest.mark.parametrize("kind", VALID_KINDS)
+def test_validity_operand_matches_plain(dev, n, kind):
+    """Each kernel's count and mask with a validity plane (a null pointer,
+    a plane of ones, 50% live, the last 2^20 rows dead, none live) equal
+    its plain version ANDed with the plane, the batched ones at Q in {1,
+    4, 64}: ``chip_smoke.check_validity``, phase 2's check at 2^26 rows."""
+    errs = _CASES.Errs()
+    before = kernels.VALID_LAUNCHES[f"{kind}_count"]
+    assert _CASES.check_validity(dev, errs, n, seed=n, kinds=(kind,)) > 0
+    assert kernels.VALID_LAUNCHES[f"{kind}_count"] > before
+    assert all(v == 0 for v in errs.err.values())
+
+
+def test_misaligned_validity_raises(dev):
+    planes = [torch.zeros(64, dtype=torch.uint32, device=dev) for _ in range(2)]
+    q = np.array([0, 1, 0, 1], np.uint32)
+    valid = torch.ones(65, dtype=torch.bool, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        zscan.dimscan_count(q, *planes, valid=valid)
+    with pytest.raises(ValueError, match="rows"):
+        zscan.dimscan_count(q, *planes, valid=torch.ones(63, dtype=torch.bool, device=dev))

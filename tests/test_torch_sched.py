@@ -568,12 +568,14 @@ def test_two_workers_overlapping_groups_match_serial(resident_di):
 
 def test_fusion_failure_falls_back_to_serial(resident_di):
     """A fused launch that fails (the fail.device.launch chaos point) costs
-    the group its fusion, never its answers."""
+    the group its fusion, never its answers. The point fires once, at the
+    fused launch: the serial counts it falls back to hit the same point,
+    as the reference's do, and must run."""
     di, qs = resident_di
     serial = [di.count(q, loose=True) for q in qs]
     sched, gate = _gate_scheduler(fusion_window_ms=25.0)
     try:
-        with failpoints.failpoint_override("fail.device.launch", "raise"):
+        with failpoints.failpoint_override("fail.device.launch", "raise:1"):
             reqs, traces = [], []
             for q in qs:
                 with tracing.TRACER.trace("count") as t:

@@ -175,3 +175,39 @@ def test_normalize_t_matches_jax_quantization():
         got = NormalizedDimension(-180.0, 180.0, prec).normalize_t(_t(v))
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _valid_planes(rng, n):
+    """The validity patterns: every row live, 50% at random, the tail dead,
+    none live."""
+    tail = np.ones(n, bool)
+    tail[n // 2:] = False
+    return [np.ones(n, bool), rng.random(n) < 0.5, tail, np.zeros(n, bool)]
+
+
+@pytest.mark.parametrize("n", [1, 1000, 5003])
+@pytest.mark.parametrize("r", [0, 1, 2, 4, 8])
+def test_dimscan_validity_is_the_plain_mask_anded(n, r):
+    """The dim scan's plain version, count and mask with a validity plane
+    equal the plain version without one ANDed with the plane (and the
+    count its sum); the batched plain version with the plane equals Q
+    single-query ones."""
+    rng = np.random.default_rng(31 * r + n)
+    nx, ny, bt = _planes(rng, n, with_bt=r > 0)
+    planes = [_t(nx), _t(ny)] + ([_t(bt)] if r else [])
+    q = _qarr(rng, r)
+    qmat = np.stack([_qarr(rng, r) for _ in range(5)])
+    base = tz.dimscan_plain(q, *planes)
+    for v in map(_t, _valid_planes(rng, n)):
+        want = base & v
+        assert torch.equal(tz.dimscan_plain(q, *planes, valid=v), want)
+        assert torch.equal(tz.dimscan_mask(q, *planes, valid=v), want)
+        assert int(tz.dimscan_count(q, *planes, valid=v)) == int(want.sum())
+        got = tz.batched_dimscan_mask(qmat, *planes, valid=v)
+        singles = torch.stack([tz.dimscan_plain(row, *planes, valid=v) for row in qmat])
+        assert torch.equal(got, singles)
+        assert torch.equal(got, tz.batched_dim_mask_rt(r)(*planes, qmat) & v)
+        assert tz.batched_dimscan_count(qmat, *planes, valid=v).tolist() == \
+            singles.sum(dim=1).tolist()
+    with pytest.raises(ValueError, match="rows"):
+        tz.dimscan_count(q, *planes, valid=torch.ones(n + 1, dtype=torch.bool))

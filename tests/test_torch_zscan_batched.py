@@ -346,7 +346,8 @@ def test_fused_paths_launch_the_real_queries(indexes, monkeypatch, k, layout):
     else:
         for name in ("batched_dimscan_count", "batched_dimscan_mask"):
             real_fn = getattr(zscan, name)
-            monkeypatch.setattr(zscan, name, lambda q, *p, f=real_fn: (seen.append(len(q)), f(q, *p))[1])
+            monkeypatch.setattr(zscan, name, lambda q, *p, f=real_fn, **kw: (
+                seen.append(len(q)), f(q, *p, **kw))[1])
     serial = [di.count(q, loose=True) for q in qs]
     assert sum(serial) > 0
     assert di.fused_loose_counts(qs, loose=True) == serial
@@ -354,3 +355,32 @@ def test_fused_paths_launch_the_real_queries(indexes, monkeypatch, k, layout):
         np.testing.assert_array_equal(got.fids, di.query(q, loose=True).fids)
     assert seen == [k, k]  # one launch each for counts and masks, k queries, no padding
     assert all(lb is not None for lb in (di._loose_bounds(parse_ecql(q)) for q in qs))
+
+
+@pytest.mark.parametrize("nq", [1, 4, 47])
+@pytest.mark.parametrize("n_dims", [3, 2])
+def test_packed_plain_validity_is_the_mask_anded(nq, n_dims):
+    """The batched interleaved scan's plain version on the packed layout,
+    count and mask with a validity plane equal the plain version without
+    one ANDed with the plane, and equal Q single-query plain versions."""
+    rng, bins, (h3, l3), (h2, l2) = _keys(N, 16, seed=5 * nq + n_dims)
+    if n_dims == 3:
+        bounds, ids = _z3_group(rng, nq, 16, "mixed")
+        h, l, tb = torch.from_numpy(h3), torch.from_numpy(l3), torch.from_numpy(bins)
+        singles = [tz for tz in (zscan._ZScan(b, i) for b, i in zip(bounds, ids))]
+    else:
+        bounds, ids = _cells(rng, (nq,), 2), None
+        h, l, tb = torch.from_numpy(h2), torch.from_numpy(l2), None
+        singles = [zscan._ZScan(b, None) for b in bounds]
+    pk = zscan.batched_zscan(bounds, ids)
+    base = pk.plain(tb, h, l)
+    tail = np.ones(N, bool)
+    tail[N // 2:] = False
+    for v in map(torch.from_numpy, (np.ones(N, bool), rng.random(N) < 0.5, tail,
+                                    np.zeros(N, bool))):
+        got = pk.plain(tb, h, l, valid=v)
+        assert torch.equal(got, base & v)
+        assert torch.equal(got, torch.stack([s.plain(tb, h, l, valid=v) for s in singles]))
+        assert torch.equal(pk.run(tb, h, l, want_mask=True, valid=v), got)
+        assert torch.equal(zscan.batched_zscan_count(bounds, ids, h, l, bins=tb, valid=v),
+                           got.sum(dim=1, dtype=torch.int32))
