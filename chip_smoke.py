@@ -36,7 +36,13 @@ Phases:
      interleaved scan, the filter scan, both batched scans at Q in {1, 4,
      64}) at 2^26 rows, count and mask, against the plain version ANDed
      with the plane: a null pointer, a plane of ones, 50% live at random,
-     the last 2^20 rows dead, no row live; then the fixed
+     the last 2^20 rows dead, no row live; the join slice's torch ops on
+     the card against the same functions on CPU tensors, bit for bit, at n
+     in {0, 1, 1000, 2^20+17}: the pair pack of window_pairs_query over 1,
+     64, 65 and 263 windows (rows on window edges and one ulp around them,
+     with and without a row gate, a forced overflow past a cap of 16), the
+     join refinement's count and compaction over run batches of point and
+     envelope planes, and the BIN compaction of 4 and 6 lanes; then the fixed
      cost of one filter-scan launch (an empty CUDA event pair, 0 and 4,096
      rows beside 2^20 and 2^21, and the host's time to issue each call);
   3. the main path at full size: a GDELT-shaped resident Z3 point type
@@ -60,10 +66,12 @@ Phases:
      to 8 weeks on the interleaved scan, longer ones on the filter scan;
      loose answers against numpy over host-encoded keys on a subsample,
      exact counts against numpy);
-  3b. a labeled Z3 index of 2^24 rows (labels from a fixed seed over six
+  3b. a labeled Z3 index of 2^23 rows (labels from a fixed seed over six
      visibility expressions): counts, fid sets, density grids, a Count()
-     stat and two kNN calls (one with a base filter) under three auth
-     sets, checked against numpy with a per-label verdict table;
+     stat, two kNN calls (one with a base filter) and a BIN request
+     through resident_bin (the rider declines a labeled staging; the twin
+     answers) under three auth sets, checked against numpy with a
+     per-label verdict table;
   3d. the xz path, non-point footprints: 2^21 OSM-building-shaped
      polygons (85% 4-to-12-vertex, 10% with a hole, 5% MultiPolygons,
      5-60 m across, 90% in phase 3's city clusters) staged as xz2
@@ -95,7 +103,14 @@ Phases:
      kNN answer equals a numpy oracle of the same float32 formula bit for
      bit, tube and proximity fid sets (and distances) equal numpy, grids
      equal numpy, and the launch counts show the filter-scan kernel for
-     every base filter and the density kernel for every density call;
+     every base filter and the density kernel for every density call; then
+     BIN output (track mmsi): 4 exact one-day bbox windows over busy lanes,
+     2 loose ones, 1 labeled by vessel_type and sorted, and INCLUDE over
+     all 2^26 rows (1.07 GB of 16-byte records), each through the device
+     rider, resident_bin and the host twin bin_export, byte for byte equal
+     to numpy, the launch counts showing the scan kernel under every mask
+     and results_bin_device_launches counting every rider call (p50 of each
+     engine per request);
   3f. the device query scheduler (QueryScheduler, SchedConfig defaults
      with max_queue raised to 2,048) over phase 3's z3 and z2 dim-plane
      indexes and phase 3c's interleaved z3 and z2 indexes: 64 map-client
@@ -123,11 +138,37 @@ Phases:
      alone) and against a DeviceIndex staged anew from them; a burst of
      256 fused loose counts through QueryScheduler beside a thread that
      appends and evicts away from every tile (each count equals the
-     restaged index's); the same feed, reduced, on 2^24-row interleaved
+     restaged index's); the same feed, reduced, on 2^23-row interleaved
      z3, z2 and interleaved z2 streaming indexes; growth (capacity 2^22
      -> 2^24) and compaction (55% dead) at 2^22 rows, with their restage
      seconds. Every scan launch of a streaming drive read the validity
-     plane (``kernels.VALID_LAUNCHES``);
+     plane (``kernels.VALID_LAUNCHES``). On the fed 2^26-row index (part of
+     phase 3h's drive): an envelope join of 64 city windows, again after one
+     more append and one more eviction (each rebuilding the join layout for
+     the new staged generation), each equal to numpy over the live rows,
+     and one BIN rider call equal to numpy over the live rows;
+  3h. spatial joins, BASELINE config #3: 2^26 NYC-Taxi-shaped pickups
+     (passenger_count:Int,trip_distance:Float,dtg:Date,*geom:Point; January
+     2015 inside (-74.26, 40.49, -73.70, 40.92), 70% in Manhattan-like
+     clusters; synthetic from the seed) staged with key planes; the right
+     sides are 263 zone envelopes (a seeded kd split of the extent, each
+     widened by 0.002 degrees), 5 borough-like polygons of 32-64 vertices
+     and 64 station points. Calls: the envelope join of every row against
+     the zones (once), the same gated by one day (3 times) and by four
+     one-hour windows, window_pairs_query over the zones with a one-day
+     base filter (3 times), an intersects join of the day against the
+     boroughs (twice) and a dwithin 0.003 degrees join of the day against
+     the stations (3 times), all through spatial_join / DeviceIndex on the
+     device engine, with join.broadcast.windows at 8 (the boroughs
+     broadcast; the stations and zones plan their runs). Envelope pairs
+     equal a numpy oracle (a sorted-x searchsorted per zone, then an
+     inclusive float64 compare), and the day's join also equals itself
+     under join.engine=host; predicate pairs equal the host
+     engine and numpy (an even-odd crossing test; hypot); window pairs
+     equal numpy over the float32 planes widened one ulp; the launch counts
+     show the filter-scan kernel under every gate and base filter. Prints
+     the prepare seconds, each call kind's p50, pairs/s, plan and refine
+     seconds;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -143,7 +184,10 @@ Phases:
      and beside each scan row (the batched ones at Q = 4 and 64) the same
      launch under a validity plane of 50% live rows (``"valid": true``;
      every row carries ``valid_launches``, its phase 3g launches with the
-     plane).
+     plane); on the torch-ops line also the join slice's passes at phase
+     3h's shapes: the pair pack of one 64-zone group at 2^26 rows, one
+     refinement batch of 2^20 candidates, and the BIN compaction at 2^26
+     AIS rows, each beside its bound.
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -1071,6 +1115,118 @@ def check_ais_ops(dev):
     log(f"AIS torch ops: {cases} kNN and union-mask cases, the card == the CPU bit for bit")
 
 
+JOIN_WINDOW_COUNTS = (1, 64, 65, 263)  # one window, one group, a group and one, the zones
+
+
+def _join_case_windows(rng, x, y, m):
+    """m float64 windows over the rows' area; window 0 has its corners on
+    rows 0 and 1, and rows 2-7 sit on its right and top edges and one
+    float32 ulp either side (n >= 8); every 7th window is inverted."""
+    c = rng.uniform(9.0, 11.0, (m, 2))
+    h = rng.uniform(0.01, 0.5, (m, 2))
+    envs = _f32(np.concatenate([c - h, c + h], axis=1))
+    envs[3::7] = envs[3::7][:, [2, 3, 0, 1]]
+    if len(x) >= 8:
+        envs[0] = [min(x[0], x[1]), min(y[0], y[1]), max(x[0], x[1]), max(y[0], y[1])]
+        mid = np.float32((envs[0, 1] + envs[0, 3]) / 2)
+        x[2:5], y[2:5] = _ulps(envs[0, 2]), mid
+        y[5:8], x[5:8] = _ulps(envs[0, 3]), np.float32((envs[0, 0] + envs[0, 2]) / 2)
+    return envs
+
+
+def check_join_ops(dev):
+    """The join slice's torch ops (no TPU kernel behind them) on the card
+    against the same functions on CPU tensors, bit for bit, at n in {0, 1,
+    1000, 2^20+17}: the pair pack of window_pairs_query (ops/window.py
+    pairs_pack and group_words) over 1, 64, 65 and 263 windows widened one
+    float32 ulp, rows on window edges and one ulp around them, with and
+    without a row gate, at the index's cap and at a cap of 16 (a forced
+    overflow: the group's count passes the cap); the join refinement's
+    expand-and-refine passes (ops/join.py count_pairs, compact_pairs) over
+    run batches of point and envelope planes, interior runs and a gate;
+    and the BIN compaction (ops/binpack.py bin_count, bin_pack) of 4 and 6
+    lanes under random, empty and full masks."""
+    import torch
+
+    from geomesa_tpu_torch.ops import binpack
+    from geomesa_tpu_torch.ops import join as jops
+    from geomesa_tpu_torch.ops.window import group_words, pairs_pack, widen
+
+    cpu = torch.device("cpu")
+    cases = overflowed = 0
+    for n in RAGGED:
+        rng = np.random.default_rng(SEED + 7 + n)
+        x = rng.uniform(9.0, 11.0, n).astype(np.float32)
+        y = rng.uniform(9.0, 11.0, n).astype(np.float32)
+        gate = rng.random(n) < 0.7
+        for m in JOIN_WINDOW_COUNTS:
+            envs = _join_case_windows(rng, x, y, m)
+            groups = 1 << (-(-m // 64) - 1).bit_length()
+            env = np.empty((64 * groups, 4), np.float32)
+            env[:m] = widen(envs)
+            env[m:] = [1.0, 1.0, 0.0, 0.0]
+            # at the largest n, two of the four (gate, cap) cases: the CPU side is slow there
+            combos = [(g, c) for g in (None, gate) for c in (max(4096, n // 32), 16)]
+            for g, cap in combos if n <= 1000 else combos[::3]:
+                out = []
+                for d in (dev, cpu):
+                    xt, yt = torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)
+                    gt = None if g is None else torch.from_numpy(g).to(d)
+                    out.append([t.cpu() for t in pairs_pack(xt, yt, env, gt, cap)]
+                               + [group_words(xt, yt, env[:64], gt).cpu()])
+                if not all(torch.equal(a, b) for a, b in zip(*out)):
+                    raise AssertionError(f"pairs_pack n={n} m={m} cap={cap} gated={g is not None}: "
+                                         "the card != the CPU")
+                overflowed += int((out[0][2] > cap).sum())
+                cases += 1
+        # the refinement: runs over the rows, against the windows
+        xs, ys = x.astype(np.float64), y.astype(np.float64)
+        planes = {2: (xs, ys), 4: (xs, ys, xs + rng.uniform(0, 0.3, n), ys + rng.uniform(0, 0.3, n))}
+        envs = _join_case_windows(rng, x, y, 263).astype(np.float64)
+        r = 0 if n == 0 else 400
+        starts = rng.integers(0, max(n, 1), r)
+        lens = np.minimum(rng.integers(0, max(n // 8, 2), r), n - starts)
+        keep = lens > 0
+        starts, lens = starts[keep], lens[keep]
+        wins = rng.integers(0, 263, len(lens))
+        interior = rng.random(len(lens)) < 0.1
+        total = int(lens.sum())
+        for k, pl in planes.items():
+            for g in (None, gate):
+                out = []
+                for d in (dev, cpu):
+                    up = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(d, dt)  # noqa: E731
+                    args = (tuple(up(p, torch.float64) for p in pl), up(starts, torch.int64),
+                            up(lens, torch.int64), up(np.cumsum(lens), torch.int64),
+                            up(wins, torch.int64), up(interior, torch.bool),
+                            up(envs, torch.float64), total)
+                    gt = None if g is None else up(g, torch.bool)
+                    cnt = jops.count_pairs(*args, gt)
+                    rr, ww = jops.compact_pairs(*args, gt)
+                    out.append((cnt, rr.cpu(), ww.cpu()))
+                (c1, r1, w1), (c2, r2, w2) = out
+                if not (c1 == c2 == len(r1) and torch.equal(r1, r2) and torch.equal(w1, w2)):
+                    raise AssertionError(f"join refine n={n} planes={k} gated={g is not None}: "
+                                         "the card != the CPU")
+                cases += 1
+        # the BIN compaction
+        for L in (4, 6):
+            lanes = rng.integers(-(2**31), 2**31, (L, n)).astype(np.int32)
+            for mask in (rng.random(n) < 0.3, np.zeros(n, bool), np.ones(n, bool)):
+                out = []
+                for d in (dev, cpu):
+                    mt = torch.from_numpy(mask).to(d)
+                    out.append((binpack.bin_count(mt), binpack.bin_pack(mt, torch.from_numpy(lanes).to(d))))
+                if out[0][0] != out[1][0] or not np.array_equal(out[0][1], out[1][1]):
+                    raise AssertionError(f"bin pack n={n} lanes={L}: the card != the CPU")
+                cases += 1
+    if not overflowed:
+        raise AssertionError("the pair pack's forced overflow never passed its cap")
+    torch.cuda.synchronize()
+    log(f"join torch ops: {cases} pair-pack, refinement and BIN-compaction cases ({overflowed} "
+        f"groups over their cap), the card == the CPU bit for bit")
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 
@@ -1717,14 +1873,16 @@ VERDICTS = {  # auths -> whether each of LABELS is visible, written out by hand
     ("A",): [True, True, False, False, True, False],
     ("A", "B", "C"): [True, True, True, True, True, True],
 }
-N_LABELED = 1 << 24
+N_LABELED = 1 << 23
 # kNN on the labeled index, (target, k, base filter): phase 3's city centres
 LABELED_KNN = [((2.3515625, 48.859375), 100, None), ((-73.96875, 40.78125), 1000, "count > 500")]
 
 
 def run_labeled_path(dev, queries):
-    """Stage a labeled Z3 index and drive count, query, density and a
-    Count() stat under each auth set of VERDICTS; check with numpy."""
+    """Stage a labeled Z3 index and drive count, query, density, a Count()
+    stat, kNN and a BIN request (``resident_bin``: the rider declines a
+    labeled staging, the twin answers) under each auth set of VERDICTS;
+    check with numpy."""
     import torch
 
     from geomesa_tpu_torch import kernels
@@ -1733,6 +1891,7 @@ def run_labeled_path(dev, queries):
     from geomesa_tpu_torch.features.sft import SimpleFeatureType
     from geomesa_tpu_torch.filter.ecql import parse_ecql
     from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.results.binrider import resident_bin
     from geomesa_tpu_torch.store.direct import BatchStore
 
     t = time.time()
@@ -1763,19 +1922,24 @@ def run_labeled_path(dev, queries):
             di.density("INCLUDE", Envelope(*WORLD), 512, 256, auths=auths),
             di.stats(europe, "Count()", auths=auths).to_json()[0]["count"],
             [di.knn(*target, kk, query=base, auths=auths) for target, kk, base in LABELED_KNN],
+            resident_bin(di, europe, "count", auths=auths),  # labeled: the host twin
         )
     k = len(VERDICTS)
     launches = read_launches("labeled path", {
         "dimscan_z3_mask": 2 * k, "density_count": 2 * k,
-        "filter_scan_mask": (4 + sum(b is not None for _, _, b in LABELED_KNN)) * k,
+        "filter_scan_mask": (5 + sum(b is not None for _, _, b in LABELED_KNN)) * k,
     })
+    if di.bin_rider(europe, "count") is not None:
+        raise AssertionError("the BIN rider served a labeled staging")
     t = time.time()
     x = cols["geom"][:, 0].astype(np.float32)
     y = cols["geom"][:, 1].astype(np.float32)
     em = np_exact(x, y, cols["dtg"], eb, ew)
     lm = np_loose(di._loose_bounds(parse_ecql(europe))[1], host_z3_planes(cols))
-    for auths, (c_loose, c_exact, f_exact, f_loose, g_eu, g_all, n_stat, nn) in res.items():
+    for auths, (c_loose, c_exact, f_exact, f_loose, g_eu, g_all, n_stat, nn, bins) in res.items():
         seen = np.asarray(VERDICTS[auths])[lab]
+        if bins != np_bin(cols["count"], cols["dtg"], cols["geom"], em & seen):
+            raise AssertionError(f"labeled {auths}: resident_bin (the twin) != numpy")
         for (target, kk, base), got in zip(LABELED_KNN, nn):
             keep = seen if base is None else seen & (cols["count"] > 500)
             check_knn(f"labeled kNN {auths} {target} k={kk} {base}", got,
@@ -2589,7 +2753,113 @@ def run_ais_path(dev) -> dict:
         f"(rows {[len(r) for r in res_tube]}), {len(res_prox)} proximity (rows "
         f"{[len(r[0]) for r in res_prox]}), {len(res_dens)} density grids (mass "
         f"{[float(g.sum()) for g in res_dens]}): all equal to numpy, in {time.time() - t:.1f} s")
-    return {"launches": launches, "di": di, "traffic": tr}
+    bin_launches, bin_reqs = run_ais_bin(di, cols, tr, planes)
+    launches = {k: launches[k] + bin_launches[k] for k in launches}
+    return {"launches": launches, "di": di, "traffic": tr, "bin_requests": bin_reqs}
+
+
+BIN16 = np.dtype([("track", "<i4"), ("dtg", "<i4"), ("lat", "<f4"), ("lon", "<f4")])
+BIN24 = np.dtype([("track", "<i4"), ("dtg", "<i4"), ("lat", "<f4"), ("lon", "<f4"), ("label", "<i8")])
+BIN_REPEATS = 3  # timed calls of each engine per BIN request
+
+
+def np_bin(track, dtg, geom, sel, label=None, sort=False) -> bytes:
+    """BIN records of the rows ``sel`` (a mask or row ids) in numpy:
+    track int32, dtg seconds, lat and lon float32 (+ the label: the first
+    8 bytes of the value's string as a little-endian int64, one value at a
+    time), in row order or sorted stably by dtg seconds."""
+    rows = np.nonzero(sel)[0] if sel.dtype == bool else sel
+    rec = np.empty(len(rows), BIN24 if label is not None else BIN16)
+    rec["track"] = track[rows].astype(np.int64).astype(np.int32)
+    rec["dtg"] = (dtg[rows] // 1000).astype(np.int32)
+    rec["lat"] = geom[rows, 1].astype(np.float32)
+    rec["lon"] = geom[rows, 0].astype(np.float32)
+    if label is not None:
+        vals, inv = np.unique(label[rows], return_inverse=True)
+        packed = [int.from_bytes(str(v).encode()[:8].ljust(8, b"\0"), "little", signed=True)
+                  for v in vals]
+        rec["label"] = np.array(packed, np.int64)[inv.reshape(-1)]
+    if sort:
+        rec = rec[np.argsort(rec["dtg"], kind="stable")]
+    return rec.tobytes()
+
+
+def run_ais_bin(di, cols, tr, planes) -> dict:
+    """Phase 3e's BIN requests on the AIS index (track ``mmsi``): 4 exact
+    one-day bbox windows over busy lanes, 2 loose ones, 1 labeled
+    (``vessel_type``) and sorted, and INCLUDE over every row. Each through
+    the device rider, ``resident_bin`` (auto: the rider on the card) and
+    the host twin ``bin_export``, BIN_REPEATS times each (INCLUDE's rider
+    twice, its twin once); every answer equals the twin's and numpy's byte for byte, the
+    launch counts show the scan kernel under every mask, and the rider
+    metric counts every rider call."""
+    import torch
+
+    from geomesa_tpu_torch import kernels, metrics
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.results.binrider import resident_bin
+
+    day = f"dtg DURING {_day(12)}/{_day(13)}"
+    # fixes of sailing vessels on that day, at the targets of phase 3e's lanes
+    in_day = np.nonzero((cols["dtg"] >= T0 + 12 * DAY) & (cols["dtg"] <= T0 + 13 * DAY)
+                        & ~cols["_moored"][cols["_vid"]])[0]
+    centres = [tuple(cols["geom"][in_day[len(in_day) * (2 * i + 1) // 12]]) for i in range(6)]
+    boxes = [tuple(_q(v) for v in (cx - 1.0, cy - 1.0, cx + 1.0, cy + 1.0)) for cx, cy in centres]
+    reqs = [(f"exact {i}", f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND {day}", False, None, False)
+            for i, b in enumerate(boxes[:4])]
+    reqs += [(f"loose {i}", f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND {day}", True, None, False)
+             for i, b in enumerate(boxes[4:])]
+    # INCLUDE before the labeled request: it reuses the 4-lane matrix, which
+    # the labeled one's 6 lanes replace (one matrix is kept)
+    reqs.append(("INCLUDE", "INCLUDE", False, None, False))
+    b = boxes[0]
+    reqs.append(("labeled sorted", f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND {day}", False,
+                 "vessel_type", True))
+    calls = Calls()
+    metric0 = metrics.results_bin_device_launches.value()
+    kernels.reset_counts()
+    out = []
+    for tag, q, loose, label, sort in reqs:
+        scan = None if q == "INCLUDE" else ("dimscan_z3_mask" if loose else "filter_scan_mask")
+        kw = dict(label_attr=label, sort=sort, loose=loose)
+        big = q == "INCLUDE"  # 1.07 GB a call: fewer repeats
+        rider = [calls.run(f"bin rider {tag}", lambda: di.bin_rider(q, "mmsi", **kw), scan)
+                 for _ in range(2 if big else BIN_REPEATS)]
+        res = calls.run(f"bin resident {tag}", lambda: resident_bin(di, q, "mmsi", **kw), scan)
+        twin = [calls.run(f"bin twin {tag}", lambda: di.bin_export(q, "mmsi", **kw), scan)
+                for _ in range(1 if big else BIN_REPEATS)]
+        out.append((rider, res, twin))
+    torch.cuda.synchronize()
+    launches = read_launches("AIS BIN", calls.want)
+    riders = sum(len(a) > 0 for rider, res, _ in out for a in rider + [res])  # b"": no pack
+    if metrics.results_bin_device_launches.value() - metric0 != riders:
+        raise AssertionError(f"results_bin_device_launches counted "
+                             f"{metrics.results_bin_device_launches.value() - metric0}, not {riders}")
+    t = time.time()
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    in_day = (cols["dtg"] >= T0 + 12 * DAY) & (cols["dtg"] <= T0 + 13 * DAY)
+    for (tag, q, loose, label, sort), (rider, res, twin) in zip(reqs, out):
+        if q == "INCLUDE":
+            sel = np.ones(len(x), bool)
+        elif loose:
+            sel = np_loose(di._loose_bounds(parse_ecql(q))[1], planes)
+        else:
+            bb = boxes[0] if tag == "labeled sorted" else boxes[int(tag.split()[-1])]
+            sel = (in_day & (x >= np.float32(bb[0])) & (x <= np.float32(bb[2]))
+                   & (y >= np.float32(bb[1])) & (y <= np.float32(bb[3])))
+        want = np_bin(cols["mmsi"], cols["dtg"], cols["geom"], sel,
+                      None if label is None else cols[label], sort)
+        if not all(a == want for a in rider + twin + [res]):
+            raise AssertionError(f"AIS BIN {tag}: rider / resident_bin / twin != numpy")
+        size = 24 if label else 16
+        log(f"phase 3e BIN {tag}: {len(want) // size:,} records ({len(want) / 1e9:.4f} GB) "
+            f"rider p50 {pct(calls.lat[f'bin rider {tag}'], 50):.3f} ms, resident_bin "
+            f"{pct(calls.lat[f'bin resident {tag}'], 50):.3f} ms, twin p50 "
+            f"{pct(calls.lat[f'bin twin {tag}'], 50):.3f} ms [{CARD}]")
+    log(f"phase 3e BIN: {len(reqs)} requests x (rider, resident_bin, twin) == numpy byte for "
+        f"byte ({riders} rider calls counted), checked in {time.time() - t:.1f} s")
+    return launches, reqs
 
 
 # -- phase 3f: the device query scheduler ---------------------------------------
@@ -2810,7 +3080,7 @@ STREAM_APPEND_ROWS = 1 << 14
 STREAM_EVICTED = 1 << 20  # random held fids, evicted through 64 Remove messages
 STREAM_UPSERTS = 16  # Put messages moving 2^12 held rows to another city
 STREAM_UPSERT_ROWS = 1 << 12
-STREAM_SMALL = 1 << 24  # the interleaved z3 and the z2 streaming indexes
+STREAM_SMALL = 1 << 23  # the interleaved z3 and the z2 streaming indexes
 STREAM_GROW = 1 << 22  # rows of the growth and the compaction restages
 STREAM_BURST = 256  # fused loose counts through the scheduler beside a writer
 CORNER = (-179.9, -89.9, -179.5, -89.5)  # no tile reaches it: the burst's writer writes here
@@ -3027,10 +3297,118 @@ def _valid_only(tag, launches, valid) -> None:
         raise AssertionError(f"{tag}: launches without the validity plane: {bad}")
 
 
+STREAM_JOIN_HALF = 0.25  # half-width in degrees of the 64 city windows joined on phase 3g's index
+
+
+def _np_window_rows(xs, order, ys, env, alive) -> np.ndarray:
+    """Rows inside one window (inclusive float64), alive (None: every row),
+    ascending: a searchsorted interval of the x-sorted rows, then the y
+    test. ``ys`` and ``alive`` are in the x-sorted order too, so the
+    interval is read contiguously."""
+    lo = np.searchsorted(xs, env[0], side="left")
+    hi = np.searchsorted(xs, env[2], side="right")
+    yc = ys[lo:hi]
+    keep = (yc >= env[1]) & (yc <= env[3])
+    if alive is not None:
+        keep &= alive[lo:hi]
+    return np.sort(order[lo:hi][keep])
+
+
+def stream_joins(di, truth, centers) -> dict:
+    """Phase 3g's joins and BIN call on the fed 2^26-row index: an envelope
+    join of 64 city windows, then again after one more append of 2^14 rows
+    and after one more eviction of 2^14 fids; each join's pairs equal numpy
+    over the staged rows that are live (row ids in staged order), and each
+    mutation bumped the staged generation and rebuilt the join layout. Then
+    one BIN rider call (exact bbox + during, the filter scan with the
+    plane) against numpy over the live rows."""
+    import torch
+
+    from geomesa_tpu_torch.conf import prop_override
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.join import JoinEngine
+
+    wins = np.concatenate([centers - STREAM_JOIN_HALF, centers + STREAM_JOIN_HALF], axis=1)
+    t = time.time()
+    geom = np.concatenate([c["geom"] for _, c in truth.parts])
+    order = np.argsort(geom[:, 0])  # any order among equal x: each window's rows are sorted
+    xs = geom[order, 0]
+    log(f"phase 3g joins: x-sorted {len(geom):,} staged rows for the oracle in {time.time() - t:.1f} s")
+    out = {}
+
+    def join_check(tag):
+        gen = di._gen
+        t = time.perf_counter()
+        res = JoinEngine(di).join(wins)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if di._join_index is None or di._join_index.gen != gen or res.engine != "device":
+            raise AssertionError(f"phase 3g join {tag}: layout gen / engine {res.engine}")
+        alive = truth.alive[: truth.n][order]
+        ys = geom[order, 1]
+        starts = np.searchsorted(res.wins, np.arange(len(wins)))
+        ends = np.searchsorted(res.wins, np.arange(len(wins)), side="right")
+        for j, env in enumerate(wins):
+            want = _np_window_rows(xs, order, ys, env, alive)
+            if not np.array_equal(res.rows[starts[j]: ends[j]], want):
+                raise AssertionError(f"phase 3g join {tag} window {j}: pairs != numpy over the live rows")
+        log(f"phase 3g join {tag}: {res.pairs:,} pairs over 64 city windows == numpy "
+            f"(gen {gen}, {res.strategy} level {res.level}, {res.launches} launches, "
+            f"{wall * 1e3:.1f} ms, plan {res.plan_s * 1e3:.1f} ms, refine {res.refine_s * 1e3:.1f} ms) "
+            f"[{CARD}]")
+        out[tag] = {"pairs": res.pairs, "ms": wall * 1e3, "gen": gen}
+        return res
+
+    bcast = prop_override("join.broadcast.windows", JOIN_BROADCAST)  # 64 windows plan their runs
+    bcast.__enter__()
+    join_check("fed")
+    layout = di._join_index
+    fids = np.arange(truth.row_of.shape[0] - STREAM_APPEND_ROWS, truth.row_of.shape[0])
+    c = delta_columns(STREAM_APPEND_ROWS, SEED + 80, centers)
+    di.append(FeatureBatch.from_columns(di.sft, c, fids))
+    truth.put(c, fids)
+    # the new rows go into the x-sorted oracle arrays where they belong
+    new = np.argsort(c["geom"][:, 0])
+    pos = np.searchsorted(xs, c["geom"][new, 0])
+    order = np.insert(order, pos, len(geom) + new)
+    xs = np.insert(xs, pos, c["geom"][new, 0])
+    geom = np.concatenate([geom, c["geom"]])
+    join_check("after append")
+    if di._join_index is layout:
+        raise AssertionError("phase 3g: the join layout was not rebuilt after an append")
+    layout = di._join_index
+    gone = np.nonzero(truth.alive[: truth.n])[0][:: 997][:STREAM_APPEND_ROWS]
+    gone_fids = np.concatenate([f for f, _ in truth.parts])[gone]
+    di.evict(gone_fids)
+    truth.remove(gone_fids)
+    join_check("after evict")
+    if di._join_index is layout:
+        raise AssertionError("phase 3g: the join layout was not rebuilt after an eviction")
+    bcast.__exit__(None, None, None)
+    # one BIN rider call over the live rows
+    b = tuple(_q(v) for v in (centers[0, 0] - 1, centers[0, 1] - 1, centers[0, 0] + 1, centers[0, 1] + 1))
+    q = f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) AND dtg DURING {_day(10)}/{_day(20)}"
+    t = time.perf_counter()
+    got = di.bin_rider(q, "count")
+    wall = time.perf_counter() - t
+    cnt = np.concatenate([c["count"] for _, c in truth.parts])
+    dtg = np.concatenate([c["dtg"] for _, c in truth.parts])
+    x, y = geom[:, 0].astype(np.float32), geom[:, 1].astype(np.float32)
+    sel = (truth.alive[: truth.n] & (x >= np.float32(b[0])) & (x <= np.float32(b[2]))
+           & (y >= np.float32(b[1])) & (y <= np.float32(b[3]))
+           & (dtg >= T0 + 10 * DAY) & (dtg <= T0 + 20 * DAY))
+    if got != np_bin(cnt, dtg, geom, sel):
+        raise AssertionError("phase 3g: the BIN rider != numpy over the live rows")
+    log(f"phase 3g BIN rider: {int(sel.sum()):,} records == numpy over the live rows in "
+        f"{wall * 1e3:.1f} ms [{CARD}]")
+    out["bin_rider_ms"] = wall * 1e3
+    return out
+
+
 def run_streaming_path(dev, cols, queries, traffic) -> dict:
     """Phase 3g (module docstring): the streaming index at 2^26 rows fed
     through attach_live, its drive checked against numpy and a restaged
-    index; the 2^24 interleaved z3 and z2 indexes; growth and compaction;
+    index; the 2^23 interleaved z3 and z2 indexes; growth and compaction;
     the scheduler burst beside a writer."""
     import threading
 
@@ -3176,10 +3554,14 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
         f"{STREAM_APPEND_ROWS:,} rows, 15 Removes of {STREAM_UPSERT_ROWS:,}) in {wall * 1e3:.1f} ms, {snap['launches']} launches, fusion "
         f"factor {snap['fusion_factor']}, fallbacks {snap.get('fusion_fallbacks', 0)}; every count "
         f"== the restaged index's [{CARD}]")
-    del fresh, di, truth, live
+    del fresh
+    kernels.reset_counts()
+    out["join"] = stream_joins(di, truth, centers)
+    add_launches("phase 3g joins and BIN")
+    del di, truth, live
     torch.cuda.empty_cache()
 
-    # -- 2^24 rows: the interleaved z3, the z2 on dim planes, the interleaved z2
+    # -- 2^23 rows: the interleaved z3, the z2 on dim planes, the interleaved z2
     small = {k: cols[k][:STREAM_SMALL] for k in ("count", "dtg", "geom")}
     z2_queries = [(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})", b, None) for _, b, _ in queries[:8]]
     z2_tiles = [q.split(" AND ")[0] for q in tiles]
@@ -3208,7 +3590,7 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
         fresh = _fresh(dev, live, spec, name, **kw)
         check_stream_queries(tag, sdi, fresh, live, qs, res)
         check_fused(tag, sdi, fresh, tl, counts, feats)
-        log(f"phase 3g {tag} 2^24: append p50 {pct(lat['append'], 50):.3f} ms, evict p50 "
+        log(f"phase 3g {tag} 2^23: append p50 {pct(lat['append'], 50):.3f} ms, evict p50 "
             f"{pct(lat['evict'], 50):.3f} ms, upsert p50 {pct(lat['upsert'], 50):.3f} ms; restages "
             f"{sdi.restages}, delta_appends {sdi.delta_appends}; count p50 loose "
             f"{pct(lat_q['count_loose'], 50):.3f} ms exact {pct(lat_q['count_exact'], 50):.3f} ms [{CARD}]")
@@ -3252,6 +3634,309 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
                                                    "delta_appends", "growth_s", "compaction_s")},
                     "card": CARD}))
     return out
+
+
+# -- phase 3h: spatial joins on NYC-Taxi-shaped pickups (BASELINE config #3) --
+
+TAXI_SPEC = "passenger_count:Int,trip_distance:Float,dtg:Date,*geom:Point:srid=4326"
+TAXI_N = 1 << 26
+TAXI_EXTENT = (-74.26, 40.49, -73.70, 40.92)
+T15 = 1_420_070_400_000  # 2015-01-01T00:00:00Z
+TAXI_DAYS = 31
+TAXI_ZONES = 263  # TLC's taxi-zone map has 263 zones
+ZONE_WIDEN = 0.002  # each zone widened so that neighbours overlap
+ZONE_MIN = 0.012  # no kd cut leaves a zone narrower than this (degrees)
+N_STATIONS = 64
+STATION_D = 0.003
+JOIN_REPEATS = 3  # timed calls of each day-level join kind
+# right sides at or below this broadcast (the default, 64, would broadcast
+# the 64 stations: 2^32 candidates at 2^26 rows); the boroughs still do
+JOIN_BROADCAST = 8
+# borough-like polygons: (centre, radii in x and y, vertices) for a
+# Manhattan, Brooklyn, Queens, the Bronx and Staten Island
+BOROUGHS = [((-73.970, 40.775), (0.030, 0.085), 64), ((-73.950, 40.645), (0.070, 0.055), 48),
+            ((-73.820, 40.715), (0.090, 0.065), 56), ((-73.870, 40.845), (0.050, 0.040), 40),
+            ((-74.150, 40.580), (0.060, 0.050), 32)]
+
+
+def make_taxi(n: int, seed: int) -> dict:
+    """NYC-Taxi-shaped pickups of January 2015 inside TAXI_EXTENT: 70% in 24
+    Manhattan-like clusters (sigma 0.006 degrees) along the island, the
+    rest uniform; float32 coordinates."""
+    rng = np.random.default_rng(seed)
+    x0, y0, x1, y1 = TAXI_EXTENT
+    t = rng.uniform(0.0, 1.0, 24)
+    cx = -74.012 + 0.075 * t + rng.normal(0.0, 0.003, 24)
+    cy = 40.705 + 0.14 * t + rng.normal(0.0, 0.003, 24)
+    cid = rng.integers(0, 24, n)
+    x = cx[cid] + rng.normal(0.0, 0.006, n)
+    y = cy[cid] + rng.normal(0.0, 0.006, n)
+    del cid
+    uni = rng.random(n) >= 0.7
+    x[uni] = rng.uniform(x0, x1, int(uni.sum()))
+    y[uni] = rng.uniform(y0, y1, int(uni.sum()))
+    geom = np.empty((n, 2))
+    geom[:, 0] = np.clip(x, x0, x1).astype(np.float32)
+    geom[:, 1] = np.clip(y, y0, y1).astype(np.float32)
+    return {"passenger_count": rng.integers(1, 7, n).astype(np.int32),
+            "trip_distance": rng.exponential(2.8, n).astype(np.float32),
+            "dtg": T15 + rng.integers(0, TAXI_DAYS * DAY, n), "geom": geom}
+
+
+def taxi_zones(geom, seed: int) -> np.ndarray:
+    """TAXI_ZONES zone envelopes: a seeded kd split of the extent (the zone
+    holding the most of a 2^16-row sample splits at a sample quantile
+    between 35% and 65% across its longer side, no side under ZONE_MIN),
+    each widened by ZONE_WIDEN."""
+    rng = np.random.default_rng(seed)
+    sample = geom[rng.integers(0, len(geom), 1 << 16)]
+    boxes = [(TAXI_EXTENT, np.arange(len(sample)))]
+    while len(boxes) < TAXI_ZONES:
+        weight = [len(i) if max(b[2] - b[0], b[3] - b[1]) >= 2 * ZONE_MIN else -1 for b, i in boxes]
+        (bx0, by0, bx1, by1), idx = boxes.pop(int(np.argmax(weight)))
+        ax = 0 if bx1 - bx0 >= by1 - by0 else 1
+        lo, hi = (bx0, bx1) if ax == 0 else (by0, by1)
+        v = np.sort(sample[idx, ax])
+        cut = float(v[int(len(v) * rng.uniform(0.35, 0.65))]) if len(v) > 8 else (lo + hi) / 2
+        cut = min(max(cut, lo + ZONE_MIN), hi - ZONE_MIN)
+        a, b = idx[sample[idx, ax] < cut], idx[sample[idx, ax] >= cut]
+        if ax == 0:
+            boxes += [((bx0, by0, cut, by1), a), ((cut, by0, bx1, by1), b)]
+        else:
+            boxes += [((bx0, by0, bx1, cut), a), ((bx0, cut, bx1, by1), b)]
+    envs = np.array([b for b, _ in boxes], np.float64)
+    envs[:, :2] -= ZONE_WIDEN
+    envs[:, 2:] += ZONE_WIDEN
+    return envs
+
+
+def borough_rings(seed: int) -> list:
+    """Closed float64 rings of the five borough-like polygons: star-shaped,
+    32-64 vertices at sorted angles, radius jittered by up to 25%."""
+    rng = np.random.default_rng(seed)
+    rings = []
+    for (cx, cy), (rx, ry), k in BOROUGHS:
+        ang = np.sort(rng.uniform(0.0, 2 * np.pi, k))
+        r = rng.uniform(0.75, 1.25, k)
+        ring = np.stack([cx + rx * r * np.cos(ang), cy + ry * r * np.sin(ang)], axis=1)
+        rings.append(np.concatenate([ring, ring[:1]]))
+    return rings
+
+
+def np_even_odd(px, py, ring) -> np.ndarray:
+    """Points strictly inside a closed ring by the even-odd crossing test
+    (an edge counts where it straddles the point's horizontal, half-open in
+    y; the crossing lies right of the point), over row blocks."""
+    x1, y1, x2, y2 = ring[:-1, 0], ring[:-1, 1], ring[1:, 0], ring[1:, 1]
+    out = np.zeros(len(px), bool)
+    for s in range(0, len(px), 1 << 18):
+        xs, ys = px[s: s + (1 << 18), None], py[s: s + (1 << 18), None]
+        straddle = (y1 > ys) != (y2 > ys)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            xint = x1 + (ys - y1) * (x2 - x1) / (y2 - y1)
+        out[s: s + (1 << 18)] = (straddle & (xs < xint)).sum(axis=1) % 2 == 1
+    return out
+
+
+def _split_pairs(rows, wins, m) -> list:
+    """Pairs sorted (window, row) -> the rows of each window."""
+    starts = np.searchsorted(wins, np.arange(m))
+    ends = np.searchsorted(wins, np.arange(m), side="right")
+    return [rows[a:b] for a, b in zip(starts, ends)]
+
+
+def _same_join(tag, a, b) -> None:
+    """Two JoinResults with the same pairs and plan (the engine and its
+    launches aside: the host engine counts one launch a batch)."""
+    ra, rb = a.report(), b.report()
+    for k in ("strategy", "level", "pairs", "candidates", "skew_splits", "stats"):
+        if ra[k] != rb[k]:
+            raise AssertionError(f"{tag}: {k} {ra[k]} != {rb[k]} under join.engine=host")
+    if not (np.array_equal(a.rows, b.rows) and np.array_equal(a.wins, b.wins)):
+        raise AssertionError(f"{tag}: pairs != the host engine's")
+
+
+def _pred_pairs(res) -> tuple:
+    """A predicate join's (left, right, pairs) -> (row ids, windows)."""
+    left, _, pairs = res
+    return left.fids[pairs[:, 0]], pairs[:, 1]
+
+
+def run_join_path(dev) -> dict:
+    """Phase 3h (module docstring): 2^26 NYC-Taxi-shaped pickups staged
+    with key planes; the envelope join against the 263 zones, whole and
+    gated by a day and four hours; window_pairs_query over the zones with a
+    one-day base filter; intersects of a day against 5 borough polygons
+    and dwithin 0.003 degrees of a day against 64 stations; every answer
+    against numpy and the host engine, every gate on a scan kernel."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.conf import prop_override
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.geom import Polygon
+    from geomesa_tpu_torch.join import JoinEngine
+    from geomesa_tpu_torch.process.join import spatial_join
+    from geomesa_tpu_torch.store.direct import BatchStore
+
+    t = time.time()
+    cols = make_taxi(TAXI_N, SEED + 90)
+    zones = taxi_zones(cols["geom"], SEED + 91)
+    rings = borough_rings(SEED + 92)
+    srng = np.random.default_rng(SEED + 93)
+    st = _f32(np.concatenate([cols["geom"][srng.integers(0, TAXI_N, 48)],
+                              srng.uniform(TAXI_EXTENT[:2], TAXI_EXTENT[2:], (16, 2))]))
+    gen_s = time.time() - t
+    t = time.time()
+    store = BatchStore(FeatureBatch.from_columns(SimpleFeatureType.create("taxi", TAXI_SPEC), cols))
+    di = DeviceIndex(store, "taxi", z_planes=True, device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.time() - t
+    boroughs = FeatureBatch.from_columns(
+        SimpleFeatureType.create("boroughs", "name:String,*geom:Polygon:srid=4326"),
+        {"name": ["manhattan", "brooklyn", "queens", "bronx", "staten"],
+         "geom": np.array([Polygon(r) for r in rings], dtype=object)})
+    stations = FeatureBatch.from_columns(
+        SimpleFeatureType.create("stations", "name:String,*geom:Point:srid=4326"),
+        {"name": [f"s{i}" for i in range(N_STATIONS)], "geom": st})
+    log(f"phase 3h: generated {TAXI_N:,} pickups, {len(zones)} zones in {gen_s:.1f} s; staged in "
+        f"{stage_s:.2f} s ({di.nbytes / 1e9:.3f} GB resident, dim planes {di._dim_mode})")
+    day = (T15 + 9 * DAY, T15 + 10 * DAY)
+    day_q = f"dtg DURING {_iso(day[0])}/{_iso(day[1])}"
+    hours = [(T15 + 9 * DAY + h * 3_600_000, T15 + 9 * DAY + (h + 1) * 3_600_000) for h in (0, 8, 13, 18)]
+    scan = "filter_scan_mask"
+    calls = Calls()
+    bcast = prop_override("join.broadcast.windows", JOIN_BROADCAST)
+    bcast.__enter__()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    jidx = JoinEngine(di).prepare()
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t
+    full = calls.run("join full", lambda: spatial_join(store, "taxi", zones, device_index=di))
+    res_day = [calls.run("join day", lambda: spatial_join(store, "taxi", zones, device_index=di,
+                                                          left_filter=day_q), scan)
+               for _ in range(JOIN_REPEATS)]
+    hour_q = [f"dtg DURING {_iso(a)}/{_iso(b)}" for a, b in hours]
+    res_hour = [calls.run("join hour", lambda q=q: spatial_join(store, "taxi", zones, device_index=di,
+                                                                left_filter=q), scan) for q in hour_q]
+    res_wp = [calls.run("window pairs day", lambda: di.window_pairs_query(zones, base=day_q), scan)
+              for _ in range(JOIN_REPEATS)]
+    res_int = [calls.run("intersects day", lambda: spatial_join(
+        store, "taxi", boroughs, on="intersects", left_filter=day_q, device_index=di), scan)
+        for _ in range(2)]
+    res_dw = [calls.run("dwithin day", lambda: spatial_join(
+        store, "taxi", stations, on="dwithin", distance=STATION_D, left_filter=day_q, device_index=di),
+        scan) for _ in range(JOIN_REPEATS)]
+    torch.cuda.synchronize()
+    launches = read_launches("join path", calls.want)
+    if di._join_index is not jidx or full.engine != "device":
+        raise AssertionError(f"phase 3h: the layout was rebuilt, or the engine was {full.engine}")
+    calls.log_latency("join")
+    full_s = calls.lat["join full"][0]
+    log(f"phase 3h: prepare {prepare_s:.3f} s at {TAXI_N:,} rows ({jidx.kind}, "
+        f"{'identity' if jidx.perm is None else 'sorted'} permutation); full join {full.pairs:,} pairs "
+        f"in {full_s:.3f} s = {full.pairs / full_s:,.0f} pairs/s, {full.strategy} level {full.level}, "
+        f"{full.candidates:,} candidates, {full.launches} launches, {full.splits} skew splits, plan "
+        f"{full.plan_s:.4f} s refine {full.refine_s:.4f} s [{CARD}]")
+    for tag, r in (("day", res_day[0]), *((f"hour {i}", h) for i, h in enumerate(res_hour))):
+        log(f"phase 3h join {tag}: {r.pairs:,} pairs, {r.candidates:,} candidates, plan "
+            f"{r.plan_s:.4f} s refine {r.refine_s:.4f} s [{CARD}]")
+
+    # -- checks -----------------------------------------------------------------
+    t = time.time()
+    x64, y64, dtg = cols["geom"][:, 0], cols["geom"][:, 1], cols["dtg"]
+    # the layout built on the card: host Z2 keys of its planes (every 16th
+    # row), non-decreasing keys, a stable permutation, the planes gathered by it
+    from geomesa_tpu_torch.curves.z2 import Z2SFC
+
+    keys, perm = jidx.keys, jidx.perm
+    eq = keys[1:] == keys[:-1]
+    if not (np.array_equal(Z2SFC().index(jidx.planes["x"][::16], jidx.planes["y"][::16]),
+                           keys[::16]) and (keys[1:] >= keys[:-1]).all()
+            and (perm[1:][eq] > perm[:-1][eq]).all()
+            and np.array_equal(jidx.planes["x"], x64[perm]) and np.array_equal(jidx.planes["y"], y64[perm])):
+        raise AssertionError("phase 3h: the card's join layout != the host encode and a stable sort")
+    in_day = (dtg >= day[0]) & (dtg <= day[1])
+
+    # the same joins on the host engine, one thread each; not the full join,
+    # whose host lexsort of 10^8 pairs alone held the checks ~40 s, nor the
+    # hours (the numpy oracle checks them; the day's checks the gate)
+    host_calls = {
+        "day": lambda: spatial_join(store, "taxi", zones, device_index=di, left_filter=day_q),
+        "int": lambda: spatial_join(store, "taxi", boroughs, on="intersects", left_filter=day_q,
+                                    device_index=di),
+        "dw": lambda: spatial_join(store, "taxi", stations, on="dwithin", distance=STATION_D,
+                                   left_filter=day_q, device_index=di),
+    }
+    with prop_override("join.engine", "host"), ThreadPoolExecutor(max_workers=8) as pool:
+        host_f = {k: pool.submit(fn) for k, fn in host_calls.items()}
+        order = np.argsort(x64)  # any order among equal x: each zone's rows are sorted
+        xs, ys = x64[order], y64[order]
+        want = list(pool.map(lambda e: _np_window_rows(xs, order, ys, e, None), zones))
+        host = {k: f.result() for k, f in host_f.items()}
+    bcast.__exit__(None, None, None)
+    _same_join("phase 3h join day", res_day[0], host["day"])
+    for tag, got, gate in (("full", full, None), ("day", res_day[0], in_day),
+                           *((f"hour {i}", r, (dtg >= a) & (dtg <= b))
+                             for i, (r, (a, b)) in enumerate(zip(res_hour, hours)))):
+        for j, rows in enumerate(_split_pairs(got.rows, got.wins, len(zones))):
+            w = want[j] if gate is None else want[j][gate[want[j]]]
+            if not np.array_equal(rows, w):
+                raise AssertionError(f"phase 3h join {tag} zone {j}: pairs != numpy")
+    for r in res_day[1:]:
+        _same_join("phase 3h join day repeat", r, res_day[0])
+    # window pairs: numpy over the float32 planes widened one ulp, in the
+    # pack's order (group, row, window)
+    x32, y32 = x64.astype(np.float32), y64.astype(np.float32)
+    drows = np.nonzero(in_day)[0]
+    e = _f32(zones).astype(np.float32)
+    e[:, :2] = np.nextafter(e[:, :2], np.float32(-np.inf))
+    e[:, 2:] = np.nextafter(e[:, 2:], np.float32(np.inf))
+    wr, ww = [], []
+    xr, yr = x32[drows], y32[drows]
+    for j, (a, b, c, d) in enumerate(e):
+        r = drows[(xr >= a) & (xr <= c) & (yr >= b) & (yr <= d)]
+        wr.append(r)
+        ww.append(np.full(len(r), j))
+    wr, ww = np.concatenate(wr), np.concatenate(ww)
+    o = np.lexsort((ww, wr, ww // 64))
+    for got in res_wp:
+        if not (np.array_equal(got[0], wr[o]) and np.array_equal(got[1], ww[o])):
+            raise AssertionError("phase 3h window pairs: != numpy over the widened float32 planes")
+    # predicate joins: the host engine and numpy
+    for tag, res, h in (("intersects", res_int, host["int"]), ("dwithin", res_dw, host["dw"])):
+        want_p = _pred_pairs(h)
+        for r in res:
+            got_p = _pred_pairs(r)
+            if not (np.array_equal(got_p[0], want_p[0]) and np.array_equal(got_p[1], want_p[1])):
+                raise AssertionError(f"phase 3h {tag}: pairs != the host engine's")
+    dx, dy = x64[drows], y64[drows]
+    rows_i = [drows[np_even_odd(dx, dy, ring)] for ring in rings]
+    rows_d = [drows[np.hypot(dx - sx, dy - sy) <= STATION_D] for sx, sy in st]
+    for tag, res, want_rows in (("intersects", res_int[0], rows_i), ("dwithin", res_dw[0], rows_d)):
+        got_r, got_w = _pred_pairs(res)
+        for j, rows in enumerate(_split_pairs(got_r, got_w, len(want_rows))):
+            if not np.array_equal(rows, want_rows[j]):
+                raise AssertionError(f"phase 3h {tag} right row {j}: pairs != numpy")
+    n_wp = len(res_wp[0][0])
+    log(f"phase 3h checks: full join {full.pairs:,} pairs, day {res_day[0].pairs:,}, hours "
+        f"{[r.pairs for r in res_hour]}, window pairs {n_wp:,}, intersects "
+        f"{[len(r) for r in rows_i]}, dwithin {sum(len(r) for r in rows_d):,}: equal to numpy and "
+        f"the host engine, in {time.time() - t:.1f} s")
+    summary = {
+        "rows": TAXI_N, "zones": len(zones), "prepare_s": prepare_s,
+        "full": {"pairs": full.pairs, "s": full_s, "pairs_per_s": full.pairs / full_s,
+                 "plan_s": full.plan_s, "refine_s": full.refine_s, "strategy": full.strategy,
+                 "level": full.level, "candidates": full.candidates, "launches": full.launches},
+        "p50_ms": {k: pct(v, 50) for k, v in calls.lat.items()},
+        "window_pairs": n_wp,
+    }
+    log(json.dumps({"join": summary, "card": CARD}))
+    del host, want, order, xs, ys
+    return {"launches": launches, "di": di, "zones": zones, "summary": summary}
 
 
 # -- phase 4: kernel timings --------------------------------------------------
@@ -3867,6 +4552,85 @@ def ais_ops_rows(dev, ais) -> list:
     return rows
 
 
+def join_ops_rows(dev, join, ais) -> list:
+    """Phase 4 for the join slice: its torch ops (no TPU kernel behind
+    them) at phase 3h's shapes. The pair pack of window_pairs_query for one
+    group of 64 zones over the 2^26 pickups (no gate); one refinement batch
+    of the full zone join (the count and the compaction of its first
+    2^20-candidate batch); the BIN compaction (count and gather, ending on
+    the card) at 2^26 AIS rows for INCLUDE and for phase 3e's first exact
+    request, with the host copy of the records timed beside it on the host
+    clock. Bound: the larger of the bytes (each plane read once, each
+    output written once) and the operations this run's data needs (pair
+    pack: 4 compares a row for the union envelope, 256 a candidate row;
+    refinement: log2(runs) + 5 a candidate; BIN: one a row)."""
+    import math
+
+    import torch
+
+    from geomesa_tpu_torch.bucketing import bucket_cap
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.join import JoinEngine
+    from geomesa_tpu_torch.join import planner as jp
+    from geomesa_tpu_torch.join.engine import _join_conf
+    from geomesa_tpu_torch.ops import binpack
+    from geomesa_tpu_torch.ops import join as jops
+    from geomesa_tpu_torch.ops.window import pairs_pack, widen
+
+    di, zones = join["di"], join["zones"]
+    n = len(di)
+    x, y = di._cols["geom__x"], di._cols["geom__y"]
+    rows = []
+
+    def row(name, fn, nbytes, ops, case, iters=10, rows_in=n):
+        fn()
+        ms = time_ms(fn, iters, warm=2)
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        bound, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+        log(f"{name} ({case}): {ms:.4f} ms (bound {bound:.4f} ms, {by}) "
+            f"[torch ops, no TPU kernel] [{CARD}]")
+        rows.append({"name": name, "route": "torch ops, no TPU kernel", "ms": ms, "bound_ms": bound,
+                     "bound_by": by, "rows": rows_in, "case": case})
+
+    env = widen(zones[:64])
+    cap = min(n, max(4096, bucket_cap(n // 32)))
+    lo, hi = np.fmin.reduce(env[:, :2], axis=0), np.fmax.reduce(env[:, 2:], axis=0)
+    cand = int(((x >= float(lo[0])) & (x <= float(hi[0])) & (y >= float(lo[1]))
+                & (y <= float(hi[1]))).sum())
+    hits = int(pairs_pack(x, y, env, None, cap)[2][0])
+    row("pairs_pack", lambda: pairs_pack(x, y, env, None, cap), 8 * n + 16 * min(hits, cap),
+        4 * n + 256 * cand, f"one group of 64 zones at {n:,} pickups, {cand:,} rows in its union "
+        f"envelope, {hits:,} with a hit, cap {cap:,}")
+    eng = JoinEngine(di)
+    jidx = eng.prepare()
+    conf = _join_conf()
+    plan = jp.plan_join(jidx, zones, conf)
+    i, j = eng._batches(plan, conf["batch_candidates"])[0]
+    envs_dev = torch.from_numpy(np.ascontiguousarray(zones, np.float64)).to(dev)
+    args = eng._device_args(jidx, plan, i, j, envs_dev)
+    planes = jidx.device_planes()
+    pvals = (planes["x"], planes["y"])
+    total, runs = args[-1], j - i
+    kept = jops.count_pairs(pvals, *args)
+    row("join_refine", lambda: (jops.count_pairs(pvals, *args), jops.compact_pairs(pvals, *args)),
+        16 * total + 16 * kept + 33 * runs, total * (math.ceil(math.log2(max(runs, 2))) + 5),
+        f"the full zone join's first batch: {total:,} candidates in {runs:,} runs, {kept:,} pairs")
+    adi = ais["di"]
+    lanes = adi._bin_lane_matrix("mmsi", adi.sft.dtg_field, adi.sft.geom_field, None)
+    na = int(lanes.shape[1])
+    tag, q = ais["bin_requests"][0][:2]  # exact 0
+    for case, mask in (("INCLUDE", torch.ones(na, dtype=torch.bool, device=dev)),
+                       (tag, adi._device_hit_mask(parse_ecql(q), False))):
+        hits = binpack.bin_count(mask)
+        t = time.perf_counter()
+        binpack.bin_pack(mask, lanes)
+        d2h = time.perf_counter() - t
+        row("bin_pack", lambda mask=mask: (binpack.bin_count(mask), binpack.bin_compact(mask, lanes)),
+            na + 32 * hits, na, f"{case} at {na:,} AIS rows, {hits:,} records; with the copy of the "
+            f"records to the host {d2h * 1e3:.1f} ms on the host clock", iters=5, rows_in=na)
+    return rows
+
+
 DRIVE_GRIDS = [(128, 128), (256, 256), (512, 256), (512, 512), (1024, 1024), (2048, 1024)]
 TABLE_GRIDS = ((256, 256), (1024, 1024))  # the density cases the kernel table lists
 
@@ -3994,6 +4758,7 @@ def main() -> int:
     check_envelope_scans(dev, errs)
     check_density(dev, errs)
     check_ais_ops(dev)
+    check_join_ops(dev)
     check_batched_scans(dev, errs)
     tv = time.time()
     nv = check_validity(dev, errs, N_ROWS)
@@ -4029,10 +4794,13 @@ def main() -> int:
     t = time.time()
     stream = run_streaming_path(dev, cols, queries, sched["traffic"])
     log(f"phase 3g: the streaming index in {time.time() - t:.1f} s")
+    t = time.time()
+    join = run_join_path(dev)
+    log(f"phase 3h: the joins in {time.time() - t:.1f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
                 + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) + sched["launches"][k]
-                + stream["launches"][k] for k in main_launches}
+                + stream["launches"][k] + join["launches"][k] for k in main_launches}
     valid_launches = stream["valid"]
     missing = sorted(k for k in ("dimscan_z3_count", "dimscan_batched_z3_count", "zscan_z3_count",
                                  "zscan_batched_z3_count", "filter_scan_count")
@@ -4055,6 +4823,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the kernels line lacks {missing}")
     ops_rows += ais_ops_rows(dev, ais)
+    ops_rows += join_ops_rows(dev, join, ais)
     log(json.dumps({"torch_ops": ops_rows}))
     log(json.dumps({"kernels": rows}))
     log(f"total {time.time() - t_all:.1f} s")

@@ -3,8 +3,10 @@
 Counterpart of ``geomesa_tpu/conf.py``, trimmed to the keys of the device
 query scheduler (``sched.*``), the launch watchdog and circuit breaker
 (``resilience.*``), the loose-bbox default of the resident index
-(``query.loose.bbox``) and the memtable size that hints a streaming
-index's capacity (``stream.memtable.rows``). Each key has a
+(``query.loose.bbox``), the memtable size that hints a streaming
+index's capacity (``stream.memtable.rows``), the spatial join engine's
+keys (``join.*``, reference lines 201-241, 351-385 and 526-541) and the
+BIN encoder's engine (``results.bin.engine``). Each key has a
 default, an environment override (``GEOMESA_TPU_<NAME>`` with dots as
 underscores) and a programmatic override for tests (``set_prop`` /
 ``clear_prop`` or the ``prop_override`` context manager); the override wins
@@ -19,6 +21,18 @@ from contextlib import contextmanager
 
 def _parse_bool(v) -> bool:
     return str(v).strip().lower() in ("true", "1", "t", "yes", "on")
+
+
+def _parse_choice(key: str, choices: tuple):
+    """A parser that accepts one of ``choices`` (case and spaces aside)."""
+
+    def parse(v) -> str:
+        s = str(v).strip().lower()
+        if s not in choices:
+            raise ValueError(f"{key} must be {', '.join(choices[:-1])} or {choices[-1]}, not {v!r}")
+        return s
+
+    return parse
 
 
 # name -> (default, parser)
@@ -44,6 +58,24 @@ _DEFS = {
     # rows a live layer buffers before it compacts: a resident streaming
     # index takes it as headroom in its capacity hint
     "stream.memtable.rows": (1 << 15, int),
+    # the spatial join engine (join/): the refinement engine (auto: the
+    # device's for an index on the card, the numpy twin for one on the
+    # CPU), the planner's strategy, the broadcast threshold, the skew-split
+    # bound, the candidates of one refinement batch, the statistics grid's
+    # bits and the xz ranges per window of a non-point left side
+    "join.engine": ("auto", _parse_choice("join.engine", ("auto", "device", "host"))),
+    "join.strategy": ("auto", _parse_choice(
+        "join.strategy", ("auto", "broadcast", "grouped", "zmerge"))),
+    "join.broadcast.windows": (64, int),
+    "join.split.rows": (1 << 16, int),
+    "join.batch.candidates": (1 << 20, int),
+    "join.hist.bits": (8, int),
+    "join.xz.ranges": (32, int),
+    # the BIN track-record encoder (results/binrider.py): auto (the device
+    # pack for an index on the card, the numpy twin for one on the CPU),
+    # device or host
+    "results.bin.engine": ("auto", _parse_choice(
+        "results.bin.engine", ("auto", "device", "host"))),
 }
 
 _overrides: dict = {}

@@ -49,11 +49,17 @@ through ``_and_seen``. Build one over a store, feed it through
 (Put, Remove, Clear messages of ``stream/log.py``), and query it as a
 ``DeviceIndex``.
 
+The spatial join's coarse pass ``window_pairs_query`` (the pair pack of
+``ops/window.py`` behind the base filter's scan kernel) and BIN output:
+``bin_export``, the host twin over the scan kernels' mask, and
+``bin_rider``, the device pack (``ops/binpack.py``) of a lane matrix
+built once per staged generation (``_gen``, bumped by every staging and
+eviction; the join engine's layout keys on it too).
+
 Not in the port yet; each raises ``NotImplementedError`` naming its
-ROADMAP item: sharded indexes, window pairs and joins, BIN output
-(``window_pairs_query``, ``bin_export``, ``bin_rider``: item 4), the AOT
-warmup (``warmup``, ``warmup_plan``: item 5), and the stats the host
-sketches serve (Cardinality, TopK, Frequency, Z3Histogram).
+ROADMAP item: sharded indexes, the AOT warmup (``warmup``,
+``warmup_plan``: item 5), and the stats the host sketches serve
+(Cardinality, TopK, Frequency, Z3Histogram).
 """
 
 from __future__ import annotations
@@ -77,12 +83,13 @@ from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.keyplanes import encode_inputs, schema_kind
+from geomesa_tpu_torch.ops import binpack
 from geomesa_tpu_torch.ops import knn as knn_ops
 from geomesa_tpu_torch.ops import zscan
 from geomesa_tpu_torch.ops.density import density_grid, inverted
 from geomesa_tpu_torch.ops.int64lanes import widen_u32
 from geomesa_tpu_torch.ops.scan import stage_columns_host, to_tensor
-from geomesa_tpu_torch.ops.window import union_mask, widen
+from geomesa_tpu_torch.ops.window import group_words, pairs_pack, union_mask, widen
 from geomesa_tpu_torch.security import VisibilityEvaluator
 from geomesa_tpu_torch.stats.dsl import _observe_on_batch, parse_stat
 from geomesa_tpu_torch.stats.sketches import CountStat, Histogram, MinMax
@@ -195,6 +202,16 @@ class DeviceIndex:
 
     #: distinct visibility expressions the resident cache will track
     VIS_VOCAB_MAX = 4096
+    #: 64-window groups per pass of ``window_pairs_query``
+    PAIRS_GROUPS_PER_DISPATCH = 8
+
+    #: the staged generation: bumped by every staging (an install or a
+    #: delta) and every eviction, so caches built over the staged rows (the
+    #: join layout, the BIN lane matrix) key on it and rebuild after a change
+    _gen = 0
+    #: the join engine's layout over these rows (``join/engine.py``), tagged
+    #: with the generation it was built for
+    _join_index = None
 
     def __init__(
         self,
@@ -226,6 +243,7 @@ class DeviceIndex:
         self._compiled: dict = {}  # repr(filter) -> CompiledFilter
         self._loose_cache: dict = {}  # repr(filter) -> _loose_bounds result
         self._visid_np = None  # host mirror of the VIS_ID plane
+        self._bin_lanes: dict = {}  # BIN lane matrix of the latest generation
 
     def _reset_vis(self) -> None:
         """Vocabulary state; like the counterpart's it outlives a refresh,
@@ -439,7 +457,8 @@ class DeviceIndex:
         layout is decided when nothing is staged yet (``_bin_range`` None:
         an install); a delta keeps it and packs its bt words around the
         staged base (:class:`_BtRebase` when they do not fit). Widens the
-        staged bin range."""
+        staged bin range and bumps the staged generation."""
+        self._gen += 1
         host = stage_columns_host(batch, self._planes)
         cols = {k: self._up(v) for k, v in host.items()}
         if not self._want_z:
@@ -1206,18 +1225,218 @@ class DeviceIndex:
             m &= dv
         return m.sum(dim=1, dtype=torch.int32) if want == "count" else m
 
-    # -- later slices --------------------------------------------------------
+    # -- window pairs: the coarse pass of a spatial join ----------------------
+
+    def _plane_rows(self) -> int:
+        """Rows of the resident planes (a streaming index: its capacity),
+        which size window_pairs_query's compaction cap as the counterpart's
+        plane length does."""
+        return self._staged_len()
 
     def window_pairs_query(self, envs, auths=None, base=None):
-        raise NotImplementedError(_later("item 4, window pairs and joins (window_pairs_query)"))
+        """Candidate (row, window) PAIRS for m runtime envelope windows: the
+        device coarse pass of a spatial join (each right-side feature one
+        envelope; the exact predicate refines per pair on the host). Where
+        :meth:`window_union_query` collapses the window axis, this keeps
+        it: windows go in groups of 64, each row's hits in a group one
+        64-bit word (``ops/window.py`` ``pairs_pack``), ``G`` groups a pass.
 
-    def bin_export(self, query, track_attr, dtg_attr=None, geom_attr=None,
-                   label_attr=None, sort=False, loose=None, auths=None):
-        raise NotImplementedError(_later("item 4, BIN output (bin_export)"))
+        The per-row gate is computed once per call: ``base``'s exact mask
+        (the filter-scan kernel, reading the validity plane), the validity
+        plane and the auth verdict (``auths`` as in ``count``). Each
+        group's rows with a hit come first in row order, at most ``C`` of
+        them fetched; a group past ``C`` refetches its full word plane
+        (``_pairs_full_group``), counted on
+        ``geomesa_join_pair_overflows_total``. ``envs``: (m, 4) [xmin, ymin,
+        xmax, ymax], widened one float32 ulp (candidate semantics). Returns
+        (rows, wins) int64 arrays, group after group, rows ascending and
+        windows ascending within a row; None for a non-point schema or a
+        base filter not fully on the device."""
+        from geomesa_tpu_torch import metrics
+        from geomesa_tpu_torch.tracing import span
 
-    def bin_rider(self, query, track_attr, dtg_attr=None, geom_attr=None,
-                  label_attr=None, sort=False, loose=None, auths=None):
-        raise NotImplementedError(_later("item 4, BIN output (bin_rider)"))
+        planes = self._point_planes()
+        if planes is None:
+            return None
+        ok, base_fn = self._base_mask(base)
+        if not ok:
+            return None
+        envs = np.asarray(envs, np.float64).reshape(-1, 4)
+        m = envs.shape[0]
+        plane_n = self._plane_rows()
+        ngroups = max(1, -(-m // 64))
+        G = min(self.PAIRS_GROUPS_PER_DISPATCH, bucket_cap(ngroups))
+        C = min(plane_n, max(4096, bucket_cap(plane_n // 32)))
+        rows_out: list = []
+        wins_out: list = []
+        if self._staged_len():
+            row_ok = self._and_seen(None if base_fn is None else base_fn(), auths)
+            with span("join.pairs", windows=m, groups=ngroups) as sp:
+                overflows = self._pairs_dispatch(envs, planes, row_ok, G, C, rows_out, wins_out)
+                sp.set(overflows=overflows)
+            if overflows:
+                metrics.join_pair_overflows.inc(overflows)
+        if not rows_out:
+            e = np.array([], np.int64)
+            return e, e.copy()
+        return np.concatenate(rows_out), np.concatenate(wins_out)
+
+    def _pairs_dispatch(self, envs, planes, row_ok, G, C, rows_out, wins_out):
+        """window_pairs_query's loop: one pair pack per chunk of ``G`` groups
+        (padding windows inverted: they match nothing), one fetch of the
+        capped rows and words, and the full word plane of each group past
+        the cap. Returns the overflow count."""
+        m = envs.shape[0]
+        overflows = 0
+        wspan = 64 * G
+
+        def decode(rids, words, g0):
+            """(candidate rows, their hit words) -> aligned pair lists."""
+            bits = np.unpackbits(np.ascontiguousarray(words).view(np.uint8).reshape(-1, 8),
+                                 axis=1, bitorder="little")  # (c, 64): bit j, window j
+            r, w = np.nonzero(bits)
+            keep = w + g0 < m  # the planes hold the staged rows only
+            rows_out.append(rids[r[keep]].astype(np.int64))
+            wins_out.append((w[keep] + g0).astype(np.int64))
+
+        for c0 in range(0, max(m, 1), wspan):
+            env_pad = np.empty((wspan, 4), np.float32)
+            k = len(envs[c0: c0 + wspan])
+            env_pad[:k] = widen(envs[c0: c0 + wspan])
+            env_pad[k:] = [1.0, 1.0, 0.0, 0.0]  # inverted: no matches
+            rid, word, cnts = pairs_pack(*planes, env_pad, row_ok, C)
+            rid, word, cnts = rid.cpu().numpy(), word.cpu().numpy(), cnts.cpu().numpy()
+            at = 0
+            for g in range(G):
+                g0 = c0 + g * 64
+                cnt = int(cnts[g])
+                kept = min(cnt, C)
+                if g0 < m and cnt and cnt <= C:
+                    decode(rid[at: at + kept], word[at: at + kept], g0)
+                elif g0 < m and cnt:
+                    # a dense group overflowed the cap: its full word plane
+                    overflows += 1
+                    full = self._pairs_full_group(planes, env_pad[g * 64: (g + 1) * 64], row_ok)
+                    nz = np.nonzero(full)[0]
+                    decode(nz, full[nz], g0)
+                at += kept
+        return overflows
+
+    def _pairs_full_group(self, planes, env64, row_ok) -> np.ndarray:
+        """The full (uncompacted) word plane of ONE dense 64-window group,
+        on the host: window_pairs_query's overflow path."""
+        return group_words(*planes, env64, row_ok).cpu().numpy()
+
+    # -- BIN output ----------------------------------------------------------
+
+    def bin_export(self, query, track_attr: str, dtg_attr: "str | None" = None,
+                   geom_attr: "str | None" = None, label_attr: "str | None" = None,
+                   sort: bool = False, loose: "bool | None" = None, auths=None) -> bytes:
+        """BIN track records of the hits, the host twin: the hit mask from
+        the scan kernels (``mask``), then the 3-5 needed columns of the hit
+        rows only, encoded by ``process/binexport.py`` (ref
+        BinAggregatingIterator builds the records during the scan)."""
+        from geomesa_tpu_torch.process.binexport import encode_bin_arrays
+
+        idx = np.nonzero(self.mask(query, loose=loose, auths=auths))[0]
+        host = self._host_rows()
+        gname = geom_attr or self.sft.geom_field
+        # slice the geometry column first, then decode coordinates of the hits
+        mini = FeatureBatch(self.sft, host.fids[idx], {gname: host.column(gname)[idx]})
+        x, y = mini.point_coords(gname)
+        dtg_attr = dtg_attr or self.sft.dtg_field
+        return encode_bin_arrays(
+            host.column(track_attr)[idx],
+            host.column(dtg_attr)[idx],
+            x,
+            y,
+            host.column(label_attr)[idx] if label_attr else None,
+            sort=sort,
+        )
+
+    def _device_hit_mask(self, f, loose) -> "torch.Tensor | None":
+        """The filter's bool hit mask over the staged rows, left on the
+        device: the loose key scan (dim plane or interleaved), the exact
+        filter scan, or for INCLUDE the validity plane (every row without
+        one); each launch reads the validity plane. None when the filter is
+        not fully on the device, and always for a labeled staging
+        (per-request auths evaluate on the host): the twin serves those."""
+        if VIS_ID in self._cols:
+            return None
+        if f is ast.Include:
+            dv = self._device_valid()
+            return dv if dv is not None else torch.ones(
+                self._staged_len(), dtype=torch.bool, device=self.device)
+        fn = self._device_mask(f, loose)
+        return None if fn is None else fn()
+
+    def _bin_lane_matrix(self, track_attr, dtg_attr, gname, label_attr) -> torch.Tensor:
+        """The BIN record lanes as ONE (L, rows) matrix on the device, the
+        uint32 bits held as int32 (CUDA gathers no uint32): [track hash,
+        dtg seconds, lat f32, lon f32] (+ the label's low and high words).
+        Built once per staged generation (vector host passes, one upload)
+        and gathered by every pack after that; only the latest kept."""
+        from geomesa_tpu_torch.process.binexport import _label_pack, _track_hash
+
+        key = (track_attr, dtg_attr, gname, label_attr, self._gen)
+        mat = self._bin_lanes.get(key)
+        if mat is not None:
+            return mat
+        host = self._host_rows()
+        col = host.column(gname)
+        lanes = [
+            _track_hash(np.asarray(host.column(track_attr))),
+            (host.column(dtg_attr) // 1000).astype(np.int32),
+            np.ascontiguousarray(col[:, 1]).astype(np.float32).view(np.int32),
+            np.ascontiguousarray(col[:, 0]).astype(np.float32).view(np.int32),
+        ]
+        if label_attr:
+            # little-endian int64: the low word first, as the record lays it
+            words = _label_pack(np.asarray(host.column(label_attr))).view(np.int32).reshape(-1, 2)
+            lanes += [words[:, 0], words[:, 1]]
+        self._bin_lanes = {}  # free the previous generation's matrix first
+        mat = to_tensor(np.stack(lanes), self.device)
+        self._bin_lanes = {key: mat}
+        return mat
+
+    def bin_rider(self, query, track_attr: str, dtg_attr: "str | None" = None,
+                  geom_attr: "str | None" = None, label_attr: "str | None" = None,
+                  sort: bool = False, loose: "bool | None" = None, auths=None) -> "bytes | None":
+        """BIN track records packed ON THE DEVICE: the hit mask stays on the
+        card, a count pass sizes the answer and one compaction gathers the
+        hit rows' record lanes in mask order (``ops/binpack.py``); only the
+        packed records cross to the host, once. Bit for bit the twin
+        :meth:`bin_export`. Returns None for a shape the device cannot
+        express (labeled staging, a host-residual filter, non-point
+        geometry): callers take the twin. ``auths`` is accepted for the
+        twin's signature; an unlabeled staging has nothing to hide."""
+        from geomesa_tpu_torch import metrics
+        from geomesa_tpu_torch.process.binexport import DTYPE_16, DTYPE_24
+
+        f = self._parse(query)
+        host = self._host_rows()
+        gname = geom_attr or self.sft.geom_field
+        if host is None or host.column(gname).dtype == object:
+            return None  # non-point geometry: the twin decodes coordinates
+        if len(host) == 0:
+            return b""
+        m = self._device_hit_mask(f, loose)
+        if m is None:
+            return None
+        mat = self._bin_lane_matrix(track_attr, dtg_attr or self.sft.dtg_field, gname, label_attr)
+        rows = int(mat.shape[1])
+        if int(m.shape[0]) < rows:
+            return None  # mirror and planes disagree: the twin is exact
+        if binpack.bin_count(m[:rows]) == 0:
+            return b""
+        data = binpack.bin_pack(m[:rows], mat).tobytes()  # the one device-to-host copy
+        metrics.results_bin_device_launches.inc()
+        if not sort:
+            return data
+        rec = np.frombuffer(data, dtype=DTYPE_24 if label_attr else DTYPE_16)
+        return rec[np.argsort(rec["dtg"], kind="stable")].tobytes()
+
+    # -- later slices --------------------------------------------------------
 
     def warmup_plan(self, k: int = 10, density_px: int = 256, knn_kmax=None, fusion_max=None):
         raise NotImplementedError(_later("item 5, the server seam (warmup_plan)"))
@@ -1470,6 +1689,7 @@ class StreamingDeviceIndex(DeviceIndex):
         idx = np.unique(rows[rows >= 0])
         if not len(idx):
             return
+        self._gen += 1  # the live set changed
         self._valid_np[idx] = False
         self._n_dead += len(idx)
         with self._pinned():
@@ -1559,6 +1779,24 @@ class StreamingDeviceIndex(DeviceIndex):
             return super().knn(px, py, k, query=query, auths=auths,
                                max_radius_deg=max_radius_deg)
 
+    def window_pairs_query(self, envs, auths=None, base=None):
+        with self._lock:
+            return super().window_pairs_query(envs, auths=auths, base=base)
+
+    def bin_export(self, query, track_attr, dtg_attr=None, geom_attr=None,
+                   label_attr=None, sort=False, loose=None, auths=None):
+        # one lock span across the mask and the host reads: one snapshot
+        with self._lock:
+            return super().bin_export(query, track_attr, dtg_attr=dtg_attr, geom_attr=geom_attr,
+                                      label_attr=label_attr, sort=sort, loose=loose, auths=auths)
+
+    def bin_rider(self, query, track_attr, dtg_attr=None, geom_attr=None,
+                  label_attr=None, sort=False, loose=None, auths=None):
+        # the lane matrix and the device mask must come from one staging
+        with self._lock:
+            return super().bin_rider(query, track_attr, dtg_attr=dtg_attr, geom_attr=geom_attr,
+                                     label_attr=label_attr, sort=sort, loose=loose, auths=auths)
+
     def fused_loose_counts(self, queries, loose: "bool | None" = None):
         with self._lock:
             return super().fused_loose_counts(queries, loose=loose)
@@ -1590,3 +1828,6 @@ class StreamingDeviceIndex(DeviceIndex):
 
     def _staged_len(self) -> int:
         return self._n
+
+    def _plane_rows(self) -> int:
+        return self._cap

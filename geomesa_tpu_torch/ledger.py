@@ -1,7 +1,7 @@
 """Per-request cost collection: who spends the device's time.
 
 Counterpart of ``geomesa_tpu/ledger.py``, trimmed to the request's cost
-collector: :class:`RequestCost`, :func:`collect_cost`,
+collector: :class:`RequestCost`, :func:`collect_cost`, :func:`charge`,
 :func:`capture_cost` and :func:`attach_cost`. The
 scheduler carries the collector to its workers and charges each rider of
 a fused launch its fair share (duration / riders), so summing over
@@ -17,13 +17,15 @@ import contextvars
 import threading
 from contextlib import contextmanager
 
-__all__ = ["FIELDS", "RequestCost", "attach_cost", "capture_cost", "collect_cost"]
+__all__ = ["FIELDS", "RequestCost", "attach_cost", "capture_cost", "charge", "collect_cost"]
 
 #: the fields a request is charged (every ``charge`` names one)
 FIELDS = (
     "device_launches",  # device scan launches this request rode
     "device_seconds",  # fair-share device execution time (dur / riders)
     "fusion_width",  # widest fused launch this request rode (max)
+    "join_candidates",  # candidate pairs expanded by join refinement
+    "join_pairs",  # pairs this request's spatial joins emitted
 )
 
 #: fields folded with max() instead of sum()
@@ -66,6 +68,13 @@ def collect_cost():
         yield cost
     finally:
         _cost.reset(token)
+
+
+def charge(field: str, amount: float) -> None:
+    """Charge the current request's collector; a no-op outside a request."""
+    cost = _cost.get()
+    if cost is not None:
+        cost.charge(field, amount)
 
 
 def capture_cost() -> "RequestCost | None":

@@ -4,8 +4,9 @@ Counterpart of ``geomesa_tpu/metrics.py``, trimmed to the core (Counter,
 Gauge, Histogram with labels, one process-global registry) and the
 metrics the device query scheduler and its watchdog write: queue depth,
 wait time, queries, launches, fused queries, rejections, expirations,
-worker failures, drains and watchdog timeouts; and the streaming index's
-delta refreshes by mode. The Prometheus exposition
+worker failures, drains and watchdog timeouts; the streaming index's
+delta refreshes by mode; the spatial join engine's counters and
+histograms and the device BIN pack's launches (reference lines 644-697). The Prometheus exposition
 and every other family of the counterpart are left out.
 """
 
@@ -133,3 +134,30 @@ stream_delta_refreshes = REGISTRY.counter(
     "resident-index refreshes from streamed appends, by mode "
     "(delta = incremental into the validity-planed buffers, "
     "restage = fallback full restage)")
+
+# spatial join engine (join/): joins by planner strategy, candidate and pair
+# volumes, refinement launches, the skew-split escape, window_pairs_query's
+# compaction-cap overflows, and plan/refine seconds
+join_queries = REGISTRY.counter(
+    "geomesa_join_queries_total", "spatial joins executed, by planner strategy")
+join_candidates = REGISTRY.counter(
+    "geomesa_join_candidates_total",
+    "candidate (row, window) pairs expanded by join refinement")
+join_pairs = REGISTRY.counter(
+    "geomesa_join_pairs_total", "pairs emitted by the join engine")
+join_launches = REGISTRY.counter(
+    "geomesa_join_launches_total",
+    "batched join refinement launches (count + compact each count one)")
+join_skew_splits = REGISTRY.counter(
+    "geomesa_join_skew_splits_total", "candidate runs split by the skew escape (hot-cell bound)")
+join_pair_overflows = REGISTRY.counter(
+    "geomesa_join_pair_overflows_total",
+    "window-pairs groups whose compaction cap overflowed into a full bit-plane refetch")
+join_plan_seconds = REGISTRY.histogram(
+    "geomesa_join_plan_seconds", "join planning time (per join)")
+join_refine_seconds = REGISTRY.histogram(
+    "geomesa_join_refine_seconds",
+    "join refinement time (expansion + launches + emission, per join)")
+results_bin_device_launches = REGISTRY.counter(
+    "geomesa_results_bin_device_launches_total",
+    "device BIN pack calls (a count and a compaction count one)")

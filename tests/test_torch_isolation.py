@@ -1,7 +1,8 @@
 """The port stands alone: ``geomesa_tpu_torch`` and ``chip_smoke.py``
 import neither JAX nor the JAX package (also on a non-point xz2 workload,
-the kNN, tube and proximity processes, and a scheduler run with fused
-groups), and entry points never fall back to the CPU on their own."""
+the kNN, tube and proximity processes, a scheduler run with fused groups,
+a streaming index, a join and a BIN request), and entry points never fall
+back to the CPU on their own."""
 
 import os
 import re
@@ -114,6 +115,20 @@ for fn in feed.fns:
 assert len(sdi) == n + 30 and sdi.restages == 1 and sdi.delta_appends == 1
 assert sdi.count(q, loose=True) >= sdi.count(q) == len(sdi.query(q))
 assert sdi.fused_loose_counts([q], loose=True) == [sdi.count(q, loose=True)]
+from geomesa_tpu_torch.join import JoinEngine
+from geomesa_tpu_torch.process.join import spatial_join
+from geomesa_tpu_torch.results.binrider import resident_bin
+wins = np.array([[-20.0, -20.0, 0.0, 0.0], [-5.0, -5.0, 25.0, 25.0]])
+res = JoinEngine(sdi).join(wins)
+assert res.engine == "host" and res.pairs == sum(len(sdi.window_union_query([w])) for w in wins)
+rows, rwins = sdi.window_pairs_query(wins)
+assert len(rows) == res.pairs
+rb = FeatureBatch.from_columns(psft, {"name": ["r"], "geom": ["POLYGON((-5 -5, 25 -5, 25 25, -5 25, -5 -5))"]})
+lb, _, pairs = spatial_join(store, "t", rb, on="within", device_index=di)
+assert len(pairs) == len(lb) > 0
+bq = "BBOX(geom, -10, -10, 30, 30)"
+assert resident_bin(di, bq, "count", sort=True) == di.bin_rider(bq, "count", sort=True)
+assert len(sdi.bin_rider(bq, "count")) == 16 * sdi.count(bq)
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
