@@ -66,7 +66,7 @@ Phases:
      to 8 weeks on the interleaved scan, longer ones on the filter scan;
      loose answers against numpy over host-encoded keys on a subsample,
      exact counts against numpy);
-  3b. a labeled Z3 index of 2^23 rows (labels from a fixed seed over six
+  3b. a labeled Z3 index of 2^22 rows (labels from a fixed seed over six
      visibility expressions): counts, fid sets, density grids, a Count()
      stat, two kNN calls (one with a base filter) and a BIN request
      through resident_bin (the rider declines a labeled staging; the twin
@@ -126,9 +126,9 @@ Phases:
      serial, nothing is rejected or expired; per-request latency p50/p99
      (submit to the scheduler completing the request), requests/s
      and the fusion factor, fused and unfused;
-  3g. the streaming index: phase 3's 2^26 rows staged into
-     StreamingDeviceIndex(z_planes=True, capacity=2^26 + stream.memtable.rows)
-     (capacity 2^27, dim planes), fed through attach_live: 64 Puts of 2^14
+  3g. the streaming index: phase 3's first 2^25 rows staged into
+     StreamingDeviceIndex(z_planes=True, capacity=2^25 + stream.memtable.rows)
+     (capacity 2^26, dim planes), fed through attach_live: 64 Puts of 2^14
      new rows, 64 Removes evicting 2^20 random fids, 16 Puts moving 2^12
      held rows to another city (p50/p99 of each, restages 1,
      delta_appends 80); then phase 3's 32 queries (count loose and exact,
@@ -138,12 +138,12 @@ Phases:
      alone) and against a DeviceIndex staged anew from them; a burst of
      256 fused loose counts through QueryScheduler beside a thread that
      appends and evicts away from every tile (each count equals the
-     restaged index's); the same feed, reduced, on 2^23-row interleaved
+     restaged index's); the same feed, reduced, on 2^22-row interleaved
      z3, z2 and interleaved z2 streaming indexes; growth (capacity 2^22
      -> 2^24) and compaction (55% dead) at 2^22 rows, with their restage
      seconds. Every scan launch of a streaming drive read the validity
-     plane (``kernels.VALID_LAUNCHES``). On the fed 2^26-row index (part of
-     phase 3h's drive): an envelope join of 64 city windows, again after one
+     plane (``kernels.VALID_LAUNCHES``). On the fed 2^25-row index (part of
+     phase 3h's drive): an envelope join of 16 city windows, again after one
      more append and one more eviction (each rebuilding the join layout for
      the new staged generation), each equal to numpy over the live rows,
      and one BIN rider call equal to numpy over the live rows;
@@ -154,11 +154,11 @@ Phases:
      sides are 263 zone envelopes (a seeded kd split of the extent, each
      widened by 0.002 degrees), 5 borough-like polygons of 32-64 vertices
      and 64 station points. Calls: the envelope join of every row against
-     the zones (once), the same gated by one day (3 times) and by four
+     the zones (once), the same gated by one day (twice) and by four
      one-hour windows, window_pairs_query over the zones with a one-day
-     base filter (3 times), an intersects join of the day against the
+     base filter (twice), an intersects join of the day against the
      boroughs (twice) and a dwithin 0.003 degrees join of the day against
-     the stations (3 times), all through spatial_join / DeviceIndex on the
+     the stations (twice), all through spatial_join / DeviceIndex on the
      device engine, with join.broadcast.windows at 8 (the boroughs
      broadcast; the stations and zones plan their runs). Envelope pairs
      equal a numpy oracle (a sorted-x searchsorted per zone, then an
@@ -169,6 +169,29 @@ Phases:
      show the filter-scan kernel under every gate and base filter. Prints
      the prepare seconds, each call kind's p50, pairs/s, plan and refine
      seconds;
+  3i. (run after 3h, while the main path's answers are held) the store
+     path, BASELINE config #1 as users call it: phase 3's 2^26 rows
+     written into DataStoreFinder.get_data_store({"memory": "true"}) and
+     flushed (the z3, z2 and id host index builds in partitions of 2^20,
+     the write-time stats; seconds and host RSS printed); phase 3's 32
+     bbox+during queries each through get_feature_source().get_count,
+     get_features and store.query; an attribute-only filter (count > 500:
+     a full-table scan, 64 partitions in 8 runs of 2^23), an INTERSECTS
+     polygon (the kernel's float32 point-in-polygon on a point schema,
+     checked by numpy in the same float32 operations), an INTERSECTS line
+     (the host residual behind the envelope prefilter), a Query
+     with sort_by, max_features and properties, explain, run_stats with
+     seven sketches, a DeviceIndex staged from the store (its 32 exact
+     counts equal the store's), and phase 3b's 2^23 labeled rows as a
+     second type under its three auth sets; every answer against numpy
+     over the float32 rows, phase 3's DeviceIndex answers and the verdict
+     table; the launch counts equal one filter_scan_mask per contiguous
+     run of every plan (the ledger's device_launches too), with no
+     device_fn call; p50/p99 per call kind, runs and scanned rows per
+     query, the ledger's stage, launch and device seconds. Then the store
+     path of process.knn, tube_select (4 tracks) and proximity_search (3
+     inputs) on 2^22 AIS reports (phase 3e's generator, 2^10 vessels: a
+     cut), each equal to the resident answer on the same rows;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -187,7 +210,11 @@ Phases:
      plane); on the torch-ops line also the join slice's passes at phase
      3h's shapes: the pair pack of one 64-zone group at 2^26 rows, one
      refinement batch of 2^20 candidates, and the BIN compaction at 2^26
-     AIS rows, each beside its bound.
+     AIS rows, each beside its bound; the filter-scan mask over one store
+     run as phase 3i stages it (the z3 index's first 2^20 and 2^23 rows,
+     the Europe query, and the full-table filter at 2^23 beside the one
+     torch compare that computes it; rows with a "case" key, the run's
+     "stage_ms" and the wrapper's host time per call, "host_ms").
 
 Prints the kernel table as one JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
@@ -741,8 +768,8 @@ def launch_floor(dev) -> None:
     """The fixed cost of one filter-scan launch as phase 4 times it (50
     launches between one CUDA event pair): an empty event pair, the
     wrapper over 0 rows (checks, the output, the count's memset; no
-    kernel) and over 4,096 rows, beside 2^20 and 2^21 rows (the xz drive's
-    sizes); and for each the host's time to issue one call, which bounds
+    kernel) and over 4,096 rows, beside 2^20 and 2^21 rows (one and two
+    store partitions); and for each the host's time to issue one call, which bounds
     the rate of back-to-back launches from below."""
     import torch
 
@@ -1865,6 +1892,454 @@ def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, p
     return {"di3i": di3i, "di2i": di2i, "diw": diw, "launches": totals, "wide": wq}
 
 
+# -- phase 3i: the store path (BASELINE config #1) -----------------------------
+
+STORE_RUN_ROWS = (1 << 20, 1 << 23)  # one partition; eight merged, the largest run
+STORE_LABELED = 1 << 23  # phase 3b's labeled rows at the size 3b held before it was cut to 2^22
+STORE_AIS_VESSELS = 1 << 10  # 2^10 vessels x 4,096 fixes: 2^22 AIS reports (cut from 2^26)
+SEVEN_SKETCHES = ('Count();MinMax("count");MinMax("dtg");Histogram("count",20,0,1000);'
+                  'Cardinality("count");TopK("count",300);Frequency("count");Z3Histogram("geom","dtg")')
+
+
+def _rss_gb() -> "tuple[float, float]":
+    """(current, peak) resident set of this process in GB: /proc's VmRSS
+    and getrusage's ru_maxrss (KiB on Linux)."""
+    import resource
+
+    rss = 0.0
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) * 1024 / 1e9
+    return rss, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def check_store_device(ds) -> None:
+    """The store a user gets from DataStoreFinder scans on the card."""
+    from geomesa_tpu_torch.device import resolve_device
+
+    if resolve_device(ds.device).type != "cuda":
+        raise AssertionError("phase 3i: the store does not scan on the card")
+
+
+class StoreRuns:
+    """The mask launches the store path must make: one per contiguous run
+    of the partitions each plan keeps (none for a plan with no device
+    predicate), counted from each answer's own plan."""
+
+    def __init__(self, ds):
+        self.ds, self.runs, self.scanned, self.lat = ds, 0, [], {}
+
+    def of(self, type_name, res, times: int = 1) -> int:
+        from geomesa_tpu_torch.query.runner import _contiguous_runs
+
+        plan = res.plan
+        built = self.ds._state(type_name).indices.get(plan.index_name)
+        n = 0 if built is None or not plan.compiled.device_cols else \
+            len(_contiguous_runs(built.prune(plan.ranges)))
+        self.runs += times * n
+        self.scanned.append((n, res.scanned))
+        return n
+
+    def timed(self, kind, fn):
+        t = time.perf_counter()
+        out = fn()
+        self.lat.setdefault(kind, []).append(time.perf_counter() - t)
+        return out
+
+
+def _polygon_near(cx: float, cy: float) -> np.ndarray:
+    """An irregular 7-vertex ring around a city centre, vertices on a
+    1/64-degree grid (float32-exact)."""
+    a = np.linspace(0.0, 2 * np.pi, 7, endpoint=False)
+    r = np.array([0.30, 0.22, 0.35, 0.18, 0.28, 0.40, 0.25])
+    ring = np.stack([cx + r * np.cos(a), cy + r * np.sin(a)], axis=1)
+    ring = np.round(ring * 64) / 64
+    return np.concatenate([ring, ring[:1]])
+
+
+def np_pip_f32(x, y, ring) -> np.ndarray:
+    """numpy of the filter scan's point-in-polygon over float32 planes: per
+    edge the constants (y1, y2, x1, x2 - x1, y2 - y1 or 1) rounded to
+    float32 once, then the even-odd crossing test in float32 operations in
+    the kernel's order (a point on a vertex's horizontal, which the float64
+    test may count otherwise, is decided as the card decides it)."""
+    f32 = np.float32
+    x1, y1, x2, y2 = ring[:-1, 0], ring[:-1, 1], ring[1:, 0], ring[1:, 1]
+    ey1, ey2, ex1 = y1.astype(f32), y2.astype(f32), x1.astype(f32)
+    dxe = (x2 - x1).astype(f32)
+    den = np.where(y2 != y1, y2 - y1, 1.0).astype(f32)
+    out = np.zeros(len(x), bool)
+    for s in range(0, len(x), 1 << 18):
+        px, py = x[s: s + (1 << 18), None], y[s: s + (1 << 18), None]
+        straddle = (ey1 > py) != (ey2 > py)
+        xint = ex1 + ((py - ey1) * dxe) / den
+        out[s: s + (1 << 18)] = (straddle & (px < xint)).sum(axis=1) % 2 == 1
+    return out
+
+
+def _near_knn(tag, store_res, res_res, x64, y64, px, py) -> None:
+    """The store path's kNN (float64 distances) against the resident one
+    (the float32 formula): the same fids, except rows whose float64
+    distance lies within 1e-6 relative of the k-th (float32 rounding can
+    swap rows at the boundary)."""
+    a, b = set(store_res[0].fids.tolist()), set(res_res[0].fids.tolist())
+    if a == b:
+        return
+    d = store_res[1]
+    kth = float(d[-1]) if len(d) else 0.0
+    rows = np.array(sorted(a ^ b))
+    dd = np.hypot((x64[rows] - px) * np.cos(np.radians(py)), y64[rows] - py)
+    if len(a) != len(b) or not np.all(np.abs(dd - kth) <= 1e-6 * max(kth, 1e-12)):
+        raise AssertionError(f"{tag}: store-path kNN != the resident kNN ({len(a ^ b)} rows differ)")
+    log(f"{tag}: {len(a ^ b)} rows at the k-th distance swap between float64 and float32")
+
+
+def run_store_path(dev, cols, di3, queries, res3) -> dict:
+    """Phase 3i, BASELINE config #1 through the store: phase 3's 2^26 rows
+    written into DataStoreFinder's memory store (flush: the z3, z2 and id
+    index builds and the write-time stats), then phase 3's 32 bbox+during
+    queries through the feature source and store.query, an attribute-only
+    full-table filter, an INTERSECTS polygon (the kernel's point-in-polygon
+    on a point schema), an INTERSECTS line (the host residual behind the
+    envelope prefilter), a Query with sort, max features and properties,
+    explain, phase 3b's labeled rows under its auth sets, run_stats with
+    the seven sketches, and a DeviceIndex staged from the store; every
+    answer against numpy and phase 3's DeviceIndex, the launches against
+    the runs each plan scanned. Then the store path of the AIS processes on
+    2^22 reports against the resident answers."""
+    import torch
+
+    from geomesa_tpu_torch import kernels, ledger
+    from geomesa_tpu_torch.api import DataStoreFinder
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
+    from geomesa_tpu_torch.process.statsproc import run_stats
+    from geomesa_tpu_torch.query.plan import Query
+    from geomesa_tpu_torch.stats import parse_stat
+
+    t = time.time()
+    ds = DataStoreFinder.get_data_store({"memory": "true"})
+    ds.create_schema("gdelt", GDELT_SPEC)
+    ds.write("gdelt", {k: cols[k] for k in ("count", "dtg", "geom")})
+    ds.stats("gdelt")  # the flush: three index builds and the stats
+    flush_s = time.time() - t
+    check_store_device(ds)
+    st = ds._state("gdelt")
+    rss, hwm = _rss_gb()
+    log(f"phase 3i: wrote {len(st.data):,} rows and flushed (indexes {list(st.indices)}, "
+        f"{len(st.indices['z3'].partitions)} partitions each) in {flush_s:.1f} s; host RSS "
+        f"{rss:.1f} GB (peak {hwm:.1f} GB)")
+    src = ds.get_feature_source("gdelt")
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    dtg = cols["dtg"]
+    runs = StoreRuns(ds)
+    europe, eb, ew = queries[0]
+    cx, cy = cols["_centers"][0]
+    ring = _polygon_near(float(cx), float(cy))
+    poly = "INTERSECTS(geom, POLYGON((" + ", ".join(f"{a} {b}" for a, b in ring) + ")))"
+    # a line: no kernel test for a point against it, so the host residual
+    # (the line's envelope, for points) runs behind the device's envelope
+    # prefilter
+    lpts = np.round((np.array([[-0.3, -0.2], [0.1, 0.25], [0.35, 0.05]]) + (cx, cy)) * 64) / 64
+    line = "INTERSECTS(geom, LINESTRING(" + ", ".join(f"{a} {b}" for a, b in lpts) + "))"
+    opts = Query(filter=europe, sort_by="count", sort_desc=True, max_features=1000,
+                 properties=["count", "dtg"])
+    kernels.reset_counts()
+    out = []
+    with ledger.collect_cost() as cost:
+        for ecql, _, _ in queries:
+            n = runs.timed("get_count", lambda: src.get_count(ecql))
+            fids = runs.timed("get_features", lambda: src.get_features(ecql).batch.fids)
+            res = runs.timed("query", lambda: ds.query("gdelt", ecql))
+            runs.of("gdelt", res, times=3)
+            out.append((n, fids, res))
+        full = [runs.timed("full_table", lambda: ds.query("gdelt", "count > 500")) for _ in range(2)]
+        for r in full:
+            runs.of("gdelt", r)
+        pres = [runs.timed("intersects", lambda: ds.query("gdelt", poly)) for _ in range(2)]
+        for r in pres:
+            runs.of("gdelt", r)
+        lres = runs.timed("residual", lambda: ds.query("gdelt", line))
+        runs.of("gdelt", lres)
+        ores = runs.timed("options", lambda: ds.query("gdelt", opts))
+        runs.of("gdelt", ores)
+        seq = runs.timed("run_stats", lambda: run_stats(ds, "gdelt", Query(filter=europe), SEVEN_SKETCHES))
+        # the stats query's scan and this one
+        runs.of("gdelt", ds.query("gdelt", europe), times=2)
+    torch.cuda.synchronize()
+    fields = cost.snapshot_fields()
+    launches = read_launches("store path (phase 3i)", {"filter_scan_mask": runs.runs})
+    if fields.get("device_launches", 0) != runs.runs:
+        raise AssertionError(f"phase 3i: the ledger charged {fields.get('device_launches')} launches, "
+                             f"not the {runs.runs} runs")
+    explains = [ds.explain("gdelt", q) for q in (europe, "count > 500", poly)]
+    for q, text, want in zip((europe, "count > 500", poly), explains,
+                             ("Chosen index: z3", "FULL SCAN", "Chosen index: z2")):
+        if want not in text:
+            raise AssertionError(f"phase 3i: explain({q[:40]}) lacks {want!r}")
+        log("phase 3i explain: " + " | ".join(line.strip() for line in text.splitlines()[:5]))
+    for kind, v in runs.lat.items():
+        log(f"latency store {kind}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms ({len(v)} calls) [{CARD}]")
+    log(f"phase 3i runs per query {[r for r, _ in runs.scanned[:32]]}; scanned rows per query "
+        f"{[s for _, s in runs.scanned[:32]]}; full table {runs.scanned[32]}; ledger: stage "
+        f"{fields.get('stage_seconds', 0):.3f} s, {int(fields.get('device_launches', 0))} launches, "
+        f"device {fields.get('device_seconds', 0):.3f} s [{CARD}]")
+
+    # -- checks: numpy over the float32 planes, phase 3's DeviceIndex -------------
+    t = time.time()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        masks = list(pool.map(lambda q: np_exact(x, y, dtg, q[1], q[2]), queries))
+    for (ecql, _, _), em, (n, fids, res), r3 in zip(queries, masks, out, res3):
+        want = np.nonzero(em)[0]
+        if not (n == len(want) == r3["count_exact"] == len(res)):
+            raise AssertionError(f"phase 3i {ecql}: counts {n}/{len(res)} != numpy {len(want)} / "
+                                 f"the DeviceIndex {r3['count_exact']}")
+        if not (np.array_equal(np.sort(fids), want) and np.array_equal(np.sort(res.batch.fids), want)
+                and np.array_equal(np.sort(r3["query_exact"].fids), want)):
+            raise AssertionError(f"phase 3i {ecql}: fid sets != numpy / the DeviceIndex")
+    big = cols["count"] > 500
+    for r in full:
+        if r.scanned != len(x) or not np.array_equal(np.sort(r.batch.fids), np.nonzero(big)[0]):
+            raise AssertionError("phase 3i: the full-table filter != numpy")
+    env = (ring[:, 0].min(), ring[:, 1].min(), ring[:, 0].max(), ring[:, 1].max())
+    cand = np.nonzero((x >= env[0]) & (x <= env[2]) & (y >= env[1]) & (y <= env[3]))[0]
+    inside = cand[np_pip_f32(x[cand], y[cand], ring)]
+    for r in pres:
+        if not np.array_equal(np.sort(r.batch.fids), inside):
+            raise AssertionError(f"phase 3i: INTERSECTS {len(r)} rows != numpy {len(inside)}")
+    lb = (lpts[:, 0].min(), lpts[:, 1].min(), lpts[:, 0].max(), lpts[:, 1].max())
+    in_line = np.nonzero((x >= lb[0]) & (x <= lb[2]) & (y >= lb[1]) & (y <= lb[3]))[0]
+    if lres.plan.compiled.fully_on_device or not np.array_equal(np.sort(lres.batch.fids), in_line):
+        raise AssertionError(f"phase 3i: the host residual {len(lres)} rows != numpy {len(in_line)}")
+    em = masks[0]
+    top = np.sort(cols["count"][em])[::-1][:1000]
+    if not (sorted(ores.batch.columns) == ["count", "dtg"] and len(ores) == min(1000, int(em.sum()))
+            and np.array_equal(ores.batch.column("count"), top)
+            and np.all(em[ores.batch.fids])
+            and np.array_equal(ores.batch.column("count"), cols["count"][ores.batch.fids])
+            and np.array_equal(ores.batch.column("dtg"), dtg[ores.batch.fids])):
+        raise AssertionError("phase 3i: the Query with sort, max features and properties != numpy")
+    sft = ds.get_schema("gdelt")
+    rows = np.nonzero(em)[0]
+    want_seq = parse_stat(SEVEN_SKETCHES)
+    want_seq.observe_batch(FeatureBatch.from_columns(
+        sft, {"count": cols["count"][rows], "dtg": dtg[rows], "geom": cols["geom"][rows]}))
+    res_seq = di3.stats(europe, SEVEN_SKETCHES)
+    if not (seq.to_json() == want_seq.to_json() == res_seq.to_json()):
+        raise AssertionError("phase 3i: run_stats on the store path != numpy / the resident stats")
+    log(f"phase 3i checks: {len(queries)} queries x (get_count, get_features, store.query) == numpy "
+        f"and the DeviceIndex (hits median {int(np.median([len(r) for _, _, r in out]))}); full table "
+        f"{int(big.sum()):,} rows; INTERSECTS {len(inside):,} rows; the line's residual "
+        f"{len(in_line):,} rows; options, run_stats (7 sketches) "
+        f"equal; in {time.time() - t:.1f} s")
+
+    # -- a DeviceIndex staged from the store ----------------------------------------
+    t = time.time()
+    sdi = DeviceIndex(ds, "gdelt", z_planes=True, device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.time() - t
+    kernels.reset_counts()
+    counts = [sdi.count(ecql) for ecql, _, _ in queries]
+    sl = read_launches("DeviceIndex staged from the store", {"filter_scan_count": len(queries)})
+    if counts != [n for n, _, _ in out]:
+        raise AssertionError("phase 3i: the DeviceIndex staged from the store != the store's counts")
+    log(f"phase 3i: a DeviceIndex staged from the store in {stage_s:.1f} s; {len(queries)} exact "
+        f"counts == the store's")
+    del sdi
+    torch.cuda.empty_cache()
+
+    # -- phase 3b's labeled rows in the same store -----------------------------------
+    t = time.time()
+    lcols = make_columns(STORE_LABELED, SEED + 3)
+    lab = np.random.default_rng(SEED + 4).integers(0, len(LABELS), STORE_LABELED)
+    data = {k: lcols[k] for k in ("count", "dtg", "geom")}
+    data[VIS_COLUMN] = np.array(LABELS, dtype=object)[lab]
+    ds.create_schema("labeled", GDELT_SPEC)
+    ds.write("labeled", data)
+    ds.stats("labeled")
+    lflush = time.time() - t
+    lx = lcols["geom"][:, 0].astype(np.float32)
+    ly = lcols["geom"][:, 1].astype(np.float32)
+    lem = np_exact(lx, ly, lcols["dtg"], eb, ew)
+    kernels.reset_counts()
+    lruns = StoreRuns(ds)
+    for auths, verdict in VERDICTS.items():
+        res = ds.query("labeled", Query(filter=europe, hints={"auths": auths}))
+        lruns.of("labeled", res)
+        want = np.nonzero(lem & np.asarray(verdict)[lab])[0]
+        if not np.array_equal(np.sort(res.batch.fids), want):
+            raise AssertionError(f"phase 3i labeled {auths}: {len(res)} rows != numpy {len(want)}")
+        log(f"phase 3i labeled auths={auths}: {len(res)} rows == numpy and the verdict table")
+    ll = read_launches("store path, labeled", {"filter_scan_mask": lruns.runs})
+    log(f"phase 3i labeled: {STORE_LABELED:,} rows written and flushed in {lflush:.1f} s")
+    ds.remove_schema("labeled")
+    del lcols, data, lab
+
+    ais = run_store_ais(dev)
+    rss, hwm = _rss_gb()
+    summary = {
+        "rows": len(x), "flush_s": flush_s, "rss_gb": rss, "peak_rss_gb": hwm,
+        "latency": {k: {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99), "n": len(v)} for k, v in runs.lat.items()},
+        "runs": runs.runs, "ledger": fields, "staged_index_s": stage_s, "labeled_flush_s": lflush,
+        "ais": ais["latency"], "card": CARD,
+    }
+    log(json.dumps({"store": summary}))
+    # phase 4 times the scan on the first 2^23 rows of the z3 index (its
+    # largest run), as the store stages them
+    head = st.indices["z3"].batch.take(np.arange(STORE_RUN_ROWS[-1]))
+    run_rows = {k: head.columns[k] for k in ("count", "dtg", "geom")}
+    ds.remove_schema("gdelt")
+    launches = {k: launches[k] + sl[k] + ll[k] + ais["launches"][k] for k in launches}
+    return {"launches": launches, "run_rows": run_rows, "ecql": europe}
+
+
+def run_store_ais(dev) -> dict:
+    """The store path of knn, tube_select and proximity_search on 2^22 AIS
+    reports (phase 3e's generator, 2^10 vessels), each against the resident
+    answer on the same rows; the store queries' mask launches against their
+    runs."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.device_cache import DeviceIndex
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.geom import LineString, Polygon
+    from geomesa_tpu_torch.process.knn import knn
+    from geomesa_tpu_torch.process.proximity import proximity_search
+    from geomesa_tpu_torch.process.tube import tube_select
+    from geomesa_tpu_torch.store.direct import BatchStore
+    from geomesa_tpu_torch.store.memory import MemoryDataStore
+
+    t = time.time()
+    cols = make_ais(dev, STORE_AIS_VESSELS, AIS_FIXES)
+    data = {k: v for k, v in cols.items() if not k.startswith("_")}
+    bstore = BatchStore(FeatureBatch.from_columns(SimpleFeatureType.create("ais", AIS_SPEC), data))
+    di = DeviceIndex(bstore, "ais", z_planes=True, device=dev)
+    ds = MemoryDataStore()
+    ds.create_schema("ais", AIS_SPEC)
+    ds.write("ais", data)
+    ds.stats("ais")
+    n = len(cols["dtg"])
+    log(f"phase 3i AIS: {n:,} reports generated, staged and written to the store in {time.time() - t:.1f} s")
+    tr = ais_traffic(cols)
+    lane, harbour = LineString(tr["lane"]), Polygon(tr["harbour"])
+    prox = [(tr["ports8"], 0.1, None), ([lane], 0.05, None), ([harbour], 0.02, None)]
+    tubes = tr["tubes"][:2]  # the two 17-fix tracks: a store query per segment
+
+    class Counted:
+        """The store, counting the runs of every plan it answers."""
+
+        def __init__(self):
+            self.runs = StoreRuns(ds)
+
+        def get_schema(self, name):
+            return ds.get_schema(name)
+
+        def query(self, name, q):
+            res = ds.query(name, q)
+            self.runs.of(name, res)
+            return res
+
+    store = Counted()
+    calls = Calls()
+    kernels.reset_counts()
+    s_knn = [calls.run("knn", lambda: knn(store, "ais", *tg, k, base_filter=base)) for tg, k, base in tr["process"]]
+    s_tube = [calls.run("tube", lambda: tube_select(store, "ais", xy, tt, buf, dt, base_filter=base))
+              for xy, tt, buf, dt, base in tubes]
+    s_prox = [calls.run("proximity", lambda: proximity_search(store, "ais", g, d, base_filter=base))
+              for g, d, base in prox]
+    torch.cuda.synchronize()
+    launches = read_launches("store path, AIS processes", {"filter_scan_mask": store.runs.runs})
+    calls.log_latency("store ais")
+    r_knn = [knn(bstore, "ais", *tg, k, base_filter=base, device_index=di) for tg, k, base in tr["process"]]
+    r_tube = [tube_select(bstore, "ais", xy, tt, buf, dt, base_filter=base, device_index=di)
+              for xy, tt, buf, dt, base in tubes]
+    r_prox = [proximity_search(bstore, "ais", g, d, base_filter=base, device_index=di) for g, d, base in prox]
+    x64, y64 = cols["geom"][:, 0], cols["geom"][:, 1]
+    for (tg, k, base), a, b in zip(tr["process"], s_knn, r_knn):
+        _near_knn(f"phase 3i AIS kNN {tg} k={k} {base}", a, b, x64, y64, *tg)
+    for (_, _, buf, dt, base), a, b in zip(tubes, s_tube, r_tube):
+        if not np.array_equal(np.sort(a.fids), np.sort(b.fids)):
+            raise AssertionError(f"phase 3i AIS tube {buf} {dt} {base}: store {len(a)} != resident {len(b)}")
+    for (g, d, base), a, b in zip(prox, s_prox, r_prox):
+        oa, ob = np.argsort(a[0].fids), np.argsort(b[0].fids)
+        if not (np.array_equal(a[0].fids[oa], b[0].fids[ob]) and np.array_equal(a[1][oa], b[1][ob])):
+            raise AssertionError(f"phase 3i AIS proximity {len(g)} inputs at {d}: store != resident")
+    log(f"phase 3i AIS: {len(s_knn)} kNN (rows {[len(r[0]) for r in s_knn]}), {len(s_tube)} tubes "
+        f"(rows {[len(r) for r in s_tube]}), {len(s_prox)} proximity (rows {[len(r[0]) for r in s_prox]}) "
+        f"through the store == the resident answers; {store.runs.runs} store mask launches")
+    del di
+    torch.cuda.empty_cache()
+    return {"launches": launches, "latency": {k: {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99), "n": len(v)}
+                                              for k, v in calls.lat.items()}}
+
+
+def _one_compare(prog, cols):
+    """The one PyTorch call computing a program of a single attribute
+    compare (``count > 500``), else None."""
+    from geomesa_tpu_torch.ops import filter_scan as fs
+
+    if prog.n_instr != 1:
+        return None
+    op, c0, _, _, _, k, _, flag = prog.instr[0].tolist()
+    if op == fs.OP_CMP_I32:
+        v = int(prog.consts.view(np.int32)[k])
+    elif op == fs.OP_CMP_F32:
+        v = float(prog.consts.view(np.float32)[k])
+    else:
+        return None
+    return lambda: fs._cmp_t(fs._CMP_NAMES[flag], cols[prog.cols[c0]], v)
+
+
+def store_rows(dev, store, launches, errs: Errs) -> list:
+    """Phase 4 for the store path's scan: the filter-scan mask over one
+    staged run of the z3 index's rows (2^20: one partition; 2^23: eight
+    merged, the largest run) for the Europe query, and the full-table
+    filter at 2^23, each beside its bound and, for the full-table filter's
+    single compare, the one PyTorch call that computes it; each row also
+    carries the run's staging time (host slice and upload, best of 3) and
+    the wrapper's host time per call (``host_ms``: the host clock over 50
+    calls enqueued back to back, no synchronise inside)."""
+    import torch
+
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import SimpleFeatureType
+    from geomesa_tpu_torch.filter.compile import compile_filter
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.ops import filter_scan
+    from geomesa_tpu_torch.ops.scan import stage_columns
+
+    sft = SimpleFeatureType.create("gdelt", GDELT_SPEC)
+    batch = FeatureBatch.from_columns(sft, store["run_rows"])
+    rows = []
+    for ecql, n, tag in [(store["ecql"], m, "the Europe query") for m in STORE_RUN_ROWS] + [
+            ("count > 500", STORE_RUN_ROWS[-1], "the full-table filter")]:
+        cf = compile_filter(parse_ecql(ecql), sft)
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            cols = stage_columns(batch, cf.device_cols, dev, 0, n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        r = _env_row("filter_scan_mask", cf.program, cols, n, f"store run of {n:,} rows, {tag}",
+                     launches, errs, library=_one_compare(cf.program, cols))
+        r["stage_ms"] = min(walls) * 1e3
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            filter_scan.filter_scan_mask(cf.program, cols)
+        r["host_ms"] = (time.perf_counter() - t) / 50 * 1e3
+        torch.cuda.synchronize()
+        log(f"store run of {n:,} rows ({tag}): staged in {r['stage_ms']:.3f} ms "
+            f"({4 * len(cf.program.cols) * n / min(walls) / 1e9:.2f} GB/s); the wrapper's host "
+            f"time {r['host_ms']:.4f} ms a call [{CARD}]")
+        rows.append(r)
+    return rows
+
+
 # -- phase 3b: per-request visibility -----------------------------------------
 
 LABELS = ["", "A", "B", "A&B", "A|C", "(A|B)&C"]
@@ -1873,7 +2348,7 @@ VERDICTS = {  # auths -> whether each of LABELS is visible, written out by hand
     ("A",): [True, True, False, False, True, False],
     ("A", "B", "C"): [True, True, True, True, True, True],
 }
-N_LABELED = 1 << 23
+N_LABELED = 1 << 22  # phase 3i writes 2^23 labeled rows through the store
 # kNN on the labeled index, (target, k, base filter): phase 3's city centres
 LABELED_KNN = [((2.3515625, 48.859375), 100, None), ((-73.96875, 40.78125), 1000, "count > 500")]
 
@@ -3075,12 +3550,13 @@ def run_sched_path(dev, cols, di3, di2, di3i, di2i) -> dict:
 
 # -- phase 3g: the streaming index ----------------------------------------------
 
+STREAM_ROWS = 1 << 25  # phase 3's first 2^25 rows: phase 3 and 3c drive all 2^26 resident
 STREAM_APPENDS = 64  # Put messages of 2^14 new rows each
 STREAM_APPEND_ROWS = 1 << 14
 STREAM_EVICTED = 1 << 20  # random held fids, evicted through 64 Remove messages
 STREAM_UPSERTS = 16  # Put messages moving 2^12 held rows to another city
 STREAM_UPSERT_ROWS = 1 << 12
-STREAM_SMALL = 1 << 23  # the interleaved z3 and the z2 streaming indexes
+STREAM_SMALL = 1 << 22  # the interleaved z3 and the z2 streaming indexes (the main feed repeats them on dim planes)
 STREAM_GROW = 1 << 22  # rows of the growth and the compaction restages
 STREAM_BURST = 256  # fused loose counts through the scheduler beside a writer
 CORNER = (-179.9, -89.9, -179.5, -89.5)  # no tile reaches it: the burst's writer writes here
@@ -3297,7 +3773,8 @@ def _valid_only(tag, launches, valid) -> None:
         raise AssertionError(f"{tag}: launches without the validity plane: {bad}")
 
 
-STREAM_JOIN_HALF = 0.25  # half-width in degrees of the 64 city windows joined on phase 3g's index
+STREAM_JOIN_HALF = 0.25  # half-width in degrees of the city windows joined on phase 3g's index
+STREAM_JOIN_WINDOWS = 16  # phase 3h joins 2^26 rows at full depth; 3g checks the rebuilt layout
 
 
 def _np_window_rows(xs, order, ys, env, alive) -> np.ndarray:
@@ -3315,8 +3792,8 @@ def _np_window_rows(xs, order, ys, env, alive) -> np.ndarray:
 
 
 def stream_joins(di, truth, centers) -> dict:
-    """Phase 3g's joins and BIN call on the fed 2^26-row index: an envelope
-    join of 64 city windows, then again after one more append of 2^14 rows
+    """Phase 3g's joins and BIN call on the fed 2^25-row index: an envelope
+    join of 16 city windows, then again after one more append of 2^14 rows
     and after one more eviction of 2^14 fids; each join's pairs equal numpy
     over the staged rows that are live (row ids in staged order), and each
     mutation bumped the staged generation and rebuilt the join layout. Then
@@ -3328,7 +3805,8 @@ def stream_joins(di, truth, centers) -> dict:
     from geomesa_tpu_torch.features.batch import FeatureBatch
     from geomesa_tpu_torch.join import JoinEngine
 
-    wins = np.concatenate([centers - STREAM_JOIN_HALF, centers + STREAM_JOIN_HALF], axis=1)
+    c16 = centers[:STREAM_JOIN_WINDOWS]
+    wins = np.concatenate([c16 - STREAM_JOIN_HALF, c16 + STREAM_JOIN_HALF], axis=1)
     t = time.time()
     geom = np.concatenate([c["geom"] for _, c in truth.parts])
     order = np.argsort(geom[:, 0])  # any order among equal x: each window's rows are sorted
@@ -3352,14 +3830,14 @@ def stream_joins(di, truth, centers) -> dict:
             want = _np_window_rows(xs, order, ys, env, alive)
             if not np.array_equal(res.rows[starts[j]: ends[j]], want):
                 raise AssertionError(f"phase 3g join {tag} window {j}: pairs != numpy over the live rows")
-        log(f"phase 3g join {tag}: {res.pairs:,} pairs over 64 city windows == numpy "
+        log(f"phase 3g join {tag}: {res.pairs:,} pairs over {len(wins)} city windows == numpy "
             f"(gen {gen}, {res.strategy} level {res.level}, {res.launches} launches, "
             f"{wall * 1e3:.1f} ms, plan {res.plan_s * 1e3:.1f} ms, refine {res.refine_s * 1e3:.1f} ms) "
             f"[{CARD}]")
         out[tag] = {"pairs": res.pairs, "ms": wall * 1e3, "gen": gen}
         return res
 
-    bcast = prop_override("join.broadcast.windows", JOIN_BROADCAST)  # 64 windows plan their runs
+    bcast = prop_override("join.broadcast.windows", JOIN_BROADCAST)  # the windows plan their runs
     bcast.__enter__()
     join_check("fed")
     layout = di._join_index
@@ -3406,9 +3884,9 @@ def stream_joins(di, truth, centers) -> dict:
 
 
 def run_streaming_path(dev, cols, queries, traffic) -> dict:
-    """Phase 3g (module docstring): the streaming index at 2^26 rows fed
+    """Phase 3g (module docstring): the streaming index at 2^25 rows fed
     through attach_live, its drive checked against numpy and a restaged
-    index; the 2^23 interleaved z3 and z2 indexes; growth and compaction;
+    index; the 2^22 interleaved z3 and z2 indexes; growth and compaction;
     the scheduler burst beside a writer."""
     import threading
 
@@ -3436,7 +3914,7 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
     centers = cols["_centers"]
     n = len(cols["count"])
     rng = np.random.default_rng(SEED + 40)
-    # -- the dim-plane z3 index at 2^26 rows ---------------------------------
+    # -- the dim-plane z3 index at phase 3's first 2^25 rows --------------------
     t = time.time()
     cap = n + int(sys_prop("stream.memtable.rows"))
     di = _stream(dev, cols, np.arange(n), GDELT_SPEC, "gdelt", cap)
@@ -3481,8 +3959,8 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
     t = time.time()
     fresh = _fresh(dev, live, GDELT_SPEC, "gdelt")
     log(f"phase 3g: the restaged index of the live rows in {time.time() - t:.2f} s")
-    check_stream_queries("z3 2^26", di, fresh, live, queries, res, planes)
-    check_fused("z3 2^26", di, fresh, tiles, fused, fused_q)
+    check_stream_queries("z3 2^25", di, fresh, live, queries, res, planes)
+    check_fused("z3 2^25", di, fresh, tiles, fused, fused_q)
     check_density_path(live, di, di, planes, planes, dcalls, grids, scalls, seqs)
     for (tag, _, ecql, loose, env, (w, h), weight, _, _), g in zip(dcalls, grids):
         want = fresh.density(ecql, Envelope(*env), w, h, weight_attr=weight, loose=loose)
@@ -3648,7 +4126,7 @@ ZONE_WIDEN = 0.002  # each zone widened so that neighbours overlap
 ZONE_MIN = 0.012  # no kd cut leaves a zone narrower than this (degrees)
 N_STATIONS = 64
 STATION_D = 0.003
-JOIN_REPEATS = 3  # timed calls of each day-level join kind
+JOIN_REPEATS = 2  # timed calls of each day-level join kind
 # right sides at or below this broadcast (the default, 64, would broadcast
 # the 64 stations: 2^32 candidates at 2^26 rows); the boroughs still do
 JOIN_BROADCAST = 8
@@ -4392,10 +4870,12 @@ def batched_rows(dev, sched, idx, launches, valid_launches, errs: Errs) -> list:
 N_ENV = 1 << 26  # rows of the synthetic envelope planes
 
 
-def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3) -> dict:
+def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3, library=None) -> dict:
     """One filter-scan row over envelope planes: bytes bound 16 B/row of
     envelopes, 8 B/row of dtg words for a during, 1 B/row for a mask (4 B
-    for a count) over the HBM rate; operations bound from the program."""
+    for a count) over the HBM rate; operations bound from the program.
+    ``library``: one PyTorch call computing the same mask, checked equal
+    and timed as the kernel is."""
     import torch
 
     from geomesa_tpu_torch.ops import filter_scan
@@ -4407,20 +4887,26 @@ def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3) -> 
         lambda: filter_scan.run_program_plain(prog, cols).sum(dtype=torch.int32))
     errs.check(name, kern().reshape(-1), plain().reshape(-1), case)
     ms, plain_ms = time_ms(kern, 50), time_ms(plain, plain_iters, warm=1)
+    library_ms = None
+    if library is not None:
+        if not torch.equal(library().reshape(-1), kern().reshape(-1)):
+            raise AssertionError(f"{name} ({case}): the library call != the kernel")
+        library_ms = time_ms(library, 50)
     nbytes = 4 * len(prog.cols) * n + (n if mask else 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n * _program_ops(prog) / INT32_OPS_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     log(f"{name} ({case}): {ms:.4f} ms (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it; "
         f"{nbytes / ms / 1e6:.1f} GB/s, {n / ms / 1e6:.2f} G rows/s); plain version "
-        f"{plain_ms:.3f} ms [{CARD}]")
+        f"{plain_ms:.3f} ms" + ("" if library_ms is None else f"; library call {library_ms:.4f} ms")
+        + f" [{CARD}]")
     return {"name": name, "route": "cuda", "source": "geomesa_tpu_torch/csrc/filter_scan.cu",
             "replaces": "geomesa_tpu/ops/pallas_scan.py:203 build_pallas_scan (pallas_call "
                         f"{':304' if mask else ':284'})",
             "launches": launches[name], "max_abs_err": errs.err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "case": case}
+            "library_ms": library_ms, "case": case}
 
 
 def xz_rows(dev, xz, launches, errs: Errs) -> "tuple[list, list]":
@@ -4780,7 +5266,7 @@ def main() -> int:
     check_density_path(cols, di3, di2, planes3, planes2, dcalls, grids, scalls, seqs)
     inter = run_interleaved_path(dev, cols, di3, di2, queries, z2q, res3, res2, planes2,
                                  dcalls, grids, scalls, seqs)
-    del planes3, planes2, grids, res3, res2
+    del planes3, planes2, grids, res2
     lab_launches = run_labeled_path(dev, queries)
     t = time.time()
     xz = run_xz_path(dev)
@@ -4792,15 +5278,21 @@ def main() -> int:
     sched = run_sched_path(dev, cols, di3, di2, inter["di3i"], inter["di2i"])
     log(f"phase 3f: the scheduler in {time.time() - t:.1f} s")
     t = time.time()
-    stream = run_streaming_path(dev, cols, queries, sched["traffic"])
+    stream = run_streaming_path(dev, {k: v if k == "_centers" else v[:STREAM_ROWS]
+                                      for k, v in cols.items()}, queries, sched["traffic"])
     log(f"phase 3g: the streaming index in {time.time() - t:.1f} s")
     t = time.time()
     join = run_join_path(dev)
     log(f"phase 3h: the joins in {time.time() - t:.1f} s")
+    t = time.time()
+    store = run_store_path(dev, cols, di3, queries, res3)
+    log(f"phase 3i: the store path in {time.time() - t:.1f} s")
+    del res3
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
                 + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) + sched["launches"][k]
-                + stream["launches"][k] + join["launches"][k] for k in main_launches}
+                + stream["launches"][k] + join["launches"][k] + store["launches"][k]
+                for k in main_launches}
     valid_launches = stream["valid"]
     missing = sorted(k for k in ("dimscan_z3_count", "dimscan_batched_z3_count", "zscan_z3_count",
                                  "zscan_batched_z3_count", "filter_scan_count")
@@ -4812,6 +5304,7 @@ def main() -> int:
     rows += density_rows(dev, di3, launches, errs)
     env_rows, ops_rows = xz_rows(dev, xz, launches, errs)
     rows += env_rows
+    rows += store_rows(dev, store, launches, errs)
     rows += batched_rows(dev, sched, {"z3": di3, "z2": di2, "z3i": inter["di3i"],
                                       "z2i": inter["di2i"]}, launches, valid_launches, errs)
     for r in rows:

@@ -3,7 +3,9 @@
 Counterpart of ``geomesa_tpu/conf.py``, trimmed to the keys of the device
 query scheduler (``sched.*``), the launch watchdog and circuit breaker
 (``resilience.*``), the loose-bbox default of the resident index
-(``query.loose.bbox``), the memtable size that hints a streaming
+(``query.loose.bbox``), the store planner's range budget, feature cap
+and full-table guard (``scan.ranges.target``, ``query.max.features``,
+``query.block.full.table``), the memtable size that hints a streaming
 index's capacity (``stream.memtable.rows``), the spatial join engine's
 keys (``join.*``, reference lines 201-241, 351-385 and 526-541) and the
 BIN encoder's engine (``results.bin.engine``). Each key has a
@@ -52,6 +54,12 @@ _DEFS = {
     "resilience.breaker.failures": (5, int),
     "resilience.breaker.cooldown.s": (5.0, float),
     "resilience.launch.timeout.s": (30.0, float),
+    # the store planner (query/plan.py, query/interceptor.py): max z-ranges
+    # per query plan (ref geomesa.scan.ranges.target), a global cap on
+    # returned features (0 = off), raise instead of a full-table scan
+    "scan.ranges.target": (2000, int),
+    "query.max.features": (0, int),
+    "query.block.full.table": (False, _parse_bool),
     # answer bbox(+during) queries straight from the index key at cell
     # granularity when a call passes loose=None (ref geomesa.loose.bbox)
     "query.loose.bbox": (False, _parse_bool),

@@ -1,7 +1,8 @@
 """Z2 space-filling curve dimensions: (lon, lat).
 
-Copy of ``geomesa_tpu/curves/z2.py``, trimmed to the sfc's dimensions and
-key encode (no z-range planner): 31-bit quantization of lon in
+Copy of ``geomesa_tpu/curves/z2.py``: the sfc's dimensions, key encode
+and z-range planner (``ranges``, which the store's Z2 key space calls):
+31-bit quantization of lon in
 [-180, 180] and lat in [-90, 90], Morton-interleaved x-first.
 """
 
@@ -14,6 +15,11 @@ import torch
 
 from geomesa_tpu_torch.curves import zorder
 from geomesa_tpu_torch.curves.normalize import NormalizedLat, NormalizedLon
+from geomesa_tpu_torch.curves.zranges import (
+    DEFAULT_MAX_RANGES,
+    IndexRange,
+    zranges,
+)
 
 
 @dataclass(frozen=True)
@@ -38,3 +44,17 @@ class Z2SFC:
         """Encode on the tensors' device to the (hi, lo) uint32 key words,
         quantizing in float64: bit for bit the host :meth:`index`."""
         return zorder.encode_2d_t(self.lon.normalize_t(x), self.lat.normalize_t(y))
+
+    def ranges(
+        self,
+        xmin: float,
+        ymin: float,
+        xmax: float,
+        ymax: float,
+        max_ranges: int = DEFAULT_MAX_RANGES,
+        max_recurse: "int | None" = None,
+    ) -> "list[IndexRange]":
+        """bbox -> sorted inclusive z ranges (ref Z2SFC.ranges)."""
+        qlo = (int(self.lon.normalize(xmin)), int(self.lat.normalize(ymin)))
+        qhi = (int(self.lon.normalize(xmax)), int(self.lat.normalize(ymax)))
+        return zranges(qlo, qhi, self.precision, max_ranges, max_recurse)

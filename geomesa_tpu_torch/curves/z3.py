@@ -1,8 +1,9 @@
 """Z3 space-filling curve dimensions: (lon, lat, time-offset).
 
-Copy of ``geomesa_tpu/curves/z3.py``, trimmed to the sfc's dimensions,
-period and key encode (no z-range planner: the resident scans answer
-bbox+during queries by compares, not ranges). 21-bit quantization of
+Copy of ``geomesa_tpu/curves/z3.py``: the sfc's dimensions, period, key
+encode and z-range planner (``ranges``, which the store's Z3 key space
+calls per time bin; the resident scans answer bbox+during queries by
+compares instead). 21-bit quantization of
 lon/lat and of the time offset within a ``BinnedTime`` period (week by
 default), Morton-interleaved x, y, t. The counterpart's native C++ encode
 is not copied: the port encodes resident keys on the card.
@@ -21,6 +22,11 @@ from geomesa_tpu_torch.curves.normalize import (
     NormalizedLat,
     NormalizedLon,
     NormalizedTime,
+)
+from geomesa_tpu_torch.curves.zranges import (
+    DEFAULT_MAX_RANGES,
+    IndexRange,
+    zranges,
 )
 
 
@@ -55,3 +61,30 @@ class Z3SFC:
         return zorder.encode_3d_hi_lo_t(
             self.lon.normalize_t(x), self.lat.normalize_t(y), self.time.normalize_t(t)
         )
+
+    def ranges(
+        self,
+        xmin: float,
+        ymin: float,
+        xmax: float,
+        ymax: float,
+        tmin: float,
+        tmax: float,
+        max_ranges: int = DEFAULT_MAX_RANGES,
+        max_recurse: "int | None" = None,
+    ) -> "list[IndexRange]":
+        """bbox x time-offset window -> sorted inclusive z ranges.
+
+        tmin/tmax are offsets within one period bin, in the period's offset
+        unit (ref Z3SFC.ranges, called per bin by the Z3 key space)."""
+        qlo = (
+            int(self.lon.normalize(xmin)),
+            int(self.lat.normalize(ymin)),
+            int(self.time.normalize(tmin)),
+        )
+        qhi = (
+            int(self.lon.normalize(xmax)),
+            int(self.lat.normalize(ymax)),
+            int(self.time.normalize(tmax)),
+        )
+        return zranges(qlo, qhi, self.precision, max_ranges, max_recurse)

@@ -56,10 +56,14 @@ The spatial join's coarse pass ``window_pairs_query`` (the pair pack of
 built once per staged generation (``_gen``, bumped by every staging and
 eviction; the join engine's layout keys on it too).
 
+A resident index stages from any store of the port through
+:func:`_staging_query` (a ``BatchStore`` or a ``MemoryDataStore``); the
+host sketches (Cardinality, TopK, Frequency, Z3Histogram) of ``stats``
+observe the masked host rows.
+
 Not in the port yet; each raises ``NotImplementedError`` naming its
-ROADMAP item: sharded indexes, the AOT warmup (``warmup``,
-``warmup_plan``: item 5), and the stats the host sketches serve
-(Cardinality, TopK, Frequency, Z3Histogram).
+ROADMAP item: sharded indexes and the AOT warmup (``warmup``,
+``warmup_plan``: item 5).
 """
 
 from __future__ import annotations
@@ -163,6 +167,16 @@ def _z_planes_np(batch, sft: SimpleFeatureType):
     if bins is not None:
         planes[Z_BIN] = np.asarray(bins, np.int32)
     return kind, planes, bins
+
+
+def _staging_query():
+    """The resident index's staging scan (the counterpart's
+    ``device_cache.py:171``): every row, visibility labels kept raw (the
+    index enforces each request's auths itself through its label-id
+    plane), exempt from user-facing caps. Never a user-facing query."""
+    from geomesa_tpu_torch.query.plan import Query
+
+    return Query(filter=ast.Include, hints={"internal": True, "raw_visibility": True})
 
 
 class DeviceIndex:
@@ -314,12 +328,11 @@ class DeviceIndex:
     # -- staging -----------------------------------------------------------
 
     def refresh(self) -> None:
-        """Re-stage from the backing store (after writes). The staging
-        scan keeps labeled rows (``raw_visibility``): this index enforces
-        each request's auths itself."""
+        """Re-stage from the backing store (after writes) through
+        :func:`_staging_query`."""
         if self.store is None:
             raise RuntimeError("an index built from planes has no store")
-        res = self.store.query(self.type_name, ast.Include, raw_visibility=True)
+        res = self.store.query(self.type_name, _staging_query())
         self._reset()
         self._host_batch, self._cols = self._stage_checked(res.batch)
 
@@ -1562,7 +1575,7 @@ class StreamingDeviceIndex(DeviceIndex):
         with self._lock:
             if self.store is None:
                 raise RuntimeError("an index built from planes has no store")
-            res = self.store.query(self.type_name, ast.Include, raw_visibility=True)
+            res = self.store.query(self.type_name, _staging_query())
             self._install(res.batch)
 
     def _install(self, batch, min_cap: int = 0) -> None:

@@ -108,6 +108,10 @@ class AttributeDescriptor:
         return self.type_name == "Point"
 
     @property
+    def indexed(self) -> bool:
+        return str(self.options.get("index", "false")).lower() == "true"
+
+    @property
     def column_dtype(self):
         """numpy dtype for the device column, or None for host-only."""
         return COLUMN_DTYPES.get(self.type_name)

@@ -21,6 +21,7 @@ __all__ = ["FIELDS", "RequestCost", "attach_cost", "capture_cost", "charge", "co
 
 #: the fields a request is charged (every ``charge`` names one)
 FIELDS = (
+    "stage_seconds",  # host column staging of the store path's scans
     "device_launches",  # device scan launches this request rode
     "device_seconds",  # fair-share device execution time (dur / riders)
     "fusion_width",  # widest fused launch this request rode (max)

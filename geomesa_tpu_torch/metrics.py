@@ -6,7 +6,8 @@ metrics the device query scheduler and its watchdog write: queue depth,
 wait time, queries, launches, fused queries, rejections, expirations,
 worker failures, drains and watchdog timeouts; the streaming index's
 delta refreshes by mode; the spatial join engine's counters and
-histograms and the device BIN pack's launches (reference lines 644-697). The Prometheus exposition
+histograms and the device BIN pack's launches (reference lines 644-697);
+the store path's queries, query latency and OOM recoveries. The Prometheus exposition
 and every other family of the counterpart are left out.
 """
 
@@ -161,3 +162,13 @@ join_refine_seconds = REGISTRY.histogram(
 results_bin_device_launches = REGISTRY.counter(
     "geomesa_results_bin_device_launches_total",
     "device BIN pack calls (a count and a compaction count one)")
+
+# the store path (store/memory.py, query/runner.py): queries run per store
+# and type, their end-to-end latency, and scan runs recovered from an OOM
+# by halving
+queries_run = REGISTRY.counter("geomesa_queries_total", "queries executed")
+query_seconds = REGISTRY.histogram(
+    "geomesa_query_duration_seconds", "end-to-end query latency")
+resilience_oom_recoveries = REGISTRY.counter(
+    "geomesa_resilience_oom_recoveries_total",
+    "staging/HBM OOMs recovered by halving the scan batch")

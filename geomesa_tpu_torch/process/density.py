@@ -9,11 +9,10 @@ store query materializes the matched batch and the grid accumulates from
 its coordinates -- on the card through the same density kernel with no
 mask, or on the host in numpy.
 
-Not ported: the counterpart's ``Query`` objects (``query`` here is an ECQL
-string or a filter AST) and the chunk pre-aggregate pushdown
+``query`` is a ``Query`` (whose ``auths`` hint wins), an ECQL string or
+a filter AST. Not ported: the chunk pre-aggregate pushdown
 (``store.density_pushdown``), a feature of the file-system store, which
-the port does not have; the counterpart's ``BatchStore`` has no pushdown
-either.
+the port does not have yet.
 """
 
 from __future__ import annotations
@@ -24,6 +23,18 @@ import torch
 from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.ops.density import corners, density_grid, inverted, viewport
+from geomesa_tpu_torch.query.plan import Query
+
+
+def _split_query(query, auths):
+    """(filter, auths) from a query that may be a full Query (whose auths
+    hint takes precedence) or a bare CQL string / filter AST."""
+    if isinstance(query, Query):
+        return (
+            query.filter if query.filter is not None else ast.Include,
+            query.hints.get("auths", auths),
+        )
+    return query, auths
 
 
 def density(
@@ -52,25 +63,30 @@ def density(
     path as ``DeviceIndex.density`` says; on the store path an inverted
     viewport gives a zero grid and one of zero width or height raises
     ``ZeroDivisionError`` once there are rows to place."""
-    if isinstance(query, str):
+    filt, auths = _split_query(query, auths)
+    if isinstance(filt, str):
         from geomesa_tpu_torch.filter.ecql import parse_ecql
 
-        query = parse_ecql(query)
-    elif not isinstance(query, ast.Filter):
-        raise TypeError(
-            "density takes an ECQL string or a filter AST; Query objects are "
-            "not in the port yet: ROADMAP, port queue: the store-path scan "
-            "(query/runner.py, the query plan)"
-        )
+        filt = parse_ecql(filt)
     if device_index is not None:
         grid = device_index.density(
-            query, envelope, width, height, weight_attr=weight_attr,
+            filt, envelope, width, height, weight_attr=weight_attr,
             loose=loose, auths=auths,
         )
         if grid is not None:
             return grid
         # filter or planes not resident: fall through to the store path
-    batch = store.query(type_name, query, auths=auths).batch
+    # a caller's full Query keeps all its attributes and hints on the store
+    # path, with the resolved auths merged in
+    if isinstance(query, Query):
+        import dataclasses
+
+        hints = dict(query.hints)
+        hints["auths"] = auths
+        store_q = dataclasses.replace(query, filter=filt, hints=hints)
+    else:
+        store_q = Query(filter=filt, hints={"auths": auths})
+    batch = store.query(type_name, store_q).batch
     if len(batch) == 0:
         return np.zeros((height, width), dtype=np.float32)
     x, y = batch.point_coords()

@@ -10,8 +10,8 @@ Z-range candidate planning, batched count -> compact refinement on the
 index's device, then the exact predicate over each window's candidates.
 
 Not in the port yet: the store path (no ``device_index``, or another type
-name as the right side), which needs the store's filtered scan and
-``SpatialFrame`` (ROADMAP item 5).
+name as the right side), which needs ``SpatialFrame`` over the store's
+filtered scan (ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ from geomesa_tpu_torch.geom.predicates import (
 
 _STORE_PATH = (
     "spatial_join without a device_index, or with a type name on the right, "
-    "needs the store path and SpatialFrame: not in the port yet: ROADMAP, "
-    "port queue item 5, the store-path scan (query/plan.py, query/runner.py)"
+    "needs SpatialFrame over the store's filtered scan: not in the port yet: "
+    "ROADMAP, port queue item 5, sql/frame.py and the store path of spatial_join"
 )
 
 

@@ -8,9 +8,10 @@ radius so no closer neighbour outside the last window is missed. With a
 resident ``device_index`` whose planes and filter are on the device, one
 ``DeviceIndex.knn`` call answers and no window is probed.
 
-The port's store path asks ``store.query(type_name, f, auths=auths)``
-(the reference passes a ``Query`` object); the port's ``BatchStore``
-serves no filtered query, so it raises ``NotImplementedError`` there.
+Without a resident answer the windows go to the store as
+``internal_query(f, auths=auths)``, as in the counterpart (a
+``MemoryDataStore`` answers them; a ``BatchStore`` serves no filtered
+query and raises).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from geomesa_tpu_torch.filter import ast
+from geomesa_tpu_torch.query.plan import internal_query
 
 
 def _dist_deg(x, y, px, py):
@@ -88,7 +90,7 @@ def knn(
         f = ast.And((ast.BBox(geom, px - rx, py - ry, px + rx, py + ry), base))
         if device_index is not None:
             return device_index.query(f, auths=auths)
-        return store.query(type_name, f, auths=auths).batch
+        return store.query(type_name, internal_query(f, auths=auths)).batch
 
     r = initial_radius_deg
     batch = None

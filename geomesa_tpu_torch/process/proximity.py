@@ -4,9 +4,9 @@ geometries.
 Counterpart of ``geomesa_tpu/process/proximity.py`` (ref: geomesa-process
 ProximitySearchProcess): each input's envelope, expanded by the distance,
 is one window of a ``DeviceIndex.window_union_query`` (or of one OR of
-bboxes on the store path, which the port's ``BatchStore`` refuses with
-``NotImplementedError``); then an exact vectorised point-to-segment
-distance pass over the candidates.
+bboxes asked of the store as an ``internal_query``, as in the
+counterpart); then an exact vectorised point-to-segment distance pass over
+the candidates.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.geom import Geometry, Point
 from geomesa_tpu_torch.geom.predicates import distance_segments, pt_seg_dist2
 from geomesa_tpu_torch.process.knn import parse_base
+from geomesa_tpu_torch.query.plan import internal_query
 
 
 def _as_geoms(inputs) -> list:
@@ -68,7 +69,7 @@ def proximity_search(
         # far-apart inputs would otherwise pull in everything between them)
         boxes = tuple(ast.BBox(geom_field, *e) for e in envs)
         f = ast.And((boxes[0] if len(boxes) == 1 else ast.Or(boxes), base))
-        batch = store.query(type_name, f, auths=auths).batch
+        batch = store.query(type_name, internal_query(f, auths=auths)).batch
     if len(batch) == 0:
         return batch, np.array([])
     x, y = batch.point_coords(geom_field)

@@ -8,19 +8,19 @@ features within ``buffer_deg`` of the track's path AND within
 
 The coarse pass is one ``DeviceIndex.window_union_query`` with one
 bbox+time window per segment. Without a resident index (or when it
-cannot answer) the port asks the store one OR of the segment windows,
-which the store dedupes, where the reference asks one query per segment
-and concatenates; the port's ``BatchStore`` serves no filtered query, so
-it raises ``NotImplementedError`` there. The fine pass is the
-reference's host numpy over the candidates.
+cannot answer) the store answers one ``internal_query`` per segment and
+the batches concatenate, deduped by fid, as in the counterpart. The fine
+pass is the counterpart's host numpy over the candidates.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.process.knn import parse_base
+from geomesa_tpu_torch.query.plan import internal_query
 
 
 def _segment_windows(track_xy, track_t, buffer_deg, max_dt_ms):
@@ -68,15 +68,20 @@ def tube_select(
             base=None if base is ast.Include else base,
         )
     if merged is None:
-        segs = tuple(
-            ast.And((ast.BBox(geom, *(float(v) for v in e)),
-                     ast.During(dtg, int(t[0]), int(t[1]))))
-            for e, t in zip(envs, times)
-        )
-        f = ast.Exclude if not segs else ast.And(
-            (segs[0] if len(segs) == 1 else ast.Or(segs), base)
-        )
-        merged = store.query(type_name, f, auths=auths).batch
+        # coarse pass: one bbox+time query per track segment, unioned
+        chunks = []
+        for e, t in zip(envs, times):
+            f = ast.And((ast.BBox(geom, *(float(v) for v in e)),
+                         ast.During(dtg, int(t[0]), int(t[1])), base))
+            b = store.query(type_name, internal_query(f, auths=auths)).batch
+            if len(b):
+                chunks.append(b)
+        if not chunks:
+            return store.query(type_name, internal_query(ast.Exclude, auths=auths)).batch
+        merged = chunks[0] if len(chunks) == 1 else FeatureBatch.concat(chunks)
+        # dedupe by fid, first occurrence kept in order
+        _, first = np.unique(merged.fids, return_index=True)
+        merged = merged.take(np.sort(first))
     if len(merged) == 0:
         return merged
 

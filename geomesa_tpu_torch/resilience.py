@@ -26,7 +26,7 @@ from contextlib import contextmanager
 __all__ = [
     "CircuitBreaker", "LaunchStuckError", "attach_degraded", "breaker",
     "capture_degraded", "collect_degraded", "device_breaker",
-    "enabled", "note_degraded", "reset",
+    "enabled", "is_oom", "note_degraded", "reset",
 ]
 
 
@@ -40,6 +40,21 @@ def enabled() -> bool:
     from geomesa_tpu_torch.conf import sys_prop
 
     return bool(sys_prop("resilience.enabled"))
+
+
+def is_oom(exc: BaseException) -> bool:
+    """Device or host memory exhaustion: ``torch.cuda.OutOfMemoryError``
+    (the counterpart matches XLA's RESOURCE_EXHAUSTED) or a host
+    ``MemoryError``. The store path's scan halves its run and retries on
+    one."""
+    if isinstance(exc, MemoryError):
+        return True
+    import torch
+
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    s = str(exc)
+    return "out of memory" in s or "Out of memory" in s
 
 
 class CircuitBreaker:

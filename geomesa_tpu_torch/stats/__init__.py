@@ -1,5 +1,29 @@
-"""Stat sketches and the stat DSL (counterpart: ``geomesa_tpu/stats``)."""
+"""Streaming stats sketches + the Stat DSL (counterpart: ``geomesa_tpu/stats``).
 
-from geomesa_tpu_torch.stats.dsl import SeqStat, parse_stat
+Sketches summarize written data; the planner uses them for
+selectivity-based strategy costing. All sketches are mergeable (distributed ingest folds partial
+sketches) and serializable to JSON for store metadata.
+"""
 
-__all__ = ["SeqStat", "parse_stat"]
+from geomesa_tpu_torch.stats.sketches import (
+    Cardinality,
+    CountStat,
+    Frequency,
+    Histogram,
+    MinMax,
+    TopK,
+    Z3HistogramStat,
+)
+from geomesa_tpu_torch.stats.dsl import parse_stat, SeqStat
+
+__all__ = [
+    "MinMax",
+    "CountStat",
+    "Cardinality",
+    "TopK",
+    "Frequency",
+    "Histogram",
+    "Z3HistogramStat",
+    "parse_stat",
+    "SeqStat",
+]

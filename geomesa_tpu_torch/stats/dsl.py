@@ -1,16 +1,17 @@
 """The Stat DSL: string specs -> sketch instances.
 
-Copy of ``geomesa_tpu/stats/dsl.py`` trimmed to the stats the resident
-index serves in this slice:
+Copy of ``geomesa_tpu/stats/dsl.py`` (ref: geomesa-utils Stat.scala's
+parser). Supported:
 
     Count()
     MinMax("attr")
+    Cardinality("attr")
+    TopK("attr"[,k])
+    Frequency("attr")
     Histogram("attr",bins,lo,hi)
+    Z3Histogram("geom","dtg"[,"week"])
 
-combined with ';' into a SeqStat. ``Cardinality``, ``TopK``,
-``Frequency`` and ``Z3Histogram`` are valid specs of the counterpart that
-the port does not have yet: they raise ``NotImplementedError`` naming
-their ROADMAP item.
+Multiple stats combine with ';' into a SeqStat.
 """
 
 from __future__ import annotations
@@ -20,10 +21,18 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from geomesa_tpu_torch.stats.sketches import CountStat, Histogram, MinMax, Stat
+from geomesa_tpu_torch.stats.sketches import (
+    Cardinality,
+    CountStat,
+    Frequency,
+    Histogram,
+    MinMax,
+    Stat,
+    TopK,
+    Z3HistogramStat,
+)
 
 _CALL = re.compile(r"^\s*(\w+)\s*\((.*)\)\s*$")
-_LATER = ("cardinality", "topk", "frequency", "z3histogram")
 
 
 @dataclass
@@ -66,12 +75,17 @@ def parse_stat(spec: str) -> SeqStat:
             stats.append(CountStat())
         elif name == "minmax":
             stats.append(MinMax(args[0]))
+        elif name == "cardinality":
+            stats.append(Cardinality(args[0]))
+        elif name == "topk":
+            stats.append(TopK(args[0], *([int(args[1])] if len(args) > 1 else [])))
+        elif name == "frequency":
+            stats.append(Frequency(args[0]))
         elif name == "histogram":
             stats.append(Histogram(args[0], int(args[1]), float(args[2]), float(args[3])))
-        elif name in _LATER:
-            raise NotImplementedError(
-                f"stat {m.group(1)}: not in the port yet: ROADMAP, port "
-                "queue: the store path, host sketches and the server seam"
+        elif name == "z3histogram":
+            stats.append(
+                Z3HistogramStat(args[0], args[1], args[2] if len(args) > 2 else "week")
             )
         else:
             raise ValueError(f"unknown stat {name!r}")
@@ -83,9 +97,16 @@ def _observe_on_batch(stat: Stat, batch) -> None:
     if isinstance(stat, CountStat):
         stat.observe(np.empty(len(batch)))
         return
-    desc = batch.sft.descriptor(stat.attr)
+    if isinstance(stat, Z3HistogramStat):
+        x, y = batch.point_coords(stat.geom_attr)
+        stat.observe_xyt(x, y, batch.column(stat.dtg_attr))
+        return
+    attr = getattr(stat, "attr", None)
+    if attr is None:  # pragma: no cover
+        raise TypeError(f"cannot route batch into {type(stat)}")
+    desc = batch.sft.descriptor(attr)
     if desc.is_point:
-        x, _ = batch.point_coords(stat.attr)
+        x, y = batch.point_coords(attr)
         stat.observe(x)  # convention: point stats observe longitude
     else:
-        stat.observe(batch.column(stat.attr))
+        stat.observe(batch.column(attr))

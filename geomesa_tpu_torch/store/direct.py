@@ -3,27 +3,23 @@
 Counterpart of ``geomesa_tpu/store/direct.py`` (``BatchStore``): it holds
 only the batch and the schema, so ``DeviceIndex(BatchStore(batch), name)``
 stages directly with no host index build. Only full scans (Include) are
-served; filtered queries belong to the DeviceIndex staged on top.
-``write`` appends rows, as ``MemoryDataStore.write`` of the counterpart
-does for one type: a streaming index's restage reads them back.
+served, as in the counterpart; filtered queries belong to the DeviceIndex
+staged on top or to a ``MemoryDataStore``. ``query`` takes a ``Query``,
+an ECQL string or a filter AST and reads the ``auths`` and
+``raw_visibility`` hints. ``write`` appends rows, as
+``MemoryDataStore.write`` does for one type: a streaming index's restage
+reads them back.
 """
 
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import numpy as np
 
 from geomesa_tpu_torch.features.batch import FeatureBatch
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
-
-
-@dataclass
-class QueryResult:
-    batch: FeatureBatch
-    scanned: int
-    total: int
+from geomesa_tpu_torch.query.plan import as_query
+from geomesa_tpu_torch.query.runner import QueryResult
 
 
 class BatchStore:
@@ -55,28 +51,26 @@ class BatchStore:
             raise KeyError(type_name)
         return self.sft
 
-    def query(
-        self, type_name: str, f: ast.Filter = ast.Include, auths=None,
-        raw_visibility: bool = False,
-    ) -> QueryResult:
-        """Full scan. Rows whose visibility label ``auths`` cannot see are
-        dropped (``None``/``()``: labeled rows hide, fail closed) unless
-        ``raw_visibility=True`` -- the resident cache's staging scan, which
-        enforces visibility per request itself."""
+    def query(self, type_name: str, query=ast.Include) -> QueryResult:
+        """Full scan. Rows whose visibility label the ``auths`` hint cannot
+        see are dropped (absent or ``()``: labeled rows hide, fail closed)
+        unless the ``raw_visibility`` hint is set -- the resident index's
+        staging scan, which enforces visibility per request itself."""
         if type_name != self.type_name:
             raise KeyError(type_name)
+        q = as_query(query)
+        f = q.filter if q.filter is not None else ast.Include
         if f is not ast.Include:
             raise NotImplementedError(
                 "BatchStore serves full scans only; stage a DeviceIndex on "
-                "top for filtered queries. The filtered store path is not in "
-                "the port yet: ROADMAP, port queue item 5, the store-path scan "
-                "(query/plan.py, query/runner.py)"
+                "top (or use a real store) for filtered queries"
             )
         batch = self.batch
-        if not raw_visibility:
+        if not q.hints.get("raw_visibility"):
             from geomesa_tpu_torch.security import filter_by_visibility
 
-            keep = filter_by_visibility(batch, auths)
+            keep = filter_by_visibility(batch, q.hints.get("auths"))
             if keep is not None:
                 batch = batch.take(np.nonzero(keep)[0])
-        return QueryResult(batch=batch, scanned=len(batch), total=len(self.batch))
+        # no planner ran: there is nothing to explain on a full scan
+        return QueryResult(batch=batch, plan=None, scanned=len(batch), total=len(self.batch))

@@ -298,11 +298,25 @@ def test_process_density_matches(z3, path, weight):
 
 
 def test_process_density_refuses_query_objects(z3):
+    """A ``Query`` is the process's input now, as in the JAX package (its
+    auths hint wins). An object that is neither a Query nor a filter
+    raises in both packages: the port's index refuses it (TypeError); the
+    JAX package's index declines it and its BatchStore refuses the filter
+    (NotImplementedError)."""
+    from geomesa_tpu.process.density import density as jdensity
+    from geomesa_tpu.query.plan import Query as JQuery
     from geomesa_tpu_torch.process.density import density
+    from geomesa_tpu_torch.query.plan import Query
 
-    _, tdi, _, store = z3
-    with pytest.raises(TypeError, match="query plan"):
+    jdi, tdi, jstore, store = z3
+    with pytest.raises(TypeError):
         density(store, "t", object(), Envelope(*ENV_WIDE), 8, 8, device_index=tdi)
+    with pytest.raises(NotImplementedError):
+        jdensity(jstore, "t", object(), JEnvelope(*ENV_WIDE), 8, 8, device_index=jdi)
+    q = f"{BBOX} AND {DURING}"
+    got = density(store, "t", Query(filter=q), Envelope(*ENV_WIDE), 64, 32, device_index=tdi)
+    want = jdensity(jstore, "t", JQuery(filter=q), JEnvelope(*ENV_WIDE), 64, 32, device_index=jdi)
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 # -- viewports without area ----------------------------------------------------

@@ -1,8 +1,10 @@
 """The port stands alone: ``geomesa_tpu_torch`` and ``chip_smoke.py``
 import neither JAX nor the JAX package (also on a non-point xz2 workload,
-the kNN, tube and proximity processes, a scheduler run with fused groups,
-a streaming index, a join and a BIN request), and entry points never fall
-back to the CPU on their own."""
+the store path through ``DataStoreFinder`` and ``MemoryDataStore`` with a
+resident index staged from it, the kNN, tube and proximity processes,
+``run_stats``, a scheduler run with fused groups, a streaming index, a join
+and a BIN request), and entry points never fall back to the CPU on their
+own."""
 
 import os
 import re
@@ -47,6 +49,19 @@ inter = DeviceIndex(BatchStore(batch), "t", z_planes=True, dim_planes=False, dev
 assert inter.count(q, loose=True) == di.count(q, loose=True)
 count_fn, ops = inter.loose_scan_kernel(q)
 assert int(count_fn(*ops)) == inter.count(q, loose=True)
+from geomesa_tpu_torch.api import DataStoreFinder
+from geomesa_tpu_torch.process.knn import knn
+from geomesa_tpu_torch.process.statsproc import run_stats
+from geomesa_tpu_torch.query.plan import Query
+mds = DataStoreFinder.get_data_store({"memory": "true", "device": "cpu"})
+mds.create_schema("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
+mds.write("t", cols)
+assert mds.get_feature_source("t").get_count(q) == di.count(q)
+assert "Chosen index: z3" in mds.explain("t", q)
+assert DeviceIndex(mds, "t", z_planes=True, device="cpu").count(q) == di.count(q)
+assert len(knn(mds, "t", 0.0, 0.0, 5)[0]) == 5
+assert run_stats(mds, "t", Query(q), 'Count();TopK("count")').to_json()[0]["count"] == di.count(q)
+assert density(mds, "t", Query(q), Envelope(-50, -50, 50, 50), 8, 8, device="cpu").sum() == di.count(q)
 cols[VIS_COLUMN] = rng.choice(["", "A", "A&B"], n)
 store = BatchStore(FeatureBatch.from_columns(sft, cols))
 ldi = DeviceIndex(store, "t", device="cpu")
@@ -160,6 +175,14 @@ _FORBIDDEN = re.compile(
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 
 
+def test_the_scan_covers_the_store_modules():
+    for rel in ("api.py", "audit.py", "curves/zranges.py", "filter/extract.py", "index/api.py",
+                "index/build.py", "index/keyspaces.py", "query/plan.py", "query/interceptor.py",
+                "query/runner.py", "store/memory.py", "store/ageoff.py", "stats/sketches.py",
+                "process/statsproc.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
 def test_the_scan_covers_the_scheduler_modules():
     for rel in ("conf.py", "spawn.py", "failpoints.py", "metrics.py", "tracing.py",
                 "resilience.py", "ledger.py", "sched/__init__.py", "sched/fusion.py",
@@ -204,6 +227,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         density(store, "t", "INCLUDE", Envelope(-1, -1, 1, 1), 4, 4)  # the store path
+    from geomesa_tpu_torch.store.memory import MemoryDataStore
+
+    mds = MemoryDataStore()
+    mds.create_schema("t", "*geom:Point:srid=4326")
+    mds.write("t", {"geom": np.zeros((4, 2))})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mds.query("t", "BBOX(geom, -1, -1, 1, 1)")
     assert density(store, "t", "INCLUDE", Envelope(-1, -1, 1, 1), 4, 4, device="cpu").sum() == 4
 
 

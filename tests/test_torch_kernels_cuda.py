@@ -865,3 +865,57 @@ def test_misaligned_validity_raises(dev):
         zscan.dimscan_count(q, *planes, valid=valid)
     with pytest.raises(ValueError, match="rows"):
         zscan.dimscan_count(q, *planes, valid=torch.ones(63, dtype=torch.bool, device=dev))
+
+
+# -- the store path: one staged run, one mask launch ---------------------------
+
+STORE_FILTERS = [
+    "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-25T00:00:00Z",
+    "count > 50",  # a full-table scan: every partition in one run
+    "INTERSECTS(geom, POLYGON((-10 0, 40 10, 20 50, -30 40, -10 0)))",  # envelope prefilter + residual
+    "BBOX(geom, -60, -60, 60, 60) AND count IN (1, 2, 3, 42)",
+]
+
+
+@pytest.fixture(scope="module")
+def stores(dev):
+    """The same 2^20 + 17 rows in a MemoryDataStore scanning on the card
+    and one scanning on the CPU (partitions of 2^18: a run of up to 8
+    partitions stages up to 2^20 + 17 rows)."""
+    from geomesa_tpu_torch.store.memory import MemoryDataStore
+
+    n = (1 << 20) + 17
+    rng = np.random.default_rng(5)
+    cols = {
+        "count": rng.integers(0, 100, n),
+        "dtg": rng.integers(T0, T0 + 60 * 86400_000, n),
+        "geom": rng.uniform(-60, 60, (n, 2)).astype(np.float32).astype(np.float64),
+    }
+    out = []
+    for device in (dev, "cpu"):
+        ds = MemoryDataStore(partition_size=1 << 18, device=device)
+        ds.create_schema("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
+        ds.write("t", cols)
+        ds.stats("t")  # flushes: the three index builds
+        out.append(ds)
+    return out
+
+
+@pytest.mark.parametrize("ecql", STORE_FILTERS, ids=lambda s: s[:40])
+def test_store_run_mask_matches_plain(stores, ecql):
+    from geomesa_tpu_torch.query import runner
+
+    card, cpu = stores
+    plan = card.plan("t", ecql)
+    built = card._state("t").indices[plan.index_name]
+    runs = runner._contiguous_runs(built.prune(plan.ranges))
+    kernels.reset_counts()
+    got = card.query("t", ecql)
+    assert kernels.LAUNCHES["filter_scan_mask"] == len(runs) >= 1
+    assert not any(kernels.DEVICE_FN_CALLS.values())
+    assert sum(v for k, v in kernels.LAUNCHES.items() if k != "filter_scan_mask") == 0
+    want = cpu.query("t", ecql)
+    np.testing.assert_array_equal(got.batch.fids, want.batch.fids)
+    assert got.scanned == want.scanned
+    if ecql == "count > 50":
+        assert runs == [(0, (1 << 20) + 17)]

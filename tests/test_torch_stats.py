@@ -119,8 +119,12 @@ def test_sketches_merge_and_parse():
     assert a.stats[1].to_json()["min"] == 1.0 and a.stats[1].to_json()["max"] == 5.0
     assert a.stats[1].count == 4
     assert a.stats[3].counts.sum() == 3 and a.stats[3].counts[-1] == 2
-    for bad in ('Cardinality("name")', 'Frequency("name")', 'Z3Histogram("geom","dtg")'):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            parse_stat(bad)
+    # the host sketches parse as in the JAX package (tests/test_torch_sketches.py
+    # holds their answers against it)
+    from geomesa_tpu.stats import parse_stat as jparse
+
+    for spec in ('Cardinality("name")', 'Frequency("name")', 'Z3Histogram("geom","dtg")',
+                 'TopK("name",3)'):
+        assert parse_stat(spec).to_json() == jparse(spec).to_json()
     with pytest.raises(ValueError, match="unknown stat"):
         parse_stat("Nope()")

@@ -27,6 +27,7 @@ from geomesa_tpu_torch.convert import planes_from_numpy
 from geomesa_tpu_torch.device_cache import VIS_ID, DeviceIndex
 from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
 from geomesa_tpu_torch.geom import Envelope
+from geomesa_tpu_torch.query.plan import Query as TQuery
 from geomesa_tpu_torch.store.direct import BatchStore
 
 torch.set_num_threads(2)  # xdist workers share the host's cores
@@ -156,9 +157,9 @@ def test_label_ids_and_plane_match(labeled):
 def test_batch_store_query_with_auths(labeled, auths):
     _, _, jstore, store = labeled
     want = jstore.query("t", Query(hints={"auths": auths})).batch
-    got = store.query("t", auths=auths).batch
+    got = store.query("t", TQuery(hints={"auths": auths})).batch
     np.testing.assert_array_equal(got.fids, want.fids)
-    raw = store.query("t", auths=auths, raw_visibility=True).batch
+    raw = store.query("t", TQuery(hints={"auths": auths, "raw_visibility": True})).batch
     assert len(raw) == len(store.batch)
 
 

@@ -11,8 +11,9 @@ order equal; proximity distances equal (both take them in float64 from
 the same host coordinates). The reference tests of the processes' store
 paths (``tests/test_process.py`` TestKnn, ``tests/test_process_more.py``
 resident-vs-store) are ported with the JAX package's ``MemoryDataStore``
-answering the store side: the port's ``BatchStore`` serves no filtered
-query, which the last tests check.
+answering the store side; the last tests hold the port's own
+``MemoryDataStore`` against it, and check that a ``BatchStore`` serves no
+filtered query in either package.
 """
 
 import jax.numpy as jnp
@@ -418,17 +419,40 @@ def test_tube_with_base_filter_stays_one_dispatch(monkeypatch):
 # -- the store path ------------------------------------------------------------
 
 def test_filtered_store_path_raises_naming_the_store_item(world):
-    _, _, _, store = world
+    """A BatchStore serves no filtered query, in both packages: the store
+    paths of the processes raise there (also when an index that cannot
+    answer falls through to the store). A MemoryDataStore answers them,
+    as the JAX package's does."""
+    cols, jdi, tdi, store = world
+    jstore = JStore(JBatch.from_columns(JSFT.create("ais", SPEC), cols))
     xy, t = _track(5)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        knn(store, "ais", 0.0, 0.0, 5)
-    with pytest.raises(NotImplementedError, match="query/runner.py"):
-        tube_select(store, "ais", xy, t, 1.0, 3_600_000)
-    with pytest.raises(NotImplementedError, match="store-path"):
-        proximity_search(store, "ais", [(0.0, 0.0)], 1.0)
-    # an index that cannot answer (a base with a host residual) also falls
-    # through to the store
-    _, tdi, _ = _pair(_cols(50, seed=1))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tube_select(store, "ais", xy, t, 1.0, 3_600_000, base_filter="c < 5 OR dtg IS NULL",
-                    device_index=tdi)
+    for pkg_store, kn, tube, prox in ((store, knn, tube_select, proximity_search),
+                                      (jstore, jknn, jtube, jproximity)):
+        with pytest.raises(NotImplementedError, match="full scans only"):
+            kn(pkg_store, "ais", 0.0, 0.0, 5)
+        with pytest.raises(NotImplementedError, match="full scans only"):
+            tube(pkg_store, "ais", xy, t, 1.0, 3_600_000)
+        with pytest.raises(NotImplementedError, match="full scans only"):
+            prox(pkg_store, "ais", [(0.0, 0.0)], 1.0)
+    base = "c < 5 OR dtg IS NULL"  # a host residual: the index declines
+    with pytest.raises(NotImplementedError, match="full scans only"):
+        tube_select(store, "ais", xy, t, 1.0, 3_600_000, base_filter=base, device_index=tdi)
+    with pytest.raises(NotImplementedError, match="full scans only"):
+        jtube(jstore, "ais", xy, t, 1.0, 3_600_000, base_filter=base, device_index=jdi)
+    from geomesa_tpu_torch.store.memory import MemoryDataStore as TMemory
+
+    tds = TMemory(partition_size=1024, device="cpu")
+    tds.create_schema("ais", SPEC)
+    tds.write("ais", {k: v for k, v in cols.items() if k != VIS_COLUMN})
+    jds = _memory_store(cols)
+    got, gd = knn(tds, "ais", 0.0, 0.0, 5)
+    want, wd = jknn(jds, "ais", 0.0, 0.0, 5)
+    np.testing.assert_array_equal(got.fids, want.fids)
+    np.testing.assert_array_equal(gd, wd)
+    got = tube_select(tds, "ais", xy, t, 1.0, 3_600_000, base_filter=base, device_index=tdi)
+    want = jtube(jds, "ais", xy, t, 1.0, 3_600_000, base_filter=base, device_index=jdi)
+    np.testing.assert_array_equal(got.fids, want.fids)
+    got, gd = proximity_search(tds, "ais", [(0.0, 0.0)], 1.0)
+    want, wd = jproximity(jds, "ais", [(0.0, 0.0)], 1.0)
+    np.testing.assert_array_equal(got.fids, want.fids)
+    np.testing.assert_array_equal(gd, wd)
