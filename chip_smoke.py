@@ -767,8 +767,8 @@ def check_validity(dev, errs: Errs, n, seed=SEED + 5, qs=VALID_QS, kinds=None) -
 def launch_floor(dev) -> None:
     """The fixed cost of one filter-scan launch as phase 4 times it (50
     launches between one CUDA event pair): an empty event pair, the
-    wrapper over 0 rows (checks, the output, the count's memset; no
-    kernel) and over 4,096 rows, beside 2^20 and 2^21 rows (one and two
+    wrapper over 0 rows (a mask launches nothing; a count launches one
+    block, which writes 0, and the one-block sum) and over 4,096 rows, beside 2^20 and 2^21 rows (one and two
     store partitions); and for each the host's time to issue one call, which bounds
     the rate of back-to-back launches from below."""
     import torch
@@ -2309,7 +2309,6 @@ def store_rows(dev, store, launches, errs: Errs) -> list:
     from geomesa_tpu_torch.features.sft import SimpleFeatureType
     from geomesa_tpu_torch.filter.compile import compile_filter
     from geomesa_tpu_torch.filter.ecql import parse_ecql
-    from geomesa_tpu_torch.ops import filter_scan
     from geomesa_tpu_torch.ops.scan import stage_columns
 
     sft = SimpleFeatureType.create("gdelt", GDELT_SPEC)
@@ -2327,12 +2326,6 @@ def store_rows(dev, store, launches, errs: Errs) -> list:
         r = _env_row("filter_scan_mask", cf.program, cols, n, f"store run of {n:,} rows, {tag}",
                      launches, errs, library=_one_compare(cf.program, cols))
         r["stage_ms"] = min(walls) * 1e3
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(50):
-            filter_scan.filter_scan_mask(cf.program, cols)
-        r["host_ms"] = (time.perf_counter() - t) / 50 * 1e3
-        torch.cuda.synchronize()
         log(f"store run of {n:,} rows ({tag}): staged in {r['stage_ms']:.3f} ms "
             f"({4 * len(cf.program.cols) * n / min(walls) / 1e9:.2f} GB/s); the wrapper's host "
             f"time {r['host_ms']:.4f} ms a call [{CARD}]")
@@ -4436,6 +4429,21 @@ def time_ms(fn, iters: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_call_ms(fn, iters: int = 50) -> float:
+    """The host's time to issue one call (a wrapper's checks, allocation and
+    launch): the host clock over ``iters`` calls enqueued back to back, no
+    synchronise inside."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def _program_ops(prog) -> int:
     from geomesa_tpu_torch.ops import filter_scan as fs
 
@@ -4552,6 +4560,8 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, valid_laun
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
         })
+        if name.startswith("filter_scan"):
+            rows[-1]["host_ms"] = host_call_ms(kern)
         if case:
             rows[-1]["case"] = case
         if valid is not None:
@@ -4561,9 +4571,10 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, valid_laun
                 plain_iters, vcase)
             rows[-1]["valid"] = True
             rows[-1]["launches"] = valid_launches[name]
+        host = f"; the wrapper's host time {rows[-1]['host_ms']:.4f} ms a call" if "host_ms" in rows[-1] else ""
         log(f"{name}{f' ({case})' if case else ''}: {ms:.4f} ms (bound {max(t_bytes, t_ops):.4f} ms: bytes {t_bytes:.4f}, "
             f"operations {t_ops:.4f}; {(in_bytes + out_bytes) / ms / 1e6:.1f} GB/s, "
-            f"{n / ms / 1e6:.2f} G rows/s); plain version {plain_ms:.3f} ms (not a yardstick) "
+            f"{n / ms / 1e6:.2f} G rows/s); plain version {plain_ms:.3f} ms (not a yardstick){host} "
             f"[{CARD}]")
 
     dim_src = "geomesa_tpu_torch/csrc/dimscan.cu"
@@ -4671,6 +4682,10 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, valid_laun
         fbytes * n, n, ops,
         valid=lambda v: (lambda: filter_scan.filter_scan_mask(cf.program, fcols, valid=v),
                          lambda: filter_scan.run_program_plain(cf.program, fcols, valid=v)))
+    # a 64-edge polygon over the same points: bound by its operations
+    pip = di3._compiled_for(parse_ecql(SCAN_FILTERS[5]))
+    rows.append(_env_row("filter_scan_mask", pip.program, di3._resident_subset(pip), n,
+                         "INTERSECTS a 64-edge polygon, 2^26 points", launches, errs, plain_iters=2))
     return rows
 
 
@@ -4887,6 +4902,7 @@ def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3, lib
         lambda: filter_scan.run_program_plain(prog, cols).sum(dtype=torch.int32))
     errs.check(name, kern().reshape(-1), plain().reshape(-1), case)
     ms, plain_ms = time_ms(kern, 50), time_ms(plain, plain_iters, warm=1)
+    host = host_call_ms(kern)
     library_ms = None
     if library is not None:
         if not torch.equal(library().reshape(-1), kern().reshape(-1)):
@@ -4899,14 +4915,14 @@ def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3, lib
     log(f"{name} ({case}): {ms:.4f} ms (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it; "
         f"{nbytes / ms / 1e6:.1f} GB/s, {n / ms / 1e6:.2f} G rows/s); plain version "
         f"{plain_ms:.3f} ms" + ("" if library_ms is None else f"; library call {library_ms:.4f} ms")
-        + f" [{CARD}]")
+        + f"; the wrapper's host time {host:.4f} ms a call [{CARD}]")
     return {"name": name, "route": "cuda", "source": "geomesa_tpu_torch/csrc/filter_scan.cu",
             "replaces": "geomesa_tpu/ops/pallas_scan.py:203 build_pallas_scan (pallas_call "
                         f"{':304' if mask else ':284'})",
             "launches": launches[name], "max_abs_err": errs.err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "case": case}
+            "library_ms": library_ms, "host_ms": host, "case": case}
 
 
 def xz_rows(dev, xz, launches, errs: Errs) -> "tuple[list, list]":

@@ -46,7 +46,7 @@ SIGNATURES = {
         "gm_zscan_batched": ([_P] * 4 + [_LL, _P] + [_I] * 9 + [_P, _P], _I),
     },
     "filter_scan": {
-        "gm_filter_scan": ([_P, _I, _P, _P, _I, _I, _LL, _I, _P, _P], _I),
+        "gm_filter_scan": ([_P, _P, _I, _P], _I),
     },
     "density": {
         "gm_density": ([_P] * 4 + [_LL] + [_D] * 6 + [_I] * 4 + [_P, _P], _I),

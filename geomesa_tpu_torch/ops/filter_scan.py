@@ -25,7 +25,9 @@ unsigned lo) words with During/Between bounds taken by ceil/floor.
 
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -104,6 +106,7 @@ class Program:
     consts: np.ndarray
     depth: int
     _dev: dict = field(default_factory=dict, repr=False)
+    _records: dict = field(default_factory=dict, repr=False)  # plane set -> _Record
 
     @property
     def n_instr(self) -> int:
@@ -113,12 +116,13 @@ class Program:
         return np.concatenate([self.instr.reshape(-1).view(np.uint32), self.consts])
 
     def device_words(self, device) -> torch.Tensor:
-        """The program as one uint32 buffer on ``device`` (cached)."""
+        """The program as one uint32 buffer on ``device`` (cached). Threads
+        that build it at once all get the first one stored: a launch record
+        keeps its pointer, so the stored buffer must never be replaced."""
         key = str(device)
         t = self._dev.get(key)
         if t is None:
-            t = torch.from_numpy(self.words()).to(device)
-            self._dev[key] = t
+            t = self._dev.setdefault(key, torch.from_numpy(self.words()).to(device))
         return t
 
 
@@ -476,10 +480,113 @@ def run_program_plain(prog: Program, cols: dict, n: "int | None" = None,
 
 
 # -- kernel wrapper ----------------------------------------------------------
+#
+# A launch reads a plane set through a launch record: the checks below run
+# once per plane set, and the record keeps what the C entry point reads
+# (csrc/filter_scan.cu FilterScanLaunch) as ready ctypes structures. Records
+# live on their Program, keyed on everything the checks read, at most
+# RECORDS_PER_PROGRAM of them (a store query stages new planes every run);
+# they hold pointer ints, never tensors, and are never changed once built,
+# so the scheduler's workers share them. What a call writes, the output, is
+# its own.
+
+RECORDS_PER_PROGRAM = 8
+# shared memory on Hopper (csrc/filter_scan.cu): what an SM shares among its
+# blocks, the most one block may take, and the system's share per block
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233_472, 232_448, 1_024
+SMEM_HEADER = 256  # the stages' mbarriers and the count's warp sums
+# (blocks per SM, rows per stage, stage counts), tried in order after the
+# first choice, 2 stages on 3 blocks an SM (stage_plan); a sweep of rows,
+# stages and blocks on the H100 put these first
+_PLANS = (
+    (2, (2048, 1024), (3, 2)),
+    (1, (4096, 2048, 1024, 512, 256, 128, 64, 32), (4, 3, 2)),
+)
+_NAMES = ("filter_scan_count", "filter_scan_mask")
+_records_lock = threading.Lock()
+_gm_filter_scan = None  # the C entry point, bound at the first launch
+_sms: dict = {}
 
 
-def _columns(prog: Program, cols: dict) -> list:
-    ts = [cols[c] for c in prog.cols]
+class _Launch(ctypes.Structure):
+    _fields_ = [
+        ("cols", ctypes.c_uint64 * MAX_COLS), ("valid", ctypes.c_uint64),
+        ("prog", ctypes.c_uint64), ("n", ctypes.c_int64), ("n_cols", ctypes.c_int),
+        ("n_instr", ctypes.c_int), ("n_const", ctypes.c_int), ("rows", ctypes.c_int),
+        ("stages", ctypes.c_int), ("grid", ctypes.c_int), ("device", ctypes.c_int),
+    ]
+
+
+def _pad128(b: int) -> int:
+    return -(-b // 128) * 128
+
+
+def stage_smem(n_cols: int, words: int, rows: int, stages: int, valid: bool,
+               mask: bool) -> int:
+    """Dynamic shared memory of one block of the kernel: the header, the
+    program, and ``stages`` stages of ``rows`` rows of each column, the
+    validity bytes (and 16 for their alignment) and for a mask its
+    ``rows`` bytes; each part padded to 128 bytes."""
+    stage = 4 * rows * n_cols + (_pad128(rows + 16) if valid else 0)
+    return SMEM_HEADER + _pad128(4 * words) + stages * (stage + (_pad128(rows) if mask else 0))
+
+
+def stage_plan(n_cols: int, words: int, valid: bool, mask: bool) -> tuple:
+    """(rows per stage R, stages S, blocks per SM) for a program of
+    ``n_cols`` distinct columns and ``words`` program words: 2 stages of
+    2048 rows (1024 from 3 columns on: about 16 KB a stage) on 3 blocks an
+    SM where they fit, else the first plan of ``_PLANS`` whose layout fits
+    the blocks' share of an SM. Every legal program fits (at worst 32 rows
+    in 2 stages)."""
+    first = ((3, (2048 if n_cols <= 2 else 1024,), (2,)),)
+    for per_sm, rows_opts, stage_opts in first + _PLANS:
+        budget = min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - SMEM_RESERVED)
+        for rows in rows_opts:
+            for stages in stage_opts:
+                if stage_smem(n_cols, words, rows, stages, valid, mask) <= budget:
+                    return rows, stages, per_sm
+    raise ValueError(f"no stage layout for {n_cols} columns and {words} words")
+
+
+def _sm_count(dev) -> int:
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+class _Record:
+    """One validated plane set of one program: the count's and the mask's
+    launch operands, and the index of the device they run on."""
+
+    __slots__ = ("args", "addrs", "grids", "index", "n", "valid")
+
+    def __init__(self, prog: Program, ts: list, valid):
+        dev = ts[0].device
+        n = int(ts[0].shape[0])
+        words = prog.device_words(dev)
+        vptr = kernels.valid_ptr(valid)
+        self.args, self.grids = [], []
+        for mask in (False, True):
+            rows, stages, per_sm = stage_plan(
+                len(ts), prog.instr.size + prog.consts.size, vptr is not None, mask)
+            grid = max(1, min(-(-n // rows), per_sm * _sm_count(dev)))
+            a = _Launch(n=n, n_cols=len(ts), n_instr=prog.n_instr,
+                        n_const=int(prog.consts.size), rows=rows, stages=stages, grid=grid,
+                        device=dev.index or 0, valid=vptr or 0, prog=words.data_ptr())
+            for i, t in enumerate(ts):
+                a.cols[i] = t.data_ptr()
+            self.args.append(a)
+            self.grids.append(grid)
+        self.addrs = tuple(map(ctypes.addressof, self.args))
+        self.index, self.n, self.valid = dev.index, n, vptr is not None
+
+
+def _plane_key(t) -> tuple:
+    return (t.data_ptr(), t.dtype, t.shape, t.stride(), t.device)
+
+
+def _columns(prog: Program, ts: list) -> None:
     n = ts[0].shape
     dev = ts[0].device
     for c, t, dt in zip(prog.cols, ts, prog.col_dtypes):
@@ -491,53 +598,69 @@ def _columns(prog: Program, cols: dict) -> list:
             raise ValueError(f"plane {c} must be contiguous on {dev}")
     if n[0] > MAX_ROWS:
         raise PallasUnsupported("partition too large for int32 indexing")
-    return ts
 
 
-def _launch(prog: Program, ts: list, want_mask: bool, valid=None) -> torch.Tensor:
-    from geomesa_tpu_torch.kernels import _build
-
+def _record(prog: Program, ts: list, valid) -> "_Record | None":
+    """The launch record of this plane set, or None for CPU planes (the
+    plain version). A plane set not seen before (any plane's pointer,
+    dtype, shape, stride or device, or the validity plane's, differs) is
+    checked as a whole, and raises where the checks fail."""
+    key = tuple(map(_plane_key, ts))
+    if valid is not None:
+        key += (_plane_key(valid),)
+    rec = prog._records.get(key)
+    if rec is not None:
+        return rec
+    _columns(prog, ts)
+    kernels.check_valid(valid, int(ts[0].shape[0]), ts[0].device)
+    if not kernels.on_cuda(ts[0]):
+        return None
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("filter-scan planes must be 16-byte aligned")
-    vptr = kernels.valid_ptr(valid)
-    fn = _build.load("filter_scan").gm_filter_scan
-    dev = ts[0].device
-    n = int(ts[0].shape[0])
-    ptrs = np.array([t.data_ptr() for t in ts], np.uint64)
-    with torch.cuda.device(dev):
-        words = prog.device_words(dev)
-        out = (
-            torch.empty(n, dtype=torch.bool, device=dev)
-            if want_mask
-            else torch.empty((), dtype=torch.int32, device=dev)
-        )
-        rc = fn(
-            ptrs.ctypes.data, len(ts), vptr, words.data_ptr(), prog.n_instr,
-            int(prog.consts.size), n, int(want_mask), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    name = f"filter_scan_{'mask' if want_mask else 'count'}"
+    rec = _Record(prog, ts, valid)
+    with _records_lock:
+        prog._records[key] = rec
+        while len(prog._records) > RECORDS_PER_PROGRAM:
+            del prog._records[next(iter(prog._records))]
+    return rec
+
+
+def _launch(rec: _Record, want_mask: bool) -> torch.Tensor:
+    global _gm_filter_scan
+    if _gm_filter_scan is None:
+        from geomesa_tpu_torch.kernels import _build
+
+        _gm_filter_scan = _build.load("filter_scan").gm_filter_scan
+    # (device=rec.index: an int is the CUDA ordinal, and parses fastest)
+    if want_mask:
+        out = torch.empty(rec.n, dtype=torch.bool, device=rec.index)
+    else:  # the total, then one partial per block
+        out = torch.empty(rec.grids[0] + 1, dtype=torch.int32, device=rec.index)
+    # on the current stream of the planes' device (its raw handle: what
+    # torch.cuda.current_stream(i).cuda_stream reads, without the Stream
+    # object); the C side makes the device current only if it is not
+    rc = _gm_filter_scan(rec.addrs[want_mask], out.data_ptr(), int(want_mask),
+                         torch._C._cuda_getCurrentRawStream(rec.index))
+    name = _NAMES[want_mask]
     kernels.check_status(rc, name)
-    kernels.count_launch(name, valid=valid is not None)
-    return out
+    kernels.count_launch(name, valid=rec.valid)
+    return out if want_mask else out[0]
 
 
 def filter_scan_count(prog: Program, cols: dict, valid=None) -> torch.Tensor:
     """int32 hit count of the program over the staged columns' rows that
     ``valid`` marks live (None: every row): the CUDA kernel for CUDA
     planes, the plain version for CPU planes."""
-    ts = _columns(prog, cols)
-    kernels.check_valid(valid, int(ts[0].shape[0]), ts[0].device)
-    if kernels.on_cuda(ts[0]):
-        return _launch(prog, ts, want_mask=False, valid=valid)
+    rec = _record(prog, [cols[c] for c in prog.cols], valid)
+    if rec is not None:
+        return _launch(rec, False)
     return run_program_plain(prog, cols, valid=valid).sum(dtype=torch.int32)
 
 
 def filter_scan_mask(prog: Program, cols: dict, valid=None) -> torch.Tensor:
     """bool hit mask, False on dead rows; routing as
     :func:`filter_scan_count`."""
-    ts = _columns(prog, cols)
-    kernels.check_valid(valid, int(ts[0].shape[0]), ts[0].device)
-    if kernels.on_cuda(ts[0]):
-        return _launch(prog, ts, want_mask=True, valid=valid)
+    rec = _record(prog, [cols[c] for c in prog.cols], valid)
+    if rec is not None:
+        return _launch(rec, True)
     return run_program_plain(prog, cols, valid=valid)

@@ -9,10 +9,14 @@ package does; accepted filters must give the same count and mask, and
 refused ones the same ``device_fn`` mask. Tolerance: bit-exact.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from geomesa_tpu.features.batch import FeatureBatch as JBatch
 from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
@@ -266,3 +270,218 @@ def test_validity_is_the_plain_mask_anded(data, ecql):
         assert int(tc.count(tcols, valid=v)) == int((base & v).sum())
         if tc.program is not None:
             assert torch.equal(filter_scan.run_program_plain(tc.program, tcols, valid=v), base & v)
+
+
+# -- the kernel wrapper's host logic (launch records, stage plans) -------------
+#
+# On the CPU a plane routes to the plain version, so these tests call the
+# wrapper's record logic directly, with the routing and the SM count patched
+# to what a card would give.
+
+
+@pytest.fixture
+def as_card(monkeypatch):
+    monkeypatch.setattr(kernels, "on_cuda", lambda t: True)
+    monkeypatch.setattr(filter_scan, "_sm_count", lambda dev: 132)
+
+
+def _bbox_during(data):
+    _, _, sft, batch = data
+    cf = compile_filter(parse_ecql(
+        "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-02-15T00:00:00Z"), sft)
+    cols = stage_columns(batch, list(cf.device_cols), "cpu")
+    return cf.program, [cols[c] for c in cf.program.cols]
+
+
+def test_launch_record_is_reused_for_the_same_planes(data, as_card):
+    prog, ts = _bbox_during(data)
+    rec = filter_scan._record(prog, ts, None)
+    assert filter_scan._record(prog, list(ts), None) is rec
+    assert len(prog._records) == 1
+    args = rec.args[1]
+    assert [args.cols[i] for i in range(len(ts))] == [t.data_ptr() for t in ts]
+    assert args.n == len(ts[0]) and args.n_cols == len(ts) and args.valid == 0
+    assert args.prog == prog.device_words(ts[0].device).data_ptr()
+    assert (args.rows, args.stages) == filter_scan.stage_plan(
+        len(ts), prog.instr.size + prog.consts.size, False, True)[:2]
+
+
+def test_launch_record_misses_on_a_new_dtype_at_the_same_pointer(data, as_card):
+    prog, ts = _bbox_during(data)
+    filter_scan._record(prog, ts, None)
+    i = prog.cols.index("geom__x")
+    view = ts[i].view(torch.int32)  # the float plane's pointer, another dtype
+    assert view.data_ptr() == ts[i].data_ptr()
+    with pytest.raises(TypeError, match="geom__x"):
+        filter_scan._record(prog, ts[:i] + [view] + ts[i + 1:], None)
+    assert len(prog._records) == 1
+
+
+def test_launch_record_misses_on_a_new_shape_or_stride(data, as_card):
+    prog, ts = _bbox_during(data)
+    rec = filter_scan._record(prog, ts, None)
+    short = [t[:-4] for t in ts]  # the same pointers, 4 rows fewer
+    rec2 = filter_scan._record(prog, short, None)
+    assert rec2 is not rec and rec2.n == rec.n - 4
+    with pytest.raises(ValueError, match="shape"):
+        filter_scan._record(prog, ts[:1] + short[1:], None)
+    with pytest.raises(ValueError, match="contiguous"):
+        filter_scan._record(prog, [t[::2] for t in ts], None)
+    assert len(prog._records) == 2
+
+
+def test_launch_record_misses_on_another_validity_plane(data, as_card):
+    prog, ts = _bbox_during(data)
+    n = len(ts[0])
+    plain = filter_scan._record(prog, ts, None)
+    v1 = torch.ones(n, dtype=torch.bool)
+    v2 = torch.zeros(n, dtype=torch.bool)
+    r1 = filter_scan._record(prog, ts, v1)
+    r2 = filter_scan._record(prog, ts, v2)
+    assert len({id(plain), id(r1), id(r2)}) == 3
+    assert r1.valid and r2.valid and not plain.valid
+    assert (r1.args[1].valid, r2.args[1].valid) == (v1.data_ptr(), v2.data_ptr())
+    assert filter_scan._record(prog, ts, v1) is r1
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        filter_scan._record(prog, ts, torch.ones(n + 1, dtype=torch.bool)[1:])
+    with pytest.raises(ValueError, match="rows"):
+        filter_scan._record(prog, ts, v1[:-1])
+
+
+def test_launch_record_misses_on_another_program(data, as_card):
+    prog, ts = _bbox_during(data)
+    _, _, sft, batch = data
+    other = compile_filter(parse_ecql("count > 50 AND score <= 0.25"), sft).program
+    cols = stage_columns(batch, list(other.cols), "cpu")
+    rec = filter_scan._record(prog, ts, None)
+    rec2 = filter_scan._record(other, [cols[c] for c in other.cols], None)
+    assert rec2 is not rec and len(prog._records) == len(other._records) == 1
+    assert rec2.args[0].prog == other.device_words(ts[0].device).data_ptr()
+
+
+def test_a_bad_plane_raises_on_the_call_after_a_good_one(data, as_card):
+    prog, ts = _bbox_during(data)
+    rec = filter_scan._record(prog, ts, None)
+    shifted = [torch.cat([t[:1], t])[1:] for t in ts]  # 4 bytes into their buffers
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        filter_scan._record(prog, shifted, None)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # still, on a second call
+        filter_scan._record(prog, shifted, None)
+    wide = [t.to(torch.float64) if t.dtype == torch.float32 else t for t in ts]
+    with pytest.raises(TypeError):
+        filter_scan._record(prog, wide, None)
+    assert filter_scan._record(prog, ts, None) is rec
+    with pytest.raises(KeyError):
+        filter_scan.filter_scan_mask(prog, {c: t for c, t in zip(prog.cols[1:], ts[1:])})
+
+
+def test_launch_records_stay_bounded_over_staged_runs(data, as_card):
+    """A store query stages new planes every run: the records of one
+    program stay at most RECORDS_PER_PROGRAM, and none keeps a plane
+    alive."""
+    import gc
+    import weakref
+
+    prog, ts = _bbox_during(data)
+    refs = []
+    for _ in range(5 * filter_scan.RECORDS_PER_PROGRAM):
+        staged = [t.clone() for t in ts]
+        filter_scan._record(prog, staged, None)
+        refs += [weakref.ref(t) for t in staged]
+        assert len(prog._records) <= filter_scan.RECORDS_PER_PROGRAM
+    del staged
+    gc.collect()
+    assert len(prog._records) == filter_scan.RECORDS_PER_PROGRAM
+    assert all(r() is None for r in refs)
+
+
+def test_launch_struct_matches_the_c_layout():
+    """``_Launch`` mirrors csrc/filter_scan.cu's FilterScanLaunch, field
+    for field (ctypes passes the structure's address)."""
+    import re
+
+    src = (Path(filter_scan.__file__).resolve().parents[1] / "csrc" / "filter_scan.cu").read_text()
+    body = re.search(r"struct FilterScanLaunch \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            names += [re.sub(r"\[.*\]", "", v).strip().split()[-1] for v in decl.split(",")]
+    assert names == [f for f, _ in filter_scan._Launch._fields_]
+
+
+@pytest.mark.parametrize("valid", [False, True], ids=["no plane", "plane"])
+@pytest.mark.parametrize("n_cols", [1, 2, 3, 4, 6, 8, 16, 32, 48, 63, 64])
+def test_stage_plan_fits_every_legal_program(n_cols, valid):
+    """For 1-64 columns and up to 12288 words, with and without a plane,
+    count and mask: the chosen layout fits one block's 227 KB and the
+    chosen blocks' share of an SM, with at least 2 stages of a whole
+    number of 32-row groups (128 bytes of a column)."""
+    for words in (9, 64, 500, 1000, 4096, 8000, 12287, filter_scan.MAX_PROGRAM_WORDS):
+        for mask in (False, True):
+            rows, stages, per_sm = filter_scan.stage_plan(n_cols, words, valid, mask)
+            smem = filter_scan.stage_smem(n_cols, words, rows, stages, valid, mask)
+            assert stages >= 2 and rows >= 32 and rows % 32 == 0
+            assert smem <= filter_scan.SMEM_PER_BLOCK
+            assert per_sm * (smem + filter_scan.SMEM_RESERVED) <= filter_scan.SMEM_PER_SM
+            assert per_sm == 1 or rows >= 1024
+
+
+@given(st.integers(1, 64), st.integers(9, filter_scan.MAX_PROGRAM_WORDS), st.booleans(),
+       st.booleans())
+@settings(max_examples=300, deadline=None)
+def test_stage_plan_property(n_cols, words, valid, mask):
+    rows, stages, per_sm = filter_scan.stage_plan(n_cols, words, valid, mask)
+    smem = filter_scan.stage_smem(n_cols, words, rows, stages, valid, mask)
+    assert stages >= 2 and rows % 32 == 0
+    assert per_sm * (smem + filter_scan.SMEM_RESERVED) <= filter_scan.SMEM_PER_SM
+    # the plan takes the most rows a stage that fits with two stages or more
+    if rows < 4096 and per_sm == 1:
+        assert filter_scan.stage_smem(n_cols, words, 2 * rows, 2, valid, mask) > filter_scan.SMEM_PER_BLOCK
+
+
+def test_launch_records_under_threads(data, as_card, monkeypatch):
+    """8 threads build and look up records of one program at once, as the
+    scheduler's workers launch: every record points at the one program
+    buffer the Program keeps (a second buffer, built by a racing thread
+    and dropped, once gave the card wrong masks), each record's pointers
+    are its own planes', and the cache stays bounded. Building the
+    program's words sleeps, so that threads do race to build them."""
+    import sys
+    import threading
+    import time
+
+    words = filter_scan.Program.words
+    monkeypatch.setattr(filter_scan.Program, "words",
+                        lambda self: (time.sleep(0.01), words(self))[1])
+    _, _, sft, batch = data
+    prog = compile_filter(parse_ecql("count > 50 AND score <= 0.25"), sft).program
+    cols = stage_columns(batch, list(prog.cols), "cpu")
+    shared = [cols[c] for c in prog.cols]
+    start, bad, recs = threading.Barrier(8), [], []
+
+    def work(i):
+        start.wait()
+        for j in range(200):
+            ts = shared if j % 2 else [t.clone() for t in shared]
+            rec = filter_scan._record(prog, ts, None)
+            recs.append(rec)
+            if [rec.args[1].cols[k] for k in range(len(ts))] != [t.data_ptr() for t in ts]:
+                bad.append((i, j))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad and len(recs) == 8 * 200
+    buf = prog.device_words(shared[0].device).data_ptr()
+    assert {r.args[0].prog for r in recs} == {r.args[1].prog for r in recs} == {buf}
+    assert len(prog._records) <= filter_scan.RECORDS_PER_PROGRAM

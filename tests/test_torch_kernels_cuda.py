@@ -196,6 +196,208 @@ def test_filter_scan_envelope_planes_match_plain(dev, n, ecql):
     assert int(cf.count(cols)) == int(want.sum())
 
 
+# -- the staged filter scan: edges of its tiles, opcodes, layouts, threads ----
+
+OPCODE_SPEC = "count:Int,score:Float,dtg:Date,*geom:Point:srid=4326"
+OPCODE_FILTERS = [  # together they reach every opcode
+    "BBOX(geom, -10, 35, 30, 60) OR DWITHIN(geom, POINT(5 45), 1000, kilometers)",
+    "INTERSECTS(geom, POLYGON((-10 0, 40 10, 20 50, -30 40, -10 0))) AND NOT (score > 0.5)",
+    f"INTERSECTS(geom, POLYGON(({_ring(64)})))",
+    "DISJOINT(geom, POLYGON((-10 0, 40 10, 20 50, -30 40, -10 0)))",
+    "count = 7.5 OR count > 50",
+    "count <> 12.5 AND dtg > '2020-02-01T00:00:00Z'",
+]
+
+
+def _point_planes(n, seed, dev, offset=0):
+    """Float32 point, int32 count, float32 score and int64-lane dtg planes
+    of n random rows on the card, each starting ``offset`` elements into
+    its own allocation."""
+    rng = np.random.default_rng(seed)
+    dtg = rng.integers(T0, T0 + 60 * 86400_000, n)
+    dtg[: min(n, 6)] = [W32 - 1, W32, W32 + 1, 2 * W32, -W32, -1][: min(n, 6)]
+    host = {
+        "geom__x": rng.uniform(-60, 60, n).astype(np.float32),
+        "geom__y": rng.uniform(-60, 60, n).astype(np.float32),
+        "count": rng.integers(0, 100, n).astype(np.int32),
+        "score": rng.uniform(0, 1, n).astype(np.float32),
+        "dtg__hi": (dtg >> 32).astype(np.int32),
+        "dtg__lo": (dtg & 0xFFFFFFFF).astype(np.uint32),
+    }
+    out = {}
+    for c, a in host.items():
+        t = torch.from_numpy(a)
+        buf = torch.empty(n + offset, dtype=t.dtype, device=dev)
+        out[c] = buf[offset:]
+        out[c].copy_(t)
+    return out
+
+
+def _check_scan(prog, cols, valid=None, what=""):
+    """The kernel's count and mask against the plain version: the mask bit
+    for bit, the count exactly, one launch each."""
+    before = dict(kernels.LAUNCHES)
+    got_m = filter_scan.filter_scan_mask(prog, cols, valid=valid)
+    got_c = filter_scan.filter_scan_count(prog, cols, valid=valid)
+    want = filter_scan.run_program_plain(prog, cols, valid=valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want), what
+    assert got_c.dtype == torch.int32 and got_c.dim() == 0, what
+    assert int(got_c) == int(want.sum()), what
+    assert kernels.LAUNCHES["filter_scan_mask"] == before["filter_scan_mask"] + 1
+    assert kernels.LAUNCHES["filter_scan_count"] == before["filter_scan_count"] + 1
+
+
+def _tile_edges(prog, valid):
+    """n at the edges of the kernel's tiles: 0, 1, 3, 4, 5, R - 1, R, R + 1
+    and S * R + 5 for the count's and the mask's stage plans."""
+    words = prog.instr.size + prog.consts.size
+    ns = {0, 1, 3, 4, 5}
+    for mask in (False, True):
+        r, s, _ = filter_scan.stage_plan(len(prog.cols), words, valid, mask)
+        ns |= {r - 1, r, r + 1, s * r + 5}
+    return sorted(ns)
+
+
+@pytest.mark.parametrize("valid", [False, True], ids=["no plane", "plane"])
+@pytest.mark.parametrize("ecql", [
+    "BBOX(geom, -10, 35, 30, 60) AND dtg DURING 2020-01-10T00:00:00Z/2020-01-15T00:00:00Z",
+    "count > 50",
+], ids=["bbox+during", "one compare"])
+def test_filter_scan_tile_edges_match_plain(dev, ecql, valid):
+    """Counts and masks at every n around the kernel's tiles and stages, and
+    at 2^20 + 3 rows, with and without a validity plane (random, half live)."""
+    prog = compile_filter(parse_ecql(ecql), SimpleFeatureType.create("t", OPCODE_SPEC)).program
+    for n in _tile_edges(prog, valid) + [(1 << 20) + 3]:
+        planes = _point_planes(n, n, dev)
+        cols = {c: planes[c] for c in prog.cols}
+        v = None
+        if valid:
+            v = torch.from_numpy(np.random.default_rng(n).random(n) < 0.5).to(dev)
+        _check_scan(prog, cols, v, f"n={n}")
+
+
+def test_filter_scan_every_opcode_matches_plain(dev):
+    sft = SimpleFeatureType.create("t", OPCODE_SPEC)
+    planes = _point_planes((1 << 16) + 7, 11, dev)
+    seen = set()
+    for ecql in OPCODE_FILTERS:
+        prog = compile_filter(parse_ecql(ecql), sft).program
+        assert prog is not None, ecql
+        seen |= set(prog.instr[:, 0].tolist())
+        _check_scan(prog, {c: planes[c] for c in prog.cols}, what=ecql)
+    poly = compile_filter(parse_ecql(ENV_FILTERS[0]), SimpleFeatureType.create("p", POLY_SPEC)).program
+    seen |= set(poly.instr[:, 0].tolist())
+    env = envelope_planes((1 << 16) + 7, 3)
+    _check_scan(poly, {c: torch.from_numpy(env[c]).to(dev) for c in poly.cols}, what="envelope")
+    assert seen == set(range(12))
+
+
+def _wide_program(n_cols=64, words=filter_scan.MAX_PROGRAM_WORDS):
+    """A legal program of ``n_cols`` int32 columns and ``words`` words: one
+    compare a column, folded by alternating AND and OR, one NOT, and the
+    constant table padded to the word limit."""
+    instr = []
+    for i in range(n_cols):
+        instr.append([filter_scan.OP_CMP_I32, i, 0, 0, 0, i, 0, 2 + i % 4])
+        if i:
+            instr.append([filter_scan.OP_AND if i % 2 else filter_scan.OP_OR] + [0] * 7)
+    instr.append([filter_scan.OP_NOT] + [0] * 7)
+    instr = np.array(instr, np.int32)
+    consts = np.zeros(words - instr.size, np.uint32)
+    consts[:n_cols] = (np.arange(n_cols) * 37) % 100
+    return filter_scan.Program(
+        cols=[f"c{i}" for i in range(n_cols)], col_dtypes=[torch.int32] * n_cols,
+        instr=instr, consts=consts, depth=2)
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 20) + 3])
+@pytest.mark.parametrize("valid", [False, True], ids=["no plane", "plane"])
+def test_filter_scan_widest_program_matches_plain(dev, n, valid):
+    """64 columns and 12288 words, the largest program the encoder
+    accepts: the kernel still launches (fewer rows a stage) and agrees."""
+    prog = _wide_program()
+    assert prog.instr.size + prog.consts.size == filter_scan.MAX_PROGRAM_WORDS
+    rng = np.random.default_rng(n)
+    cols = {c: torch.from_numpy(rng.integers(0, 100, n).astype(np.int32)).to(dev)
+            for c in prog.cols}
+    v = torch.from_numpy(rng.random(n) < 0.5).to(dev) if valid else None
+    _check_scan(prog, cols, v, f"n={n}")
+
+
+@pytest.mark.parametrize("op", ["INTERSECTS", "DISJOINT"])
+def test_filter_scan_64_edge_polygon_matches_plain(dev, op):
+    prog = compile_filter(parse_ecql(f"{op}(geom, POLYGON(({_ring(64)})))"),
+                          SimpleFeatureType.create("t", OPCODE_SPEC)).program
+    assert int(prog.instr[0, 6]) == 64
+    planes = _point_planes((1 << 20) + 3, 64, dev)
+    _check_scan(prog, {c: planes[c] for c in prog.cols})
+
+
+@pytest.mark.parametrize("offset", [4, 12, 36])
+def test_filter_scan_planes_off_128_bytes_match_plain(dev, offset):
+    """Planes 16-byte aligned but not 128-byte aligned (4, 12 and 36
+    elements into their allocations), and validity planes at 4-, 8- and
+    12-byte offsets from 16 bytes."""
+    prog = compile_filter(parse_ecql(OPCODE_FILTERS[0] + " AND count > 20"),
+                          SimpleFeatureType.create("t", OPCODE_SPEC)).program
+    n = (1 << 18) + 5
+    planes = _point_planes(n, offset, dev, offset=offset)
+    cols = {c: planes[c] for c in prog.cols}
+    assert all(t.data_ptr() % 16 == 0 and t.data_ptr() % 128 for t in cols.values())
+    _check_scan(prog, cols, what=f"offset {offset}")
+    live = torch.from_numpy(np.random.default_rng(offset).random(n + 16) < 0.5).to(dev)
+    for k in (0, 4, 8, 12):
+        v = live[k:k + n]
+        assert v.data_ptr() % 16 == k
+        _check_scan(prog, cols, v, f"offset {offset}, validity at +{k}")
+
+
+def test_filter_scan_misaligned_planes_raise(dev):
+    prog = compile_filter(parse_ecql("count > 50"), SimpleFeatureType.create("t", OPCODE_SPEC)).program
+    t = torch.zeros(65, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        filter_scan.filter_scan_mask(prog, {"count": t[1:]})
+    assert int(filter_scan.filter_scan_count(prog, {"count": t[4:]})) == 0
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        filter_scan.filter_scan_count(prog, {"count": t[4:]},
+                                      valid=torch.ones(62, dtype=torch.bool, device=dev)[1:])
+
+
+def test_filter_scan_eight_threads_on_one_index(dev):
+    """8 threads count and mask over one program's planes at once, as the
+    scheduler's workers do: they share one launch record, and every answer
+    equals the plain version."""
+    import threading
+
+    prog = compile_filter(parse_ecql(FILTERS[1]), SimpleFeatureType.create("t", OPCODE_SPEC)).program
+    planes = _point_planes((1 << 20) + 3, 8, dev)
+    cols = {c: planes[c] for c in prog.cols}
+    want = filter_scan.run_program_plain(prog, cols)
+    want_c = int(want.sum())
+    bad, start = [], threading.Barrier(8)
+
+    def work():
+        start.wait()
+        for _ in range(25):
+            m = filter_scan.filter_scan_mask(prog, cols)
+            c = filter_scan.filter_scan_count(prog, cols)
+            torch.cuda.current_stream().synchronize()
+            if not torch.equal(m, want) or int(c) != want_c:
+                bad.append(1)
+
+    before = dict(kernels.LAUNCHES)
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad
+    assert len(prog._records) == 1
+    assert kernels.LAUNCHES["filter_scan_mask"] == before["filter_scan_mask"] + 200
+    assert kernels.LAUNCHES["filter_scan_count"] == before["filter_scan_count"] + 200
+
+
 # -- interleaved masked-compare scan and baked dim scan ---------------------
 
 
