@@ -449,6 +449,78 @@ def batch_qmat(rng, nq, r, span):
     return q
 
 
+BATCH_EDGES = ("touching 0 and 0xFFFFFFFF", "identical queries", "nested, shared endpoints",
+               "adjacent and overlapping bt ranges", "all padding")
+
+
+def batch_qmat_edge(rng, name, nq, r, span):
+    """(nq, 4 + 2r) dim-scan query vectors of one edge group of
+    BATCH_EDGES, where an interval table over uint32 cuts can go wrong:
+    ranges from or to 0 and 0xFFFFFFFF (hi + 1 wraps; a row at the top);
+    nq copies of one query (every interval's word all ones or zeros);
+    nested ranges and ranges sharing an endpoint (repeated cuts); a
+    query's bt ranges adjacent (hi + 1 == the next lo) or overlapping (a
+    query's ranges ORed); the fused paths' padding only ([1, 0] and
+    [0xFFFFFFFF, 0] inverted ranges: no cut, no bit)."""
+    sent = 0xFFFFFFFF
+    q = np.empty((nq, 4 + 2 * r), np.uint32)
+    if name == "touching 0 and 0xFFFFFFFF":
+        def one():
+            a = int(rng.integers(1, sent))
+            return [(0, a), (a, sent), (0, sent), (0, 0), (sent, sent), (0, 1), (sent - 1, sent)][
+                int(rng.integers(0, 7))]
+        for i in range(nq):
+            for k in range(2 + r):
+                q[i, 2 * k: 2 * k + 2] = one()
+    elif name == "identical queries":
+        q[:] = batch_qmat(rng, 1, r, span)[0]
+    elif name == "nested, shared endpoints":
+        c, top = 1 << 20, (1 << 21) - 1
+        a, b = np.sort(rng.integers(0, span, 2))
+        for i in range(nq):
+            w = (nq - i) * (c // (nq + 1))
+            q[i, 0:2] = (c - w, c + w)  # nested
+            q[i, 2:4] = (c // 2, c // 2 + int(rng.integers(0, c))) if i % 2 else (0, c // 2)  # shared ends
+            for k in range(r):
+                q[i, 4 + 2 * k: 6 + 2 * k] = (a + i, b) if k % 2 else (a, b - i)
+        q[:, 1] = np.minimum(q[:, 1], top)
+    elif name == "adjacent and overlapping bt ranges":
+        q[:] = batch_qmat(rng, nq, r, span)
+        for i in range(nq):
+            lo = int(rng.integers(0, span // 2))
+            for k in range(r):
+                hi = lo + int(rng.integers(0, span // (4 * r)))
+                q[i, 4 + 2 * k: 6 + 2 * k] = (lo, hi)
+                # adjacent for even queries, overlapping (by up to 3) for odd ones
+                lo = hi + 1 if i % 2 == 0 else max(int(q[i, 4 + 2 * k]), hi - int(rng.integers(0, 4)))
+    elif name == "all padding":
+        for i in range(nq):
+            q[i] = ([1, 0, 1, 0] if i % 2 else [sent, 0, sent, 0]) + [sent, 0] * r
+            if i % 3 == 1 and r:
+                q[i, 4:6] = (1, 0)
+    else:
+        raise ValueError(name)
+    return q
+
+
+def batch_edge_planes(rng, qmat, n):
+    """nx, ny (and bt when qmat has bt ranges) uint32 planes of n rows whose
+    values lie at the group's range ends and one either side of them (wrapped
+    to uint32), at 0, 1, 0xFFFFFFFE and 0xFFFFFFFF, a quarter of them at
+    random in [0, 2^21)."""
+    q = np.asarray(qmat, np.int64)
+    r = (q.shape[1] - 4) // 2
+    cols = [q[:, 0:2], q[:, 2:4]] + ([q[:, 4:]] if r else [])
+    out = []
+    for c in cols:
+        v = np.unique(np.concatenate([c.ravel() + d for d in (-1, 0, 1)] + [[0, 1, 0xFFFFFFFE, 0xFFFFFFFF]]))
+        vals = (rng.choice(v % (1 << 32), n)).astype(np.uint32)
+        pick = rng.random(n) < 0.25
+        vals[pick] = rng.integers(0, 1 << 21, int(pick.sum())).astype(np.uint32)
+        out.append(vals)
+    return out
+
+
 def batch_zbounds(rng, nq, n_bins):
     """(nq, B, 3, 6) bounds and (nq, B) ids over bins 2600.. in mixed
     layouts: per query 1 to 8 entries, contiguous and padded to a power of
@@ -532,7 +604,10 @@ def batch_zforms(rng, n_bins):
 def check_batched_scans(dev, errs: Errs):
     """The Q-batched scans of the scheduler's fused paths against their
     plain versions (per-query loops of the single-query plain versions):
-    the dim scan at Q in {1, 3, 8, 16, 47, 64} and R in {0, 1, 2, 4, 8},
+    the dim scan at Q in {1, 3, 8, 16, 47, 64} and R in {0, 1, 2, 4, 8}, on
+    random groups and on each edge group of BATCH_EDGES (rows at the
+    group's range ends), with and without a validity plane (half live),
+    through the wrappers and with each of its two ways forced,
     the interleaved z3 scan over mixed bin layouts (up to 8 entries a
     query, padded, gapped, all-padded queries) and its z2 variant, at n in
     {1, 1000, 2^20+17}; then the interleaved z3 scan's compact and masked
@@ -556,17 +631,37 @@ def check_batched_scans(dev, errs: Errs):
         bt = rng.integers(0, 12 << 21, n).astype(np.uint32)
         bt[: min(n, 4)] = sent
         planes = [torch.from_numpy(a).to(dev) for a in (nx, ny, bt)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + n)
+        half = torch.rand(n, generator=gen, device=dev) < 0.5
         for r in (0, 1, 2, 4, 8):
             ps = planes[:2] if r == 0 else planes
             z = "z2" if r == 0 else "z3"
             for nq in BATCH_QS:
-                q = batch_qmat(rng, nq, r, 12 << 21)
-                want = zscan.batched_dim_mask_rt(r)(*ps, q)
-                what = f"n={n} R={r} Q={nq}"
-                errs.check(f"dimscan_batched_{z}_mask", zscan.batched_dimscan_mask(q, *ps), want, what)
-                errs.check(f"dimscan_batched_{z}_count", zscan.batched_dimscan_count(q, *ps),
-                           want.sum(dim=1, dtype=torch.int32), what)
-                cases += 1
+                groups = [("random", batch_qmat(rng, nq, r, 12 << 21), ps)]
+                for edge in BATCH_EDGES:
+                    qe = batch_qmat_edge(rng, edge, nq, r, 12 << 21)
+                    groups.append((edge, qe, [torch.from_numpy(a).to(dev)
+                                              for a in batch_edge_planes(rng, qe, n)]))
+                for group, q, pls in groups:
+                    for v in (None, half):
+                        want = zscan.batched_dim_mask_rt(r)(*pls, q, valid=v)
+                        what = f"n={n} R={r} Q={nq} {group}{'' if v is None else ', half live'}"
+                        if v is None:
+                            errs.check(f"dimscan_batched_{z}_mask", zscan.batched_dimscan(q).plain(*pls),
+                                       want, f"{what}, plain on the packed layout")
+                        errs.check(f"dimscan_batched_{z}_mask",
+                                   zscan.batched_dimscan_mask(q, *pls, valid=v), want, what)
+                        errs.check(f"dimscan_batched_{z}_count",
+                                   zscan.batched_dimscan_count(q, *pls, valid=v),
+                                   want.sum(dim=1, dtype=torch.int32), what)
+                        for compare in (True, False):  # each way, whatever the shape picks
+                            pk = zscan.batched_dimscan(q, compare=compare)
+                            way = f"{what}, the {'compare' if compare else 'lookup'} way"
+                            errs.check(f"dimscan_batched_{z}_mask", pk.run(pls, True, valid=v), want, way)
+                            errs.check(f"dimscan_batched_{z}_count", pk.run(pls, False, valid=v),
+                                       want.sum(dim=1, dtype=torch.int32), way)
+                        cases += 1
         x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
         off = rng.uniform(0, 604_800, n)
         bins = (2600 + rng.integers(0, 16, n)).astype(np.int32)
@@ -623,7 +718,9 @@ def check_batched_scans(dev, errs: Errs):
            + ["masked"] * (nm > 0) + ["split"] * (k > 1)}
     if got != {"flat", "binned", "compact", "masked", "split"}:
         raise AssertionError(f"the batched interleaved scan's checks reached only {sorted(got)}")
-    log(f"batched scans: {cases} cases (dim scan Q in {list(BATCH_QS)} x R in 0-8, "
+    log(f"batched scans: {cases} cases (dim scan Q in {list(BATCH_QS)} x R in 0-8 on random "
+        f"groups and the edge groups {list(BATCH_EDGES)}, each with and without a plane, the "
+        f"shape's way and both ways forced; "
         f"interleaved z3 and z2; the packer's ways {ways} as (case, launches, finding, "
         f"compact records, masked records)), kernel == plain bit for bit")
 
@@ -4413,12 +4510,30 @@ def run_join_path(dev) -> dict:
 # -- phase 4: kernel timings --------------------------------------------------
 
 
-def time_ms(fn, iters: int, warm: int = 3) -> float:
+L2_FLUSH_BYTES = 128 << 20  # more than the H100's 50 MB L2
+
+
+def time_ms(fn, iters: int, warm: int = 3, flush_l2: bool = False) -> float:
+    """fn's time a call on the card: CUDA events over ``iters`` calls after
+    ``warm`` ones. With ``flush_l2``, a buffer larger than the L2 cache is
+    overwritten before each timed call, so that its inputs come from device
+    memory, and an event pair around each call times the calls alone."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    if flush_l2:
+        buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=torch.cuda.current_device())
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        for i, (start, end) in enumerate(marks):
+            buf.fill_(i)
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in marks) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -4511,6 +4626,39 @@ def zscan_ops(lbs, hi, lo, bins=None) -> int:
         ops += int(torch.minimum(MASKED_DIM_OPS * need,
                                  COMPACT_DIM_OPS * need + DEINTERLEAVE_DIM_OPS * deint).sum())
     return ops
+
+
+# ALU operations of the batched dim scan's lookup (see dimscan_ops): one
+# level of a search tree (a compare and the index update), and one AND of
+# two 64-bit hit words (two 32-bit ANDs).
+SEARCH_LEVEL_OPS, WORD_AND_OPS = 2, 2
+
+
+def _dim_way(qmat, kind: str) -> str:
+    """Which way of the batched dim scan a count or mask of the group takes."""
+    from geomesa_tpu_torch.ops import zscan
+
+    return "compare way" if zscan.batched_dimscan(qmat).takes_compare(kind == "mask") \
+        else "lookup way"
+
+
+def dimscan_ops(qmat, n: int) -> int:
+    """The least ALU work of the batched dim scan's function on n rows for
+    the group ``qmat``, whatever implements it by lookup: in each dimension
+    (nx, ny and, with bt ranges, bt) a row finds which of the m + 1
+    intervals of that dimension's m cuts (``zscan.batched_dimscan``: lo and
+    hi + 1 of the group's ranges) holds its value, which takes a comparison
+    search ceil(log2(m + 1)) levels deep, a compare and an index update a
+    level; then it ANDs its intervals' 64-bit words, one AND fewer than the
+    dimensions. The loads of the cuts and words are not ALU operations, and
+    the count's additions and the mask's transposes are left out, so the
+    bound stays at or below the kernel's work. It does not grow with Q, as
+    the former compare loop's Q x (4 + 2R) compares a row did; the cuts are
+    counted on this group."""
+    from geomesa_tpu_torch.ops import zscan
+
+    depths = zscan.batched_dimscan(qmat).depths
+    return n * (SEARCH_LEVEL_OPS * sum(depths) + WORD_AND_OPS * (len(depths) - 1))
 
 
 def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, valid_launches,
@@ -4697,11 +4845,11 @@ def batched_rows(dev, sched, idx, launches, valid_launches, errs: Errs) -> list:
     query) and its z2 variant on the phase 3c indexes; count and mask.
     Beside each: Q launches of the single-query kernel (the yardstick) and
     the bound, the larger of the bytes (the planes once, the output) and
-    the operations (the dim scans: Q x the single query's per-row work;
-    the interleaved scans: :func:`zscan_ops`); the interleaved rows also
-    time the launch alone (``launch_ms``: the group packed and its table
-    on the card before the timed loop) beside the call (``ms``: packing,
-    upload and launch). At Q = 4 and 64 (phase 3f's widths) each kernel
+    the operations (the dim scans: :func:`dimscan_ops`; the interleaved
+    scans: :func:`zscan_ops`); the rows without a plane also time the
+    launch alone (``launch_ms``: the group packed and its table on the card
+    before the timed loop) beside the call (``ms``: packing, upload and
+    launch); the dim rows' cases name the way each takes. At Q = 4 and 64 (phase 3f's widths) each kernel
     has rows under a validity plane too (50% live, ``"valid": true``: 1
     B/row and one AND a row more in the bound; Q single launches with the
     plane beside them)."""
@@ -4775,14 +4923,16 @@ def batched_rows(dev, sched, idx, launches, valid_launches, errs: Errs) -> list:
                  (lambda: zscan.batched_dim_mask_rt(r)(*p3, qm, valid=v)) if m else (
                      lambda: zscan.batched_dim_mask_rt(r)(*p3, qm, valid=v).sum(dim=1, dtype=torch.int32)),
                  lambda one=one: [one(x, *p3, valid=v) for x in qm],
-                 13 * n + (nq * n if m else 4 * nq), nq * (4 + 2 * r) * n + n, nq, f"{vc} R=1",
+                 13 * n + (nq * n if m else 4 * nq), dimscan_ops(qm, n) + n, nq,
+                 f"{vc} R=1, {_dim_way(qm, kind)}",
                  it, pit, valid=True)
             fn2 = zscan.batched_dimscan_mask if m else zscan.batched_dimscan_count
             brow(f"dimscan_batched_z2_{kind}", rdim, lambda fn=fn2: fn(q2[:nq], *p2, valid=v),
                  (lambda: zscan.batched_dim_mask_rt(0)(*p2, q2[:nq], valid=v)) if m else (
                      lambda: zscan.batched_dim_mask_rt(0)(*p2, q2[:nq], valid=v).sum(dim=1, dtype=torch.int32)),
                  lambda one=one: [one(x, *p2, valid=v) for x in q2[:nq]],
-                 9 * n + (nq * n if m else 4 * nq), nq * 4 * n + n, nq, vc, it, pit, valid=True)
+                 9 * n + (nq * n if m else 4 * nq), dimscan_ops(q2[:nq], n) + n, nq,
+                 f"{vc}, {_dim_way(q2[:nq], kind)}", it, pit, valid=True)
         lbs = zb[:nq]
         bmax = max(len(lb[2]) for lb in lbs)
         bounds = np.zeros((nq, bmax, 3, 6), np.uint32)
@@ -4818,26 +4968,32 @@ def batched_rows(dev, sched, idx, launches, valid_launches, errs: Errs) -> list:
     for nq in (1, 4, 8, 64):
         it, pit = (50, 3) if nq < 64 else (20, 1)
         for r, qm in ((1, q3[:nq]), (2, split[:nq])):
-            ops = nq * (4 + 2 * r) * n
+            ops = dimscan_ops(qm, n)
             for kind in ("count", "mask"):
                 fn = zscan.batched_dimscan_count if kind == "count" else zscan.batched_dimscan_mask
                 one = zscan.dimscan_count if kind == "count" else zscan.dimscan_mask
                 plain = (lambda qm=qm, r=r: zscan.batched_dim_mask_rt(r)(*p3, qm).sum(dim=1, dtype=torch.int32)) \
                     if kind == "count" else (lambda qm=qm, r=r: zscan.batched_dim_mask_rt(r)(*p3, qm))
+                pk = zscan.batched_dimscan(qm)
+                pk.device_table(dev, kind == "mask")
                 brow(f"dimscan_batched_z3_{kind}", rdim, lambda fn=fn, qm=qm: fn(qm, *p3), plain,
                      lambda one=one, qm=qm: [one(v, *p3) for v in qm],
                      12 * n + (4 * nq if kind == "count" else nq * n), ops, nq,
-                     f"Q={nq} R={r}, 2^26 rows", it, pit)
+                     f"Q={nq} R={r}, 2^26 rows, {_dim_way(qm, kind)}", it, pit,
+                     launch=lambda pk=pk, m=kind == "mask": pk.run(p3, m))
         qm = q2[:nq]
         for kind in ("count", "mask"):
             fn = zscan.batched_dimscan_count if kind == "count" else zscan.batched_dimscan_mask
             one = zscan.dimscan_count if kind == "count" else zscan.dimscan_mask
             plain = (lambda qm=qm: zscan.batched_dim_mask_rt(0)(*p2, qm).sum(dim=1, dtype=torch.int32)) \
                 if kind == "count" else (lambda qm=qm: zscan.batched_dim_mask_rt(0)(*p2, qm))
+            pk = zscan.batched_dimscan(qm)
+            pk.device_table(dev, kind == "mask")
             brow(f"dimscan_batched_z2_{kind}", rdim, lambda fn=fn, qm=qm: fn(qm, *p2), plain,
                  lambda one=one, qm=qm: [one(v, *p2) for v in qm],
-                 8 * n + (4 * nq if kind == "count" else nq * n), nq * 4 * n, nq,
-                 f"Q={nq}, 2^26 rows", it, pit)
+                 8 * n + (4 * nq if kind == "count" else nq * n), dimscan_ops(qm, n), nq,
+                 f"Q={nq}, 2^26 rows, {_dim_way(qm, kind)}", it, pit,
+                 launch=lambda pk=pk, m=kind == "mask": pk.run(p2, m))
         # the interleaved z3 scan: the group as the fused path pads it
         lbs = zb[:nq]
         bmax = max(len(lb[2]) for lb in lbs)
@@ -4903,11 +5059,14 @@ def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3, lib
     errs.check(name, kern().reshape(-1), plain().reshape(-1), case)
     ms, plain_ms = time_ms(kern, 50), time_ms(plain, plain_iters, warm=1)
     host = host_call_ms(kern)
-    library_ms = None
+    library_ms = cold = None
     if library is not None:
         if not torch.equal(library().reshape(-1), kern().reshape(-1)):
             raise AssertionError(f"{name} ({case}): the library call != the kernel")
         library_ms = time_ms(library, 50)
+        # with L2 flushed before each call: the planes come from device memory
+        cold = {"ms_l2_flushed": time_ms(kern, 50, flush_l2=True),
+                "library_ms_l2_flushed": time_ms(library, 50, flush_l2=True)}
     nbytes = 4 * len(prog.cols) * n + (n if mask else 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n * _program_ops(prog) / INT32_OPS_PER_S * 1e3
@@ -4915,6 +5074,8 @@ def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3, lib
     log(f"{name} ({case}): {ms:.4f} ms (bound {bound:.4f} ms, {100 * bound / ms:.1f}% of it; "
         f"{nbytes / ms / 1e6:.1f} GB/s, {n / ms / 1e6:.2f} G rows/s); plain version "
         f"{plain_ms:.3f} ms" + ("" if library_ms is None else f"; library call {library_ms:.4f} ms")
+        + ("" if cold is None else f"; L2 flushed before each call: kernel {cold['ms_l2_flushed']:.4f} "
+           f"ms, library call {cold['library_ms_l2_flushed']:.4f} ms")
         + f"; the wrapper's host time {host:.4f} ms a call [{CARD}]")
     return {"name": name, "route": "cuda", "source": "geomesa_tpu_torch/csrc/filter_scan.cu",
             "replaces": "geomesa_tpu/ops/pallas_scan.py:203 build_pallas_scan (pallas_call "
@@ -4922,7 +5083,7 @@ def _env_row(name, prog, cols, n, case, launches, errs: Errs, plain_iters=3, lib
             "launches": launches[name], "max_abs_err": errs.err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "host_ms": host, "case": case}
+            "library_ms": library_ms, "host_ms": host, "case": case, **(cold or {})}
 
 
 def xz_rows(dev, xz, launches, errs: Errs) -> "tuple[list, list]":

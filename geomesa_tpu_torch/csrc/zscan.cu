@@ -262,12 +262,11 @@ void launch(const int* bins, const uint32_t* zh, const uint32_t* zl, const uint8
 //   255 quads and adds one integer atomic per block and query: exact and
 //   order-independent. The mask transposes a quad's 4 words by byte
 //   permutes and writes each query's 4 bytes with one store into the
-//   (Q, n) byte matrix.
+//   (Q, n) byte matrix. Both helpers live in quad.cuh, shared with the
+//   batched dim scan.
 // - with a validity plane, a dead row is not live: it meets no record, so
 //   its hit word is 0 for the counters and the mask.
 
-constexpr int kMaxBatch = 64;
-constexpr int kWarps = kThreads / 32;
 constexpr int kCompactWords = 8;
 constexpr int kMaskedWords = 24;
 constexpr long long kMaxTableBytes = 96 * 1024;
@@ -435,67 +434,6 @@ __device__ __forceinline__ void flat_records(const uint32_t* comp, int nc, const
       uint32_t in = (live >> r) & 1u;
       if (NDIMS == 3) in &= (uint32_t)(d.b[r] == (int)e[0]);
       if (in & masked_hit<NDIMS>(e, d, r)) hits[r] |= bit;
-    }
-  }
-}
-
-// Vertical counters: bit q of plane i is bit i of query q's count; adding a
-// row's hit word ripples a carry through the planes.
-constexpr int kPlanes = 10;
-constexpr int kFlushQuads = (1 << kPlanes) / 4 - 1;  // a thread's quads between flushes
-
-__device__ __forceinline__ void count_hits(unsigned long long (&p)[kPlanes],
-                                           unsigned long long v) {
-#pragma unroll
-  for (int i = 0; i < kPlanes; ++i) {
-    if (!v) break;
-    const unsigned long long carry = p[i] & v;
-    p[i] ^= v;
-    v = carry;
-  }
-}
-
-// The warp's counts into its counters in shared memory; the planes restart.
-__device__ __forceinline__ void flush_counts(unsigned long long (&p)[kPlanes], int nq,
-                                             int* wcount, int lane) {
-  unsigned long long any = 0;
-#pragma unroll
-  for (int i = 0; i < kPlanes; ++i) any |= p[i];
-  if (__any_sync(0xffffffffu, any != 0)) {
-    for (int q = 0; q < nq; ++q) {
-      int v = 0;
-#pragma unroll
-      for (int i = 0; i < kPlanes; ++i) v |= (int)((p[i] >> q) & 1ull) << i;
-      v = __reduce_add_sync(0xffffffffu, v);
-      if (lane == 0) wcount[q] += v;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kPlanes; ++i) p[i] = 0;
-}
-
-// The quad's bytes of every query: byte r of query q's word is bit q of
-// hits[r]. Bytes 8k..8k+7 of the 4 hit words transpose (a byte permute) to
-// word g_k, whose bit j of byte r is query 8k + j's hit of row r.
-__device__ __forceinline__ void store_quad(uint8_t* out, long long n, int nq, long long row,
-                                           const unsigned long long (&hits)[4]) {
-  const bool aligned = row + 4 <= n && (n & 3) == 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (8 * k >= nq) break;
-    const int sh = k < 4 ? 0 : 32;
-    const uint32_t sel = (uint32_t)(k & 3) | ((uint32_t)(4 + (k & 3)) << 4);
-    uint32_t g = __byte_perm(__byte_perm((uint32_t)(hits[0] >> sh), (uint32_t)(hits[1] >> sh), sel),
-                             __byte_perm((uint32_t)(hits[2] >> sh), (uint32_t)(hits[3] >> sh), sel),
-                             0x5410);
-    const int jn = min(8, nq - 8 * k);
-    uint8_t* p = out + (long long)(8 * k) * n + row;
-    for (int j = 0; j < jn; ++j, g >>= 1, p += n) {
-      if (aligned) {
-        *reinterpret_cast<uint32_t*>(p) = g & 0x01010101u;
-      } else {
-        for (int r = 0; r < 4 && row + r < n; ++r) p[r] = (g >> (8 * r)) & 1u;
-      }
     }
   }
 }

@@ -36,7 +36,8 @@ _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_dou
 SIGNATURES = {
     "dimscan": {
         "gm_dimscan": ([_P] * 4 + [_LL, _P, _I, _I, _P, _P], _I),
-        "gm_dimscan_batched": ([_P] * 4 + [_LL, _P, _I, _I, _I, _P, _P], _I),
+        "gm_dimscan_batched": ([_P] * 4 + [_LL, _P] + [_I] * 7 + [_P, _P], _I),
+        "gm_dimscan_batched_compare": ([_P] * 4 + [_LL, _P, _I, _I, _I, _P, _P], _I),
     },
     "dimscan_baked": {
         "gm_dimscan_baked": ([_P] * 3 + [_LL, _P, _P, _I, _I, _P, _P], _I),

@@ -32,6 +32,7 @@ compares on uint32, so the plain versions widen unsigned words to int64.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -311,45 +312,273 @@ def _check_qmat(qmat, planes) -> int:
     return _check_dim_args(q[0], planes)
 
 
-def _launch_dimscan_batched(qmat, planes, want_mask: bool, valid=None) -> torch.Tensor:
-    from geomesa_tpu_torch.kernels import _build
+# A count of a group of at most this many compares a row, Q x (4 + 2R), and a
+# mask of at most the second, take the compare way (gm_dimscan_batched_compare),
+# others the lookup way: in tools/dimscan_batched_probe.py's A/B of the two
+# ways at 2^26 rows, the compare way's counts were the faster up to about 32
+# compares and the lookup way's past them; the lookup way's masks, which
+# store 8 rows of a query at once, were as fast or faster past 12 compares
+# (z2's at every width, but one threshold serves both kinds).
+DIMSCAN_COUNT_COMPARE_MAX, DIMSCAN_MASK_COMPARE_MAX = 32, 12
 
-    r = _check_qmat(qmat, planes)
-    nx = planes[0]
-    n = nx.shape[0]
-    kernels.check_valid(valid, n, nx.device)
-    if n > _MAX_ROWS:
-        raise ValueError(f"{n} rows exceed the int32 count range")
-    if any(p.data_ptr() % 16 for p in planes):
-        raise ValueError("dim-scan planes must be 16-byte aligned")
-    fn = _build.load("dimscan").gm_dimscan_batched
-    nq = qmat.shape[0]
-    bt = planes[2] if len(planes) == 3 else None
-    dev = nx.device
-    with torch.cuda.device(dev):
-        q = _upload(np.ascontiguousarray(qmat, np.uint32), dev)
-        out = (
-            torch.empty((nq, n), dtype=torch.bool, device=dev)
-            if want_mask
-            else torch.empty(nq, dtype=torch.int32, device=dev)
-        )
-        rc = fn(
-            nx.data_ptr(), planes[1].data_ptr(),
-            bt.data_ptr() if bt is not None else None, kernels.valid_ptr(valid),
-            n, q.data_ptr(), nq, r, int(want_mask), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    name = f"dimscan_batched_{'z3' if bt is not None else 'z2'}_{'mask' if want_mask else 'count'}"
-    kernels.check_status(rc, name)
-    kernels.count_launch(name, q=nq, valid=valid is not None)
-    return out
+
+@functools.lru_cache(maxsize=None)
+def _eytzinger(depth: int) -> np.ndarray:
+    """For the complete search tree of 2^depth - 1 sorted values laid out
+    breadth-first (node i's children 2i and 2i + 1, the root at 1): entry i
+    is the sorted position of node i's value. Entry 0, which the search
+    never reads, is 0."""
+    order = np.zeros(1 << depth, np.int64)
+    for level in range(depth):
+        p = np.arange(1 << level)
+        order[(1 << level) + p] = (2 * p + 1) * (1 << (depth - 1 - level)) - 1
+    return order
+
+
+@functools.lru_cache(maxsize=None)
+def _group_ranges(nq: int, r: int) -> "tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]":
+    """A (Q, 4 + 2R) group's ranges, flat by dimension (nx of every query,
+    ny, then bt, R a query): their lo and hi positions in the flat qmat,
+    their dimension and their query."""
+    w, q = 4 + 2 * r, np.arange(nq)
+    bt = (w * q[:, None] + 4 + 2 * np.arange(r)).reshape(-1)
+    lo = np.concatenate([w * q, w * q + 2, bt])
+    dim = np.repeat(np.arange(3), [nq, nq, nq * r])
+    return lo, lo + 1, dim, np.concatenate([q, q, np.repeat(q, r)])
+
+
+def _dim_intervals(q: np.ndarray, r: int, n_dims: int) -> "tuple[list, np.ndarray, np.ndarray]":
+    """(cuts per dimension, first, words) of a (Q, 4 + 2R) uint32 group. A
+    dimension's cuts are lo and hi + 1 of its ranges with lo <= hi, sorted
+    and distinct, without 0 and without 2^32 (hi = 0xFFFFFFFF); its m cuts
+    split [0, 2^32) into m + 1 intervals, interval i starting at 0 (i = 0)
+    or at cuts[i - 1]. Inverted ranges (the fused paths' padding) add
+    nothing. All dimensions go through each numpy call at once, as keys dim
+    << 33 | value: dimension d's cuts are keys [first[d], first[d + 1]), its
+    interval i is words[first[d] + d + i], whose bit q is set when a range
+    of query q (a query's bt ranges ORed) holds the interval."""
+    nq = q.shape[0]
+    at_lo, at_hi, dim, qid = _group_ranges(nq, r)
+    flat = q.reshape(-1).astype(np.int64)
+    lo, end = flat[at_lo], flat[at_hi] + 1
+    real = lo < end
+    top = dim << 33
+    klo, kend = top | lo, top | end
+    keys = np.unique(np.concatenate([klo[real], kend[real]]))
+    value = keys & ((1 << 33) - 1)
+    keys = keys[(value > 0) & (value <= _U32)]
+    first = np.searchsorted(keys >> 33, np.arange(n_dims + 1))
+    total = int(first[-1]) + n_dims + 1  # every interval, and one past the last
+    at = qid * total + dim
+    start = at + np.searchsorted(keys, klo, side="right")
+    stop = at + np.searchsorted(keys, kend, side="right") + (end > _U32)
+    cover = np.bincount(start[real], minlength=nq * total) - \
+        np.bincount(stop[real], minlength=nq * total)
+    inside = np.zeros((MAX_BATCH, total), bool)
+    inside[:nq] = np.cumsum(cover.reshape(nq, total), axis=1) > 0
+    words = np.packbits(inside, axis=0, bitorder="little").T.copy().view(np.uint64)[:, 0]
+    return [keys[first[d]: first[d + 1]] & _U32 for d in range(n_dims)], first, words
+
+
+class _BatchedDimScan:
+    """A group of Q dim-scan query vectors (the (Q, 4 + 2R) ``qmat`` of
+    :func:`batched_dimscan_count`), packed once for the batched kernel,
+    which answers it one of two ways, chosen at each launch by the group's
+    shape and the output (``compare`` None) or forced (True, False):
+
+    - the compare way (``gm_dimscan_batched_compare``) when the group's
+      compares a row, Q x (4 + 2R), are at most ``DIMSCAN_COUNT_COMPARE_MAX``
+      for a count or ``DIMSCAN_MASK_COMPARE_MAX`` for a mask: every row
+      tests every query vector, and the table is ``qmat`` itself;
+    - else the lookup way (``gm_dimscan_batched``). Per dimension (nx, ny
+      and, when R > 0, bt) the group's ranges cut the uint32 line into
+      intervals (:func:`_dim_intervals`), each with a 64-bit word of the
+      queries whose ranges hold it; a row's hit word is the AND of its
+      intervals' words. The m cuts pad with 0xFFFFFFFF to 2^d - 1 (d = the
+      bit length of m: at most 8 for nx and ny, whose 64 queries give at
+      most 128 cuts, and 11 for bt's 1,024) in breadth-first
+      order (:func:`_eytzinger`, entry 0 unused), and the words to 2^d by
+      repeating the last interval's: after d steps down the tree a row's
+      rank is the number of cuts <= its value, padding included for a row
+      at 0xFFFFFFFF, and the word at that rank is its interval's. The
+      uint32 table is the 2^d words (two uint32 each, low first) of every
+      dimension, then the 2^d cut words of every dimension, padded to a
+      multiple of 4.
+
+    The lookup layout (``cuts``, ``depths``, ``lookup_table``) is packed at
+    the first launch that takes that way, or when :meth:`plain` or
+    ``depths`` asks for it."""
+
+    def __init__(self, qmat, compare: "bool | None" = None):
+        q = np.asarray(qmat)
+        if q.dtype != np.uint32 or q.ndim != 2:
+            raise TypeError("qmat must be a 2-D uint32 array")
+        if not 1 <= q.shape[0] <= MAX_BATCH:
+            raise ValueError(f"{q.shape[0]} queries: a batched launch takes 1 to {MAX_BATCH}")
+        r = (q.shape[1] - 4) // 2
+        if q.shape[1] != 4 + 2 * r or r not in (0, 1, 2, 4, 8):
+            raise ValueError(f"qmat rows of {q.shape[1]} words are no dim-scan query vectors")
+        self.qmat = np.ascontiguousarray(q)
+        self.nq, self.n_ranges = q.shape[0], r
+        self.n_dims = 3 if r else 2
+        self.forced = compare
+        self._lookup = None
+        self._dev: dict = {}
+
+    def takes_compare(self, want_mask: bool) -> bool:
+        """Whether a count (a mask, ``want_mask``) takes the compare way."""
+        if self.forced is not None:
+            return bool(self.forced)
+        top = DIMSCAN_MASK_COMPARE_MAX if want_mask else DIMSCAN_COUNT_COMPARE_MAX
+        return self.nq * (4 + 2 * self.n_ranges) <= top
+
+    def table(self, compare: bool) -> np.ndarray:
+        """The uint32 table a way reads: ``qmat``'s rows, or the lookup table."""
+        return self.qmat.reshape(-1) if compare else self.lookup_table
+
+    def _pack(self):
+        """(cuts, depths, table) of the lookup way, packed once."""
+        if self._lookup is not None:
+            return self._lookup
+        cuts, first, words = _dim_intervals(self.qmat, self.n_ranges, self.n_dims)
+        depths = [len(c).bit_length() for c in cuts]
+        parts = []
+        for d, (depth, c) in enumerate(zip(depths, cuts)):
+            # the words by rank: those past the last interval repeat it
+            rank = np.minimum(np.arange(1 << depth), len(c))
+            parts.append(words[first[d] + d + rank].view(np.uint32))
+        for depth, c in zip(depths, cuts):
+            node = _eytzinger(depth)[1:]
+            tree = np.zeros(1 << depth, np.uint32)
+            tree[1:] = np.where(node < len(c), c[np.minimum(node, len(c) - 1)], _U32)
+            parts.append(tree)
+        table = np.concatenate(parts)
+        table = np.concatenate([table, np.zeros(-len(table) % 4, np.uint32)])
+        self._lookup = (cuts, depths, table)
+        return self._lookup
+
+    @property
+    def cuts(self) -> list:
+        return self._pack()[0]
+
+    @property
+    def depths(self) -> list:
+        return self._pack()[1]
+
+    @property
+    def lookup_table(self) -> np.ndarray:
+        return self._pack()[2]
+
+    def _layout(self):
+        """Per dimension (sorted padded cuts, words) as int64, read back from
+        the lookup way's table: the plain version's view of what the kernel
+        reads."""
+        _, depths, table = self._pack()
+        leaves = [1 << d for d in depths]
+        at = 2 * sum(leaves)
+        words = np.split(table[:at].view(np.int64), np.cumsum(leaves)[:-1])
+        out = []
+        for d, w in zip(depths, words):
+            tree = table[at: at + (1 << d)].astype(np.int64)
+            at += 1 << d
+            padded = np.empty((1 << d) - 1, np.int64)
+            padded[_eytzinger(d)[1:]] = tree[1:]
+            out.append((padded, w))
+        return out
+
+    def plain(self, *planes, valid=None) -> torch.Tensor:
+        """Plain PyTorch version on the lookup way's layout: per dimension
+        the rank of each row among the padded cuts (``torch.searchsorted``),
+        the word at that rank, the AND over the dimensions; then the (Q, n)
+        bool masks, every row ANDed with ``valid``. The compare way's plain
+        version is :func:`batched_dim_mask_rt` on ``qmat``."""
+        dev = planes[0].device
+        hit = None
+        for (padded, words), plane in zip(self._layout(), planes):
+            rank = torch.searchsorted(torch.from_numpy(padded).to(dev), widen_u32(plane), right=True)
+            w = torch.from_numpy(words).to(dev)[rank]
+            hit = w if hit is None else hit & w
+        out = torch.empty((self.nq, planes[0].shape[0]), dtype=torch.bool, device=dev)
+        for q in range(self.nq):
+            out[q] = ((hit >> q) & 1).bool()
+        return kernels.and_valid(out, valid)
+
+    def device_table(self, dev, want_mask: bool = False) -> torch.Tensor:
+        """The table of the way a count (a mask) takes, on ``dev``, uploaded
+        once (see :func:`_upload`)."""
+        key = (dev, self.takes_compare(want_mask))
+        t = self._dev.get(key)
+        if t is None:
+            t = self._dev[key] = _upload(self.table(key[1]), dev)
+        return t
+
+    def run(self, planes, want_mask: bool, valid=None) -> torch.Tensor:
+        """The (Q,) int32 counts or (Q, n) bool masks over ``planes`` (nx, ny
+        and, when R > 0, bt): the kernel for CUDA planes, :meth:`plain` for
+        CPU planes."""
+        if len(planes) != self.n_dims:
+            raise ValueError(f"R = {self.n_ranges} takes {self.n_dims} planes")
+        _check_dim_planes(planes)
+        kernels.check_valid(valid, planes[0].shape[0], planes[0].device)
+        if not kernels.on_cuda(planes[0]):
+            m = self.plain(*planes, valid=valid)
+            return m if want_mask else m.sum(dim=1, dtype=torch.int32)
+        return self._launch(planes, want_mask, valid)
+
+    def _launch(self, planes, want_mask: bool, valid=None) -> torch.Tensor:
+        from geomesa_tpu_torch.kernels import _build
+
+        nx = planes[0]
+        n = nx.shape[0]
+        if n > _MAX_ROWS:
+            raise ValueError(f"{n} rows exceed the int32 count range")
+        if any(p.data_ptr() % 16 for p in planes):
+            raise ValueError("dim-scan planes must be 16-byte aligned")
+        lib = _build.load("dimscan")
+        bt = planes[2] if len(planes) == 3 else None
+        dev = nx.device
+        with torch.cuda.device(dev):
+            tab = self.device_table(dev, want_mask)
+            out = (
+                torch.empty((self.nq, n), dtype=torch.bool, device=dev)
+                if want_mask
+                else torch.empty(self.nq, dtype=torch.int32, device=dev)
+            )
+            head = (nx.data_ptr(), planes[1].data_ptr(), bt.data_ptr() if bt is not None else None,
+                    kernels.valid_ptr(valid), n, tab.data_ptr())
+            tail = (int(want_mask), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            if self.takes_compare(want_mask):
+                rc = lib.gm_dimscan_batched_compare(*head, self.nq, self.n_ranges, *tail)
+            else:
+                dx, dy, dt = (self.depths + [0])[:3]
+                rc = lib.gm_dimscan_batched(*head, len(self.lookup_table), self.nq, self.n_dims,
+                                            dx, dy, dt, *tail)
+        name = f"dimscan_batched_{'z3' if bt is not None else 'z2'}_{'mask' if want_mask else 'count'}"
+        kernels.check_status(rc, name)
+        kernels.count_launch(name, q=self.nq, valid=valid is not None)
+        return out
+
+
+def batched_dimscan(qmat, compare: "bool | None" = None) -> _BatchedDimScan:
+    """Pack a group of dim-scan query vectors, the (Q, 4 + 2R) uint32
+    ``qmat`` of :func:`batched_dimscan_count`, for the batched kernel: each
+    launch's way chosen by the group's shape and output, or forced by
+    ``compare``."""
+    return _BatchedDimScan(qmat, compare)
+
+
+def _launch_dimscan_batched(qmat, planes, want_mask: bool, valid=None) -> torch.Tensor:
+    _check_qmat(qmat, planes)
+    kernels.check_valid(valid, planes[0].shape[0], planes[0].device)
+    return _BatchedDimScan(qmat)._launch(planes, want_mask, valid)
 
 
 def batched_dimscan_count(qmat: np.ndarray, nx, ny, bt=None, valid=None) -> torch.Tensor:
     """(Q,) int32 hit counts of the Q queries of ``qmat`` (each row a query
     vector of :func:`dimscan_count`, 1 <= Q <= 64) over the rows ``valid``
     marks live (None: every row), in one pass over the planes: the kernel
-    ``gm_dimscan_batched`` for CUDA planes, the plain version for CPU
+    ``gm_dimscan_batched`` on the group packed by :class:`_BatchedDimScan`
+    for CUDA planes, the plain version :func:`batched_dim_mask_rt` for CPU
     planes."""
     planes = (nx, ny) if bt is None else (nx, ny, bt)
     if kernels.on_cuda(nx):

@@ -14,8 +14,11 @@ rows (a store run: one partition, eight merged), the one-compare program
 it, and a 64-edge polygon INTERSECTS over 2^26 points (bound by its
 operations). For each: CUDA events over 50 launches after 3 warm ones
 (``ms``), and the host clock over 50 calls enqueued back to back with no
-synchronise inside (``host_ms``); each answer is first checked against the
-plain version. Run it by path with ``PYTHONPATH`` at each tree's root to
+synchronise inside (``host_ms``); for the one-compare program also the
+kernel's and the library call's times with the L2 cache flushed before
+each call (``ms_l2_flushed``, ``library_ms_l2_flushed``: a 128 MB buffer
+overwritten, an event pair around each call). Each answer is first
+checked against the plain version. Run it by path with ``PYTHONPATH`` at each tree's root to
 time two trees on one card in turns (parent, change, change, parent).
 Prints one JSON line of {case: {"ms", "host_ms"}} and the card's name and
 power limit. Needs a CUDA device and nvcc.
@@ -53,12 +56,29 @@ def _ring(k, cx=10.0, cy=45.0, r=12.0) -> str:
     return ", ".join(f"{float(x)!r} {float(y)!r}" for x, y in pts)
 
 
-def time_ms(fn, iters: int = 50, warm: int = 3) -> float:
+L2_FLUSH_BYTES = 128 << 20  # more than the H100's 50 MB L2
+
+
+def time_ms(fn, iters: int = 50, warm: int = 3, flush_l2: bool = False) -> float:
+    """CUDA events over ``iters`` calls after ``warm`` ones; with
+    ``flush_l2``, a buffer larger than the L2 cache is overwritten before
+    each call and an event pair around each call times the calls alone."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    if flush_l2:
+        buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=torch.cuda.current_device())
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        for i, (start, end) in enumerate(marks):
+            buf.fill_(i)
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in marks) / iters
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -142,11 +162,14 @@ def main() -> None:
             if not torch.equal(kern().reshape(-1), plain().reshape(-1)):
                 raise AssertionError(f"{case} {kind}: kernel != plain version")
             row = {"ms": time_ms(kern), "host_ms": host_ms(kern)}
+            if library is not None:
+                row["ms_l2_flushed"] = time_ms(kern, flush_l2=True)
             if library is not None and kind == "mask":
                 lib = lambda cols=cols, f=library: f(cols)  # noqa: E731
                 if not torch.equal(lib(), kern()):
                     raise AssertionError(f"{case}: the library call != the kernel")
                 row["library_ms"] = time_ms(lib)
+                row["library_ms_l2_flushed"] = time_ms(lib, flush_l2=True)
             out[f"{case} {kind}"] = row
     print(json.dumps({"filter_scan_probe": out, "card": _card()}), flush=True)
 

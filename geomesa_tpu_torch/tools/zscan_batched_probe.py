@@ -19,7 +19,7 @@ Q in {1, 4, 8, 64}, z3 and z2, count and mask, it times:
 Then, at Q from 1 to 8, the packer's choices one against another:
 the launch alone with each way forced (z3: every row testing every record
 or each row its bin's, cell boxes compact or masked; z2: compact or
-masked).
+masked); ``--calls-only`` leaves this part out.
 
 Every answer is checked against the package's plain version first. The
 probe runs against the package it imports, so that two trees can be
@@ -145,9 +145,14 @@ def _stacked(lbs):
     return b3, i3
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="time the batched interleaved scan's calls")
+    ap.add_argument("--calls-only", action="store_true", help="leave out the packer's A/B")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("zscan_batched_probe: no CUDA device", file=sys.stderr)
         return 2
@@ -213,7 +218,7 @@ def main() -> int:
                 del got
             del want
             torch.cuda.empty_cache()
-    if packed:
+    if packed and not args.calls_only:
         _ab(zscan, lb3, lb2, p3, p2, card)
     return 0
 

@@ -746,6 +746,74 @@ def test_batched_dimscan_kernel_matches_plain(dev, n, nq, r):
         assert int(got_c[-1]) == 0
     assert kernels.LAUNCHES[f"dimscan_batched_{z}_count"] == before[f"dimscan_batched_{z}_count"] + 1
     assert kernels.LAUNCHES[f"dimscan_batched_{z}_mask"] == before[f"dimscan_batched_{z}_mask"] + 1
+    for compare in (True, False):  # each way, whatever the shape picks
+        pk = zscan.batched_dimscan(qmat, compare=compare)
+        assert torch.equal(pk.run(planes, True), want)
+        assert torch.equal(pk.run(planes, False), want.sum(dim=1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 1003, (1 << 20) + 3])
+@pytest.mark.parametrize("nq", [1, 3, 64])
+@pytest.mark.parametrize("r", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("edge", _CASES.BATCH_EDGES)
+def test_batched_dimscan_kernel_edge_groups(dev, n, nq, r, edge):
+    """The batched dim scan's interval lookup on the edge groups of
+    ``chip_smoke.py`` (ranges at 0 and 0xFFFFFFFF, identical queries,
+    nested ranges and shared ends, adjacent and overlapping bt ranges, all
+    padding) over rows at the groups' range ends and one either side,
+    without and with a validity plane, through the wrappers and with each
+    of the kernel's two ways forced; the plain version on the packed layout
+    gives the same masks."""
+    rng = np.random.default_rng(13 * n + 7 * nq + r + 100 * _CASES.BATCH_EDGES.index(edge))
+    qmat = _CASES.batch_qmat_edge(rng, edge, nq, r, 8 << 21)
+    planes = [_u32(a, dev) for a in _CASES.batch_edge_planes(rng, qmat, n)]
+    half = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    for v in (None, half):
+        want = zscan.batched_dim_mask_rt(r)(*planes, qmat, valid=v)
+        got_m = zscan.batched_dimscan_mask(qmat, *planes, valid=v)
+        got_c = zscan.batched_dimscan_count(qmat, *planes, valid=v)
+        torch.cuda.synchronize()
+        assert torch.equal(got_m, want)
+        assert torch.equal(got_c, want.sum(dim=1, dtype=torch.int32))
+        for compare in (True, False):  # each way, whatever the shape picks
+            pk = zscan.batched_dimscan(qmat, compare=compare)
+            assert torch.equal(pk.run(planes, True, valid=v), want)
+            assert torch.equal(pk.run(planes, False, valid=v), want.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(zscan.batched_dimscan(qmat).plain(*planes),
+                       zscan.batched_dim_mask_rt(r)(*planes, qmat))
+
+
+def test_batched_dimscan_entry_refuses_what_it_cannot_take(dev):
+    """The lookup way's C entry point refuses a table whose size does not
+    match its depths, a depth past 11, a z2 launch with a bt depth and 65
+    queries; the compare way's refuses 65 queries and R = 3."""
+    from geomesa_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(5)
+    qmat = _CASES.batch_qmat(rng, 4, 1, 8 << 21)
+    pk = zscan.batched_dimscan(qmat, compare=False)
+    planes = [_u32(rng.integers(0, MAXI, 64), dev) for _ in range(3)]
+    tab = pk.device_table(dev)
+    out = torch.empty(4, dtype=torch.int32, device=dev)
+    fn = _build.load("dimscan").gm_dimscan_batched
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    good = [len(pk.lookup_table), 4, 3, *pk.depths]
+    for words, nq, dims, dx, dy, dt in (
+            [good[0] + 4] + good[1:], good[:3] + [12] + good[4:],
+            [good[0], 4, 2] + good[3:], [good[0], 65, 3] + good[3:]):
+        rc = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(), None, 64,
+                tab.data_ptr(), words, nq, dims, dx, dy, dt, 0, out.data_ptr(), stream)
+        assert rc != 0
+    rc = fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(), None, 64,
+            tab.data_ptr(), *good, 0, out.data_ptr(), stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(out, zscan.batched_dim_mask_rt(1)(*planes, qmat).sum(dim=1, dtype=torch.int32))
+    cmp_fn = _build.load("dimscan").gm_dimscan_batched_compare
+    qdev = zscan.batched_dimscan(qmat, compare=True).device_table(dev, want_mask=False)
+    for nq, r in ((65, 1), (4, 3)):
+        assert cmp_fn(planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(), None, 64,
+                      qdev.data_ptr(), nq, r, 0, out.data_ptr(), stream) != 0
 
 
 def _batched_launches(name, run):
