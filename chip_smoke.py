@@ -126,9 +126,9 @@ Phases:
      serial, nothing is rejected or expired; per-request latency p50/p99
      (submit to the scheduler completing the request), requests/s
      and the fusion factor, fused and unfused;
-  3g. the streaming index: phase 3's first 2^25 rows staged into
-     StreamingDeviceIndex(z_planes=True, capacity=2^25 + stream.memtable.rows)
-     (capacity 2^26, dim planes), fed through attach_live: 64 Puts of 2^14
+  3g. the streaming index: phase 3's first 2^24 rows staged into
+     StreamingDeviceIndex(z_planes=True, capacity=2^24 + stream.memtable.rows)
+     (capacity 2^25, dim planes), fed through attach_live: 64 Puts of 2^14
      new rows, 64 Removes evicting 2^20 random fids, 16 Puts moving 2^12
      held rows to another city (p50/p99 of each, restages 1,
      delta_appends 80); then phase 3's 32 queries (count loose and exact,
@@ -142,7 +142,7 @@ Phases:
      z3, z2 and interleaved z2 streaming indexes; growth (capacity 2^22
      -> 2^24) and compaction (55% dead) at 2^22 rows, with their restage
      seconds. Every scan launch of a streaming drive read the validity
-     plane (``kernels.VALID_LAUNCHES``). On the fed 2^25-row index (part of
+     plane (``kernels.VALID_LAUNCHES``). On the fed 2^24-row index (part of
      phase 3h's drive): an envelope join of 16 city windows, again after one
      more append and one more eviction (each rebuilding the join layout for
      the new staged generation), each equal to numpy over the live rows,
@@ -182,7 +182,7 @@ Phases:
      (the host residual behind the envelope prefilter), a Query
      with sort_by, max_features and properties, explain, run_stats with
      seven sketches, a DeviceIndex staged from the store (its 32 exact
-     counts equal the store's), and phase 3b's 2^23 labeled rows as a
+     counts equal the store's), and phase 3b's 2^22 labeled rows as a
      second type under its three auth sets; every answer against numpy
      over the float32 rows, phase 3's DeviceIndex answers and the verdict
      table; the launch counts equal one filter_scan_mask per contiguous
@@ -192,6 +192,31 @@ Phases:
      path of process.knn, tube_select (4 tracks) and proximity_search (3
      inputs) on 2^22 AIS reports (phase 3e's generator, 2^10 vessels: a
      cut), each equal to the resident answer on the same rows;
+  3j. (run after 3i, once its memory store is dropped) the file-system
+     store, BASELINE config #1 via geomesa-fs: phase 3's 2^26 rows written
+     through DataStoreFinder.get_data_store({"fs.path": <a temporary
+     directory>}) into a z3 type (64 partitions of 2^20) and the same rows
+     under the daily,z2-2bit partition scheme, format v2, store.fsync on,
+     2^16-row chunks (flush seconds, bytes on disk, write GB/s and host RSS
+     printed; too little disk raises); on each type phase 3's 32 queries
+     through store.query with the partition cache dropped (cold), then
+     get_count, get_features and store.query (warm) and the count
+     pushdown (warm, and cold: only the boundary chunks' blocks read), the
+     full-table count > 500, phase 3's 9 density calls and one over a
+     box on the coarse cells' edges through process.density and 4
+     Count/MinMax stats calls through
+     run_stats (both taking the pushdown), explain, verify_partitions and
+     verify_chunk_stats (both empty); then the root reopened under
+     store.verify=always and the 32 counts read cold. Counts and sorted
+     fids against numpy and phase 3i's memory store, stats exact, each
+     pushdown density grid equal to the same store's on the CPU with its
+     mass against numpy (exact for the box on the cells' edges, else
+     within the rows of the coarse cells its box cuts and of its edges),
+     weighted grids against numpy; the launch counts equal one filter_scan_mask per
+     surviving partition of every plan and per partition a pushdown
+     refines, with no device_fn call; p50/p99 per call kind (cold and
+     warm), partitions scanned, chunks read and pruned, the read and
+     decode seconds beside the runner's stage, launch and device seconds;
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -1992,7 +2017,7 @@ def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, p
 # -- phase 3i: the store path (BASELINE config #1) -----------------------------
 
 STORE_RUN_ROWS = (1 << 20, 1 << 23)  # one partition; eight merged, the largest run
-STORE_LABELED = 1 << 23  # phase 3b's labeled rows at the size 3b held before it was cut to 2^22
+STORE_LABELED = 1 << 22  # phase 3b's labeled rows at 3b's size
 STORE_AIS_VESSELS = 1 << 10  # 2^10 vessels x 4,096 fixes: 2^22 AIS reports (cut from 2^26)
 SEVEN_SKETCHES = ('Count();MinMax("count");MinMax("dtg");Histogram("count",20,0,1000);'
                   'Cardinality("count");TopK("count",300);Frequency("count");Z3Histogram("geom","dtg")')
@@ -2274,6 +2299,7 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
     ds.remove_schema("labeled")
     del lcols, data, lab
 
+    answers = [(n, np.sort(res.batch.fids)) for n, _, res in out]
     ais = run_store_ais(dev)
     rss, hwm = _rss_gb()
     summary = {
@@ -2289,7 +2315,7 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
     run_rows = {k: head.columns[k] for k in ("count", "dtg", "geom")}
     ds.remove_schema("gdelt")
     launches = {k: launches[k] + sl[k] + ll[k] + ais["launches"][k] for k in launches}
-    return {"launches": launches, "run_rows": run_rows, "ecql": europe}
+    return {"launches": launches, "run_rows": run_rows, "ecql": europe, "answers": answers}
 
 
 def run_store_ais(dev) -> dict:
@@ -2430,6 +2456,389 @@ def store_rows(dev, store, launches, errs: Errs) -> list:
     return rows
 
 
+# -- phase 3j: the file-system store (BASELINE config #1 via geomesa-fs) -------
+
+#: the second type's scheme: the composite partitions.py's docstring names,
+#: after geomesa-fs's own examples (":" is how the spec string stores it)
+FS_SCHEME = "daily:z2-2bit"
+FS_TYPES = (("gdelt_fs", None), ("gdelt_fs_daily_z2", FS_SCHEME))
+#: the Count/MinMax spec the stats pushdown answers from chunk partials
+PUSH_SPEC = 'Count();MinMax("count");MinMax("dtg")'
+FS_ROW_BYTES = 8 + 4 + 8 + 16  # fid, count, dtg and the x/y pair of a row
+#: a Europe box on the edges of the store's 64-cell coarse grid (5.625 by
+#: 2.8125 degrees a cell): it cuts no cell, so the pushdown's mass is exact
+FS_ALIGNED = (-11.25, 33.75, 33.75, 59.0625)
+#: degrees: rows this close to a box's edge may fall either side of it
+#: (a coarse cell is half-open, the filter's box closed)
+FS_EDGE = 1e-5
+
+
+def _cells(env, grid: int = 64) -> "tuple[np.ndarray, np.ndarray]":
+    """(inside, meets), each (grid * grid,) bool: the store's coarse world
+    cells that the box ``env`` contains, and that it overlaps with some
+    area."""
+    cw, ch = 360.0 / grid, 180.0 / grid
+    x0 = -180.0 + np.arange(grid) * cw
+    y0 = -90.0 + np.arange(grid) * ch
+    inside = ((x0 >= env[0]) & (x0 + cw <= env[2]))[None, :] & ((y0 >= env[1]) & (y0 + ch <= env[3]))[:, None]
+    meets = ((x0 < env[2]) & (x0 + cw > env[0]))[None, :] & ((y0 < env[3]) & (y0 + ch > env[1]))[:, None]
+    return inside.reshape(-1), meets.reshape(-1)
+
+
+def _cut_cells(env, grid: int = 64) -> np.ndarray:
+    """(grid * grid,) bool: the coarse cells that the box ``env`` cuts
+    (overlaps with some area but does not contain)."""
+    inside, meets = _cells(env, grid)
+    return meets & ~inside
+
+
+def fs_density_calls(queries) -> list:
+    """Phase 3j's density drive: phase 3's calls and the Europe 5-day
+    window over ``FS_ALIGNED``, the call whose mass must be exact."""
+    _, _, ew = queries[0]
+    return density_calls(queries) + [
+        ("europe aligned", "z3", f"{_bbox(FS_ALIGNED)} AND dtg DURING {_day(ew[0])}/{_day(ew[1])}",
+         False, FS_ALIGNED, (256, 288), None, FS_ALIGNED, ew)]
+
+
+def fs_expected(cols, x, y, dcalls, scalls) -> "tuple[list, list]":
+    """numpy's side of phase 3j's aggregates, computed once for both
+    types: per density call the rows in its box and window, the rows of
+    the coarse cells that its box or raster cuts and the rows on their
+    edges (together they bound the pushdown's mass error: it prorates a
+    cut cell's rows by area, and a row on an edge may fall either side),
+    and for a weighted call the grid; per stats call the Count/MinMax
+    JSON. Cells are counted once per window and edges read only the rows
+    of the cells along them."""
+    from geomesa_tpu_torch.store.chunkstats import world_cells
+
+    dtg = cols["dtg"]
+    cell = world_cells(x, y, 64)
+    memo = {}
+
+    def once(key, fn):
+        if key not in memo:
+            memo[key] = fn()
+        return memo[key]
+
+    def in_window(window, idx=None):
+        d = dtg if idx is None else dtg[idx]
+        return (d >= T0 + int(window[0] * DAY)) & (d <= T0 + int(window[1] * DAY))
+
+    def cell_rows(window):
+        return np.bincount(cell if window is None else cell[in_window(window)], minlength=64 * 64)
+
+    def edge_rows(b, window):
+        # a row within FS_EDGE of an edge lies in a cell that the box grown
+        # by twice that meets and the box shrunk by twice that does not hold
+        e = FS_EDGE
+        _, meets = _cells((b[0] - 2 * e, b[1] - 2 * e, b[2] + 2 * e, b[3] + 2 * e))
+        inside, _ = _cells((b[0] + 2 * e, b[1] + 2 * e, b[2] - 2 * e, b[3] - 2 * e))
+        idx = np.flatnonzero((meets & ~inside)[cell])
+        xs, ys = x[idx], y[idx]
+        outer = (xs >= b[0] - e) & (xs <= b[2] + e) & (ys >= b[1] - e) & (ys <= b[3] + e)
+        inner = (xs > b[0] + e) & (xs < b[2] - e) & (ys > b[1] + e) & (ys < b[3] - e)
+        m = outer & ~inner
+        return int((m if window is None else m & in_window(window, idx)).sum())
+
+    dens = []
+    for _, _, _, _, env, wh, weight, box, window in dcalls:
+        if weight:
+            sel = None if box is None else np_exact(x, y, dtg, box, window)
+            dens.append((None, None, None, np_density(x, y, sel, env, wh, cols["count"])))
+            continue
+        boxes = {tuple(env)} | (set() if box is None else {tuple(box)})
+        cut = np.zeros(64 * 64, bool)
+        for b in boxes:
+            cut |= _cut_cells(b)
+        exact = len(x) if box is None else once(
+            ("rows", tuple(box), window), lambda: int(np_exact(x, y, dtg, box, window).sum()))
+        dens.append((exact, int(once(("cells", window), lambda: cell_rows(window))[cut].sum()),
+                     sum(once(("edge", b, window), lambda: edge_rows(b, window)) for b in boxes),
+                     None))
+    stats = []
+    for _, _, _, box, window, cmin in scalls:
+        sel = None if box is None else np_exact(x, y, dtg, box, window)
+        if cmin is not None:
+            sel &= cols["count"] > cmin
+        stats.append(np_stats(cols, sel)[:3])
+    return dens, stats
+
+
+class FsCalls:
+    """Per call kind: latencies, the ledger's fields and the partitions
+    each call scanned; and the filter-scan launches the drive must make:
+    one per surviving partition of every query plan, one per partition a
+    pushdown refines."""
+
+    def __init__(self, ds, name, refines):
+        self.ds, self.name, self.refines = ds, name, refines
+        self.lat, self.cost, self.parts, self.refined = {}, {}, {}, {}
+        self.expected = 0
+
+    def scanned(self, res) -> int:
+        n = len(self.ds._pruned_parts(self.name, res.plan)) if res.plan.compiled.device_cols else 0
+        self.expected += n
+        return n
+
+    def run(self, kind, fn, cold: bool = False):
+        from geomesa_tpu_torch import ledger
+
+        if cold:  # drop the decoded partitions: the call reads its files
+            self.ds._types[self.name].cache.clear()
+        r0 = self.refines["n"]
+        with ledger.collect_cost() as cost:
+            t = time.perf_counter()
+            out = fn()
+            dt = time.perf_counter() - t
+        self.lat.setdefault(kind, []).append(dt)
+        self.refined[kind] = self.refined.get(kind, 0) + self.refines["n"] - r0
+        acc = self.cost.setdefault(kind, {})
+        for k, v in cost.snapshot_fields().items():
+            acc[k] = acc.get(k, 0.0) + v
+        return out
+
+    def report(self, tag) -> dict:
+        out = {}
+        for kind, v in self.lat.items():
+            c = self.cost.get(kind, {})
+            out[kind] = {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99), "n": len(v),
+                         "partitions": self.parts.get(kind, 0), "refined": self.refined.get(kind, 0),
+                         **{k: c.get(k, 0.0) for k in (
+                             "read_seconds", "decode_seconds", "read_bytes", "chunks_read",
+                             "chunks_pruned", "stage_seconds", "device_launches", "device_seconds")}}
+            log(f"latency fs {tag} {kind}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms "
+                f"({len(v)} calls); partitions scanned {self.parts.get(kind, 0)}, refined "
+                f"{self.refined.get(kind, 0)}, chunks read "
+                f"{int(c.get('chunks_read', 0))} (pruned {int(c.get('chunks_pruned', 0))}); read "
+                f"{c.get('read_seconds', 0):.3f} s ({c.get('read_bytes', 0) / 1e9:.3f} GB), decode "
+                f"{c.get('decode_seconds', 0):.3f} s; runner stage {c.get('stage_seconds', 0):.3f} s, "
+                f"{int(c.get('device_launches', 0))} launches, device {c.get('device_seconds', 0):.3f} s "
+                f"[{CARD}]")
+        return out
+
+
+def run_fs_path(dev, cols, queries, mem) -> dict:
+    """Phase 3j, BASELINE config #1 via geomesa-fs: phase 3's 2^26 rows
+    written through DataStoreFinder.get_data_store({"fs.path": ...}) into
+    a z3 type of 64 partitions of 2^20 and a daily,z2-2bit type (format
+    v2, store.fsync on, 2^16-row chunks), each flushed once; on each type
+    phase 3's 32 bbox+during queries through get_count (cold: the
+    partition cache dropped before each), get_count, get_features and
+    store.query (warm) and the count pushdown (warm and cold), the
+    full-table filter,
+    phase 3's 9 density calls and one on the coarse grid's edges through
+    process.density and 4 stats calls through run_stats (both taking the
+    pushdown), explain,
+    verify_partitions and verify_chunk_stats; then the root reopened under
+    store.verify=always and the 32 counts read cold from disk. Every
+    answer against numpy over the float32 rows and phase 3i's memory-store
+    answers (``mem``); the pushdown's density grids bit for bit against
+    the same store scanning on the CPU, and their mass against numpy:
+    exact on a box on the coarse grid's edges (``FS_ALIGNED``), else
+    within the rows of the coarse cells that the box cuts; the launches against one filter-scan
+    mask per surviving partition and per refined partition."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.api import DataStoreFinder
+    from geomesa_tpu_torch.conf import prop_override, sys_prop
+    from geomesa_tpu_torch.device import resolve_device
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.process.density import density
+    from geomesa_tpu_torch.process.statsproc import run_stats
+    from geomesa_tpu_torch.query.plan import Query
+    from geomesa_tpu_torch.store import pushdown
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+
+    n = len(cols["count"])
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    dtg = cols["dtg"]
+    root = tempfile.mkdtemp(prefix="geomesa-fs-")
+    need = int(len(FS_TYPES) * n * FS_ROW_BYTES * 1.1)
+    free = shutil.disk_usage(root).free
+    log(f"phase 3j: root {root} ({free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed); format "
+        f"v{sys_prop('store.format.version')}, fsync {sys_prop('store.fsync')}, "
+        f"{sys_prop('store.chunk.rows')}-row chunks, {sys_prop('io.workers')} I/O workers")
+    if free < need:
+        shutil.rmtree(root, ignore_errors=True)
+        raise RuntimeError(f"phase 3j: {free / 1e9:.1f} GB free under {root}, "
+                           f"{need / 1e9:.1f} GB needed for {n:,} rows in {len(FS_TYPES)} types")
+    t = time.time()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        masks = list(pool.map(lambda q: np_exact(x, y, dtg, q[1], q[2]), queries))
+    dcalls, scalls = fs_density_calls(queries), stats_calls(queries)
+    want_dens, want_stats = fs_expected(cols, x, y, dcalls, scalls)
+    log(f"phase 3j: numpy's answers in {time.time() - t:.1f} s")
+    refines = {"n": 0}
+    real_refine = pushdown._refine_batch
+
+    def counted_refine(*a, **kw):
+        refines["n"] += 1  # each refinement scans its chunks through the runner: one mask launch
+        return real_refine(*a, **kw)
+
+    pushdown._refine_batch = counted_refine
+    summary, totals = {}, {k: 0 for k in kernels.KERNEL_NAMES}
+    try:
+        for name, scheme in FS_TYPES:
+            spec = GDELT_SPEC + (f";geomesa.fs.partition-scheme={scheme}" if scheme else "")
+            t = time.time()
+            ds = DataStoreFinder.get_data_store({"fs.path": root})
+            if resolve_device(ds.device).type != "cuda":
+                raise AssertionError("phase 3j: the fs store does not scan on the card")
+            ds.create_schema(name, spec)
+            ds.write(name, {k: cols[k] for k in ("count", "dtg", "geom")})
+            ds.flush(name)
+            flush_s = time.time() - t
+            st = ds._types[name]
+            nbytes = sum(int(p.checksum["length"]) for p in st.partitions)
+            rss, hwm = _rss_gb()
+            log(f"phase 3j {name}: wrote and flushed {n:,} rows in {flush_s:.1f} s: "
+                f"{len(st.partitions)} partitions, {sum(len(p.chunks) for p in st.partitions)} chunks, "
+                f"{nbytes / 1e9:.3f} GB on disk ({nbytes / flush_s / 1e9:.3f} GB/s written); host RSS "
+                f"{rss:.1f} GB (peak {hwm:.1f} GB)")
+            if sum(p.count for p in st.partitions) != n or st.format_version != 2:
+                raise AssertionError(f"phase 3j {name}: the manifest does not hold {n:,} v2 rows")
+            src = ds.get_feature_source(name)
+            calls = FsCalls(ds, name, refines)
+            kernels.reset_counts()
+            refines["n"] = 0
+            out = []
+            for ecql, _, _ in queries:
+                cold = calls.run("count_cold", lambda: ds.query(name, ecql), cold=True)
+                calls.parts["count_cold"] = calls.parts.get("count_cold", 0) + calls.scanned(cold)
+                c = calls.run("get_count", lambda: src.get_count(ecql))
+                f = calls.run("get_features", lambda: src.get_features(ecql).batch.fids)
+                res = calls.run("query", lambda: ds.query(name, ecql))
+                for kind in ("get_count", "get_features", "query"):
+                    calls.parts[kind] = calls.parts.get(kind, 0) + calls.scanned(res)
+                pc = calls.run("count_pushdown", lambda: ds.count(name, ecql))
+                # cold: the boundary chunks' blocks are read alone from the files
+                if calls.run("count_pushdown_cold", lambda: ds.count(name, ecql), cold=True) != pc:
+                    raise AssertionError(f"phase 3j {name} {ecql}: the cold count pushdown != the warm one")
+                out.append((len(cold), c, pc, np.sort(f), np.sort(res.batch.fids)))
+            full = calls.run("full_table", lambda: ds.query(name, "count > 500"))
+            calls.parts["full_table"] = calls.scanned(full)
+            grids, cpu_grids = [], []
+            for _, _, ecql, _, env, (w, h), weight, _, _ in dcalls:
+                grid = calls.run("density", lambda: density(ds, name, Query(filter=ecql), Envelope(*env),
+                                                            w, h, weight_attr=weight))
+                if weight:  # the row scan's query: one mask per surviving partition
+                    calls.expected += len(ds._pruned_parts(name, ds.plan(name, ecql)))
+                grids.append(grid)
+            seqs = []
+            for _, ecql, _, _, _, _ in scalls:
+                seqs.append(calls.run("run_stats", lambda: run_stats(ds, name, Query(filter=ecql), PUSH_SPEC)))
+                plan = ds.plan(name, ecql)
+                if plan.agg_bounds is None:  # the row scan's query
+                    calls.expected += len(ds._pruned_parts(name, plan))
+            torch.cuda.synchronize()
+            n_weighted = sum(1 for c in dcalls if c[6])
+            launches = read_launches(f"fs store {name}", {
+                "filter_scan_mask": calls.expected + refines["n"], "density_weighted": n_weighted})
+            n_refined = refines["n"]
+            if not n_refined:
+                raise AssertionError(f"phase 3j {name}: no pushdown refined a boundary chunk")
+            for k in totals:
+                totals[k] += launches[k]
+            log(f"phase 3j {name}: {calls.expected} partition scans and {n_refined} pushdown "
+                f"refinements, one filter_scan_mask each; {n_weighted} weighted density launches")
+            text = ds.explain(name, queries[0][0])
+            if "Chosen index: z3" not in text:
+                raise AssertionError(f"phase 3j {name}: explain lacks the z3 index")
+            log(f"phase 3j {name} explain: " + " | ".join(s.strip() for s in text.splitlines()[:5]))
+            t = time.time()
+            bad = ds.verify_partitions(name)
+            vp_s = time.time() - t
+            t = time.time()
+            drift = ds.verify_chunk_stats(name)
+            vc_s = time.time() - t
+            if bad or drift:
+                raise AssertionError(f"phase 3j {name}: verify_partitions {bad[:3]}, "
+                                     f"verify_chunk_stats {drift[:3]}")
+            log(f"phase 3j {name}: verify_partitions [] in {vp_s:.1f} s, verify_chunk_stats [] in "
+                f"{vc_s:.1f} s")
+
+            # -- checks: numpy, phase 3i's memory store, the CPU -------------------
+            t = time.time()
+            for (ecql, _, _), em, (n_cold, c, pc, f, fq), (mn, mfids) in zip(queries, masks, out, mem):
+                want = np.nonzero(em)[0]
+                if not (n_cold == c == pc == len(want) == mn):
+                    raise AssertionError(f"phase 3j {name} {ecql}: counts {n_cold}/{c}/{pc} != numpy "
+                                         f"{len(want)} / the memory store {mn}")
+                if not (np.array_equal(f, want) and np.array_equal(fq, want) and np.array_equal(mfids, want)):
+                    raise AssertionError(f"phase 3j {name} {ecql}: fid sets != numpy / the memory store")
+            big = cols["count"] > 500
+            if full.scanned != n or not np.array_equal(np.sort(full.batch.fids), np.nonzero(big)[0]):
+                raise AssertionError(f"phase 3j {name}: the full-table filter != numpy")
+            cpu = FileSystemDataStore(root, device="cpu")
+            for (tag, _, ecql, _, env, wh, weight, _, _), got, (exact, cut, edge, wgrid) in zip(
+                    dcalls, grids, want_dens):
+                if weight:
+                    if not same_grid(got, wgrid, True):
+                        raise AssertionError(f"phase 3j {name} density {tag}: grid != numpy")
+                    continue
+                ref = cpu.density_pushdown(name, Query(filter=ecql), Envelope(*env), *wh)
+                if ref is None or not np.array_equal(got, ref):
+                    raise AssertionError(f"phase 3j {name} density {tag}: the card's pushdown grid != "
+                                         "the CPU's")
+                # exact but for the cut cells' and the edges' rows, and each
+                # cell's float32 rounding (2^-24 of it, twice: the prorated
+                # raster and the sum with the refined rows)
+                slack = cut + edge + exact * 2.0 ** -22
+                mass = float(got.astype(np.float64).sum())
+                log(f"phase 3j {name} density {tag}: mass {mass!r}, numpy {exact}, |difference| "
+                    f"{abs(mass - exact)!r}; allowed {slack!r} = {cut} cut-cell rows + {edge} edge rows "
+                    f"+ float32 rounding")
+                if abs(mass - exact) > slack:
+                    raise AssertionError(f"phase 3j {name} density {tag}: mass {mass} vs numpy {exact} "
+                                         f"(allowed {slack:.1f})")
+                if tag == "europe aligned" and cut:
+                    raise AssertionError(f"phase 3j: {FS_ALIGNED} cuts {cut} rows' coarse cells")
+            for (tag, _, _, _, _, _), got, want in zip(scalls, seqs, want_stats):
+                if got.to_json() != want:
+                    raise AssertionError(f"phase 3j {name} stats {tag}: {got.to_json()} != numpy {want}")
+            log(f"phase 3j {name} checks: {len(queries)} queries x (cold count, get_count, get_features, "
+                f"store.query, the count pushdown) == numpy and the memory store; full table; "
+                f"{len(dcalls)} density grids (pushdown == the CPU's, mass within the cut cells' and the "
+                f"edges' rows, exact on the coarse grid's edges); "
+                f"{len(scalls)} stats exact; in {time.time() - t:.1f} s")
+            del cpu
+
+            # -- reopened under store.verify=always: cold, verified reads ----------------
+            with prop_override("store.verify", "always"):
+                again = DataStoreFinder.get_data_store({"fs.path": root})
+                vsrc = again.get_feature_source(name)
+                vcalls = FsCalls(again, name, refines)
+                kernels.reset_counts()
+                counts = []
+                for ecql, _, _ in queries:
+                    counts.append(vcalls.run("count_verified", lambda: vsrc.get_count(ecql), cold=True))
+                    vcalls.parts["count_verified"] = vcalls.parts.get("count_verified", 0) + len(
+                        again._pruned_parts(name, again.plan(name, ecql)))
+                read_launches(f"fs store {name} reopened", {
+                    "filter_scan_mask": vcalls.parts["count_verified"]})
+                totals["filter_scan_mask"] += vcalls.parts["count_verified"]
+            if counts != [o[1] for o in out]:
+                raise AssertionError(f"phase 3j {name}: the reopened, verified counts != the first")
+            summary[name] = {
+                "scheme": scheme, "partitions": len(st.partitions), "flush_s": flush_s, "bytes": nbytes,
+                "write_gb_s": nbytes / flush_s / 1e9, "rss_gb": rss, "peak_rss_gb": hwm,
+                "verify_partitions_s": vp_s, "verify_chunk_stats_s": vc_s,
+                "refinements": n_refined, "calls": calls.report(name),
+                "verified": vcalls.report(name + " reopened")}
+            del ds, again, src, vsrc, st, out, grids, seqs, full
+    finally:
+        pushdown._refine_batch = real_refine
+        shutil.rmtree(root, ignore_errors=True)
+    log(json.dumps({"fs_store": {"rows": n, "card": CARD, "types": summary}}))
+    return {"launches": totals}
+
+
 # -- phase 3b: per-request visibility -----------------------------------------
 
 LABELS = ["", "A", "B", "A&B", "A|C", "(A|B)&C"]
@@ -2438,7 +2847,7 @@ VERDICTS = {  # auths -> whether each of LABELS is visible, written out by hand
     ("A",): [True, True, False, False, True, False],
     ("A", "B", "C"): [True, True, True, True, True, True],
 }
-N_LABELED = 1 << 22  # phase 3i writes 2^23 labeled rows through the store
+N_LABELED = 1 << 22  # phase 3i writes as many labeled rows through the store
 # kNN on the labeled index, (target, k, base filter): phase 3's city centres
 LABELED_KNN = [((2.3515625, 48.859375), 100, None), ((-73.96875, 40.78125), 1000, "count > 500")]
 
@@ -3640,7 +4049,7 @@ def run_sched_path(dev, cols, di3, di2, di3i, di2i) -> dict:
 
 # -- phase 3g: the streaming index ----------------------------------------------
 
-STREAM_ROWS = 1 << 25  # phase 3's first 2^25 rows: phase 3 and 3c drive all 2^26 resident
+STREAM_ROWS = 1 << 24  # phase 3's first 2^24 rows: phase 3 and 3c drive all 2^26 resident
 STREAM_APPENDS = 64  # Put messages of 2^14 new rows each
 STREAM_APPEND_ROWS = 1 << 14
 STREAM_EVICTED = 1 << 20  # random held fids, evicted through 64 Remove messages
@@ -3882,7 +4291,7 @@ def _np_window_rows(xs, order, ys, env, alive) -> np.ndarray:
 
 
 def stream_joins(di, truth, centers) -> dict:
-    """Phase 3g's joins and BIN call on the fed 2^25-row index: an envelope
+    """Phase 3g's joins and BIN call on the fed 2^24-row index: an envelope
     join of 16 city windows, then again after one more append of 2^14 rows
     and after one more eviction of 2^14 fids; each join's pairs equal numpy
     over the staged rows that are live (row ids in staged order), and each
@@ -3974,7 +4383,7 @@ def stream_joins(di, truth, centers) -> dict:
 
 
 def run_streaming_path(dev, cols, queries, traffic) -> dict:
-    """Phase 3g (module docstring): the streaming index at 2^25 rows fed
+    """Phase 3g (module docstring): the streaming index at 2^24 rows fed
     through attach_live, its drive checked against numpy and a restaged
     index; the 2^22 interleaved z3 and z2 indexes; growth and compaction;
     the scheduler burst beside a writer."""
@@ -4004,7 +4413,7 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
     centers = cols["_centers"]
     n = len(cols["count"])
     rng = np.random.default_rng(SEED + 40)
-    # -- the dim-plane z3 index at phase 3's first 2^25 rows --------------------
+    # -- the dim-plane z3 index at phase 3's first 2^24 rows --------------------
     t = time.time()
     cap = n + int(sys_prop("stream.memtable.rows"))
     di = _stream(dev, cols, np.arange(n), GDELT_SPEC, "gdelt", cap)
@@ -4049,8 +4458,8 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
     t = time.time()
     fresh = _fresh(dev, live, GDELT_SPEC, "gdelt")
     log(f"phase 3g: the restaged index of the live rows in {time.time() - t:.2f} s")
-    check_stream_queries("z3 2^25", di, fresh, live, queries, res, planes)
-    check_fused("z3 2^25", di, fresh, tiles, fused, fused_q)
+    check_stream_queries("z3 2^24", di, fresh, live, queries, res, planes)
+    check_fused("z3 2^24", di, fresh, tiles, fused, fused_q)
     check_density_path(live, di, di, planes, planes, dcalls, grids, scalls, seqs)
     for (tag, _, ecql, loose, env, (w, h), weight, _, _), g in zip(dcalls, grids):
         want = fresh.density(ecql, Envelope(*env), w, h, weight_attr=weight, loose=loose)
@@ -5437,6 +5846,7 @@ def main() -> int:
     cols = make_columns(N_ROWS, SEED)
     log(f"phase 3: generated {N_ROWS:,} rows in {time.time() - t:.1f} s")
     torch.cuda.reset_peak_memory_stats()
+    t = time.time()
     di3, di2, queries, z2q, res3, res2, main_launches = run_main_path(dev, cols)
     planes3, planes2 = check_main_path(cols, di3, di2, queries, z2q, res3, res2)
     dcalls, grids, scalls, seqs, dens_launches = run_density_path(di3, di2, queries)
@@ -5445,6 +5855,7 @@ def main() -> int:
                                  dcalls, grids, scalls, seqs)
     del planes3, planes2, grids, res2
     lab_launches = run_labeled_path(dev, queries)
+    log(f"phase 3: the main path, density, 3c and 3b in {time.time() - t:.1f} s")
     t = time.time()
     xz = run_xz_path(dev)
     log(f"phase 3d: the xz path in {time.time() - t:.1f} s")
@@ -5465,11 +5876,14 @@ def main() -> int:
     store = run_store_path(dev, cols, di3, queries, res3)
     log(f"phase 3i: the store path in {time.time() - t:.1f} s")
     del res3
+    t = time.time()
+    fs = run_fs_path(dev, cols, queries, store.pop("answers"))
+    log(f"phase 3j: the file-system store in {time.time() - t:.1f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
                 + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) + sched["launches"][k]
                 + stream["launches"][k] + join["launches"][k] + store["launches"][k]
-                for k in main_launches}
+                + fs["launches"][k] for k in main_launches}
     valid_launches = stream["valid"]
     missing = sorted(k for k in ("dimscan_z3_count", "dimscan_batched_z3_count", "zscan_z3_count",
                                  "zscan_batched_z3_count", "filter_scan_count")
@@ -5477,6 +5891,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"phase 3g: no launch of {missing} read the validity plane")
 
+    t = time.time()
     rows = kernel_table(dev, di3, di2, inter, queries, z2q, launches, valid_launches, errs)
     rows += density_rows(dev, di3, launches, errs)
     env_rows, ops_rows = xz_rows(dev, xz, launches, errs)
@@ -5495,6 +5910,7 @@ def main() -> int:
     ops_rows += ais_ops_rows(dev, ais)
     ops_rows += join_ops_rows(dev, join, ais)
     log(json.dumps({"torch_ops": ops_rows}))
+    log(f"phase 4: the kernel and torch-ops rows in {time.time() - t:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(f"total {time.time() - t_all:.1f} s")
     log(card_line())

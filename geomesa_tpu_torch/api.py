@@ -12,8 +12,11 @@ user's parameter map flows unchanged:
 >>> source = ds.get_feature_source("gdelt")
 >>> source.get_count("BBOX(geom, -10, 35, 30, 60)")
 
-The memory factory takes an optional ``device`` parameter (``"cpu"`` to
-scan on the host; default ``cuda:0``). The file-system (``fs.path``),
+The memory and file-system (``fs.path``, with ``fs.encoding``) factories
+take an optional ``device`` parameter (``"cpu"`` to scan on the host;
+default ``cuda:0``). The file-system store writes the port's own
+partition files (``fs.encoding`` ``gmcol``, the default; the
+counterpart's ``parquet`` and ``orc`` raise, ROADMAP section 3). The
 key-value (``kv.catalog``/``kv.sqlite``) and lambda
 (``lambda.persistent``) factories are claimed as in the counterpart but
 raise ``NotImplementedError`` naming their ROADMAP item: those stores are
@@ -64,6 +67,17 @@ def _later(store: str):
     return create
 
 
+def _fs_factory(params: dict):
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+    from geomesa_tpu_torch.store.partfile import ENCODING
+
+    return FileSystemDataStore(
+        params["fs.path"],
+        encoding=params.get("fs.encoding", ENCODING),
+        device=params.get("device"),
+    )
+
+
 def _memory_factory(params: dict):
     from geomesa_tpu_torch.store.memory import MemoryDataStore
 
@@ -77,7 +91,7 @@ def _truthy(v) -> bool:
     return bool(v)
 
 
-_REGISTRY.register(lambda p: "fs.path" in p, _later("file-system store"))
+_REGISTRY.register(lambda p: "fs.path" in p, _fs_factory)
 _REGISTRY.register(
     lambda p: "kv.catalog" in p or "kv.sqlite" in p, _later("key-value store")
 )

@@ -1,16 +1,17 @@
 """Query audit log (ref: geomesa-index-api's AuditWriter and AuditedEvent).
 
-Copy of ``geomesa_tpu/audit.py`` trimmed to what the memory store calls:
+Copy of ``geomesa_tpu/audit.py`` trimmed to what the stores call:
 ``AuditedEvent``, the asynchronous ``AuditWriter`` (a daemon thread
-draining a queue), ``MemoryAuditWriter`` and ``observe_query``. The
-counterpart's JSON-lines ``FileAuditWriter`` serves its file-system
-store, which the port does not have yet.
+draining a queue), ``MemoryAuditWriter``, the JSON-lines
+``FileAuditWriter`` of the file-system store (``audit=True`` writes
+``<root>/_queries.jsonl``) and ``observe_query``.
 """
 
 from __future__ import annotations
 
 import atexit
 import json
+import os
 import queue
 import threading
 import time
@@ -117,6 +118,27 @@ class MemoryAuditWriter(AuditWriter):
 
     def _write(self, event: AuditedEvent) -> None:
         self.events.append(event)
+
+
+class FileAuditWriter(AuditWriter):
+    """JSONL audit file -- the ``<catalog>_queries`` table analog."""
+
+    def __init__(self, path: str):
+        super().__init__()
+        self.path = path
+        # serializes appends: one un-torn line per event
+        self._flock = threading.Lock()
+
+    def _write(self, event: AuditedEvent) -> None:
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        with self._flock, open(self.path, "a") as fh:
+            fh.write(event.to_json() + "\n")
+
+    def read_events(self) -> list:
+        if not os.path.exists(self.path):
+            return []
+        with open(self.path) as fh:
+            return [AuditedEvent(**json.loads(line)) for line in fh if line.strip()]
 
 
 def observe_query(store, type_name, plan, t0, t1, t2, result, audit_writer):

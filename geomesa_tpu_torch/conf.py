@@ -3,9 +3,13 @@
 Counterpart of ``geomesa_tpu/conf.py``, trimmed to the keys of the device
 query scheduler (``sched.*``), the launch watchdog and circuit breaker
 (``resilience.*``), the loose-bbox default of the resident index
-(``query.loose.bbox``), the store planner's range budget, feature cap
-and full-table guard (``scan.ranges.target``, ``query.max.features``,
-``query.block.full.table``), the memtable size that hints a streaming
+(``query.loose.bbox``), the store planner's range budget, feature cap,
+full-table guard and wall-clock budget (``scan.ranges.target``,
+``query.max.features``, ``query.block.full.table``, ``query.timeout``,
+with :class:`QueryTimeout`), the file-system store's durability and
+chunk-format keys (``store.*``, reference lines 14-66 and 410-449), its
+host-I/O pipeline (``io.*``) and snapshot-pin lifetime
+(``snapshot.pin.ttl.s``), the memtable size that hints a streaming
 index's capacity (``stream.memtable.rows``), the spatial join engine's
 keys (``join.*``, reference lines 201-241, 351-385 and 526-541) and the
 BIN encoder's engine (``results.bin.engine``). Each key has a
@@ -23,6 +27,20 @@ from contextlib import contextmanager
 
 def _parse_bool(v) -> bool:
     return str(v).strip().lower() in ("true", "1", "t", "yes", "on")
+
+
+def _parse_verify(v) -> str:
+    s = str(v).strip().lower()
+    if s not in ("off", "open", "always"):
+        raise ValueError(f"store.verify must be off, open or always, not {v!r}")
+    return s
+
+
+def _parse_format(v) -> int:
+    n = int(v)
+    if n not in (1, 2):
+        raise ValueError(f"store.format.version must be 1 or 2, not {v!r}")
+    return n
 
 
 def _parse_choice(key: str, choices: tuple):
@@ -60,6 +78,31 @@ _DEFS = {
     "scan.ranges.target": (2000, int),
     "query.max.features": (0, int),
     "query.block.full.table": (False, _parse_bool),
+    "query.timeout": (0, int),  # ms a query may take; 0 = unlimited
+    # host-I/O prefetch pipeline (store/prefetch.py): decode threads (0 =
+    # serial), items in flight (0 = 2 x workers), the decoded queue's byte
+    # budget (0 = off), and the transient-read retries with their doubling
+    # backoff and its cumulative cap
+    "io.workers": (4, int),
+    "io.readahead": (0, int),
+    "io.queue.bytes": (256 << 20, int),
+    "io.retries": (2, int),
+    "io.backoff.ms": (25.0, float),
+    "io.backoff.cap.ms": (1000.0, float),
+    # the file-system store (store/fs.py): checksum verification (off,
+    # open: every file at open, always: every read), fsync of what a flush
+    # publishes, the manifest format a flush writes (2: chunks with
+    # statistics), rows per chunk, the chunks' coarse density grid and the
+    # aggregation pushdown
+    "store.verify": ("off", _parse_verify),
+    "store.fsync": (True, _parse_bool),
+    "store.format.version": (2, _parse_format),
+    "store.chunk.rows": (1 << 16, int),
+    "store.chunk.grid": (64, int),
+    "store.chunk.pushdown": (True, _parse_bool),
+    # how long an untouched snapshot pin keeps its generation from the
+    # file-system store's garbage collection
+    "snapshot.pin.ttl.s": (300.0, float),
     # answer bbox(+during) queries straight from the index key at cell
     # granularity when a call passes loose=None (ref geomesa.loose.bbox)
     "query.loose.bbox": (False, _parse_bool),
@@ -130,3 +173,7 @@ def prop_override(name: str, value):
             clear_prop(name)
         else:
             _overrides[name] = prev
+
+
+class QueryTimeout(RuntimeError):
+    """Raised when a query exceeds the ``query.timeout`` budget."""

@@ -1,13 +1,25 @@
 """Named fault-injection points of the serving path.
 
 Counterpart of ``geomesa_tpu/failpoints.py``, trimmed to the evaluation
-and arming helpers. The port evaluates two points:
+and arming helpers (reference lines 14-40 and 136-). The port evaluates:
 
 - ``fail.sched.worker``  -- a scheduler worker about to execute a claimed
                             group; ``raise`` simulates a worker crash (its
                             requests must fail typed, never hang or vanish)
 - ``fail.device.launch`` -- a fused resident launch about to dispatch;
                             ``raise`` simulates a launch failure
+- ``fail.stage.oom``     -- a store run's column staging; a raise is
+                            treated as an OOM (the run halves)
+- ``fail.flush.after_write``    -- the file-system store's new-generation
+                                   partition files are written and
+                                   checksummed, nothing is published
+- ``fail.flush.before_publish`` -- the manifest is about to publish
+- ``fail.flush.after_publish``  -- the manifest is published, the old
+                                   generation not yet collected
+- ``fail.read.io``       -- a partition file is about to be read
+                            (transient: the prefetch retry path)
+- ``fail.read.corrupt``  -- a partition read reports a checksum mismatch
+                            (exercises the quarantine)
 
 Activation: programmatic (``set_failpoint`` / ``failpoint_override``) or
 the ``GEOMESA_TPU_FAILPOINTS`` environment variable, a comma-separated

@@ -2,7 +2,9 @@
 
 Copy of ``geomesa_tpu/features/batch.py``, trimmed to what the port uses:
 ``from_columns``, ``concat``, ``column``, ``point_coords``, ``bboxes``,
-``take``, ``__len__`` and the reserved visibility column. Column conventions are
+``take``, ``__len__`` and the reserved visibility column. The counterpart's
+``to_arrow``/``from_arrow`` have theirs in ``store/partfile.py``, the
+file-system store's codec. Column conventions are
 the counterpart's:
 
 - Point geometry  -> (n, 2) float64 array [x, y]

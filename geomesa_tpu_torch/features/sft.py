@@ -1,8 +1,8 @@
 """SimpleFeatureType: schema model + GeoMesa spec-string parser.
 
 Copy of ``geomesa_tpu/features/sft.py``, trimmed to what the port uses
-(spec parsing, descriptors, ``geom_field``/``dtg_field``,
-``z3_interval``, ``xz_precision``). Grammar follows GeoMesa's
+(spec parsing and re-serialization, ``spec``, descriptors,
+``geom_field``/``dtg_field``, ``z3_interval``, ``xz_precision``). Grammar follows GeoMesa's
 SimpleFeatureTypes.createType:
 
     "name:String,age:Int,dtg:Date,*geom:Point:srid=4326;geomesa.z3.interval=week"
@@ -17,6 +17,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+
+
+def _escape(v: str) -> str:
+    """Escape user-data values for the comma-delimited spec string."""
+    return v.replace("\\", "\\\\").replace(",", "\\,")
 
 
 def _unescape(v: str) -> str:
@@ -213,3 +218,17 @@ class SimpleFeatureType:
                 AttributeDescriptor(name, canonical, options, default_geom)
             )
         return SimpleFeatureType(type_name, tuple(attrs), user_data)
+
+    @property
+    def spec(self) -> str:
+        """Re-serialize to a spec string (round-trips create())."""
+        parts = []
+        for a in self.attributes:
+            s = ("*" if a.default_geom else "") + f"{a.name}:{a.type_name}"
+            for k, v in a.options.items():
+                s += f":{k}={v}"
+            parts.append(s)
+        out = ",".join(parts)
+        if self.user_data:
+            out += ";" + ",".join(f"{k}={_escape(str(v))}" for k, v in self.user_data.items())
+        return out

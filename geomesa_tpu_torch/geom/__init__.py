@@ -11,7 +11,7 @@ from geomesa_tpu_torch.geom.base import (
     Polygon,
 )
 from geomesa_tpu_torch.geom.predicates import points_in_polygon, polygon_edges
-from geomesa_tpu_torch.geom.wkt import parse_wkt
+from geomesa_tpu_torch.geom.wkt import parse_wkt, to_wkt
 
 __all__ = [
     "Envelope",
@@ -25,4 +25,5 @@ __all__ = [
     "parse_wkt",
     "points_in_polygon",
     "polygon_edges",
+    "to_wkt",
 ]

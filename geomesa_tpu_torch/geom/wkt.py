@@ -1,6 +1,8 @@
 """Minimal WKT reader for ECQL geometry literals.
 
-Copy of ``geomesa_tpu/geom/wkt.py`` (reader half). Supports POINT,
+Copy of ``geomesa_tpu/geom/wkt.py``: the reader, and ``to_wkt``, the
+writer the file-system store's codec stores non-point geometries with
+(10 significant digits, as the counterpart writes them). Supports POINT,
 LINESTRING, POLYGON, MULTIPOINT, MULTILINESTRING, MULTIPOLYGON and
 GeoTools' ENVELOPE(x1, x2, y1, y2) extension (argument order xmin, xmax,
 ymin, ymax).
@@ -127,3 +129,31 @@ def parse_wkt(s: str) -> Geometry | Envelope:
         tk.expect(")")
         return Envelope(x1, y1, x2, y2)
     raise ValueError(f"unsupported WKT type {tag!r}")
+
+
+def _fmt(v: float) -> str:
+    return f"{v:.10g}"
+
+
+def _seq_wkt(coords: np.ndarray) -> str:
+    return "(" + ", ".join(f"{_fmt(x)} {_fmt(y)}" for x, y in coords) + ")"
+
+
+def to_wkt(g) -> str:
+    if isinstance(g, Point):
+        return f"POINT ({_fmt(g.x)} {_fmt(g.y)})"
+    if isinstance(g, LineString):
+        return "LINESTRING " + _seq_wkt(g.coords)
+    if isinstance(g, Polygon):
+        return "POLYGON (" + ", ".join(_seq_wkt(r) for r in g.rings()) + ")"
+    if isinstance(g, MultiPoint):
+        return "MULTIPOINT (" + ", ".join(f"({_fmt(p.x)} {_fmt(p.y)})" for p in g.points) + ")"
+    if isinstance(g, MultiLineString):
+        return "MULTILINESTRING (" + ", ".join(_seq_wkt(ln.coords) for ln in g.lines) + ")"
+    if isinstance(g, MultiPolygon):
+        return "MULTIPOLYGON (" + ", ".join(
+            "(" + ", ".join(_seq_wkt(r) for r in p.rings()) + ")" for p in g.polygons
+        ) + ")"
+    if isinstance(g, Envelope):
+        return f"ENVELOPE ({_fmt(g.xmin)}, {_fmt(g.xmax)}, {_fmt(g.ymin)}, {_fmt(g.ymax)})"
+    raise TypeError(f"cannot write WKT for {type(g)}")

@@ -2,9 +2,9 @@
 
 Copy of ``geomesa_tpu/index/api.py`` (ref: geomesa-index-api
 GeoMesaFeatureIndex and IndexKeySpace), trimmed to what the memory
-store's planner and runner read: ``KeyRange``, ``PartitionMeta`` (without
-the file-system store's leaf, checksum, chunk statistics and generation)
-and ``BuiltIndex`` with ``prune``. The mesh's ``ShardMeta`` is left out.
+stores' planner and runner read: ``KeyRange``, ``PartitionMeta`` (with the
+file-system store's leaf, checksum, chunk statistics and generation) and
+``BuiltIndex`` with ``prune``. The mesh's ``ShardMeta`` is left out.
 """
 
 from __future__ import annotations
@@ -35,6 +35,16 @@ class PartitionMeta:
     count: int
     bbox: "tuple[float, float, float, float] | None" = None
     time_range: "tuple[int, int] | None" = None
+    leaf: "str | None" = None  # fs partition-scheme directory leaf
+    #: the partition FILE's integrity record (fs stores only): {"algo",
+    #: "value", "length"}, written at flush, verified per store.verify
+    checksum: "dict | None" = None
+    #: format v2 chunk statistics (store/chunkstats.ChunkSet; fs stores
+    #: only); None = a v1 partition
+    chunks: "object | None" = None
+    #: the file generation that wrote this partition (fs stores only):
+    #: a scan over a pre-flush snapshot reads ITS generation's file
+    gen: "str | None" = None
 
     def overlaps(self, r: KeyRange) -> bool:
         return not (r.hi < self.key_lo or r.lo > self.key_hi)

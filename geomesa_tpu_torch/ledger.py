@@ -27,6 +27,11 @@ FIELDS = (
     "fusion_width",  # widest fused launch this request rode (max)
     "join_candidates",  # candidate pairs expanded by join refinement
     "join_pairs",  # pairs this request's spatial joins emitted
+    "read_bytes",  # partition-file bytes read for this request
+    "read_seconds",  # host read time (prefetch workers included)
+    "decode_seconds",  # partition-file bytes to FeatureBatch decode time
+    "chunks_read",  # v2 chunks actually read
+    "chunks_pruned",  # v2 chunks skipped before read/decode
 )
 
 #: fields folded with max() instead of sum()

@@ -7,7 +7,10 @@ wait time, queries, launches, fused queries, rejections, expirations,
 worker failures, drains and watchdog timeouts; the streaming index's
 delta refreshes by mode; the spatial join engine's counters and
 histograms and the device BIN pack's launches (reference lines 644-697);
-the store path's queries, query latency and OOM recoveries. The Prometheus exposition
+the store path's queries, query latency and OOM recoveries; the
+file-system store's host I/O (``io_*``), generations, recovery sweeps,
+checksums and quarantines (``store_*``) and its aggregation pushdown
+(``agg_pushdown_*``, reference lines 280-380). The Prometheus exposition
 and every other family of the counterpart are left out.
 """
 
@@ -50,6 +53,14 @@ class Gauge(_Metric):
     def set(self, v: float, **labels) -> None:
         with self._lock:
             self._values[self.labels(**labels)] = float(v)
+
+    def inc(self, amount: float = 1.0, **labels) -> None:
+        key = self.labels(**labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels) -> None:
+        self.inc(-amount, **labels)
 
     def value(self, **labels) -> float:
         return self._values.get(self.labels(**labels), 0.0)
@@ -172,3 +183,59 @@ query_seconds = REGISTRY.histogram(
 resilience_oom_recoveries = REGISTRY.counter(
     "geomesa_resilience_oom_recoveries_total",
     "staging/HBM OOMs recovered by halving the scan batch")
+
+# the file-system store's host-I/O pipeline (store/prefetch.py, store/fs.py):
+# read and decode time per file, read-ahead depth, queue bytes, bytes read
+io_read_seconds = REGISTRY.histogram(
+    "geomesa_io_read_seconds", "partition file read time (per file)")
+io_decode_seconds = REGISTRY.histogram(
+    "geomesa_io_decode_seconds", "partition bytes to FeatureBatch decode time (per file)")
+io_prefetch_depth = REGISTRY.gauge("geomesa_io_prefetch_depth", "prefetch items in flight")
+io_queue_bytes = REGISTRY.gauge(
+    "geomesa_io_queue_bytes", "decoded bytes waiting in the prefetch queue")
+io_chunks = REGISTRY.counter(
+    "geomesa_io_chunks_total", "items delivered by the prefetch pipeline")
+io_bytes_read = REGISTRY.counter(
+    "geomesa_io_bytes_read_total", "partition file bytes read from disk")
+
+# the crash-consistent file-system store (store/fs.py): generations
+# published, what the recovery sweep reclaimed, checksum failures and the
+# partitions they quarantined, transient-read retries, chunk-stat drift
+store_generations = REGISTRY.counter(
+    "geomesa_store_generations_published_total",
+    "partition-file generations atomically published by flushes")
+store_orphan_files = REGISTRY.counter(
+    "geomesa_store_orphan_files_reclaimed_total",
+    "orphaned partition/tmp files reclaimed by the recovery sweep")
+store_orphan_bytes = REGISTRY.counter(
+    "geomesa_store_orphan_bytes_reclaimed_total", "bytes reclaimed by the recovery sweep")
+store_checksum_failures = REGISTRY.counter(
+    "geomesa_store_checksum_failures_total", "partition files that failed checksum verification")
+store_quarantined = REGISTRY.gauge(
+    "geomesa_store_partitions_quarantined",
+    "partitions quarantined by checksum failures (summed over store objects)")
+store_read_retries = REGISTRY.counter(
+    "geomesa_store_read_retries_total", "transient partition-read retries by the prefetch workers")
+store_chunks_read = REGISTRY.counter(
+    "geomesa_store_chunks_read_total", "v2 partition chunks read by chunk-selective reads")
+store_chunks_skipped = REGISTRY.counter(
+    "geomesa_store_chunks_skipped_total", "v2 partition chunks pruned before read/decode")
+store_chunk_bytes_skipped = REGISTRY.counter(
+    "geomesa_store_chunk_bytes_skipped_total", "partition-file bytes skipped by chunk pruning")
+store_chunk_stat_drift = REGISTRY.counter(
+    "geomesa_store_chunk_stat_drift_total",
+    "chunk-stat records that disagreed with decoded rows (verify_chunk_stats)")
+
+# aggregation pushdown (store/pushdown.py): aggregates answered from chunk
+# pre-aggregates by kind, fallbacks to the row scan, interior rows never
+# read, boundary chunks refined by the filter scan
+agg_pushdown_queries = REGISTRY.counter(
+    "geomesa_agg_pushdown_queries_total", "aggregate queries answered from chunk pre-aggregates")
+agg_pushdown_fallbacks = REGISTRY.counter(
+    "geomesa_agg_pushdown_fallback_total", "aggregate queries that fell back to the row scan")
+agg_pushdown_rows = REGISTRY.counter(
+    "geomesa_agg_pushdown_rows_preaggregated_total",
+    "rows answered from interior-chunk summaries without being read")
+agg_pushdown_chunks_refined = REGISTRY.counter(
+    "geomesa_agg_pushdown_chunks_refined_total",
+    "boundary chunks that descended to row-level refinement")

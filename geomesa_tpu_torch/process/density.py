@@ -9,10 +9,15 @@ store query materializes the matched batch and the grid accumulates from
 its coordinates -- on the card through the same density kernel with no
 mask, or on the host in numpy.
 
+Stores with chunk pre-aggregates (the file-system store's partition
+format v2) answer unweighted bbox+time densities without auths from the
+manifest's coarse per-chunk histograms (``store.density_pushdown``:
+interior chunks prorated, boundary chunks refined through the filter
+scan; total mass exact, placement within coarse-cell tolerance);
+``hints={"agg.pushdown": False}`` forces the row-scan path.
+
 ``query`` is a ``Query`` (whose ``auths`` hint wins), an ECQL string or
-a filter AST. Not ported: the chunk pre-aggregate pushdown
-(``store.density_pushdown``), a feature of the file-system store, which
-the port does not have yet.
+a filter AST.
 """
 
 from __future__ import annotations
@@ -76,6 +81,13 @@ def density(
         if grid is not None:
             return grid
         # filter or planes not resident: fall through to the store path
+    pushed = getattr(store, "density_pushdown", None)
+    if pushed is not None and weight_attr is None and not auths:
+        pd_query = query if isinstance(query, Query) else Query(filter=filt)
+        grid = pushed(type_name, pd_query, envelope, width, height)
+        if grid is not None:
+            return grid
+        # chunk stats cannot decide this query: the exact row-scan path
     # a caller's full Query keeps all its attributes and hints on the store
     # path, with the resolved auths merged in
     if isinstance(query, Query):

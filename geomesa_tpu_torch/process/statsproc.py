@@ -1,8 +1,11 @@
 """Stat-DSL aggregation over query results.
 
 Counterpart of ``geomesa_tpu/process/statsproc.py`` (ref: geomesa-process
-StatsProcess and the StatsIterator). The file-system store's chunk
-pre-aggregate pushdown (``store.stats_pushdown``) is not in the port.
+StatsProcess and the StatsIterator). On a store with chunk pre-aggregates
+(the file-system store's partition format v2), Count/MinMax specs with
+bbox+time filters and no auths merge the manifest's per-chunk partials
+(``store.stats_pushdown``; exact, boundary chunks refined through the
+filter scan) instead of materializing the matched rows.
 """
 
 from __future__ import annotations
@@ -27,6 +30,17 @@ def run_stats(
 
         filt, auths = _split_query(query, auths)
         return device_index.stats(filt, stat_spec, auths=auths)
+    pushed = getattr(store, "stats_pushdown", None)
+    if pushed is not None and not auths:
+        from geomesa_tpu_torch.process.density import _split_query
+        from geomesa_tpu_torch.query.plan import Query
+
+        filt, q_auths = _split_query(query, auths)
+        if not q_auths:
+            pd_query = query if isinstance(query, Query) else Query(filter=filt)
+            seq = pushed(type_name, pd_query, stat_spec)
+            if seq is not None:
+                return seq
     seq = parse_stat(stat_spec)
     res = store.query(type_name, query)
     seq.observe_batch(res.batch)

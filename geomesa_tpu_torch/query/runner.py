@@ -60,12 +60,17 @@ def _contiguous_runs(parts) -> "list[tuple[int, int]]":
     return [(a, b) for a, b in runs]
 
 
-def run_query(built: BuiltIndex, plan: QueryPlan, device) -> QueryResult:
-    """Scan ``built`` for ``plan``, staging each run onto ``device``."""
+def run_query(built: BuiltIndex, plan: QueryPlan, device,
+              defer_visibility: bool = False) -> QueryResult:
+    """Scan ``built`` for ``plan``, staging each run onto ``device``.
+    ``defer_visibility`` leaves the visibility filter to the caller: the
+    file-system store's per-partition scans set it and apply the query's
+    auths once, after the merge. It is an argument, never a query hint,
+    so no caller-supplied query can switch visibility off."""
     from geomesa_tpu_torch.tracing import span
 
     with span("query.scan") as sp:
-        res = _run_query(built, plan, device)
+        res = _run_query(built, plan, device, defer_visibility)
         sp.set(scanned=res.scanned, hits=len(res))
         return res
 
@@ -122,7 +127,8 @@ def _scan_run(built, compiled, device, start: int, stop: int,
         raise
 
 
-def _run_query(built: BuiltIndex, plan: QueryPlan, device) -> QueryResult:
+def _run_query(built: BuiltIndex, plan: QueryPlan, device,
+               defer_visibility: bool) -> QueryResult:
     parts = built.prune(plan.ranges)
     compiled = plan.compiled
     n_scanned = sum(p.count for p in parts)
@@ -146,20 +152,23 @@ def _run_query(built: BuiltIndex, plan: QueryPlan, device) -> QueryResult:
         rows = np.concatenate(hit_chunks)
     else:
         rows = np.array([], dtype=np.int64)
-    result = _post_process(built.batch.take(rows), plan)
+    result = _post_process(built.batch.take(rows), plan, defer_visibility)
     return QueryResult(result, plan, n_scanned, built.n)
 
 
-def _post_process(batch: FeatureBatch, plan: QueryPlan) -> FeatureBatch:
+def _post_process(batch: FeatureBatch, plan: QueryPlan,
+                  defer_visibility: bool = False) -> FeatureBatch:
     """visibility / sort / max-features / projection (ref
     LocalQueryRunner + Accumulo cell-visibility filtering)."""
     q = plan.query
     # a labeled feature is hidden unless the query's auths satisfy it,
-    # including when no auths were supplied at all. raw_visibility is the
+    # including when no auths were supplied at all. Per-partition scans
+    # (the fs store) defer this to the outer, global post-process, so the
+    # real auths are the ones applied. raw_visibility is the
     # resident index's staging escape hatch: it stages every row with a
     # label-id plane and enforces visibility per request itself; it must
     # never be set on a user-facing query.
-    if not q.hints.get("raw_visibility"):
+    if not defer_visibility and not q.hints.get("raw_visibility"):
         from geomesa_tpu_torch.security import filter_by_visibility
 
         m = filter_by_visibility(batch, q.hints.get("auths", ()))

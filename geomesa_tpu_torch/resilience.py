@@ -6,9 +6,11 @@ query scheduler uses: :class:`LaunchStuckError`, :func:`enabled`,
 :class:`CircuitBreaker` with the process-wide :func:`device_breaker`, and
 the per-request degradation collector that crosses to worker threads
 (:func:`collect_degraded`, :func:`capture_degraded`,
-:func:`attach_degraded`, :func:`note_degraded`). The fault taxonomy, the
-retries, the keyed partition breakers and brownout belong to the store
-path and the server, which the port does not have yet.
+:func:`attach_degraded`, :func:`note_degraded`), the file-system store's
+partition-scoped :class:`PartitionUnavailableError` and the jittered
+:func:`backoff_sleeps` of its read retries. The fault taxonomy, the
+serving retries, the keyed partition breakers and brownout belong to the
+server, which the port does not have yet.
 
 The breaker is ``closed`` until ``resilience.breaker.failures`` failures
 in a row, then ``open`` (callers skip the domain) for
@@ -19,12 +21,14 @@ through; its success closes the breaker, its failure opens it again.
 from __future__ import annotations
 
 import contextvars
+import random
 import threading
 import time
 from contextlib import contextmanager
 
 __all__ = [
-    "CircuitBreaker", "LaunchStuckError", "attach_degraded", "breaker",
+    "CircuitBreaker", "LaunchStuckError", "PartitionUnavailableError",
+    "attach_degraded", "backoff_sleeps", "breaker",
     "capture_degraded", "collect_degraded", "device_breaker",
     "enabled", "is_oom", "note_degraded", "reset",
 ]
@@ -34,6 +38,37 @@ class LaunchStuckError(RuntimeError):
     """A device launch exceeded the watchdog budget: the request fails so
     its submitter unblocks; the wedged worker thread is abandoned and
     replaced (a launch cannot be cancelled mid-flight)."""
+
+
+class PartitionUnavailableError(RuntimeError):
+    """Reads of ONE partition failed (retries exhausted, or its checksum
+    quarantined it): a partition-scoped, typed fault naming what is
+    unreachable, never an anonymous pipeline teardown."""
+
+    def __init__(self, type_name: str, pid, cause: str):
+        super().__init__(f"dataset {type_name!r} partition {pid} is unavailable: {cause}")
+        self.type_name = type_name
+        self.pid = pid
+
+
+_rng = random.Random()
+
+
+def backoff_sleeps(retries: int, base_ms: float, cap_ms: float):
+    """Yield jittered exponential backoff sleeps (seconds): the k-th is
+    ``base * 2^k`` scaled by a uniform [0.5, 1.5) factor. ``cap_ms > 0``
+    bounds the cumulative sleep: the generator stops once it is spent."""
+    total = 0.0
+    base = max(float(base_ms), 0.0)
+    for attempt in range(max(int(retries), 0)):
+        d = base * (1 << attempt) * (0.5 + _rng.random())
+        # d == 0 (immediate retries) spends no budget; the count bounds it
+        if cap_ms > 0 and d > 0:
+            d = min(d, cap_ms - total)
+            if d <= 0:
+                return
+        total += d
+        yield d / 1e3
 
 
 def enabled() -> bool:

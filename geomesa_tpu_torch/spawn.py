@@ -8,7 +8,10 @@ collector (``ledger.py``) and its degradation collector
 (``resilience.py``). ``spawn_thread`` captures them on the spawning thread
 and attaches them around the target; ``context=False`` declares a
 service thread (the scheduler's workers and watchdog), a loop that
-outlives any request and attaches each work item's context itself. The
+outlives any request and attaches each work item's context itself.
+:class:`ContextPool` is the ``ThreadPoolExecutor`` counterpart (reference
+line 151): each ``submit`` captures the submitter's set, as the
+file-system store's flush writers and prefetch workers need. The
 counterpart's compile scope and runtime context checker measure XLA
 compiles; the port has no compiler, and carries neither.
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-__all__ = ["RequestContext", "spawn_thread"]
+__all__ = ["ContextPool", "RequestContext", "spawn_thread"]
 
 
 class RequestContext:
@@ -68,3 +71,43 @@ def spawn_thread(target, *, name: str, args=(), kwargs=None, daemon: bool = True
 
     return threading.Thread(target=run, args=tuple(args), kwargs=dict(kwargs) if kwargs else {},
                             name=name, daemon=daemon)
+
+
+def _carry(fn, ctx):
+    if ctx is None:
+        return fn
+
+    def run(*a, **kw):
+        with ctx.attach():
+            return fn(*a, **kw)
+
+    return run
+
+
+class ContextPool:
+    """The ``ThreadPoolExecutor`` drop-in: ``submit`` captures the
+    submitting thread's context set per call and attach it around the
+    worker-side run; ``context=False`` builds a plain pool. Supports the
+    executor context-manager protocol; ``shutdown`` passes through."""
+
+    __slots__ = ("_ex", "_context")
+
+    def __init__(self, max_workers: int, thread_name_prefix: str = "", context: bool = True):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._ex = ThreadPoolExecutor(
+            max_workers=max_workers, thread_name_prefix=thread_name_prefix or "geomesa-pool")
+        self._context = context
+
+    def submit(self, fn, /, *args, **kwargs):
+        ctx = RequestContext.capture() if self._context else None
+        return self._ex.submit(_carry(fn, ctx), *args, **kwargs)
+
+    def shutdown(self, wait: bool = True, cancel_futures: bool = False):
+        self._ex.shutdown(wait=wait, cancel_futures=cancel_futures)
+
+    def __enter__(self) -> "ContextPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown(wait=True)

@@ -3,8 +3,10 @@ import neither JAX nor the JAX package (also on a non-point xz2 workload,
 the store path through ``DataStoreFinder`` and ``MemoryDataStore`` with a
 resident index staged from it, the kNN, tube and proximity processes,
 ``run_stats``, a scheduler run with fused groups, a streaming index, a join
-and a BIN request), and entry points never fall back to the CPU on their
-own."""
+and a BIN request, and the file-system store: writes, flushes under a
+partition scheme, queries, the pushdowns, a reopen with verification), none
+of them loads ``pyarrow`` either, and entry points never fall back to the
+CPU on their own."""
 
 import os
 import re
@@ -144,10 +146,27 @@ assert len(pairs) == len(lb) > 0
 bq = "BBOX(geom, -10, -10, 30, 30)"
 assert resident_bin(di, bq, "count", sort=True) == di.bin_rider(bq, "count", sort=True)
 assert len(sdi.bin_rider(bq, "count")) == 16 * sdi.count(bq)
+import tempfile
+from geomesa_tpu_torch.conf import prop_override
+from geomesa_tpu_torch.process.statsproc import run_stats as fs_stats
+root = tempfile.mkdtemp()
+fds = DataStoreFinder.get_data_store({"fs.path": root, "device": "cpu"})
+fds.create_schema("t", "count:Int,dtg:Date,*geom:Point:srid=4326;geomesa.fs.partition-scheme=daily:z2-2bit")
+with prop_override("store.chunk.rows", 16):
+    fds.write("t", {k: v for k, v in cols.items() if k != VIS_COLUMN})
+    assert fds.get_feature_source("t").get_count(q) == di.count(q) == fds.count("t", q)
+assert fds.verify_chunk_stats("t") == [] and fds.verify_partitions("t") == []
+assert density(fds, "t", Query(q), Envelope(-50, -50, 50, 50), 8, 8, device="cpu").sum() > 0
+assert fs_stats(fds, "t", Query(q), 'Count();MinMax("count")').to_json()[0]["count"] == di.count(q)
+with prop_override("store.verify", "always"):
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+    again = FileSystemDataStore(root, device="cpu")
+    assert len(again.query("t", q)) == di.count(q)
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
+             or m == "geomesa_tpu" or m.startswith("geomesa_tpu.")
+             or m == "pyarrow" or m.startswith("pyarrow."))
 print("LOADED", bad)
 """
 
@@ -181,6 +200,24 @@ def test_the_scan_covers_the_store_modules():
                 "query/runner.py", "store/memory.py", "store/ageoff.py", "stats/sketches.py",
                 "process/statsproc.py"):
         assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+def test_the_scan_covers_the_fs_store_modules():
+    for rel in ("locking.py", "store/fs.py", "store/partfile.py", "store/partitions.py",
+                "store/chunkstats.py", "store/prefetch.py", "store/pushdown.py",
+                "store/snapshot.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+_PYARROW = re.compile(r"^\s*(import\s+pyarrow\b|from\s+pyarrow\b)|\bpyarrow\.", re.M)
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_imports_no_pyarrow(path):
+    """The card's host has no ``pyarrow``: no port module (nor the chip
+    script) imports it."""
+    hits = [m.group(0) for m in _PYARROW.finditer((ROOT / path).read_text())]
+    assert not hits, f"{path}: {hits}"
 
 
 def test_the_scan_covers_the_scheduler_modules():
@@ -235,6 +272,19 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mds.query("t", "BBOX(geom, -1, -1, 1, 1)")
     assert density(store, "t", "INCLUDE", Envelope(-1, -1, 1, 1), 4, 4, device="cpu").sum() == 4
+
+
+def test_the_fs_store_refuses_the_cpu_unless_asked(monkeypatch, tmp_path):
+    from geomesa_tpu_torch.api import DataStoreFinder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fds = DataStoreFinder.get_data_store({"fs.path": str(tmp_path)})
+    fds.create_schema("t", "count:Int,*geom:Point:srid=4326")
+    fds.write("t", {"count": [1, 2, 3, 4], "geom": np.zeros((4, 2))})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fds.query("t", "BBOX(geom, -1, -1, 1, 1)")
+    cpu = DataStoreFinder.get_data_store({"fs.path": str(tmp_path), "device": "cpu"})
+    assert cpu.get_feature_source("t").get_count("BBOX(geom, -1, -1, 1, 1)") == 4
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

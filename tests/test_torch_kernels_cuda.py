@@ -1189,3 +1189,44 @@ def test_store_run_mask_matches_plain(stores, ecql):
     assert got.scanned == want.scanned
     if ecql == "count > 50":
         assert runs == [(0, (1 << 20) + 17)]
+
+
+# -- the file-system store: one mask launch per surviving partition ------------
+
+
+@pytest.mark.parametrize("scheme", [None, "daily:z2-2bit"], ids=["no-scheme", "daily-z2"])
+def test_fs_store_query_launches_once_per_partition(dev, tmp_path, scheme):
+    """The same 2^20 + 17 rows in a FileSystemDataStore scanning on the card
+    and one on the CPU: a bbox+during query launches ``filter_scan_mask``
+    once per surviving partition and answers as the CPU does; the count
+    pushdown's boundary chunks launch it too."""
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+
+    n = (1 << 20) + 17
+    rng = np.random.default_rng(6)
+    cols = {
+        "count": rng.integers(0, 100, n),
+        "dtg": rng.integers(T0, T0 + 20 * 86400_000, n),
+        "geom": rng.uniform(-60, 60, (n, 2)).astype(np.float32).astype(np.float64),
+    }
+    spec = "count:Int,dtg:Date,*geom:Point:srid=4326"
+    if scheme:
+        spec += f";geomesa.fs.partition-scheme={scheme}"
+    card = FileSystemDataStore(str(tmp_path / "fs"), partition_size=1 << 18, device=dev)
+    card.create_schema("t", spec)
+    card.write("t", cols)
+    card.flush("t")
+    cpu = FileSystemDataStore(str(tmp_path / "fs"), partition_size=1 << 18, device="cpu")
+    ecql = STORE_FILTERS[0]
+    parts = card._pruned_parts("t", card.plan("t", ecql))
+    kernels.reset_counts()
+    got = card.query("t", ecql)
+    assert kernels.LAUNCHES["filter_scan_mask"] == len(parts) >= 1
+    assert not any(kernels.DEVICE_FN_CALLS.values())
+    assert sum(v for k, v in kernels.LAUNCHES.items() if k != "filter_scan_mask") == 0
+    want = cpu.query("t", ecql)
+    np.testing.assert_array_equal(got.batch.fids, want.batch.fids)
+    assert got.scanned == want.scanned
+    kernels.reset_counts()
+    assert card.count("t", ecql) == len(want)
+    assert kernels.LAUNCHES["filter_scan_mask"] >= 1

@@ -289,7 +289,7 @@ def test_audit_events_equal_the_reference():
     assert metrics.queries_run.value(store="memory", type="t") >= 2
 
 
-def test_data_store_finder_surface_equals_the_reference():
+def test_data_store_finder_surface_equals_the_reference(tmp_path):
     cols = _points(3001, seed=10)
     ds = DataStoreFinder.get_data_store({"memory": "true", "device": "cpu"})
     jds = JFinder.get_data_store({"memory": "true"})
@@ -310,7 +310,13 @@ def test_data_store_finder_surface_equals_the_reference():
     assert src.get_schema().type_name == "t"
     with pytest.raises(KeyError):
         ds.get_feature_source("nope")
-    for params, what in (({"fs.path": "/data"}, "file-system store"), ({"kv.catalog": "g"}, "key-value store"),
+    # the file-system store is in the port; the key-value and lambda
+    # stores are not yet
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+
+    fs = DataStoreFinder.get_data_store({"fs.path": str(tmp_path / "fs"), "device": "cpu"})
+    assert isinstance(fs._store, FileSystemDataStore) and fs.get_type_names() == []
+    for params, what in (({"kv.catalog": "g"}, "key-value store"),
                          ({"lambda.persistent": {}, "lambda.type": "t"}, "lambda store")):
         with pytest.raises(NotImplementedError, match=what):
             DataStoreFinder.get_data_store(params)
