@@ -60,8 +60,8 @@ Phases:
   3c. (run before 3b, while the main path's answers are held) the
      interleaved key layout on the same rows: the Z3 and Z2 indexes
      staged with dim_planes=False (every loose count, mask and fid set equal
-     to the dim-plane index's; loose density and stats), then the same
-     points with dtg over 2015-02-18 .. 2024-12-31 in day bins, which the
+     to the dim-plane index's; loose density and stats), then the first
+     2^25 of the points with dtg over 2015-02-18 .. 2024-12-31 in day bins, which the
      staging must put in the interleaved layout by itself (windows of 1 day
      to 8 weeks on the interleaved scan, longer ones on the filter scan;
      loose answers against numpy over host-encoded keys on a subsample,
@@ -126,9 +126,9 @@ Phases:
      serial, nothing is rejected or expired; per-request latency p50/p99
      (submit to the scheduler completing the request), requests/s
      and the fusion factor, fused and unfused;
-  3g. the streaming index: phase 3's first 2^24 rows staged into
-     StreamingDeviceIndex(z_planes=True, capacity=2^24 + stream.memtable.rows)
-     (capacity 2^25, dim planes), fed through attach_live: 64 Puts of 2^14
+  3g. the streaming index: phase 3's first 2^22 rows staged into
+     StreamingDeviceIndex(z_planes=True, capacity=2^22 + stream.memtable.rows)
+     (capacity 2^23, dim planes), fed through attach_live: 64 Puts of 2^14
      new rows, 64 Removes evicting 2^20 random fids, 16 Puts moving 2^12
      held rows to another city (p50/p99 of each, restages 1,
      delta_appends 80); then phase 3's 32 queries (count loose and exact,
@@ -142,7 +142,7 @@ Phases:
      z3, z2 and interleaved z2 streaming indexes; growth (capacity 2^22
      -> 2^24) and compaction (55% dead) at 2^22 rows, with their restage
      seconds. Every scan launch of a streaming drive read the validity
-     plane (``kernels.VALID_LAUNCHES``). On the fed 2^24-row index (part of
+     plane (``kernels.VALID_LAUNCHES``). On the fed 2^22-row index (part of
      phase 3h's drive): an envelope join of 16 city windows, again after one
      more append and one more eviction (each rebuilding the join layout for
      the new staged generation), each equal to numpy over the live rows,
@@ -154,11 +154,11 @@ Phases:
      sides are 263 zone envelopes (a seeded kd split of the extent, each
      widened by 0.002 degrees), 5 borough-like polygons of 32-64 vertices
      and 64 station points. Calls: the envelope join of every row against
-     the zones (once), the same gated by one day (twice) and by four
-     one-hour windows, window_pairs_query over the zones with a one-day
-     base filter (twice), an intersects join of the day against the
-     boroughs (twice) and a dwithin 0.003 degrees join of the day against
-     the stations (twice), all through spatial_join / DeviceIndex on the
+     the zones, the same gated by one day and by four one-hour windows,
+     window_pairs_query over the zones with a one-day base filter, an
+     intersects join of the day against the boroughs and a dwithin 0.003
+     degrees join of the day against the stations (each once, JOIN_REPEATS),
+     all through spatial_join / DeviceIndex on the
      device engine, with join.broadcast.windows at 8 (the boroughs
      broadcast; the stations and zones plan their runs). Envelope pairs
      equal a numpy oracle (a sorted-x searchsorted per zone, then an
@@ -200,14 +200,17 @@ Phases:
      2^16-row chunks (flush seconds, bytes on disk, write GB/s and host RSS
      printed; too little disk raises); on each type phase 3's 32 queries
      through store.query with the partition cache dropped (cold), then
-     get_count, get_features and store.query (warm) and the count
+     store.query (warm) and the count
      pushdown (warm, and cold: only the boundary chunks' blocks read), the
      full-table count > 500, phase 3's 9 density calls and one over a
      box on the coarse cells' edges through process.density and 4
      Count/MinMax stats calls through
      run_stats (both taking the pushdown), explain, verify_partitions and
-     verify_chunk_stats (both empty); then the root reopened under
-     store.verify=always and the 32 counts read cold. Counts and sorted
+     verify_chunk_stats (both empty); then (the z3 type only: a cut) the
+     root reopened under store.verify=always and the 32 counts read cold
+     through the feature source's get_count (get_count and get_features
+     drive store.query's scan, as 3i drives them on the same rows: cuts).
+     Counts and sorted
      fids against numpy and phase 3i's memory store, stats exact, each
      pushdown density grid equal to the same store's on the CPU with its
      mass against numpy (exact for the box on the cells' edges, else
@@ -217,6 +220,34 @@ Phases:
      refines, with no device_fn call; p50/p99 per call kind (cold and
      warm), partitions scanned, chunks read and pruned, the read and
      decode seconds beside the runner's stage, launch and device seconds;
+  3k. (inside 3j, after the z3 type's checks) the streaming live layer
+     over 3j's z3 type in place, its store object (2^26 rows, 64
+     partitions, fsync on):
+     StreamingStore with stream.run.rows 2^16, stream.memtable.rows 2^22
+     and wal.max.generations 16 (the daemon's due test held off: the
+     script picks the compaction's instant), a StreamingDeviceIndex
+     (capacity 2^27, dim planes) staged from the merged view and fed by
+     the delta listener; 64 acked appends of 2^14 fresh GDELT-shaped rows
+     (phase 3's generator on its city centres, another seed), each
+     refresh a delta and no restage; after 32 and 64 appends phase 3's 32
+     queries through the layer's count and query (fid sets) and the
+     index's exact and loose counts and loose mask, against numpy over
+     the base and the acked rows (loose: phase 3's numpy-checked base
+     counts plus numpy over the new rows' host dim planes), the
+     filter-scan launches equal to the surviving partitions, the
+     pushdown's refinements and the runs each plan touches, every index
+     launch reading the validity plane; an append at 16 runs shed (next
+     seq unchanged, no row visible); two process.density grids and a
+     run_stats with runs live (the pushdowns decline) against numpy;
+     compact_now beside a thread repeating the 32 counts (every answer
+     exact; afterwards no run, the manifest's wal_watermark the last
+     acked seq, one WAL segment left, the queries one launch a surviving
+     partition); the shed append retried and 15 more (2^18 rows), then
+     close(compact=False) and a reopen whose replay recovers exactly
+     those rows, the 32 queries equal to numpy again. Prints append (ack)
+     and delta-refresh p50/p99, merged count/query p50/p99 with 16 runs
+     live and with none, compaction and replay seconds, WAL bytes and
+     fsyncs, ingest rows/s (a {"stream_layer": ...} line);
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -1379,12 +1410,15 @@ def check_join_ops(dev):
 # -- phase 3: the main path ---------------------------------------------------
 
 
-def make_columns(n: int, seed: int) -> dict:
+def make_columns(n: int, seed: int, centers: "np.ndarray | None" = None) -> dict:
     """GDELT-shaped rows: 90% of points in 64 city clusters (sigma 0.2
-    degrees), the rest uniform; float32 coordinates; dtg over 60 days."""
+    degrees), the rest uniform; float32 coordinates; dtg over 60 days.
+    ``centers`` (64, 2) puts the clusters on given city centres."""
     rng = np.random.default_rng(seed)
     cx = rng.uniform(-170.0, 170.0, 64)
     cy = rng.uniform(-60.0, 70.0, 64)
+    if centers is not None:
+        cx, cy = centers[:, 0], centers[:, 1]
     cid = rng.integers(0, 64, n)
     x = cx[cid] + rng.normal(0.0, 0.2, n)
     y = cy[cid] + rng.normal(0.0, 0.2, n)
@@ -1570,21 +1604,37 @@ def np_loose(q, planes):
     return m
 
 
+def _spans(n: int, parts: int = 8) -> list:
+    """[a, b) row ranges splitting n rows into ``parts`` (one when empty)."""
+    step = max(-(-n // parts), 1)
+    return [(a, min(a + step, n)) for a in range(0, n, step)] or [(0, 0)]
+
+
 def host_z3_planes(cols, base=None):
     """(nx, ny, bt) uint32 dim planes from the host quantizer, the bt words
-    packed around ``base`` (default: the rows' least bin)."""
+    packed around ``base`` (default: the rows' least bin). Elementwise, so
+    it runs on 8 threads over row ranges and gives the same words."""
     from geomesa_tpu_torch.curves.binnedtime import to_binned_time
     from geomesa_tpu_torch.curves.z3 import Z3SFC
     from geomesa_tpu_torch.ops import zscan
 
     s3 = Z3SFC()
-    bins, off = to_binned_time(cols["dtg"], s3.period)
-    rel = (bins - int(bins.min() if base is None else base)).astype(np.uint32)
-    hx = s3.lon.normalize(cols["geom"][:, 0]).astype(np.uint32)
-    hy = s3.lat.normalize(cols["geom"][:, 1]).astype(np.uint32)
-    hbt = (rel << np.uint32(21)) | s3.time.normalize(off).astype(np.uint32)
-    hbt[rel >= zscan.BT_BIN_SPAN - 1] = 0xFFFFFFFF
-    return hx, hy, hbt
+    spans = _spans(len(cols["dtg"]))
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        binned = list(pool.map(lambda sp: to_binned_time(cols["dtg"][sp[0]:sp[1]], s3.period), spans))
+        lo = int(min(b.min() for b, _ in binned if len(b))) if base is None else int(base)
+
+        def planes(i):
+            (a, b), (bins, off) = spans[i], binned[i]
+            rel = (bins - lo).astype(np.uint32)
+            hx = s3.lon.normalize(cols["geom"][a:b, 0]).astype(np.uint32)
+            hy = s3.lat.normalize(cols["geom"][a:b, 1]).astype(np.uint32)
+            hbt = (rel << np.uint32(21)) | s3.time.normalize(off).astype(np.uint32)
+            hbt[rel >= zscan.BT_BIN_SPAN - 1] = 0xFFFFFFFF
+            return hx, hy, hbt
+
+        parts = list(pool.map(planes, range(len(spans))))
+    return tuple(np.concatenate([p[k] for p in parts]) for k in range(3))
 
 
 def check_main_path(cols, di3, di2, queries, z2_queries, res3, res2):
@@ -1728,21 +1778,26 @@ def run_density_path(di3, di2, queries):
 
 def np_density(x, y, sel, env, wh, weights=None) -> np.ndarray:
     """numpy density over float32 rows: float64 pixel math, then
-    np.bincount (float64 sums for weights)."""
+    np.bincount (float64 sums for weights), on 8 threads over row ranges
+    whose grids add up (counts exactly; weighted sums in another order,
+    which the weighted comparison's tolerance covers)."""
     w, h = wh
     idx = None if sel is None else np.nonzero(sel)[0]
-    xs = (x if idx is None else x[idx]).astype(np.float64)
-    ys = (y if idx is None else y[idx]).astype(np.float64)
     xmin, ymin, xmax, ymax = (float(v) for v in env)
     sx, sy = w / (xmax - xmin), h / (ymax - ymin)
-    inside = (xs >= xmin) & (xs <= xmax) & (ys >= ymin) & (ys <= ymax)
-    px = np.clip(np.floor((xs - xmin) * sx), 0, w - 1).astype(np.int64)
-    py = np.clip(np.floor((ys - ymin) * sy), 0, h - 1).astype(np.int64)
-    wt = None
-    if weights is not None:
-        wt = (weights if idx is None else weights[idx]).astype(np.float32).astype(np.float64)[inside]
-    grid = np.bincount((py * w + px)[inside], weights=wt, minlength=w * h)
-    return grid.reshape(h, w).astype(np.float32)
+
+    def part(span):
+        rows = slice(*span) if idx is None else idx[span[0]:span[1]]
+        xs, ys = x[rows].astype(np.float64), y[rows].astype(np.float64)
+        inside = (xs >= xmin) & (xs <= xmax) & (ys >= ymin) & (ys <= ymax)
+        px = np.clip(np.floor((xs - xmin) * sx), 0, w - 1).astype(np.int64)
+        py = np.clip(np.floor((ys - ymin) * sy), 0, h - 1).astype(np.int64)
+        wt = None if weights is None else weights[rows].astype(np.float32).astype(np.float64)[inside]
+        return np.bincount((py * w + px)[inside], weights=wt, minlength=w * h)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        grids = list(pool.map(part, _spans(len(x) if idx is None else len(idx))))
+    return np.sum(grids, axis=0).reshape(h, w).astype(np.float32)
 
 
 def same_grid(got, want, weighted) -> bool:
@@ -1809,6 +1864,7 @@ WIDE_T0 = 1_424_217_600_000  # 2015-02-18T00:00:00Z
 WIDE_T1 = 1_735_689_600_000  # 2025-01-01T00:00:00Z, exclusive
 WIDE_SPEC = GDELT_SPEC + ";geomesa.z3.interval=day"
 WIDE_SAMPLE = 1 << 23  # rows of the host-encoded subsample
+WIDE_ROWS = 1 << 25  # the wide span's rows: phase 3's first half, in day bins (a cut, PERF.md section 4)
 
 
 def _iso(ms: int) -> str:
@@ -1963,16 +2019,19 @@ def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, p
 
     # 3. day bins over ten years: the staging falls back by itself
     t = time.time()
-    dtg_w = np.random.default_rng(SEED + 6).integers(WIDE_T0, WIDE_T1, n)
+    nw = min(n, WIDE_ROWS)
+    iw = idx[idx < nw]  # the subsample's rows among them
+    dtg_w = np.random.default_rng(SEED + 6).integers(WIDE_T0, WIDE_T1, nw)
     sftw = SimpleFeatureType.create("gdelt_wide", WIDE_SPEC)
-    bw = FeatureBatch.from_columns(sftw, {"count": cols["count"], "dtg": dtg_w, "geom": cols["geom"]})
+    bw = FeatureBatch.from_columns(sftw, {"count": cols["count"][:nw], "dtg": dtg_w,
+                                          "geom": cols["geom"][:nw]})
     diw, stw = _stage(dev, BatchStore(bw), "gdelt_wide")
     span = diw._bin_range[1] - diw._bin_range[0] + 1
     if span <= 2047:
         raise AssertionError(f"the wide index spans only {span} bins")
-    bins_s, off_s = to_binned_time(dtg_w[idx], TimePeriod.DAY)
-    z_s = Z3SFC(TimePeriod.DAY).index(xs, ys, off_s)
-    _staged_keys_match(diw, idx, z_s, bins_s.astype(np.int32))
+    bins_s, off_s = to_binned_time(dtg_w[iw], TimePeriod.DAY)
+    z_s = Z3SFC(TimePeriod.DAY).index(cols["geom"][iw, 0], cols["geom"][iw, 1], off_s)
+    _staged_keys_match(diw, iw, z_s, bins_s.astype(np.int32))
     wq = wide_queries(cols["_centers"])
     lbs = [diw._loose_bounds(parse_ecql(ecql)) for ecql, _, _ in wq]
     wide_bins = [None if lb is None else int((lb[2] >= 0).sum()) for lb in lbs]
@@ -1986,12 +2045,12 @@ def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, p
     }))
     if short == len(wq) or short == 0:
         raise AssertionError(f"wide span: bins per window {wide_bins} miss a route")
-    xw, yw = x[idx], y[idx]
+    xw, yw = x[:nw], y[:nw]
 
     def check(i):
         (ecql, b, (t0, t1)), lb, (c_loose, c_exact, m) = wq[i], lbs[i], gotw[i]
-        em = (x >= np.float32(b[0])) & (x <= np.float32(b[2])) & (y >= np.float32(b[1])) \
-            & (y <= np.float32(b[3])) & (dtg_w >= t0) & (dtg_w <= t1)
+        em = (xw >= np.float32(b[0])) & (xw <= np.float32(b[2])) & (yw >= np.float32(b[1])) \
+            & (yw <= np.float32(b[3])) & (dtg_w >= t0) & (dtg_w <= t1)
         if c_exact != int(em.sum()):
             raise AssertionError(f"wide {ecql}: exact count {c_exact} != numpy {int(em.sum())}")
         if lb is None:  # past 64 bins: the exact scan answers
@@ -1999,7 +2058,7 @@ def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, p
                 raise AssertionError(f"wide {ecql}: loose past 64 bins != exact")
             return c_exact, c_loose, None
         lm = np_zscan(bins_s, z_s, lb[1], lb[2])
-        if not np.array_equal(m[idx], lm) or c_loose != int(m.sum()) or np.any(em & ~m):
+        if not np.array_equal(m[iw], lm) or c_loose != int(m.sum()) or np.any(em & ~m):
             raise AssertionError(f"wide {ecql}: loose mask != numpy over host keys")
         if not lm.any():
             raise AssertionError(f"wide {ecql}: the subsample holds no hit")
@@ -2007,7 +2066,7 @@ def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, p
 
     with ThreadPoolExecutor(max_workers=8) as pool:
         checked = list(pool.map(check, range(len(wq))))
-    log(f"phase 3c: wide span ({n:,} rows, {span} day bins) generated and staged in "
+    log(f"phase 3c: wide span ({nw:,} rows, {span} day bins) generated and staged in "
         f"{time.time() - t:.2f} s (staging {stw:.2f} s, {diw.nbytes / 1e9:.3f} GB resident); "
         f"bins per window {wide_bins} (None: past 64, the filter scan); exact/loose/subsample "
         f"hits {checked}; all equal to numpy")
@@ -2618,20 +2677,21 @@ class FsCalls:
         return out
 
 
-def run_fs_path(dev, cols, queries, mem) -> dict:
+def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
     """Phase 3j, BASELINE config #1 via geomesa-fs: phase 3's 2^26 rows
     written through DataStoreFinder.get_data_store({"fs.path": ...}) into
     a z3 type of 64 partitions of 2^20 and a daily,z2-2bit type (format
     v2, store.fsync on, 2^16-row chunks), each flushed once; on each type
-    phase 3's 32 bbox+during queries through get_count (cold: the
-    partition cache dropped before each), get_count, get_features and
-    store.query (warm) and the count pushdown (warm and cold), the
+    phase 3's 32 bbox+during queries through store.query (cold: the
+    partition cache dropped before each, and warm) and the count pushdown
+    (warm and cold), the
     full-table filter,
     phase 3's 9 density calls and one on the coarse grid's edges through
     process.density and 4 stats calls through run_stats (both taking the
     pushdown), explain,
-    verify_partitions and verify_chunk_stats; then the root reopened under
-    store.verify=always and the 32 counts read cold from disk. Every
+    verify_partitions and verify_chunk_stats; then (the z3 type) the root
+    reopened under store.verify=always and the 32 counts read cold from
+    disk through the feature source. Every
     answer against numpy over the float32 rows and phase 3i's memory-store
     answers (``mem``); the pushdown's density grids bit for bit against
     the same store scanning on the CPU, and their mass against numpy:
@@ -2683,6 +2743,7 @@ def run_fs_path(dev, cols, queries, mem) -> dict:
 
     pushdown._refine_batch = counted_refine
     summary, totals = {}, {k: 0 for k in kernels.KERNEL_NAMES}
+    valid = {k: 0 for k in kernels.KERNEL_NAMES}
     try:
         for name, scheme in FS_TYPES:
             spec = GDELT_SPEC + (f";geomesa.fs.partition-scheme={scheme}" if scheme else "")
@@ -2708,14 +2769,17 @@ def run_fs_path(dev, cols, queries, mem) -> dict:
             kernels.reset_counts()
             refines["n"] = 0
             out = []
+            # the feature source's get_count and get_features drive the same row
+            # scan as store.query, as 3i drives them on the same rows: here
+            # store.query alone, and the feature source's get_count under
+            # store.verify=always on the z3 type (cuts, PERF.md section 4)
+            verified = scheme is None
             for ecql, _, _ in queries:
                 cold = calls.run("count_cold", lambda: ds.query(name, ecql), cold=True)
                 calls.parts["count_cold"] = calls.parts.get("count_cold", 0) + calls.scanned(cold)
-                c = calls.run("get_count", lambda: src.get_count(ecql))
-                f = calls.run("get_features", lambda: src.get_features(ecql).batch.fids)
                 res = calls.run("query", lambda: ds.query(name, ecql))
-                for kind in ("get_count", "get_features", "query"):
-                    calls.parts[kind] = calls.parts.get(kind, 0) + calls.scanned(res)
+                c, f = len(res), res.batch.fids
+                calls.parts["query"] = calls.parts.get("query", 0) + calls.scanned(res)
                 pc = calls.run("count_pushdown", lambda: ds.count(name, ecql))
                 # cold: the boundary chunks' blocks are read alone from the files
                 if calls.run("count_pushdown_cold", lambda: ds.count(name, ecql), cold=True) != pc:
@@ -2802,41 +2866,391 @@ def run_fs_path(dev, cols, queries, mem) -> dict:
             for (tag, _, _, _, _, _), got, want in zip(scalls, seqs, want_stats):
                 if got.to_json() != want:
                     raise AssertionError(f"phase 3j {name} stats {tag}: {got.to_json()} != numpy {want}")
-            log(f"phase 3j {name} checks: {len(queries)} queries x (cold count, get_count, get_features, "
-                f"store.query, the count pushdown) == numpy and the memory store; full table; "
+            log(f"phase 3j {name} checks: {len(queries)} queries x (store.query cold and warm, "
+                f"the count pushdown) == numpy and the memory store; full table; "
                 f"{len(dcalls)} density grids (pushdown == the CPU's, mass within the cut cells' and the "
                 f"edges' rows, exact on the coarse grid's edges); "
                 f"{len(scalls)} stats exact; in {time.time() - t:.1f} s")
             del cpu
 
-            # -- reopened under store.verify=always: cold, verified reads ----------------
-            with prop_override("store.verify", "always"):
-                again = DataStoreFinder.get_data_store({"fs.path": root})
-                vsrc = again.get_feature_source(name)
-                vcalls = FsCalls(again, name, refines)
-                kernels.reset_counts()
-                counts = []
-                for ecql, _, _ in queries:
-                    counts.append(vcalls.run("count_verified", lambda: vsrc.get_count(ecql), cold=True))
-                    vcalls.parts["count_verified"] = vcalls.parts.get("count_verified", 0) + len(
-                        again._pruned_parts(name, again.plan(name, ecql)))
-                read_launches(f"fs store {name} reopened", {
-                    "filter_scan_mask": vcalls.parts["count_verified"]})
-                totals["filter_scan_mask"] += vcalls.parts["count_verified"]
-            if counts != [o[1] for o in out]:
-                raise AssertionError(f"phase 3j {name}: the reopened, verified counts != the first")
             summary[name] = {
                 "scheme": scheme, "partitions": len(st.partitions), "flush_s": flush_s, "bytes": nbytes,
                 "write_gb_s": nbytes / flush_s / 1e9, "rss_gb": rss, "peak_rss_gb": hwm,
                 "verify_partitions_s": vp_s, "verify_chunk_stats_s": vc_s,
-                "refinements": n_refined, "calls": calls.report(name),
-                "verified": vcalls.report(name + " reopened")}
+                "refinements": n_refined, "calls": calls.report(name)}
+            again = vsrc = None
+
+            # -- reopened under store.verify=always: cold, verified reads (the z3
+            # type's; the scheme type would repeat them: a cut, PERF.md section 4)
+            if verified:
+                with prop_override("store.verify", "always"):
+                    again = DataStoreFinder.get_data_store({"fs.path": root})
+                    vsrc = again.get_feature_source(name)
+                    vcalls = FsCalls(again, name, refines)
+                    kernels.reset_counts()
+                    counts = []
+                    for ecql, _, _ in queries:
+                        counts.append(vcalls.run("count_verified", lambda: vsrc.get_count(ecql), cold=True))
+                        vcalls.parts["count_verified"] = vcalls.parts.get("count_verified", 0) + len(
+                            again._pruned_parts(name, again.plan(name, ecql)))
+                    read_launches(f"fs store {name} reopened", {
+                        "filter_scan_mask": vcalls.parts["count_verified"]})
+                    totals["filter_scan_mask"] += vcalls.parts["count_verified"]
+                if counts != [o[1] for o in out]:
+                    raise AssertionError(f"phase 3j {name}: the reopened, verified counts != the first")
+                summary[name]["verified"] = vcalls.report(name + " reopened")
+            if base_loose is not None and scheme is None:  # phase 3k wraps this type in place
+                t = time.time()
+                live = run_live_path(dev, cols, queries, ds, name, masks, base_loose)
+                for k in totals:
+                    totals[k] += live["launches"][k]
+                valid = live["valid"]
+                log(f"phase 3k: the streaming live layer in {time.time() - t:.1f} s")
             del ds, again, src, vsrc, st, out, grids, seqs, full
+        log(json.dumps({"fs_store": {"rows": n, "card": CARD, "types": summary}}))
     finally:
         pushdown._refine_batch = real_refine
         shutil.rmtree(root, ignore_errors=True)
-    log(json.dumps({"fs_store": {"rows": n, "card": CARD, "types": summary}}))
-    return {"launches": totals}
+    return {"launches": totals, "valid": valid}
+
+
+# -- phase 3k: the streaming live layer over 3j's z3 type ----------------------
+
+LIVE_BATCH = 1 << 14  # rows an append
+LIVE_APPENDS = 64  # acked before the compaction: 2^20 rows
+LIVE_TAIL = 15  # appended after it, with the retried shed one: 2^18 rows replayed
+LIVE_RUN_ROWS = 1 << 16  # stream.run.rows: four appends coalesce into a run
+LIVE_SETTINGS = (("stream.run.rows", LIVE_RUN_ROWS), ("stream.memtable.rows", 1 << 22),
+                 ("wal.max.generations", 16))
+LIVE_CAPACITY = 1 << 27  # the base plus stream.memtable.rows, to a power of two (3g's rule)
+
+
+def run_live_path(dev, cols, queries, ds, name, masks, base_loose) -> dict:
+    """Phase 3k: 3j's z3 type (2^26 rows, 64 partitions, fsync on) wrapped
+    in place (``ds``, 3j's store object) in a StreamingStore, with a
+    StreamingDeviceIndex staged from its merged view and fed by its delta
+    listener. 64 acked appends of 2^14 fresh GDELT-shaped rows (each
+    refresh a delta, no restage), the 32 main queries after 32 and 64
+    (layer query fid sets and count, the index's loose and exact counts and
+    loose mask, against numpy over the base and the acked rows; the
+    filter-scan launches against the surviving partitions, the pushdown's
+    refinements and the runs the plans touch; the index's launches all
+    reading the validity plane), one shed append at 16 runs, density and
+    stats with runs live (the pushdowns decline), compact_now beside a
+    thread repeating the counts, the queries and counts after it (one
+    launch a surviving partition or refinement), the shed append retried
+    and 15 more, then
+    close(compact=False) and a reopen that replays exactly those 2^18 rows,
+    the queries against numpy again. ``masks`` are numpy's base answers,
+    ``base_loose`` phase 3's loose counts (numpy-checked) over the same
+    rows."""
+    import os
+    import threading
+
+    import torch
+
+    from geomesa_tpu_torch import kernels, metrics
+    from geomesa_tpu_torch.api import DataStoreFinder
+    from geomesa_tpu_torch.conf import prop_override
+    from geomesa_tpu_torch.device_cache import Z_BT, StreamingDeviceIndex
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.geom import Envelope
+    from geomesa_tpu_torch.process.density import density
+    from geomesa_tpu_torch.process.statsproc import run_stats
+    from geomesa_tpu_torch.query.plan import Query
+    from geomesa_tpu_torch.store import pushdown
+    from geomesa_tpu_torch.store.stream import IngestBackpressureError, StreamingStore
+
+    n = len(cols["count"])
+    m_all = LIVE_BATCH * (LIVE_APPENDS + 1 + LIVE_TAIL)
+    marks = [("start", time.time())]
+
+    def mark(tag):
+        marks.append((tag, time.time()))
+
+    new = make_columns(m_all, SEED + 17, cols["_centers"])
+    nx = new["geom"][:, 0].astype(np.float32)
+    ny = new["geom"][:, 1].astype(np.float32)
+    nfids = np.arange(n, n + m_all, dtype=np.int64)
+    x = cols["geom"][:, 0].astype(np.float32)
+    y = cols["geom"][:, 1].astype(np.float32)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        base_hits = list(pool.map(lambda m: np.nonzero(m)[0], masks))
+    new_masks = [np_exact(nx, ny, new["dtg"], b, w) for _, b, w in queries]
+    mark("numpy")
+
+    def batch(i):
+        a, b = i * LIVE_BATCH, (i + 1) * LIVE_BATCH
+        return {k: new[k][a:b] for k in ("count", "dtg", "geom")}, nfids[a:b]
+
+    def want(i, m):  # sorted fids matching query i over the base and the first m streamed rows
+        return np.concatenate([base_hits[i], n + np.nonzero(new_masks[i][:m])[0]])
+
+    refines = {"n": 0}
+    real_refine = pushdown._refine_batch
+
+    def counted_refine(*a, **kw):
+        refines["n"] += 1
+        return real_refine(*a, **kw)
+
+    out = {"launches": {k: 0 for k in kernels.KERNEL_NAMES}, "valid": {k: 0 for k in kernels.KERNEL_NAMES}}
+
+    def tally():
+        for k in kernels.KERNEL_NAMES:
+            out["launches"][k] += kernels.LAUNCHES[k]
+            out["valid"][k] += kernels.VALID_LAUNCHES[k]
+
+    lat = {}
+
+    def timed(kind, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        lat.setdefault(kind, []).append(time.perf_counter() - t0)
+        return r
+
+    pushdown._refine_batch = counted_refine
+    settings = [prop_override(k, v) for k, v in LIVE_SETTINGS]
+    for cm in settings:
+        cm.__enter__()
+    layer = None
+    try:
+        layer = StreamingStore(ds)
+        # the daemon's due test also counts runs (16 live runs at
+        # wal.max.generations 16 are due), so it is held off here: the
+        # compaction's instant is this script's (compact_now below)
+        layer._compact_due = lambda ts: False
+        t = time.time()
+        di = StreamingDeviceIndex(layer, name, z_planes=True, capacity=LIVE_CAPACITY, device=dev)
+        torch.cuda.synchronize()
+        stage_s = time.time() - t
+        if not (di._z_kind == "z3" and Z_BT in di._cols and len(di) == n and di._cap == LIVE_CAPACITY):
+            raise AssertionError(f"phase 3k: the index staged {len(di)} rows, kind {di._z_kind}, "
+                                 f"capacity {di._cap}")
+        new_planes = host_z3_planes(new, base=di._bt_base)
+        log(f"phase 3k: StreamingDeviceIndex staged from the layer's merged view in {stage_s:.1f} s "
+            f"({len(di):,} rows, capacity {di._cap:,}, {di.nbytes / 1e9:.3f} GB resident)")
+        mark("stage")
+        modes = []
+
+        def listener(type_name, b):
+            t0 = time.perf_counter()
+            mode = di.refresh_delta(b)
+            torch.cuda.synchronize()
+            lat.setdefault("refresh", []).append(time.perf_counter() - t0)
+            modes.append(mode)
+
+        layer.add_delta_listener(listener)
+        w0 = (metrics.stream_wal_bytes.value(), metrics.stream_wal_fsyncs.value())
+
+        def append(i):
+            cols_i, fids_i = batch(i)
+            t0 = time.perf_counter()
+            r = layer.append(name, cols_i, fids=fids_i)
+            call = time.perf_counter() - t0
+            lat.setdefault("append_call", []).append(call)
+            lat.setdefault("ack", []).append(call - lat["refresh"][-1])
+            return r
+
+        def check(tag, m, runs_live, index=True, count=True):
+            """The 32 queries through the layer (and the index), each answer
+            against numpy over the base and the first m streamed rows, and
+            the launches against the plans."""
+            runs = layer._runs_snapshot(name)
+            if len(runs) != runs_live:
+                raise AssertionError(f"phase 3k {tag}: {len(runs)} runs live, {runs_live} expected")
+            kernels.reset_counts()
+            expect = {"filter_scan_mask": 0}
+            for i, (ecql, _, _) in enumerate(queries):
+                w = want(i, m)
+                res = timed(f"query {tag}", lambda: layer.query(name, ecql))
+                parts = layer.store._pruned_parts(name, res.plan)
+                touched = sum(1 for r in runs if r.built.prune(res.plan.ranges))
+                expect["filter_scan_mask"] += len(parts) + touched
+                if len(res) != len(w) or not np.array_equal(np.sort(res.batch.fids), w) or \
+                        res.scanned != sum(p.count for p in parts) + sum(r.rows for r in runs):
+                    raise AssertionError(f"phase 3k {tag} {ecql}: query {len(res)} rows (scanned "
+                                         f"{res.scanned}) != numpy {len(w)} (or the fid sets differ)")
+                if count:  # the same plan: the pushdown's refinements and the same runs
+                    r0 = refines["n"]
+                    c = timed(f"count {tag}", lambda: layer.count(name, ecql))
+                    expect["filter_scan_mask"] += refines["n"] - r0 + touched
+                    if c != len(w):
+                        raise AssertionError(f"phase 3k {tag} {ecql}: count {c} != numpy {len(w)}")
+                if index:
+                    ce = di.count(ecql, loose=False)
+                    cl = di.count(ecql, loose=True)
+                    lm = di.mask(ecql, loose=True)
+                    lb = di._loose_bounds(parse_ecql(ecql))
+                    wl = base_loose[i] + int(np_loose(lb[1], tuple(p[:m] for p in new_planes)).sum())
+                    if ce != len(w) or cl != wl or int(lm.sum()) != wl or cl < ce:
+                        raise AssertionError(f"phase 3k {tag} {ecql}: index exact {ce} / loose {cl} / "
+                                             f"mask {int(lm.sum())} != numpy {len(w)} / {wl}")
+            torch.cuda.synchronize()
+            if index:
+                q = len(queries)
+                expect.update({"filter_scan_count": q, "dimscan_z3_count": q, "dimscan_z3_mask": q})
+                for k in ("filter_scan_count", "dimscan_z3_count", "dimscan_z3_mask"):
+                    if kernels.VALID_LAUNCHES[k] != kernels.LAUNCHES[k]:
+                        raise AssertionError(f"phase 3k {tag}: {k} launched without the validity plane")
+            launches = read_launches(f"phase 3k {tag}", expect)
+            tally()
+            log(f"phase 3k {tag}: {len(queries)} queries == numpy over {n:,} + {m:,} rows with "
+                f"{len(runs)} runs live; filter_scan_mask {launches['filter_scan_mask']} = the surviving "
+                f"partitions + the pushdown's refinements + the runs the plans touch")
+            mark(tag)
+
+        t_ingest = time.perf_counter()
+        for i in range(LIVE_APPENDS):
+            append(i)
+            if i + 1 == LIVE_APPENDS // 2:
+                ingest_s = time.perf_counter() - t_ingest
+                check("32 appends", (i + 1) * LIVE_BATCH, (i + 1) * LIVE_BATCH // LIVE_RUN_ROWS)
+                t_ingest = time.perf_counter() - ingest_s
+        ingest_s = time.perf_counter() - t_ingest
+        if modes != ["delta"] * LIVE_APPENDS or di.restages != 1:
+            raise AssertionError(f"phase 3k: refresh modes {sorted(set(modes))} ({len(modes)}), "
+                                 f"restages {di.restages}")
+        m_acked = LIVE_APPENDS * LIVE_BATCH
+        check("64 appends", m_acked, m_acked // LIVE_RUN_ROWS)
+
+        # -- backpressure: 16 runs live, an append that needs a new run --------------
+        seq0 = layer._streams[name].wal.next_seq
+        cols_i, fids_i = batch(LIVE_APPENDS)
+        try:
+            layer.append(name, cols_i, fids=fids_i)
+        except IngestBackpressureError as e:
+            shed = e
+        else:
+            raise AssertionError("phase 3k: the append at 16 runs was acked")
+        if layer._streams[name].wal.next_seq != seq0 or layer.count(
+                name, "INCLUDE") != n + m_acked or len(modes) != LIVE_APPENDS:
+            raise AssertionError("phase 3k: the shed append left a WAL record or a visible row")
+        log(f"phase 3k: the append at 16 runs shed ({shed}); next_seq {seq0} unchanged, none of "
+            f"its rows visible")
+
+        # -- density and stats while runs are live: the pushdown declines -------------
+        europe, eb, ew = queries[0]
+        kernels.reset_counts()
+        sel_n = np_exact(nx[:m_acked], ny[:m_acked], new["dtg"][:m_acked], eb, ew)
+        dens = [("world include", "INCLUDE", WORLD, (512, 256), None, None),
+                ("europe exact", europe, EUROPE, (256, 256), masks[0], sel_n)]
+        expect_mask = 0
+        for tag, ecql, env, (w, h), sel, sel_new in dens:
+            if layer.density_pushdown(name, Query(filter=ecql), Envelope(*env), w, h) is not None:
+                raise AssertionError("phase 3k: the density pushdown answered with runs live")
+            grid = timed("density", lambda: density(layer, name, Query(filter=ecql), Envelope(*env), w, h))
+            plan = ds.plan(name, ecql)
+            if plan.compiled.device_cols:
+                expect_mask += len(ds._pruned_parts(name, plan)) + sum(
+                    1 for r in layer._runs_snapshot(name) if r.built.prune(plan.ranges))
+            want_grid = np_density(x, y, sel, env, (w, h)) + np_density(
+                nx[:m_acked], ny[:m_acked], sel_new, env, (w, h))  # counts: exact in float32
+            if not same_grid(grid, want_grid, False):
+                raise AssertionError(f"phase 3k density {tag}: grid != numpy")
+        if layer.stats_pushdown(name, Query(filter=europe), PUSH_SPEC) is not None:
+            raise AssertionError("phase 3k: the stats pushdown answered with runs live")
+        seq = timed("run_stats", lambda: run_stats(layer, name, Query(filter=europe), PUSH_SPEC))
+        plan = ds.plan(name, europe)
+        expect_mask += len(ds._pruned_parts(name, plan)) + sum(
+            1 for r in layer._runs_snapshot(name) if r.built.prune(plan.ranges))
+        sel = {"count": np.concatenate([cols["count"][masks[0]], new["count"][:m_acked][sel_n]]),
+               "dtg": np.concatenate([cols["dtg"][masks[0]], new["dtg"][:m_acked][sel_n]])}
+        if seq.to_json() != np_stats(sel, None)[:3]:
+            raise AssertionError(f"phase 3k run_stats: {seq.to_json()} != numpy")
+        torch.cuda.synchronize()
+        read_launches("phase 3k density/stats", {"filter_scan_mask": expect_mask, "density_count": 2})
+        tally()
+        log("phase 3k: 2 density grids and run_stats with 16 runs live (pushdown declined) == numpy")
+        mark("shed, density, stats")
+
+        # -- compaction beside a thread repeating the counts ---------------------------
+        stop, bad, calls = threading.Event(), [], []
+
+        def reader():
+            while not stop.is_set():
+                for i, (ecql, _, _) in enumerate(queries):
+                    if stop.is_set():
+                        break
+                    t0 = time.monotonic()
+                    c = layer.count(name, ecql)
+                    calls.append((t0, time.monotonic()))
+                    if c != len(want(i, m_acked)):
+                        bad.append((ecql, c, len(want(i, m_acked))))
+
+        th = threading.Thread(target=reader, name="stream-reader", daemon=True)
+        th.start()
+        while not calls and th.is_alive():
+            time.sleep(0.01)
+        c0 = time.monotonic()
+        layer.compact_now(name)
+        c1 = time.monotonic()
+        compact_s = c1 - c0
+        n_before = len(calls)
+        while len(calls) < n_before + 2 and th.is_alive():
+            time.sleep(0.01)
+        stop.set()
+        th.join(timeout=120)
+        during = sum(1 for a, b in calls if a < c1 and b > c0)
+        if bad or th.is_alive() or not during:
+            raise AssertionError(f"phase 3k: {len(bad)} answers wrong around the compaction {bad[:3]}; "
+                                 f"{len(calls)} calls, {during} across it, reader alive {th.is_alive()}")
+        ts = layer._streams[name]
+        with open(os.path.join(ds.root, name, "schema.json")) as fh:
+            wm = json.load(fh)["wal_watermark"]
+        if layer._runs_snapshot(name) or wm != seq0 - 1 or ts.wal._sealed or len(ts.wal.segments()) != 1:
+            raise AssertionError(f"phase 3k: after compact_now runs {len(layer._runs_snapshot(name))}, "
+                                 f"watermark {wm} (last acked {seq0 - 1}), WAL {ts.wal.stats()}")
+        log(f"phase 3k: compact_now in {compact_s:.1f} s; {len(calls)} reader counts, {during} across "
+            f"it, all == numpy; watermark {wm} == the last acked seq, WAL {ts.wal.stats()['segments']} "
+            f"segment left (the active one)")
+        mark("compaction")
+        check("compacted", m_acked, 0, index=False)
+
+        # -- the shed append retried, 15 more, then a replay ------------------------------
+        layer.append(name, cols_i, fids=fids_i)
+        for i in range(LIVE_APPENDS + 1, LIVE_APPENDS + 1 + LIVE_TAIL):
+            append(i)
+        if len(modes) != LIVE_APPENDS + 1 + LIVE_TAIL or set(modes) != {"delta"} or di.restages != 1:
+            raise AssertionError(f"phase 3k: refresh modes {modes[-16:]}, restages {di.restages}")
+        wal_bytes = metrics.stream_wal_bytes.value() - w0[0]
+        fsyncs = metrics.stream_wal_fsyncs.value() - w0[1]
+        layer.close(compact=False)
+        layer = None
+        del di
+        replay0 = metrics.stream_wal_replay_rows.value()
+        t = time.time()
+        layer = StreamingStore(DataStoreFinder.get_data_store({"fs.path": ds.root}))
+        replay_s = time.time() - t
+        replayed = int(metrics.stream_wal_replay_rows.value() - replay0)
+        tail = (LIVE_TAIL + 1) * LIVE_BATCH
+        if replayed != tail or layer.stream_stats()["types"][name]["memtable_rows"] != tail:
+            raise AssertionError(f"phase 3k: the replay recovered {replayed} rows, not {tail}")
+        mark("tail, close, reopen")
+        check("replayed", m_all, tail // LIVE_RUN_ROWS, index=False, count=False)
+        log(f"phase 3k: reopened; the replay recovered exactly the {tail:,} acked rows in "
+            f"{replay_s:.2f} s ({tail / replay_s:,.0f} rows/s, the store's open included); "
+            f"32 queries == numpy")
+        summary = {"rows": n, "streamed": m_all, "card": CARD, "stage_s": stage_s,
+                   "compact_s": compact_s, "replay_s": replay_s, "replay_rows_s": tail / replay_s,
+                   "wal_bytes": wal_bytes, "wal_fsyncs": fsyncs,
+                   "ingest_rows_s": LIVE_APPENDS * LIVE_BATCH / ingest_s,
+                   "steps_s": {tag: b - a for (_, a), (tag, b) in zip(marks, marks[1:])},
+                   "latency": {k: {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99), "n": len(v)}
+                               for k, v in lat.items()}}
+        for k, v in lat.items():
+            log(f"latency stream {k}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms ({len(v)} calls) [{CARD}]")
+        log(f"phase 3k: ingest {summary['ingest_rows_s']:,.0f} rows/s over {LIVE_APPENDS} appends; WAL "
+            f"{wal_bytes / 1e6:.1f} MB, {int(fsyncs)} fsyncs; compaction {compact_s:.1f} s; replay "
+            f"{replay_s:.2f} s; steps " + ", ".join(f"{k} {v:.1f} s" for k, v in summary["steps_s"].items())
+            + f" [{CARD}]")
+        log(json.dumps({"stream_layer": summary}))
+        return out
+    finally:
+        pushdown._refine_batch = real_refine
+        if layer is not None:
+            layer.close(compact=False)
+        for cm in reversed(settings):
+            cm.__exit__(None, None, None)
 
 
 # -- phase 3b: per-request visibility -----------------------------------------
@@ -4049,7 +4463,7 @@ def run_sched_path(dev, cols, di3, di2, di3i, di2i) -> dict:
 
 # -- phase 3g: the streaming index ----------------------------------------------
 
-STREAM_ROWS = 1 << 24  # phase 3's first 2^24 rows: phase 3 and 3c drive all 2^26 resident
+STREAM_ROWS = 1 << 22  # phase 3's first 2^22 rows: phase 3 and 3c drive all 2^26 resident, 3k a fed index at 2^26
 STREAM_APPENDS = 64  # Put messages of 2^14 new rows each
 STREAM_APPEND_ROWS = 1 << 14
 STREAM_EVICTED = 1 << 20  # random held fids, evicted through 64 Remove messages
@@ -4291,7 +4705,7 @@ def _np_window_rows(xs, order, ys, env, alive) -> np.ndarray:
 
 
 def stream_joins(di, truth, centers) -> dict:
-    """Phase 3g's joins and BIN call on the fed 2^24-row index: an envelope
+    """Phase 3g's joins and BIN call on the fed 2^22-row index: an envelope
     join of 16 city windows, then again after one more append of 2^14 rows
     and after one more eviction of 2^14 fids; each join's pairs equal numpy
     over the staged rows that are live (row ids in staged order), and each
@@ -4383,7 +4797,7 @@ def stream_joins(di, truth, centers) -> dict:
 
 
 def run_streaming_path(dev, cols, queries, traffic) -> dict:
-    """Phase 3g (module docstring): the streaming index at 2^24 rows fed
+    """Phase 3g (module docstring): the streaming index at 2^22 rows fed
     through attach_live, its drive checked against numpy and a restaged
     index; the 2^22 interleaved z3 and z2 indexes; growth and compaction;
     the scheduler burst beside a writer."""
@@ -4413,7 +4827,7 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
     centers = cols["_centers"]
     n = len(cols["count"])
     rng = np.random.default_rng(SEED + 40)
-    # -- the dim-plane z3 index at phase 3's first 2^24 rows --------------------
+    # -- the dim-plane z3 index at phase 3's first 2^22 rows --------------------
     t = time.time()
     cap = n + int(sys_prop("stream.memtable.rows"))
     di = _stream(dev, cols, np.arange(n), GDELT_SPEC, "gdelt", cap)
@@ -4458,8 +4872,8 @@ def run_streaming_path(dev, cols, queries, traffic) -> dict:
     t = time.time()
     fresh = _fresh(dev, live, GDELT_SPEC, "gdelt")
     log(f"phase 3g: the restaged index of the live rows in {time.time() - t:.2f} s")
-    check_stream_queries("z3 2^24", di, fresh, live, queries, res, planes)
-    check_fused("z3 2^24", di, fresh, tiles, fused, fused_q)
+    check_stream_queries("z3 2^22", di, fresh, live, queries, res, planes)
+    check_fused("z3 2^22", di, fresh, tiles, fused, fused_q)
     check_density_path(live, di, di, planes, planes, dcalls, grids, scalls, seqs)
     for (tag, _, ecql, loose, env, (w, h), weight, _, _), g in zip(dcalls, grids):
         want = fresh.density(ecql, Envelope(*env), w, h, weight_attr=weight, loose=loose)
@@ -4625,7 +5039,7 @@ ZONE_WIDEN = 0.002  # each zone widened so that neighbours overlap
 ZONE_MIN = 0.012  # no kd cut leaves a zone narrower than this (degrees)
 N_STATIONS = 64
 STATION_D = 0.003
-JOIN_REPEATS = 2  # timed calls of each day-level join kind
+JOIN_REPEATS = 1  # timed calls of each day-level join kind (a cut: PERF.md section 4)
 # right sides at or below this broadcast (the default, 64, would broadcast
 # the 64 stations: 2^32 candidates at 2^26 rows); the boroughs still do
 JOIN_BROADCAST = 8
@@ -5213,16 +5627,17 @@ def kernel_table(dev, di3, di2, inter, queries, z2_queries, launches, valid_laun
     wc, wm, opsw = diw._loose_args(lbw)
     bw, iw = lbw[1], lbw[2]
     nb = int((iw >= 0).sum())
+    nw = len(diw)  # the wide index's rows (WIDE_ROWS), not phase 3's
     zops_w = zscan_ops([lbw], opsw[1], opsw[2], opsw[0])
-    case = f"{nb} day bins ({len(iw)} entries), the wide index"
+    case = f"{nb} day bins ({len(iw)} entries), the wide index ({nw:,} rows)"
     row("zscan_z3_count", zs_src, f"{rzs} (pallas_call :942)", lambda: wc(*opsw),
         lambda: zscan.z3_zscan_mask(opsw[1], opsw[2], opsw[0], bw, iw).sum(dtype=torch.int32),
-        12 * n, 4, zops_w, plain_iters=1, case=case)
+        12 * nw, 4, zops_w, plain_iters=1, case=case)
     row("zscan_z3_mask", zs_src, f"{rzs} (pallas_call :960)", lambda: wm(*opsw),
         lambda: zscan.z3_zscan_mask(opsw[1], opsw[2], opsw[0], bw, iw),
-        12 * n, n, zops_w, plain_iters=1, case=case)
+        12 * nw, nw, zops_w, plain_iters=1, case=case)
     log(f"zscan_z3 at {nb} day bins: the function's operations bound {zops_w / INT32_OPS_PER_S * 1e3:.4f} ms "
-        f"({zops_w / n:.1f} ops/row); {18 * nb * n / INT32_OPS_PER_S * 1e3:.4f} ms at 18 ops per "
+        f"({zops_w / nw:.1f} ops/row); {18 * nb * nw / INT32_OPS_PER_S * 1e3:.4f} ms at 18 ops per "
         f"row per bin entry (the TPU kernel's way) [{CARD}]")
 
     ops = n * _program_ops(cf.program)
@@ -5875,16 +6290,17 @@ def main() -> int:
     t = time.time()
     store = run_store_path(dev, cols, di3, queries, res3)
     log(f"phase 3i: the store path in {time.time() - t:.1f} s")
+    base_loose = [o["count_loose"] for o in res3]  # numpy-checked in phase 3; 3k's base
     del res3
     t = time.time()
-    fs = run_fs_path(dev, cols, queries, store.pop("answers"))
-    log(f"phase 3j: the file-system store in {time.time() - t:.1f} s")
+    fs = run_fs_path(dev, cols, queries, store.pop("answers"), base_loose)
+    log(f"phase 3j and 3k: the file-system store and its live layer in {time.time() - t:.1f} s")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
                 + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) + sched["launches"][k]
                 + stream["launches"][k] + join["launches"][k] + store["launches"][k]
                 + fs["launches"][k] for k in main_launches}
-    valid_launches = stream["valid"]
+    valid_launches = {k: stream["valid"][k] + fs["valid"][k] for k in stream["valid"]}
     missing = sorted(k for k in ("dimscan_z3_count", "dimscan_batched_z3_count", "zscan_z3_count",
                                  "zscan_batched_z3_count", "filter_scan_count")
                      if not valid_launches[k])

@@ -9,8 +9,11 @@ full-table guard and wall-clock budget (``scan.ranges.target``,
 with :class:`QueryTimeout`), the file-system store's durability and
 chunk-format keys (``store.*``, reference lines 14-66 and 410-449), its
 host-I/O pipeline (``io.*``) and snapshot-pin lifetime
-(``snapshot.pin.ttl.s``), the memtable size that hints a streaming
-index's capacity (``stream.memtable.rows``), the spatial join engine's
+(``snapshot.pin.ttl.s``), the streaming live layer's keys (``wal.*`` and
+``stream.*``, reference lines 514-525, without ``stream.enabled`` and
+``stream.append.max.bytes``, which only the server reads), the serving
+retries, degrade switch and brownout fraction (``resilience.*``), the
+spatial join engine's
 keys (``join.*``, reference lines 201-241, 351-385 and 526-541) and the
 BIN encoder's engine (``results.bin.engine``). Each key has a
 default, an environment override (``GEOMESA_TPU_<NAME>`` with dots as
@@ -66,12 +69,20 @@ _DEFS = {
     "sched.max.fusion": (64, int),
     "sched.default.deadline.ms": (30_000.0, float),
     "sched.retry.after.s": (1.0, float),
-    # fault-tolerant serving (resilience.py): the master switch, the
-    # breaker's failure threshold and cooldown, the launch watchdog budget
+    # fault-tolerant serving (resilience.py): the master switch, degraded
+    # answers, the retries of retryable faults with their doubling backoff
+    # and its cumulative cap, the breaker's failure threshold and
+    # cooldown, the launch watchdog budget, and the scheduler-queue fill
+    # fraction past which the live layer's compactor yields
     "resilience.enabled": (True, _parse_bool),
+    "resilience.degrade": (True, _parse_bool),
+    "resilience.retries": (2, int),
+    "resilience.backoff.ms": (25.0, float),
+    "resilience.backoff.cap.ms": (2000.0, float),
     "resilience.breaker.failures": (5, int),
     "resilience.breaker.cooldown.s": (5.0, float),
     "resilience.launch.timeout.s": (30.0, float),
+    "resilience.brownout.queue.frac": (0.8, float),
     # the store planner (query/plan.py, query/interceptor.py): max z-ranges
     # per query plan (ref geomesa.scan.ranges.target), a global cap on
     # returned features (0 = off), raise instead of a full-table scan
@@ -106,9 +117,17 @@ _DEFS = {
     # answer bbox(+during) queries straight from the index key at cell
     # granularity when a call passes loose=None (ref geomesa.loose.bbox)
     "query.loose.bbox": (False, _parse_bool),
-    # rows a live layer buffers before it compacts: a resident streaming
-    # index takes it as headroom in its capacity hint
+    # the streaming live layer (store/stream.py, store/wal.py): WAL
+    # segment rotation, the read-amplification bound (appends shed past
+    # it), the memtable rows that trigger compaction (a resident streaming
+    # index takes them as headroom in its capacity hint), rows per
+    # Z-sorted run, and the compactor's yield step and stall bound
+    "wal.segment.bytes": (4 << 20, int),
+    "wal.max.generations": (8, int),
     "stream.memtable.rows": (1 << 15, int),
+    "stream.run.rows": (8192, int),
+    "stream.compact.yield.ms": (50.0, float),
+    "stream.stall.s": (30.0, float),
     # the spatial join engine (join/): the refinement engine (auto: the
     # device's for an index on the card, the numpy twin for one on the
     # CPU), the planner's strategy, the broadcast threshold, the skew-split

@@ -1,7 +1,9 @@
 """Named fault-injection points of the serving path.
 
 Counterpart of ``geomesa_tpu/failpoints.py``, trimmed to the evaluation
-and arming helpers (reference lines 14-40 and 136-). The port evaluates:
+and arming helpers (reference lines 14-40 and 136-). The port evaluates
+(the WAL's and the compaction's at ``geomesa_tpu/store/wal.py:308``,
+``:362``, ``:385`` and ``store/stream.py:942``):
 
 - ``fail.sched.worker``  -- a scheduler worker about to execute a claimed
                             group; ``raise`` simulates a worker crash (its
@@ -20,6 +22,12 @@ and arming helpers (reference lines 14-40 and 136-). The port evaluates:
                             (transient: the prefetch retry path)
 - ``fail.read.corrupt``  -- a partition read reports a checksum mismatch
                             (exercises the quarantine)
+- ``fail.wal.append``    -- a WAL record is about to be written (inside
+                            the append's retry: a ``raise`` is retried)
+- ``fail.wal.rotate``    -- a full WAL segment is about to be sealed
+- ``fail.wal.replay``    -- replay is about to scan a WAL segment
+- ``fail.compact.publish`` -- a compaction published its generation and
+                            dropped its runs; the WAL is not yet truncated
 
 Activation: programmatic (``set_failpoint`` / ``failpoint_override``) or
 the ``GEOMESA_TPU_FAILPOINTS`` environment variable, a comma-separated

@@ -8,7 +8,11 @@ a fused launch its fair share (duration / riders), so summing over
 requests gives the device time actually spent. The counterpart's
 ``compile_scope`` and ``_note_jit_cache`` measure XLA compiles and jit
 cache hits; the port runs eagerly and has no compiler, so they are left
-out, as are the process-wide aggregation and the top-K ring.
+out, as are the process-wide aggregation and the top-K ring. The live
+layer's appends charge ``memtable_rows``, ``wal_bytes`` and
+``wal_fsyncs``; its compaction's ``_system`` record (reference
+``store/stream.py:947-957``) waits for the server seam, which brings the
+ledger it records into (ROADMAP item 5e).
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ FIELDS = (
     "decode_seconds",  # partition-file bytes to FeatureBatch decode time
     "chunks_read",  # v2 chunks actually read
     "chunks_pruned",  # v2 chunks skipped before read/decode
+    "retries",  # retryable faults retried (resilience.retry_call)
+    "memtable_rows",  # rows this request appended to the live layer
+    "wal_bytes",  # WAL bytes this request's appends wrote
+    "wal_fsyncs",  # WAL fsyncs this request's appends waited on
 )
 
 #: fields folded with max() instead of sum()

@@ -10,7 +10,10 @@ histograms and the device BIN pack's launches (reference lines 644-697);
 the store path's queries, query latency and OOM recoveries; the
 file-system store's host I/O (``io_*``), generations, recovery sweeps,
 checksums and quarantines (``store_*``) and its aggregation pushdown
-(``agg_pushdown_*``, reference lines 280-380). The Prometheus exposition
+(``agg_pushdown_*``, reference lines 280-380); the serving retries
+(``resilience_retries``) and the streaming live layer's appends, WAL,
+replay, memtable, backpressure and compaction (``stream_*``, reference
+lines 547-596). The Prometheus exposition
 and every other family of the counterpart are left out.
 """
 
@@ -138,6 +141,8 @@ sched_worker_failures = REGISTRY.counter(
 sched_drains = REGISTRY.counter(
     "geomesa_sched_drains_total",
     "graceful drains completed (admission stopped, in-flight finished)")
+resilience_retries = REGISTRY.counter(
+    "geomesa_resilience_retries_total", "serving-path retries of retryable faults (by domain)")
 resilience_watchdog_timeouts = REGISTRY.counter(
     "geomesa_resilience_watchdog_timeouts_total",
     "stuck device launches failed by the scheduler watchdog")
@@ -146,6 +151,32 @@ stream_delta_refreshes = REGISTRY.counter(
     "resident-index refreshes from streamed appends, by mode "
     "(delta = incremental into the validity-planed buffers, "
     "restage = fallback full restage)")
+
+# the streaming live layer (store/stream.py, store/wal.py): WAL-backed
+# appends, the in-memory generation they serve from, and the backpressured
+# compaction into the partition files
+stream_appends = REGISTRY.counter("geomesa_stream_appends_total", "acked streaming append calls")
+stream_rows = REGISTRY.counter("geomesa_stream_rows_total", "rows acked through the streaming layer")
+stream_wal_bytes = REGISTRY.counter("geomesa_stream_wal_bytes_total", "bytes appended to WAL segments")
+stream_wal_fsyncs = REGISTRY.counter(
+    "geomesa_stream_wal_fsyncs_total", "WAL fsync calls (durability acks)")
+stream_wal_replay_rows = REGISTRY.counter(
+    "geomesa_stream_wal_replay_rows_total", "rows recovered into the memtable by WAL replay at open")
+stream_wal_truncations = REGISTRY.counter(
+    "geomesa_stream_wal_truncations_total",
+    "torn WAL tails truncated at the last valid checksum during replay")
+stream_memtable_rows = REGISTRY.gauge(
+    "geomesa_stream_memtable_rows", "rows live in the in-memory generation (not yet compacted)")
+stream_memtable_runs = REGISTRY.gauge(
+    "geomesa_stream_memtable_runs", "Z-sorted memtable runs live (the per-query read amplification)")
+stream_backpressure = REGISTRY.counter(
+    "geomesa_stream_backpressure_total", "appends rejected 429-style at the wal.max.generations bound")
+stream_compactions = REGISTRY.counter(
+    "geomesa_stream_compactions_total", "memtable generations compacted into partition files")
+stream_compact_seconds = REGISTRY.histogram(
+    "geomesa_stream_compact_seconds", "background compaction duration (merge + flush + WAL truncate)")
+stream_compact_yields = REGISTRY.counter(
+    "geomesa_stream_compact_yields_total", "compactor pauses yielded to serving load (brownout signal)")
 
 # spatial join engine (join/): joins by planner strategy, candidate and pair
 # volumes, refinement launches, the skew-split escape, window_pairs_query's

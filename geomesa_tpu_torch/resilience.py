@@ -8,9 +8,14 @@ the per-request degradation collector that crosses to worker threads
 (:func:`collect_degraded`, :func:`capture_degraded`,
 :func:`attach_degraded`, :func:`note_degraded`), the file-system store's
 partition-scoped :class:`PartitionUnavailableError` and the jittered
-:func:`backoff_sleeps` of its read retries. The fault taxonomy, the
-serving retries, the keyed partition breakers and brownout belong to the
-server, which the port does not have yet.
+:func:`backoff_sleeps` of its read retries; for the streaming live
+layer, the part of the fault taxonomy that decides ``RETRYABLE``
+(:func:`classify`, reference line 138), the bounded retry
+:func:`retry_call` (``:206``), :func:`wal_breaker` (``:410``),
+:func:`degrade_allowed` (``:121``) and :func:`brownout` (``:588``), which
+reads the scheduler's ``queue_pressure``. The keyed partition breakers
+and the rest of the degradation ladder belong to the server, which the
+port does not have yet.
 
 The breaker is ``closed`` until ``resilience.breaker.failures`` failures
 in a row, then ``open`` (callers skip the domain) for
@@ -27,11 +32,16 @@ import time
 from contextlib import contextmanager
 
 __all__ = [
+    "FATAL", "RETRYABLE",
     "CircuitBreaker", "LaunchStuckError", "PartitionUnavailableError",
-    "attach_degraded", "backoff_sleeps", "breaker",
-    "capture_degraded", "collect_degraded", "device_breaker",
-    "enabled", "is_oom", "note_degraded", "reset",
+    "attach_degraded", "backoff_sleeps", "breaker", "brownout",
+    "capture_degraded", "classify", "collect_degraded", "degrade_allowed",
+    "device_breaker", "enabled", "is_oom", "note_degraded", "reset",
+    "retry_call", "wal_breaker",
 ]
+
+RETRYABLE = "retryable"
+FATAL = "fatal"
 
 
 class LaunchStuckError(RuntimeError):
@@ -77,6 +87,14 @@ def enabled() -> bool:
     return bool(sys_prop("resilience.enabled"))
 
 
+def degrade_allowed() -> bool:
+    """Whether degraded (stamped) answers may be served instead of failing:
+    ``resilience.degrade`` on top of the master switch."""
+    from geomesa_tpu_torch.conf import sys_prop
+
+    return enabled() and bool(sys_prop("resilience.degrade"))
+
+
 def is_oom(exc: BaseException) -> bool:
     """Device or host memory exhaustion: ``torch.cuda.OutOfMemoryError``
     (the counterpart matches XLA's RESOURCE_EXHAUSTED) or a host
@@ -90,6 +108,47 @@ def is_oom(exc: BaseException) -> bool:
         return True
     s = str(exc)
     return "out of memory" in s or "Out of memory" in s
+
+
+def classify(exc: BaseException) -> str:
+    """The counterpart's fault taxonomy as far as the retry reads it:
+    ``RETRYABLE`` for transient I/O (an ``OSError`` other than a
+    ``FileNotFoundError`` or an OOM, an injected ``FailpointError`` among
+    them), ``FATAL`` for the rest. The scheduler's flow-control signals
+    (429, 504), bad requests and the counterpart's degradable faults
+    (stuck launches, OOMs, unreadable partitions) are never retried; the
+    degradation ladder that tells the last apart comes with the server."""
+    if isinstance(exc, OSError) and not isinstance(exc, FileNotFoundError) and not is_oom(exc):
+        return RETRYABLE
+    return FATAL
+
+
+def retry_call(fn, domain: str = "device"):
+    """``fn()`` with bounded, jittered retries of RETRYABLE faults
+    (``resilience.retries`` sleeps of ``resilience.backoff.ms``, doubling,
+    their sum capped by ``resilience.backoff.cap.ms``). Other faults, and
+    the last retryable one, reach the caller."""
+    from geomesa_tpu_torch.conf import sys_prop
+
+    if not enabled():
+        return fn()
+    sleeps = backoff_sleeps(int(sys_prop("resilience.retries")),
+                            float(sys_prop("resilience.backoff.ms")),
+                            float(sys_prop("resilience.backoff.cap.ms")))
+    while True:
+        try:
+            return fn()
+        except Exception as e:
+            if classify(e) != RETRYABLE:
+                raise
+            delay = next(sleeps, None)
+            if delay is None:
+                raise  # the retry budget is spent
+            from geomesa_tpu_torch import ledger, metrics
+
+            metrics.resilience_retries.inc(domain=domain)
+            ledger.charge("retries", 1)
+            time.sleep(delay)
 
 
 class CircuitBreaker:
@@ -208,6 +267,29 @@ def breaker(domain: str) -> CircuitBreaker:
 
 def device_breaker() -> CircuitBreaker:
     return breaker("device")
+
+
+def wal_breaker() -> CircuitBreaker:
+    """The breaker of write-ahead-log I/O: while it is open, streaming
+    appends fail fast (no ack is promised against a log that cannot take
+    it)."""
+    return breaker("wal")
+
+
+def brownout(scheduler) -> bool:
+    """Is the scheduler's admission queue past
+    ``resilience.brownout.queue.frac`` of its bound? The live layer's
+    compactor yields to serving while it is (``degrade_allowed`` and a
+    scheduler given)."""
+    if scheduler is None or not degrade_allowed():
+        return False
+    from geomesa_tpu_torch.conf import sys_prop
+
+    frac = float(sys_prop("resilience.brownout.queue.frac"))
+    if frac <= 0:
+        return False
+    queued, bound = scheduler.queue_pressure()
+    return queued >= frac * max(bound, 1)
 
 
 def reset() -> None:

@@ -4,7 +4,9 @@ the store path through ``DataStoreFinder`` and ``MemoryDataStore`` with a
 resident index staged from it, the kNN, tube and proximity processes,
 ``run_stats``, a scheduler run with fused groups, a streaming index, a join
 and a BIN request, and the file-system store: writes, flushes under a
-partition scheme, queries, the pushdowns, a reopen with verification), none
+partition scheme, queries, the pushdowns, a reopen with verification,
+and its streaming live layer: an append, a merged query, a reopen that
+replays the WAL and a compaction), none
 of them loads ``pyarrow`` either, and entry points never fall back to the
 CPU on their own."""
 
@@ -162,6 +164,19 @@ with prop_override("store.verify", "always"):
     from geomesa_tpu_torch.store.fs import FileSystemDataStore
     again = FileSystemDataStore(root, device="cpu")
     assert len(again.query("t", q)) == di.count(q)
+from geomesa_tpu_torch.store.stream import StreamingStore
+layer = StreamingStore(again)
+layer.append("t", {k: v[:40] for k, v in cols.items() if k != VIS_COLUMN}, fids=np.arange(n, n + 40))
+live = layer.query("t", q)
+x, y, t = cols["geom"][:40, 0], cols["geom"][:40, 1], cols["dtg"][:40]
+fresh = (x >= -10) & (x <= 30) & (y >= -10) & (y <= 30) & (t >= 1_578_009_600_000) & (t <= 1_578_528_000_000)
+assert len(live) == layer.count("t", q) == di.count(q) + int(fresh.sum())
+layer.close(compact=False)
+relayer = StreamingStore(FileSystemDataStore(root, device="cpu"))
+assert relayer.count("t", q) == len(live)
+relayer.compact_now("t")
+assert not relayer._runs_snapshot("t") and relayer.count("t", q) == len(live)
+relayer.close()
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -206,6 +221,11 @@ def test_the_scan_covers_the_fs_store_modules():
     for rel in ("locking.py", "store/fs.py", "store/partfile.py", "store/partitions.py",
                 "store/chunkstats.py", "store/prefetch.py", "store/pushdown.py",
                 "store/snapshot.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+def test_the_scan_covers_the_live_layer_modules():
+    for rel in ("store/wal.py", "store/stream.py"):
         assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
 
 

@@ -1230,3 +1230,95 @@ def test_fs_store_query_launches_once_per_partition(dev, tmp_path, scheme):
     kernels.reset_counts()
     assert card.count("t", ecql) == len(want)
     assert kernels.LAUNCHES["filter_scan_mask"] >= 1
+
+
+# -- the streaming live layer: partitions and runs, one mask launch each -------
+
+
+def _live_layer(dev, tmp_path, device):
+    """2^20 + 17 rows flushed into a FileSystemDataStore (partitions of
+    2^18) on ``device``, wrapped in a StreamingStore with three acked
+    appends of 2^12 rows (runs of 2^12: three runs)."""
+    from geomesa_tpu_torch.conf import prop_override
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+    from geomesa_tpu_torch.store.stream import StreamingStore
+
+    n = (1 << 20) + 17
+    rng = np.random.default_rng(7)
+
+    def rows(m):
+        return {"count": rng.integers(0, 100, m), "dtg": rng.integers(T0, T0 + 20 * 86400_000, m),
+                "geom": rng.uniform(-60, 60, (m, 2)).astype(np.float32).astype(np.float64)}
+
+    root = str(tmp_path / f"live-{torch.device(device).type}")
+    ds = FileSystemDataStore(root, partition_size=1 << 18, device=device)
+    ds.create_schema("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
+    ds.write("t", rows(n))
+    ds.flush("t")
+    with prop_override("stream.run.rows", 1 << 12), prop_override("stream.memtable.rows", 1 << 22):
+        layer = StreamingStore(ds)
+        for i in range(3):
+            layer.append("t", rows(1 << 12), fids=np.arange(n + i * (1 << 12), n + (i + 1) * (1 << 12)))
+    return layer
+
+
+def test_live_layer_query_launches_once_per_partition_and_run(dev, tmp_path):
+    """A merged query over the live layer launches ``filter_scan_mask`` once
+    per surviving partition and once per run the plan touches, and answers
+    as the same layer on the CPU does."""
+    card = _live_layer(dev, tmp_path, dev)
+    try:
+        ecql = STORE_FILTERS[0]
+        plan = card.store.plan("t", ecql)
+        runs = card._runs_snapshot("t")
+        expect = len(card.store._pruned_parts("t", plan)) + sum(1 for r in runs if r.built.prune(plan.ranges))
+        kernels.reset_counts()
+        got = card.query("t", ecql)
+        assert kernels.LAUNCHES["filter_scan_mask"] == expect and len(runs) == 3
+        assert not any(kernels.DEVICE_FN_CALLS.values())
+        assert sum(v for k, v in kernels.LAUNCHES.items() if k != "filter_scan_mask") == 0
+        from geomesa_tpu_torch.store.fs import FileSystemDataStore
+        from geomesa_tpu_torch.store.stream import StreamingStore
+
+        card.close(compact=False)
+        from geomesa_tpu_torch.conf import prop_override
+
+        with prop_override("stream.run.rows", 1 << 12):  # the replay builds the same three runs
+            cpu = StreamingStore(FileSystemDataStore(card.store.root, partition_size=1 << 18, device="cpu"))
+        assert len(cpu._runs_snapshot("t")) == 3
+        want = cpu.query("t", ecql)
+        np.testing.assert_array_equal(got.batch.fids, want.batch.fids)
+        assert got.scanned == want.scanned and card.count("t", ecql) == len(want)
+        cpu.close()
+    finally:
+        card.close()
+
+
+def test_live_layer_delta_refresh_on_the_card_stays_delta(dev, tmp_path):
+    """A StreamingDeviceIndex on the card staged from the layer's merged
+    view takes each acked batch of fresh fids as a delta, and its exact
+    and loose counts read the validity plane and equal the layer's."""
+    from geomesa_tpu_torch.device_cache import StreamingDeviceIndex
+
+    layer = _live_layer(dev, tmp_path, dev)
+    try:
+        di = StreamingDeviceIndex(layer, "t", z_planes=True, capacity=1 << 22, device=dev)
+        modes = []
+        layer.add_delta_listener(lambda t, b: modes.append(di.refresh_delta(b)))
+        rng = np.random.default_rng(8)
+        base = len(di)
+        for i in range(4):
+            m = 1 << 12
+            layer.append("t", {"count": rng.integers(0, 100, m),
+                               "dtg": rng.integers(T0, T0 + 20 * 86400_000, m),
+                               "geom": rng.uniform(-60, 60, (m, 2)).astype(np.float32).astype(np.float64)},
+                         fids=np.arange(1 << 24, (1 << 24) + m) + i * m)
+        assert modes == ["delta"] * 4 and di.restages == 1 and len(di) == base + 4 * (1 << 12)
+        ecql = STORE_FILTERS[0]
+        kernels.reset_counts()
+        assert di.count(ecql, loose=False) == layer.count("t", ecql)
+        assert di.count(ecql, loose=True) >= di.count(ecql, loose=False)
+        for k in ("filter_scan_count", "dimscan_z3_count"):
+            assert kernels.VALID_LAUNCHES[k] == kernels.LAUNCHES[k] >= 1
+    finally:
+        layer.close()
