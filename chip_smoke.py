@@ -170,13 +170,15 @@ Phases:
      the prepare seconds, each call kind's p50, pairs/s, plan and refine
      seconds;
   3i. (run after 3h, while the main path's answers are held) the store
-     path, BASELINE config #1 as users call it: phase 3's 2^26 rows
-     written into DataStoreFinder.get_data_store({"memory": "true"}) and
+     path, BASELINE config #1 as users call it: phase 3's first 2^25 rows
+     (a cut: 3j drives the same queries over all 2^26 through the
+     file-system store) written into
+     DataStoreFinder.get_data_store({"memory": "true"}) and
      flushed (the z3, z2 and id host index builds in partitions of 2^20,
      the write-time stats; seconds and host RSS printed); phase 3's 32
      bbox+during queries each through get_feature_source().get_count,
      get_features and store.query; an attribute-only filter (count > 500:
-     a full-table scan, 64 partitions in 8 runs of 2^23), an INTERSECTS
+     a full-table scan, 32 partitions in 4 runs of 2^23), an INTERSECTS
      polygon (the kernel's float32 point-in-polygon on a point schema,
      checked by numpy in the same float32 operations), an INTERSECTS line
      (the host residual behind the envelope prefilter), a Query
@@ -184,8 +186,8 @@ Phases:
      seven sketches, a DeviceIndex staged from the store (its 32 exact
      counts equal the store's), and phase 3b's 2^22 labeled rows as a
      second type under its three auth sets; every answer against numpy
-     over the float32 rows, phase 3's DeviceIndex answers and the verdict
-     table; the launch counts equal one filter_scan_mask per contiguous
+     over the float32 rows, phase 3's DeviceIndex answers on the same
+     rows and the verdict table; the launch counts equal one filter_scan_mask per contiguous
      run of every plan (the ledger's device_launches too), with no
      device_fn call; p50/p99 per call kind, runs and scanned rows per
      query, the ledger's stage, launch and device seconds. Then the store
@@ -195,8 +197,9 @@ Phases:
   3j. (run after 3i, once its memory store is dropped) the file-system
      store, BASELINE config #1 via geomesa-fs: phase 3's 2^26 rows written
      through DataStoreFinder.get_data_store({"fs.path": <a temporary
-     directory>}) into a z3 type (64 partitions of 2^20) and the same rows
-     under the daily,z2-2bit partition scheme, format v2, store.fsync on,
+     directory>}) into a z3 type (64 partitions of 2^20) and the first 2^23
+     of them (a cut) under the daily,z2-2bit partition scheme, format v2,
+     store.fsync on,
      2^16-row chunks (flush seconds, bytes on disk, write GB/s and host RSS
      printed; too little disk raises); on each type phase 3's 32 queries
      through store.query with the partition cache dropped (cold), then
@@ -211,7 +214,8 @@ Phases:
      through the feature source's get_count (get_count and get_features
      drive store.query's scan, as 3i drives them on the same rows: cuts).
      Counts and sorted
-     fids against numpy and phase 3i's memory store, stats exact, each
+     fids against numpy (and, over its first 2^25 rows, phase 3i's memory
+     store on the z3 type), stats exact, each
      pushdown density grid equal to the same store's on the CPU with its
      mass against numpy (exact for the box on the cells' edges, else
      within the rows of the coarse cells its box cuts and of its edges),
@@ -229,7 +233,7 @@ Phases:
      (capacity 2^27, dim planes) staged from the merged view and fed by
      the delta listener; 64 acked appends of 2^14 fresh GDELT-shaped rows
      (phase 3's generator on its city centres, another seed), each
-     refresh a delta and no restage; after 32 and 64 appends phase 3's 32
+     refresh a delta and no restage; after the 64 appends phase 3's 32
      queries through the layer's count and query (fid sets) and the
      index's exact and loose counts and loose mask, against numpy over
      the base and the acked rows (loose: phase 3's numpy-checked base
@@ -248,6 +252,14 @@ Phases:
      and delta-refresh p50/p99, merged count/query p50/p99 with 16 runs
      live and with none, compaction and replay seconds, WAL bytes and
      fsyncs, ingest rows/s (a {"stream_layer": ...} line);
+  3l. (run after 3k) the HTTP serving bridge: 3j/3k's root reopened and
+     served by serve_background(store, resident=True, sched=True,
+     stream=True) on 127.0.0.1, driven by a urllib client (run_server_path
+     says what each request checks against numpy and which launches it
+     must count); the degradation ladder fails the resident rung alone
+     (fail.resident.launch) and holds the store rung's answers, made by
+     the filter scan on the card, to numpy. Prints each endpoint's p50/p99
+     and the burst's requests/s (a {"server": ...} line);
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -2075,6 +2087,7 @@ def run_interleaved_path(dev, cols, di3, di2, queries, z2_queries, res3, res2, p
 
 # -- phase 3i: the store path (BASELINE config #1) -----------------------------
 
+STORE_ROWS = 1 << 25  # phase 3i's rows: phase 3's first half (a cut, PERF.md section 4)
 STORE_RUN_ROWS = (1 << 20, 1 << 23)  # one partition; eight merged, the largest run
 STORE_LABELED = 1 << 22  # phase 3b's labeled rows at 3b's size
 STORE_AIS_VESSELS = 1 << 10  # 2^10 vessels x 4,096 fixes: 2^22 AIS reports (cut from 2^26)
@@ -2177,10 +2190,10 @@ def _near_knn(tag, store_res, res_res, x64, y64, px, py) -> None:
 
 
 def run_store_path(dev, cols, di3, queries, res3) -> dict:
-    """Phase 3i, BASELINE config #1 through the store: phase 3's 2^26 rows
-    written into DataStoreFinder's memory store (flush: the z3, z2 and id
-    index builds and the write-time stats), then phase 3's 32 bbox+during
-    queries through the feature source and store.query, an attribute-only
+    """Phase 3i, BASELINE config #1 through the store: phase 3's first
+    STORE_ROWS rows written into DataStoreFinder's memory store (flush: the
+    z3, z2 and id index builds and the write-time stats), then phase 3's 32
+    bbox+during queries through the feature source and store.query, an attribute-only
     full-table filter, an INTERSECTS polygon (the kernel's point-in-polygon
     on a point schema), an INTERSECTS line (the host residual behind the
     envelope prefilter), a Query with sort, max features and properties,
@@ -2199,6 +2212,7 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
     from geomesa_tpu_torch.query.plan import Query
     from geomesa_tpu_torch.stats import parse_stat
 
+    every, cols = cols, {k: v if k == "_centers" else v[:STORE_ROWS] for k, v in cols.items()}
     t = time.time()
     ds = DataStoreFinder.get_data_store({"memory": "true"})
     ds.create_schema("gdelt", GDELT_SPEC)
@@ -2274,11 +2288,13 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
         masks = list(pool.map(lambda q: np_exact(x, y, dtg, q[1], q[2]), queries))
     for (ecql, _, _), em, (n, fids, res), r3 in zip(queries, masks, out, res3):
         want = np.nonzero(em)[0]
-        if not (n == len(want) == r3["count_exact"] == len(res)):
+        r3f = np.sort(r3["query_exact"].fids)
+        r3f = r3f[r3f < len(x)]  # phase 3's DeviceIndex holds every row: its hits among these
+        if not (n == len(want) == len(r3f) == len(res)):
             raise AssertionError(f"phase 3i {ecql}: counts {n}/{len(res)} != numpy {len(want)} / "
-                                 f"the DeviceIndex {r3['count_exact']}")
+                                 f"the DeviceIndex {len(r3f)}")
         if not (np.array_equal(np.sort(fids), want) and np.array_equal(np.sort(res.batch.fids), want)
-                and np.array_equal(np.sort(r3["query_exact"].fids), want)):
+                and np.array_equal(r3f, want)):
             raise AssertionError(f"phase 3i {ecql}: fid sets != numpy / the DeviceIndex")
     big = cols["count"] > 500
     for r in full:
@@ -2307,11 +2323,17 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
     want_seq = parse_stat(SEVEN_SKETCHES)
     want_seq.observe_batch(FeatureBatch.from_columns(
         sft, {"count": cols["count"][rows], "dtg": dtg[rows], "geom": cols["geom"][rows]}))
+    # the resident stats over phase 3's every row, against numpy over them
+    frows = np.nonzero(np_exact(every["geom"][:, 0].astype(np.float32),
+                                every["geom"][:, 1].astype(np.float32), every["dtg"], eb, ew))[0]
+    want_res = parse_stat(SEVEN_SKETCHES)
+    want_res.observe_batch(FeatureBatch.from_columns(
+        sft, {"count": every["count"][frows], "dtg": every["dtg"][frows], "geom": every["geom"][frows]}))
     res_seq = di3.stats(europe, SEVEN_SKETCHES)
-    if not (seq.to_json() == want_seq.to_json() == res_seq.to_json()):
-        raise AssertionError("phase 3i: run_stats on the store path != numpy / the resident stats")
+    if seq.to_json() != want_seq.to_json() or res_seq.to_json() != want_res.to_json():
+        raise AssertionError("phase 3i: run_stats on the store path / the resident stats != numpy")
     log(f"phase 3i checks: {len(queries)} queries x (get_count, get_features, store.query) == numpy "
-        f"and the DeviceIndex (hits median {int(np.median([len(r) for _, _, r in out]))}); full table "
+        f"and the DeviceIndex's hits among these rows (hits median {int(np.median([len(r) for _, _, r in out]))}); full table "
         f"{int(big.sum()):,} rows; INTERSECTS {len(inside):,} rows; the line's residual "
         f"{len(in_line):,} rows; options, run_stats (7 sketches) "
         f"equal; in {time.time() - t:.1f} s")
@@ -2521,6 +2543,10 @@ def store_rows(dev, store, launches, errs: Errs) -> list:
 #: after geomesa-fs's own examples (":" is how the spec string stores it)
 FS_SCHEME = "daily:z2-2bit"
 FS_TYPES = (("gdelt_fs", None), ("gdelt_fs_daily_z2", FS_SCHEME))
+#: rows of the scheme type: its drive repeats the z3 type's over another
+#: layout, so it takes phase 3's first 2^23 rows (a cut of depth, PERF.md
+#: section 4)
+FS_SCHEME_ROWS = 1 << 23
 #: the Count/MinMax spec the stats pushdown answers from chunk partials
 PUSH_SPEC = 'Count();MinMax("count");MinMax("dtg")'
 FS_ROW_BYTES = 8 + 4 + 8 + 16  # fid, count, dtg and the x/y pair of a row
@@ -2747,23 +2773,31 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
     try:
         for name, scheme in FS_TYPES:
             spec = GDELT_SPEC + (f";geomesa.fs.partition-scheme={scheme}" if scheme else "")
+            rows_n = n if scheme is None else FS_SCHEME_ROWS
+            if rows_n == n:
+                tcols, tmasks, tmem, tdens, tstats = cols, masks, mem, want_dens, want_stats
+            else:  # the first rows_n rows: numpy's answers over them (no memory-store answers)
+                tcols = {k: v if k == "_centers" else v[:rows_n] for k, v in cols.items()}
+                tmasks = [m[:rows_n] for m in masks]
+                tmem = [(None, None)] * len(queries)
+                tdens, tstats = fs_expected(tcols, x[:rows_n], y[:rows_n], dcalls, scalls)
             t = time.time()
             ds = DataStoreFinder.get_data_store({"fs.path": root})
             if resolve_device(ds.device).type != "cuda":
                 raise AssertionError("phase 3j: the fs store does not scan on the card")
             ds.create_schema(name, spec)
-            ds.write(name, {k: cols[k] for k in ("count", "dtg", "geom")})
+            ds.write(name, {k: tcols[k] for k in ("count", "dtg", "geom")})
             ds.flush(name)
             flush_s = time.time() - t
             st = ds._types[name]
             nbytes = sum(int(p.checksum["length"]) for p in st.partitions)
             rss, hwm = _rss_gb()
-            log(f"phase 3j {name}: wrote and flushed {n:,} rows in {flush_s:.1f} s: "
+            log(f"phase 3j {name}: wrote and flushed {rows_n:,} rows in {flush_s:.1f} s: "
                 f"{len(st.partitions)} partitions, {sum(len(p.chunks) for p in st.partitions)} chunks, "
                 f"{nbytes / 1e9:.3f} GB on disk ({nbytes / flush_s / 1e9:.3f} GB/s written); host RSS "
                 f"{rss:.1f} GB (peak {hwm:.1f} GB)")
-            if sum(p.count for p in st.partitions) != n or st.format_version != 2:
-                raise AssertionError(f"phase 3j {name}: the manifest does not hold {n:,} v2 rows")
+            if sum(p.count for p in st.partitions) != rows_n or st.format_version != 2:
+                raise AssertionError(f"phase 3j {name}: the manifest does not hold {rows_n:,} v2 rows")
             src = ds.get_feature_source(name)
             calls = FsCalls(ds, name, refines)
             kernels.reset_counts()
@@ -2829,19 +2863,21 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
 
             # -- checks: numpy, phase 3i's memory store, the CPU -------------------
             t = time.time()
-            for (ecql, _, _), em, (n_cold, c, pc, f, fq), (mn, mfids) in zip(queries, masks, out, mem):
+            for (ecql, _, _), em, (n_cold, c, pc, f, fq), (mn, mfids) in zip(queries, tmasks, out, tmem):
                 want = np.nonzero(em)[0]
-                if not (n_cold == c == pc == len(want) == mn):
+                mw = want[want < STORE_ROWS]  # the rows phase 3i's memory store holds
+                if not (n_cold == c == pc == len(want)) or mn not in (None, len(mw)):
                     raise AssertionError(f"phase 3j {name} {ecql}: counts {n_cold}/{c}/{pc} != numpy "
                                          f"{len(want)} / the memory store {mn}")
-                if not (np.array_equal(f, want) and np.array_equal(fq, want) and np.array_equal(mfids, want)):
+                if not (np.array_equal(f, want) and np.array_equal(fq, want)
+                        and (mfids is None or np.array_equal(mfids, mw))):
                     raise AssertionError(f"phase 3j {name} {ecql}: fid sets != numpy / the memory store")
-            big = cols["count"] > 500
-            if full.scanned != n or not np.array_equal(np.sort(full.batch.fids), np.nonzero(big)[0]):
+            big = tcols["count"] > 500
+            if full.scanned != rows_n or not np.array_equal(np.sort(full.batch.fids), np.nonzero(big)[0]):
                 raise AssertionError(f"phase 3j {name}: the full-table filter != numpy")
             cpu = FileSystemDataStore(root, device="cpu")
             for (tag, _, ecql, _, env, wh, weight, _, _), got, (exact, cut, edge, wgrid) in zip(
-                    dcalls, grids, want_dens):
+                    dcalls, grids, tdens):
                 if weight:
                     if not same_grid(got, wgrid, True):
                         raise AssertionError(f"phase 3j {name} density {tag}: grid != numpy")
@@ -2863,18 +2899,18 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
                                          f"(allowed {slack:.1f})")
                 if tag == "europe aligned" and cut:
                     raise AssertionError(f"phase 3j: {FS_ALIGNED} cuts {cut} rows' coarse cells")
-            for (tag, _, _, _, _, _), got, want in zip(scalls, seqs, want_stats):
+            for (tag, _, _, _, _, _), got, want in zip(scalls, seqs, tstats):
                 if got.to_json() != want:
                     raise AssertionError(f"phase 3j {name} stats {tag}: {got.to_json()} != numpy {want}")
             log(f"phase 3j {name} checks: {len(queries)} queries x (store.query cold and warm, "
-                f"the count pushdown) == numpy and the memory store; full table; "
+                f"the count pushdown) == numpy{' and the memory store' if rows_n == n else ''}; full table; "
                 f"{len(dcalls)} density grids (pushdown == the CPU's, mass within the cut cells' and the "
                 f"edges' rows, exact on the coarse grid's edges); "
                 f"{len(scalls)} stats exact; in {time.time() - t:.1f} s")
             del cpu
 
             summary[name] = {
-                "scheme": scheme, "partitions": len(st.partitions), "flush_s": flush_s, "bytes": nbytes,
+                "scheme": scheme, "rows": rows_n, "partitions": len(st.partitions), "flush_s": flush_s, "bytes": nbytes,
                 "write_gb_s": nbytes / flush_s / 1e9, "rss_gb": rss, "peak_rss_gb": hwm,
                 "verify_partitions_s": vp_s, "verify_chunk_stats_s": vc_s,
                 "refinements": n_refined, "calls": calls.report(name)}
@@ -2906,6 +2942,14 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
                     totals[k] += live["launches"][k]
                 valid = live["valid"]
                 log(f"phase 3k: the streaming live layer in {time.time() - t:.1f} s")
+                st.cache.clear()  # 3l reopens the root with a store of its own
+                t = time.time()
+                srv = run_server_path(dev, cols, queries, root, name, masks, base_loose, live)
+                for k in totals:
+                    totals[k] += srv["launches"][k]
+                    valid[k] += srv["valid"][k]
+                del live
+                log(f"phase 3l: the HTTP server in {time.time() - t:.1f} s [{CARD}]")
             del ds, again, src, vsrc, st, out, grids, seqs, full
         log(json.dumps({"fs_store": {"rows": n, "card": CARD, "types": summary}}))
     finally:
@@ -3099,13 +3143,11 @@ def run_live_path(dev, cols, queries, ds, name, masks, base_loose) -> dict:
                 f"partitions + the pushdown's refinements + the runs the plans touch")
             mark(tag)
 
+        # one check, at 16 runs live: a check after 32 appends, at 8 runs,
+        # repeated it (a cut, PERF.md section 4)
         t_ingest = time.perf_counter()
         for i in range(LIVE_APPENDS):
             append(i)
-            if i + 1 == LIVE_APPENDS // 2:
-                ingest_s = time.perf_counter() - t_ingest
-                check("32 appends", (i + 1) * LIVE_BATCH, (i + 1) * LIVE_BATCH // LIVE_RUN_ROWS)
-                t_ingest = time.perf_counter() - ingest_s
         ingest_s = time.perf_counter() - t_ingest
         if modes != ["delta"] * LIVE_APPENDS or di.restages != 1:
             raise AssertionError(f"phase 3k: refresh modes {sorted(set(modes))} ({len(modes)}), "
@@ -3244,11 +3286,459 @@ def run_live_path(dev, cols, queries, ds, name, masks, base_loose) -> dict:
             f"{replay_s:.2f} s; steps " + ", ".join(f"{k} {v:.1f} s" for k, v in summary["steps_s"].items())
             + f" [{CARD}]")
         log(json.dumps({"stream_layer": summary}))
+        out["new"], out["new_masks"] = new, new_masks  # phase 3l's truth over the streamed rows
         return out
     finally:
         pushdown._refine_batch = real_refine
         if layer is not None:
             layer.close(compact=False)
+        for cm in reversed(settings):
+            cm.__exit__(None, None, None)
+
+
+# -- phase 3l: the HTTP serving bridge over 3j/3k's root ------------------------
+
+SERVE_APPENDS = 16  # POST /append batches of LIVE_BATCH rows
+SERVE_BURST = (64, 16)  # client threads x loose counts each
+SERVE_SHED = (64, 4)  # client threads x exact counts each, against sched.max.queue 2
+SERVE_FEATURES = 50  # maxFeatures of the GeoJSON requests
+SERVE_KNN = [((2.3515625, 48.859375), 100), ((-73.96875, 40.78125), 500)]
+
+
+def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> dict:
+    """Phase 3l: 3j/3k's root reopened (the z3 type: 2^26 rows, 3k's 2^20
+    compacted rows and its 2^18 rows in the WAL) and served by
+    ``serve_background(store, resident=True, sched=True, stream=True)`` on
+    127.0.0.1:0, driven by a stdlib urllib client. The first request
+    stages the resident StreamingDeviceIndex from the merged view on the
+    card. Every answer against numpy over the same float32 rows: the 32
+    main queries through /count exact and loose=1; 8 GeoJSON /features
+    with maxFeatures and 2 f=bin (byte-equal to the index's bin_export); 4
+    /density grids, 2 /stats, 2 /knn, 1 /explain; 16 POST /append batches
+    of 2^14 rows, each counted at once (delta refreshes, no restage); a
+    burst of 64 threads x 16 loose counts (fusion factor > 1 on
+    /stats/sched) and one against sched.max.queue 2 (429s with
+    Retry-After); fail.resident.launch over 8 requests (right answers from
+    the store rung's filter-scan launches on the card, X-Degraded
+    device-launch-failed then device-breaker-open, /readyz open), disarmed (the half-open probe closes it); /metrics parsed,
+    /stats/ledger's tenant, a Perfetto trace; POST /admin/shutdown, and a
+    reopen that replays the appended rows. The launch counters show which
+    kernels carried the requests; each endpoint's client-side p50/p99."""
+    import dataclasses
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from geomesa_tpu_torch import failpoints, kernels, metrics
+    from geomesa_tpu_torch.api import DataStoreFinder
+    from geomesa_tpu_torch.conf import prop_override
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.server import serve_background
+    from geomesa_tpu_torch.store.stream import StreamingStore
+
+    t_phase = time.time()
+    n = len(cols["count"])
+    new, new_masks = live["new"], live["new_masks"]
+    m_all = len(new["count"])
+    m_app = SERVE_APPENDS * LIVE_BATCH
+    app = make_columns(m_app, SEED + 29, cols["_centers"])
+    app_fids = np.arange(n + m_all, n + m_all + m_app, dtype=np.int64)
+    x = np.concatenate([cols["geom"][:, 0], new["geom"][:, 0], app["geom"][:, 0]]).astype(np.float32)
+    y = np.concatenate([cols["geom"][:, 1], new["geom"][:, 1], app["geom"][:, 1]]).astype(np.float32)
+    dtg = np.concatenate([cols["dtg"], new["dtg"], app["dtg"]])
+    cnt = np.concatenate([cols["count"], new["count"], app["count"]])
+    app_masks = [np_exact(x[n + m_all:], y[n + m_all:], app["dtg"], b, w) for _, b, w in queries]
+
+    def exact_hits(i, m_streamed):
+        """Sorted row ids (= fids) matching query i over the base, 3k's rows
+        and the first m_streamed appended rows."""
+        return np.concatenate([np.nonzero(masks[i])[0], n + np.nonzero(new_masks[i])[0],
+                               n + m_all + np.nonzero(app_masks[i][:m_streamed])[0]])
+
+    lat: dict = {}
+    stats_lock = threading.Lock()
+
+    def get(path, headers=None, method="GET", body=None, kind=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data, headers=headers or {}, method=method)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out = (r.status, r.headers, r.read())
+        except urllib.error.HTTPError as e:
+            with e:
+                out = (e.code, e.headers, e.read())
+        if kind is not None:
+            with stats_lock:
+                lat.setdefault(kind, []).append(time.perf_counter() - t0)
+        return out
+
+    def ok_json(path, kind, headers=None):
+        st, h, b = get(path, headers, kind=kind)
+        if st != 200:
+            raise AssertionError(f"phase 3l {path}: HTTP {st} {b[:300]!r}")
+        return json.loads(b), h
+
+    def q(s):
+        return urllib.request.quote(s)
+
+    def tally(into):
+        for k in kernels.KERNEL_NAMES:
+            into["launches"][k] += kernels.LAUNCHES[k]
+            into["valid"][k] += kernels.VALID_LAUNCHES[k]
+
+    out = {"launches": {k: 0 for k in kernels.KERNEL_NAMES}, "valid": {k: 0 for k in kernels.KERNEL_NAMES}}
+    settings = [prop_override(k, v) for k, v in LIVE_SETTINGS]
+    for cm in settings:
+        cm.__enter__()
+    server = None
+    try:
+        store = DataStoreFinder.get_data_store({"fs.path": root})
+        server, thread = serve_background(store, resident=True, sched=True, stream=True)
+        layer = server.stream_layer
+        layer._compact_due = lambda ts: False  # the tail stays in runs, as in 3k
+        base = "http://%s:%d" % server.server_address[:2]
+        handler = server.RequestHandlerClass
+        kernels.reset_counts()
+        t = time.time()
+        first, _ = ok_json(f"/count/{name}", "first touch (staging)")
+        torch.cuda.synchronize()
+        stage_s = time.time() - t
+        di = handler._resident_cache[name]
+        if first["count"] != n + m_all or len(di) != n + m_all or di.device.type != "cuda":
+            raise AssertionError(f"phase 3l: first touch counted {first['count']}, staged {len(di)} rows "
+                                 f"on {di.device}, not {n + m_all:,} on the card")
+        log(f"phase 3l: serving {root} on {base}; the first request staged the resident index from "
+            f"the merged view in {stage_s:.1f} s ({len(di):,} rows, capacity {di._cap:,}, "
+            f"{len(layer._runs_snapshot(name))} replayed runs live) [{CARD}]")
+        new_planes = host_z3_planes({"geom": np.concatenate([new["geom"], app["geom"]]),
+                                     "dtg": np.concatenate([new["dtg"], app["dtg"]])}, base=di._bt_base)
+        lbs = [di._loose_bounds(parse_ecql(e))[1] for e, _, _ in queries]
+
+        def loose_want(i, m_streamed):
+            return base_loose[i] + int(np_loose(lbs[i], tuple(p[:m_all + m_streamed] for p in new_planes)).sum())
+
+        # -- the 32 main queries, exact and loose ----------------------------------
+        kernels.reset_counts()
+        for i, (ecql, _, _) in enumerate(queries):
+            got, _ = ok_json(f"/count/{name}?cql={q(ecql)}&tenant=smoke", "count")
+            gl, _ = ok_json(f"/count/{name}?cql={q(ecql)}&loose=1&tenant=smoke", "count loose")
+            want, wl = len(exact_hits(i, 0)), loose_want(i, 0)
+            if got["count"] != want or gl["count"] != wl:
+                raise AssertionError(f"phase 3l {ecql}: /count {got['count']} / loose {gl['count']} != "
+                                     f"numpy {want} / {wl}")
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        for k in ("filter_scan_count", "dimscan_z3_count"):
+            if counts[k] < len(queries) or kernels.VALID_LAUNCHES[k] != counts[k]:
+                raise AssertionError(f"phase 3l /count: {k} launched {counts[k]} times, "
+                                     f"{kernels.VALID_LAUNCHES[k]} with the validity plane")
+        log(f"phase 3l: 32 /count exact and 32 loose == numpy; launches "
+            f"filter_scan_count {counts['filter_scan_count']}, dimscan_z3_count {counts['dimscan_z3_count']}, "
+            f"all with the validity plane")
+        tally(out)
+
+        # -- features, BIN, density, stats, kNN, explain ------------------------------
+        # the twin's BIN bytes, made before the count starts: its scans
+        # compare, they carry no request
+        bin_ref = {i: di.bin_export(queries[i][0], "count") for i in (0, 12)}
+        kernels.reset_counts()
+        by_kind: dict = {}  # request kind -> the launches its requests made
+
+        def counted(kind, fn):
+            """fn(), with the launches it made added to by_kind[kind]."""
+            before = dict(kernels.LAUNCHES)
+            r = fn()
+            acc = by_kind.setdefault(kind, {k: 0 for k in kernels.KERNEL_NAMES})
+            for k in kernels.KERNEL_NAMES:
+                acc[k] += kernels.LAUNCHES[k] - before[k]
+            return r
+
+        geom_of = np.stack([x, y], axis=1).astype(np.float64)
+        for i in range(8):
+            ecql = queries[i * 4][0]
+            doc, _ = counted("features", lambda: ok_json(
+                f"/features/{name}?cql={q(ecql)}&maxFeatures={SERVE_FEATURES}", "features"))
+            want = exact_hits(i * 4, 0)
+            ids = np.array([int(f["id"]) for f in doc["features"]], dtype=np.int64)
+            coords = np.array([f["geometry"]["coordinates"] for f in doc["features"]]).reshape(-1, 2)
+            if len(ids) != min(SERVE_FEATURES, len(want)) or not np.isin(ids, want).all() or \
+                    not np.array_equal(coords, geom_of[ids]) or \
+                    [f["properties"]["count"] for f in doc["features"]] != cnt[ids].tolist():
+                raise AssertionError(f"phase 3l /features {ecql}: {len(ids)} features, not "
+                                     f"{min(SERVE_FEATURES, len(want))} of numpy's rows with their values")
+        for i in (0, 12):
+            ecql = queries[i][0]
+            st, h, data = counted("bin", lambda: get(f"/features/{name}?cql={q(ecql)}&f=bin&track=count",
+                                                      kind="features bin"))
+            ref = bin_ref[i]
+            if st != 200 or h["Content-Type"] != "application/vnd.geomesa.bin" or data != ref or \
+                    len(data) != 16 * len(exact_hits(i, 0)):
+                raise AssertionError(f"phase 3l f=bin {ecql}: {len(data)} bytes != bin_export's {len(ref)}")
+        dens = [("INCLUDE", WORLD, (512, 256), None), (queries[0][0], EUROPE, (256, 256), 0),
+                (queries[12][0], queries[12][1], (128, 128), 12),
+                (_bbox(REGIONS[1][1]), REGIONS[1][1], (256, 128), "box")]
+        for ecql, env, (w, hh), sel in dens:
+            doc, _ = counted("density", lambda: ok_json(
+                f"/density/{name}?cql={q(ecql)}&bbox={','.join(str(v) for v in env)}&width={w}&height={hh}",
+                "density"))
+            if sel is None:
+                rows_ = np.arange(n + m_all)
+            elif sel == "box":
+                rows_ = np.nonzero(np_exact(x[:n + m_all], y[:n + m_all], None, REGIONS[1][1]))[0]
+            else:
+                rows_ = exact_hits(sel, 0)
+            keep = np.zeros(len(x), bool)
+            keep[rows_] = True
+            want = np_density(x, y, keep, env, (w, hh))
+            if not same_grid(np.asarray(doc["counts"], np.float32), want, False):
+                raise AssertionError(f"phase 3l /density {ecql}: grid != numpy")
+        for i in (0, 4):
+            ecql = queries[i][0]
+            doc, _ = counted("stats", lambda: ok_json(f"/stats/{name}?cql={q(ecql)}&stats={q(PUSH_SPEC)}",
+                                                       "stats"))
+            hit = exact_hits(i, 0)
+            if doc != np_stats({"count": cnt[hit], "dtg": dtg[hit]}, None)[:3]:
+                raise AssertionError(f"phase 3l /stats {ecql}: {doc} != numpy")
+        for (px, py), k in SERVE_KNN:
+            doc, _ = ok_json(f"/knn/{name}?x={px}&y={py}&k={k}&maxRadius=2", "knn")
+            rows_, d2 = np_knn(x[:n + m_all], y[:n + m_all], px, py, 2.0, k)
+            ids = np.array([int(f["id"]) for f in doc["features"]], dtype=np.int64)
+            dist = np.array([f["properties"]["knn_distance_deg"] for f in doc["features"]])
+            if not np.array_equal(ids, rows_) or not np.array_equal(dist, np.sqrt(d2.astype(np.float64))):
+                raise AssertionError(f"phase 3l /knn ({px}, {py}) k={k}: != the numpy oracle")
+        st, h, text = get(f"/explain/{name}?cql={q(queries[0][0])}", kind="explain")
+        if st != 200 or b"Chosen index: z3" not in text:
+            raise AssertionError(f"phase 3l /explain: HTTP {st} {text[:200]!r}")
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        # each exact /features, f=bin, filtered /density (3 of the 4: one is
+        # INCLUDE) and /stats request launches the resident exact mask once,
+        # with the validity plane; each /density launches the density kernel
+        # once (it takes the plane as its row mask, not as a counted operand)
+        want_masks = {"features": 8, "bin": 2, "density": 3, "stats": 2}
+        got_masks = {k: by_kind[k]["filter_scan_mask"] for k in want_masks}
+        others = {kind: {k: v for k, v in acc.items() if v and k not in ("filter_scan_mask", "density_count")}
+                  for kind, acc in by_kind.items()}
+        if got_masks != want_masks or by_kind["density"]["density_count"] != 4 or \
+                counts["density_count"] != 4 or counts["filter_scan_mask"] != sum(want_masks.values()) or \
+                kernels.VALID_LAUNCHES["filter_scan_mask"] != counts["filter_scan_mask"] or any(others.values()):
+            raise AssertionError(f"phase 3l features/density: filter_scan_mask per request kind {got_masks} "
+                                 f"(want {want_masks}), density_count {counts['density_count']} (want 4), "
+                                 f"{kernels.VALID_LAUNCHES['filter_scan_mask']} masks with the plane, "
+                                 f"other launches {others}")
+        log(f"phase 3l: 8 /features (GeoJSON, maxFeatures {SERVE_FEATURES}), 2 f=bin (== bin_export), "
+            f"4 /density, 2 /stats, 2 /knn == numpy, /explain; launches filter_scan_mask {got_masks} "
+            f"(all with the validity plane), density_count {counts['density_count']}")
+        tally(out)
+
+        # -- 16 POST /append, each counted at once -----------------------------------
+        kernels.reset_counts()
+        delta0 = metrics.stream_delta_refreshes.value(mode="delta")
+        restages0 = di.restages
+        for j in range(SERVE_APPENDS):
+            a, b = j * LIVE_BATCH, (j + 1) * LIVE_BATCH
+            body = {"columns": {"count": app["count"][a:b].tolist(), "dtg": app["dtg"][a:b].tolist(),
+                                "geom": app["geom"][a:b].tolist()}, "fids": app_fids[a:b].tolist()}
+            st, h, ack = get(f"/append/{name}?tenant=smoke", method="POST", body=body, kind="append")
+            if st != 200 or json.loads(ack)["acked"] != LIVE_BATCH:
+                raise AssertionError(f"phase 3l /append {j}: HTTP {st} {ack[:200]!r}")
+            i = j % len(queries)
+            got, _ = ok_json(f"/count/{name}?cql={q(queries[i][0])}", "count after append")
+            if got["count"] != len(exact_hits(i, b)):
+                raise AssertionError(f"phase 3l append {j}: /count {got['count']} != numpy "
+                                     f"{len(exact_hits(i, b))}")
+        deltas = metrics.stream_delta_refreshes.value(mode="delta") - delta0
+        if deltas != SERVE_APPENDS or di.restages != restages0 or handler._resident_cache[name] is not di:
+            raise AssertionError(f"phase 3l: {deltas} delta refreshes for {SERVE_APPENDS} appends, "
+                                 f"restages {restages0} -> {di.restages}")
+        log(f"phase 3l: {SERVE_APPENDS} POST /append of {LIVE_BATCH:,} rows each visible at once to "
+            f"/count (== numpy); {int(deltas)} refresh_delta 'delta', no restage")
+        tally(out)
+
+        # -- burst: fused loose counts --------------------------------------------------
+        kernels.reset_counts()
+        snap0 = json.loads(get("/stats/sched")[2])
+        nthreads, per = SERVE_BURST
+        tiles = list(range(per))
+        tile_want = [loose_want(i, m_app) for i in tiles]
+        bad, codes = [], []
+
+        def burst_client(tid):
+            for j in range(per):
+                i = tiles[(tid + j) % per]
+                st, _, b = get(f"/count/{name}?cql={q(queries[i][0])}&loose=1&tenant=burst{tid % 8}",
+                               kind="burst count loose")
+                codes.append(st)
+                if st != 200 or json.loads(b)["count"] != tile_want[i]:
+                    bad.append((i, st, b[:100]))
+
+        threads = [threading.Thread(target=burst_client, args=(t_,), name=f"burst-{t_}")
+                   for t_ in range(nthreads)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        burst_s = time.perf_counter() - t
+        snap1 = json.loads(get("/stats/sched")[2])
+        fused = (snap1["queries"] - snap0["queries"]) / max(snap1["launches"] - snap0["launches"], 1)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        if bad or any(th.is_alive() for th in threads) or fused <= 1.0 or \
+                not counts["dimscan_batched_z3_count"] or snap1["fusion_factor"] <= 1.0:
+            raise AssertionError(f"phase 3l burst: {len(bad)} wrong {bad[:3]}, fusion {fused:.2f} "
+                                 f"(cumulative {snap1['fusion_factor']}), batched launches "
+                                 f"{counts['dimscan_batched_z3_count']}")
+        burst_rps = nthreads * per / burst_s
+        log(f"phase 3l: burst of {nthreads} threads x {per} loose counts in {burst_s:.3f} s "
+            f"({burst_rps:.1f} requests/s), all == numpy; fusion factor {fused:.2f} this burst, "
+            f"{snap1['fusion_factor']} cumulative; dimscan_batched_z3_count "
+            f"{counts['dimscan_batched_z3_count']} (widths {kernels.BATCH_WIDTHS['dimscan_batched_z3_count']}) "
+            f"[{CARD}]")
+        tally(out)
+
+        # -- shed: the same clients against sched.max.queue 2 ------------------------------
+        kernels.reset_counts()
+        sched = server.scheduler
+        cfg0 = sched.config
+        sched.config = dataclasses.replace(cfg0, max_queue=2)
+        shed, wrong, retry_after = [], [], []
+        try:
+            nthreads, per = SERVE_SHED
+
+            def shed_client(tid):
+                for j in range(per):
+                    i = (tid + j) % len(queries)
+                    st, h, b = get(f"/count/{name}?cql={q(queries[i][0])}", kind="shed burst")
+                    if st == 429:
+                        shed.append(i)
+                        retry_after.append(h.get("Retry-After"))
+                    elif st != 200 or json.loads(b)["count"] != len(exact_hits(i, m_app)):
+                        wrong.append((i, st))
+
+            threads = [threading.Thread(target=shed_client, args=(t_,)) for t_ in range(nthreads)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+        finally:
+            sched.config = cfg0
+        if wrong or not shed or not all(r is not None and r.isdigit() and int(r) >= 1 for r in retry_after):
+            raise AssertionError(f"phase 3l shed burst: {len(shed)} 429s (Retry-After "
+                                 f"{sorted(set(retry_after))}), {len(wrong)} wrong {wrong[:3]}")
+        log(f"phase 3l: {nthreads} x {per} exact counts against sched.max.queue 2: {len(shed)} answered "
+            f"429 with Retry-After {sorted(set(retry_after))}, the rest == numpy")
+        tally(out)
+
+        # -- the degradation ladder ----------------------------------------------------------
+        # fail.resident.launch fails the resident rung alone: the store rung
+        # must answer on the card, through the filter-scan kernel (a store on
+        # the card has no host rung; its launches read no validity plane)
+        kernels.reset_counts()
+        ladder, rung = [], []
+        with prop_override("resilience.backoff.ms", 0.0), prop_override("resilience.breaker.failures", 3), \
+                prop_override("resilience.breaker.cooldown.s", 600.0):
+            with failpoints.failpoint_override("fail.resident.launch", "raise"):
+                for i in range(8):
+                    before = dict(kernels.LAUNCHES)
+                    got, h = ok_json(f"/count/{name}?cql={q(queries[i][0])}", "count degraded")
+                    if got["count"] != len(exact_hits(i, m_app)):
+                        raise AssertionError(f"phase 3l degraded /count {i}: {got['count']} != numpy")
+                    ladder.append(h.get("X-Degraded") or "")
+                    rung.append({k: kernels.LAUNCHES[k] - before[k] for k in kernels.KERNEL_NAMES
+                                 if kernels.LAUNCHES[k] != before[k]})
+                ready, _ = ok_json("/readyz", None)
+            store_masks = [r.get("filter_scan_mask", 0) for r in rung]
+            if not ladder[0].startswith("device-launch-failed") or \
+                    not any(r.startswith("device-breaker-open") for r in ladder) or \
+                    ready["breakers"]["device"]["state"] != "open" or "device" not in ready["degraded_domains"]:
+                raise AssertionError(f"phase 3l ladder: X-Degraded {ladder}, /readyz {ready}")
+            if any(set(r) - {"filter_scan_mask"} for r in rung) or sum(store_masks) < len(rung) or \
+                    kernels.VALID_LAUNCHES["filter_scan_mask"]:
+                raise AssertionError(f"phase 3l ladder: launches per degraded request {rung}, "
+                                     f"{kernels.VALID_LAUNCHES['filter_scan_mask']} with a validity plane; "
+                                     f"the store rung's filter-scan launches only, at least one a request")
+            # the breaker reads its cooldown on every use: at 0 the next
+            # request is the half-open probe
+            with prop_override("resilience.breaker.cooldown.s", 0.0):
+                got, h = ok_json(f"/count/{name}?cql={q(queries[9][0])}", "count probe")
+            ready2, _ = ok_json("/readyz", None)
+            if got["count"] != len(exact_hits(9, m_app)) or h.get("X-Degraded") or \
+                    ready2["breakers"]["device"]["state"] != "closed" or ready2["degraded_domains"]:
+                raise AssertionError(f"phase 3l: the probe after the disarm: {h.get('X-Degraded')}, "
+                                     f"/readyz {ready2}")
+        log(f"phase 3l: fail.resident.launch over 8 /count: answers == numpy from the store rung on the "
+            f"card (filter_scan_mask per request {store_masks}, no resident launch), X-Degraded {ladder}; "
+            f"/readyz device open; disarmed, the half-open probe closed it (/readyz ready, no domain "
+            f"degraded)")
+        tally(out)
+
+        # -- metrics, ledger, a trace ------------------------------------------------------
+        st, h, text = get("/metrics")
+        fams = set()
+        for line in text.decode().splitlines():
+            if line.startswith("# TYPE "):
+                fams.add(line.split()[2])
+            elif line and not line.startswith("#"):
+                float(line.rsplit(" ", 1)[1])
+        if st != 200 or not {"geomesa_slo_latency_seconds", "geomesa_sched_queries_total",
+                             "geomesa_stream_appends_total"} <= fams:
+            raise AssertionError(f"phase 3l /metrics: HTTP {st}, families {sorted(fams)[:10]}")
+        led, _ = ok_json("/stats/ledger?limit=5", None)
+        smoke = led["tenants"].get("smoke", {}).get("cost", {})
+        if not (smoke.get("device_launches", 0) > 0 and smoke.get("device_seconds", 0) > 0):
+            raise AssertionError(f"phase 3l /stats/ledger: tenant smoke {smoke}")
+        rid = "phase-3l-trace"
+        ok_json(f"/count/{name}?cql={q(queries[0][0])}", None, {"X-Request-Id": rid})
+        perf, _ = ok_json(f"/debug/traces/{rid}?format=perfetto", None)
+        names = {e["name"] for e in perf["traceEvents"] if e["ph"] == "X"}
+        if perf["otherData"]["trace_id"] != rid or f"GET /count/{name}" not in names:
+            raise AssertionError(f"phase 3l perfetto trace: {sorted(names)}")
+        log(f"phase 3l: /metrics {len(fams)} families parsed; /stats/ledger tenant smoke "
+            f"{int(smoke['device_launches'])} device launches, {smoke['device_seconds']:.4f} s; the "
+            f"trace {rid} loads as Perfetto ({len(perf['traceEvents'])} events: {sorted(names)})")
+
+        # -- drain, then a reopen that replays ------------------------------------------------
+        st, _, b = get("/admin/shutdown", method="POST", body={})
+        if st != 200 or json.loads(b) != {"draining": True}:
+            raise AssertionError(f"phase 3l /admin/shutdown: HTTP {st} {b!r}")
+        thread.join(timeout=60)
+        if thread.is_alive() or not server.draining.is_set():
+            raise AssertionError("phase 3l: the server did not drain")
+        server.server_close()
+        server = None
+        del di
+        handler._resident_cache.clear()
+        replay0 = metrics.stream_wal_replay_rows.value()
+        again = StreamingStore(DataStoreFinder.get_data_store({"fs.path": root}))
+        again._compact_due = lambda ts: False
+        replayed = int(metrics.stream_wal_replay_rows.value() - replay0)
+        total = again.count(name, "INCLUDE")
+        c0 = again.count(name, queries[0][0])
+        again.close(compact=False)
+        tail = (LIVE_TAIL + 1) * LIVE_BATCH
+        if replayed != tail + m_app or total != n + m_all + m_app or c0 != len(exact_hits(0, m_app)):
+            raise AssertionError(f"phase 3l reopen: replayed {replayed} rows (want {tail + m_app}), "
+                                 f"INCLUDE {total} (want {n + m_all + m_app}), query 0 {c0}")
+        log(f"phase 3l: POST /admin/shutdown drained; a reopen replayed {replayed:,} rows (3k's tail and "
+            f"the {m_app:,} appended), {total:,} rows, query 0 == numpy")
+        summary = {"rows": n + m_all + m_app, "card": CARD, "stage_s": stage_s, "burst_rps": burst_rps,
+                   "burst": SERVE_BURST, "shed_429": len(shed), "ladder": ladder,
+                   "seconds": time.time() - t_phase,
+                   "latency": {k: {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99), "n": len(v)}
+                               for k, v in lat.items()}}
+        for k, v in lat.items():
+            log(f"latency serve {k}: p50 {pct(v, 50):.3f} ms  p99 {pct(v, 99):.3f} ms ({len(v)} requests) "
+                f"[{CARD}]")
+        log(json.dumps({"server": summary}))
+        return out
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
         for cm in reversed(settings):
             cm.__exit__(None, None, None)
 

@@ -10,12 +10,13 @@ with :class:`QueryTimeout`), the file-system store's durability and
 chunk-format keys (``store.*``, reference lines 14-66 and 410-449), its
 host-I/O pipeline (``io.*``) and snapshot-pin lifetime
 (``snapshot.pin.ttl.s``), the streaming live layer's keys (``wal.*`` and
-``stream.*``, reference lines 514-525, without ``stream.enabled`` and
-``stream.append.max.bytes``, which only the server reads), the serving
+``stream.*``, reference lines 514-525), the serving
 retries, degrade switch and brownout fraction (``resilience.*``), the
 spatial join engine's
 keys (``join.*``, reference lines 201-241, 351-385 and 526-541) and the
-BIN encoder's engine (``results.bin.engine``). Each key has a
+BIN encoder's engine (``results.bin.engine``) and the server's keys
+(``trace.*``, ``slo.*``, ``ledger.*``, ``admin.token``,
+``http.keepalive.s``, ``mesh.*``, reference lines 433-566). Each key has a
 default, an environment override (``GEOMESA_TPU_<NAME>`` with dots as
 underscores) and a programmatic override for tests (``set_prop`` /
 ``clear_prop`` or the ``prop_override`` context manager); the override wins
@@ -141,6 +142,36 @@ _DEFS = {
     "join.batch.candidates": (1 << 20, int),
     "join.hist.bits": (8, int),
     "join.xz.ranges": (32, int),
+    # the server (server.py): request tracing's head-sampling probability
+    # and slow-capture threshold (tracing.py), the SLOs per lane with the
+    # fast burn window and the flight recorder's trigger, retention and
+    # rate limit (slo.py), the cost ledger's switch and top-K (ledger.py),
+    # the operator plane's shared secret, the idle keep-alive bound, the
+    # live layer's switch and append body bound, and the mesh switch
+    "trace.sample": (1.0, float),
+    "trace.slow_ms": (500.0, float),
+    "slo.enabled": (True, _parse_bool),
+    "slo.interactive.objective": (0.999, float),
+    "slo.interactive.threshold.ms": (500.0, float),
+    "slo.interactive.window.s": (3600.0, float),
+    "slo.batch.objective": (0.99, float),
+    "slo.batch.threshold.ms": (5000.0, float),
+    "slo.batch.window.s": (3600.0, float),
+    "slo.ingest.objective": (0.999, float),
+    "slo.ingest.threshold.ms": (100.0, float),
+    "slo.ingest.window.s": (3600.0, float),
+    "slo.burn.fast.s": (300.0, float),
+    "slo.flightrec.burn": (8.0, float),
+    "slo.flightrec.keep": (8, int),
+    "slo.flightrec.interval.s": (60.0, float),
+    "ledger.enabled": (True, _parse_bool),
+    "ledger.topk": (10, int),
+    "admin.token": ("", str),
+    "http.keepalive.s": (60.0, float),
+    "stream.enabled": (False, _parse_bool),
+    "stream.append.max.bytes": (32 << 20, int),
+    "mesh.enabled": (False, _parse_bool),
+    "mesh.devices": (0, int),
     # the BIN track-record encoder (results/binrider.py): auto (the device
     # pack for an index on the card, the numpy twin for one on the CPU),
     # device or host

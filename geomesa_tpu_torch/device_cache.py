@@ -125,6 +125,16 @@ class _BtRebase(Exception):
     is packed around: the bt plane repacks in a full restage."""
 
 
+def _launch_faults() -> None:
+    """The chaos points of a resident launch: ``fail.device.launch``, which
+    every device launch evaluates (the store's runs too), and
+    ``fail.resident.launch``, which only the resident index evaluates."""
+    from geomesa_tpu_torch.failpoints import fail_point
+
+    fail_point("fail.device.launch")
+    fail_point("fail.resident.launch")
+
+
 def _later(item: str) -> str:
     return f"not in the port yet: ROADMAP, port queue: {item}"
 
@@ -767,9 +777,7 @@ class DeviceIndex:
         filters are answered at cell granularity from the key planes.
         ``auths`` applies per-request row security against the staged
         label-id plane (None/() hides labeled rows: fail closed)."""
-        from geomesa_tpu_torch.failpoints import fail_point
-
-        fail_point("fail.device.launch")  # chaos: resident count launch
+        _launch_faults()  # chaos: resident count launch
         f = self._parse(query)
         if VIS_ID in self._cols:
             # labeled data: the auth table must AND into the device mask
@@ -797,9 +805,7 @@ class DeviceIndex:
         (evicted, in a streaming index) are False. When a label-id plane
         is staged, the per-request ``auths`` verdict is ANDed in (fail
         closed on None/())."""
-        from geomesa_tpu_torch.failpoints import fail_point
-
-        fail_point("fail.device.launch")  # chaos: resident scan launch
+        _launch_faults()  # chaos: resident scan launch
         f = self._parse(query)
         dv = self._device_valid()
         if self._resolve_loose(loose):
@@ -870,9 +876,7 @@ class DeviceIndex:
         then takes its host path. The counterpart jits one dispatch per
         (filter, kind, aggregation); PyTorch runs eagerly, so only the
         filter's compiled program is cached (per ``repr(f)``)."""
-        from geomesa_tpu_torch.failpoints import fail_point
-
-        fail_point("fail.device.launch")  # chaos: fused-agg launch
+        _launch_faults()  # chaos: fused-agg launch
         mask = self._device_mask(f, loose)
         if mask is None:
             return None
@@ -1164,9 +1168,7 @@ class DeviceIndex:
         as a tag (``"dim"``, ``"zscan"``, ``"xz"``), and a group fuses only
         when all of its queries share one. Counts and masks both read the
         validity plane in the launch."""
-        from geomesa_tpu_torch.failpoints import fail_point
-
-        fail_point("fail.device.launch")  # chaos: fused resident launch
+        _launch_faults()  # chaos: fused resident launch
         if not queries:
             return None
         if VIS_ID in self._cols:
@@ -1452,10 +1454,10 @@ class DeviceIndex:
     # -- later slices --------------------------------------------------------
 
     def warmup_plan(self, k: int = 10, density_px: int = 256, knn_kmax=None, fusion_max=None):
-        raise NotImplementedError(_later("item 5, the server seam (warmup_plan)"))
+        raise NotImplementedError(_later("item 5b, warmup_plan"))
 
     def warmup(self, k: int = 10, density_px: int = 256) -> dict:
-        raise NotImplementedError(_later("item 5, the server seam (warmup)"))
+        raise NotImplementedError(_later("item 5b, warmup"))
 
 
 def _attach(live_store, listener):

@@ -8,8 +8,12 @@ and arming helpers (reference lines 14-40 and 136-). The port evaluates
 - ``fail.sched.worker``  -- a scheduler worker about to execute a claimed
                             group; ``raise`` simulates a worker crash (its
                             requests must fail typed, never hang or vanish)
-- ``fail.device.launch`` -- a fused resident launch about to dispatch;
-                            ``raise`` simulates a launch failure
+- ``fail.device.launch`` -- a device launch about to dispatch (a resident
+                            index's, or a store run's); ``raise``
+                            simulates a launch failure
+- ``fail.resident.launch`` -- a resident index's launch only (the port's
+                            own point): the resident rung fails while the
+                            store rung, on the same card, still scans
 - ``fail.stage.oom``     -- a store run's column staging; a raise is
                             treated as an OOM (the run halves)
 - ``fail.flush.after_write``    -- the file-system store's new-generation

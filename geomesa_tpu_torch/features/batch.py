@@ -113,6 +113,16 @@ class FeatureBatch:
             {k: v[idx] for k, v in self.columns.items()},
         )
 
+    def with_visibility(self, vis) -> "FeatureBatch":
+        """Attach per-feature visibility labels (the reserved
+        ``VIS_COLUMN``)."""
+        vis = np.asarray(vis, dtype=object)
+        if len(vis) != len(self):
+            raise ValueError("visibility length mismatch")
+        cols = dict(self.columns)
+        cols[VIS_COLUMN] = vis
+        return FeatureBatch(self.sft, self.fids, cols)
+
     @property
     def visibilities(self) -> "np.ndarray | None":
         return self.columns.get(VIS_COLUMN)

@@ -89,11 +89,16 @@ def on_cuda(t) -> bool:
     return t.device.type == "cuda"
 
 
+class KernelLaunchError(RuntimeError):
+    """A C entry point reported a CUDA error at launch (the counterpart's
+    ``XlaRuntimeError``: the serving path retries it, then degrades)."""
+
+
 def check_status(rc: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error (its return value
     is cudaGetLastError() after the launch)."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} at launch")
 
 
 def and_valid(m: torch.Tensor, valid) -> torch.Tensor:

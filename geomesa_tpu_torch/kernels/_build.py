@@ -12,6 +12,13 @@ library loads: the wrappers call them from several threads at once.
 
 Nothing here runs at import: the host without a card imports every
 module of the port.
+
+These builds are the port's only compiles. Each library load reports to
+the build listeners (:func:`add_build_listener`; the compile ledger is
+one): a library found already built as a hit, an ``nvcc`` run as a miss
+with its seconds. :func:`compile_cache_stats` is the ``compile_cache``
+entry of the server's ``/stats`` (the counterpart's persistent XLA
+cache, ``jaxconf.compile_cache_stats``): ``dir`` is :data:`BUILD_DIR`.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -66,6 +74,47 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict = {}
 _logs: dict = {}
+_events = {"requests": 0, "hits": 0}
+_built_s: dict = {}  # source -> seconds of the nvcc run this process made
+_listeners: list = []
+
+
+def add_build_listener(fn) -> None:
+    """``fn(name, built, seconds)`` after each library load: ``built`` is
+    True for an ``nvcc`` run (a miss), False for a library found built."""
+    if fn not in _listeners:
+        _listeners.append(fn)
+
+
+def _note_build(name: str, built: bool, dur_s: float) -> None:
+    _events["requests"] += 1
+    if not built:
+        _events["hits"] += 1
+    for fn in list(_listeners):
+        try:
+            fn(name, built, dur_s)
+        except Exception:  # a listener must not fail the build
+            pass
+
+
+def compile_cache_stats() -> dict:
+    """The build cache for ``/stats``: its directory, the loads that found
+    a library built (hits) or ran ``nvcc`` (misses), and the libraries on
+    disk."""
+    d: dict = {
+        "dir": str(BUILD_DIR),
+        "enabled": True,
+        "requests": _events["requests"],
+        "hits": _events["hits"],
+        "misses": max(0, _events["requests"] - _events["hits"]),
+    }
+    try:
+        entries = [e for e in os.scandir(BUILD_DIR) if e.is_file() and e.name.endswith(".so")]
+        d["entries"] = len(entries)
+        d["bytes"] = sum(e.stat().st_size for e in entries)
+    except OSError:
+        pass
+    return d
 
 
 def nvcc_path() -> str:
@@ -95,22 +144,24 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
-    return proc, tmp, out
+    return proc, tmp, out, t0
 
 
 def _finish(name: str, started) -> None:
     if started is None:
         return
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     _logs[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    _built_s[name] = time.perf_counter() - t0
 
 
 def build_all() -> dict:
@@ -129,6 +180,8 @@ def _load_locked(name: str):
     lib = _libs.get(name)
     if lib is None:
         _finish(name, _start(name))
+        built = name in _built_s
+        _note_build(name, built, _built_s.get(name, 0.0))
         lib = ctypes.CDLL(str(_target(name)))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes

@@ -1,20 +1,28 @@
-"""Metrics registry of the port's serving path.
+"""Metrics registry of the port's serving path, with Prometheus text
+exposition.
 
-Counterpart of ``geomesa_tpu/metrics.py``, trimmed to the core (Counter,
-Gauge, Histogram with labels, one process-global registry) and the
-metrics the device query scheduler and its watchdog write: queue depth,
-wait time, queries, launches, fused queries, rejections, expirations,
-worker failures, drains and watchdog timeouts; the streaming index's
-delta refreshes by mode; the spatial join engine's counters and
-histograms and the device BIN pack's launches (reference lines 644-697);
-the store path's queries, query latency and OOM recoveries; the
-file-system store's host I/O (``io_*``), generations, recovery sweeps,
-checksums and quarantines (``store_*``) and its aggregation pushdown
-(``agg_pushdown_*``, reference lines 280-380); the serving retries
-(``resilience_retries``) and the streaming live layer's appends, WAL,
-replay, memtable, backpressure and compaction (``stream_*``, reference
-lines 547-596). The Prometheus exposition
-and every other family of the counterpart are left out.
+Counterpart of ``geomesa_tpu/metrics.py``: Counter, Gauge and Histogram
+(with OpenMetrics exemplars) with labels, one
+process-global registry and :meth:`MetricsRegistry.prometheus_text`
+(reference line 147: the classic 0.0.4 text, or OpenMetrics with
+exemplars and ``# EOF``). The metrics are those the port writes: the
+device query scheduler and its watchdog (queue depth, wait time,
+queries, launches, fused queries, rejections, expirations, worker
+failures, drains, watchdog timeouts); the streaming index's delta
+refreshes by mode; the spatial join engine's counters and histograms and
+the device BIN pack's launches (reference lines 644-697); the store
+path's queries, query latency and OOM recoveries; the file-system
+store's host I/O (``io_*``), generations, recovery sweeps, checksums and
+quarantines (``store_*``) and its aggregation pushdown
+(``agg_pushdown_*``, reference lines 280-380); the serving retries,
+breakers and degradations (``resilience_*``) and the streaming live
+layer's appends, WAL, replay, memtable, backpressure and compaction
+(``stream_*``, reference lines 547-596); and the server's own families
+(reference lines 484-546 and 679-694): traces and slow queries, the SLO
+engine's windows and burn rates, flight-recorder bundles, the cost
+ledger, the kernel builds the compile ledger counts, and the result
+plane's encode/write split. The counterpart's other families are left
+out.
 """
 
 from __future__ import annotations
@@ -31,8 +39,7 @@ class _Metric:
         self._values: dict = {}
         self._lock = threading.Lock()
 
-    @staticmethod
-    def labels(**labels) -> tuple:
+    def labels(self, **labels) -> tuple:
         return tuple(sorted(labels.items()))
 
 
@@ -74,20 +81,25 @@ DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 60.0)
 
 class Histogram(_Metric):
     """Bucketed histogram: per label set the count of each ``le`` bucket
-    (the last slot is +Inf), the sum and the number of observations."""
+    (the last slot is +Inf), the sum and the number of observations.
+    ``observe(..., exemplar={"trace_id": tid})`` attaches an OpenMetrics
+    exemplar to the bucket the value lands in (last writer wins)."""
 
     def __init__(self, name, help_="", buckets=DEFAULT_BUCKETS):
         super().__init__(name, help_, "histogram")
         self.buckets = tuple(sorted(buckets))
 
-    def observe(self, v: float, **labels) -> None:
+    def observe(self, v: float, *, exemplar=None, **labels) -> None:
         key = self.labels(**labels)
         with self._lock:
             st = self._values.setdefault(
                 key, {"counts": [0] * (len(self.buckets) + 1), "sum": 0.0, "n": 0})
-            st["counts"][bisect_left(self.buckets, v)] += 1
+            b = bisect_left(self.buckets, v)
+            st["counts"][b] += 1
             st["sum"] += v
             st["n"] += 1
+            if exemplar:
+                st.setdefault("exemplars", {})[b] = (dict(exemplar), float(v))
 
     def stats(self, **labels) -> dict:
         return self._values.get(self.labels(**labels), {"counts": [], "sum": 0.0, "n": 0})
@@ -115,6 +127,62 @@ class MetricsRegistry:
             elif not isinstance(m, cls):
                 raise TypeError(f"metric {name!r} is a {m.kind}")
             return m
+
+    def prometheus_text(self, openmetrics: bool = False) -> str:
+        """Prometheus exposition: the classic text format (0.0.4) without
+        exemplars by default, whose parser rejects anything after the
+        value; ``openmetrics=True`` adds the exemplar suffixes on
+        histogram buckets and the closing ``# EOF``. Every value is
+        snapshotted under its metric's lock before formatting."""
+        with self._lock:
+            metrics = sorted(self._metrics.items())
+        lines: list = []
+        for name, m in metrics:
+            if m.help:
+                lines.append(f"# HELP {name} {m.help}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            if isinstance(m, (Counter, Gauge)):
+                with m._lock:
+                    values = sorted(m._values.items())
+                for key, v in values:
+                    lines.append(f"{name}{_fmt_labels(key)} {_fmt_val(v)}")
+                continue
+            with m._lock:
+                stats = sorted(
+                    (key, list(st["counts"]), st["sum"], st["n"], dict(st.get("exemplars", ())))
+                    for key, st in m._values.items())
+            for key, counts, total, n, exemplars in stats:
+                cum = 0
+                for i, (b, c) in enumerate(zip(m.buckets + (float("inf"),), counts)):
+                    cum += c
+                    lb = "+Inf" if b == float("inf") else _fmt_val(b)
+                    line = f"{name}_bucket{_fmt_labels(key + (('le', lb),))} {cum}"
+                    ex = exemplars.get(i) if openmetrics else None
+                    if ex is not None:
+                        line += f" # {_fmt_labels(tuple(sorted(ex[0].items())))} {_fmt_val(ex[1])}"
+                    lines.append(line)
+                lines.append(f"{name}_sum{_fmt_labels(key)} {_fmt_val(total)}")
+                lines.append(f"{name}_count{_fmt_labels(key)} {n}")
+        if openmetrics:
+            lines.append("# EOF")
+        return "\n".join(lines) + "\n"
+
+
+
+def _esc_label(v) -> str:
+    """Label value escaping (backslash, double quote, newline)."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_labels(key) -> str:
+    if not key:
+        return ""
+    return "{" + ",".join(f'{k}="{_esc_label(v)}"' for k, v in key) + "}"
+
+
+def _fmt_val(v: float) -> str:
+    f = float(v)
+    return str(int(f)) if f.is_integer() else repr(f)
 
 
 REGISTRY = MetricsRegistry()
@@ -270,3 +338,56 @@ agg_pushdown_rows = REGISTRY.counter(
 agg_pushdown_chunks_refined = REGISTRY.counter(
     "geomesa_agg_pushdown_chunks_refined_total",
     "boundary chunks that descended to row-level refinement")
+
+# the server's families: retained traces and slow queries (tracing.py),
+# the SLO engine's windows and burn (slo.py), flight-recorder bundles, the
+# cost ledger and the compile ledger's kernel builds (ledger.py), breaker
+# states and degradations (resilience.py), the result plane's encode/write
+# split (server.py)
+traces_captured = REGISTRY.counter(
+    "geomesa_traces_captured_total", "request traces retained in the recent-trace ring")
+slow_queries = REGISTRY.counter(
+    "geomesa_slow_queries_total",
+    "requests slower than trace.slow_ms (always-captured + slow-logged)")
+slo_latency = REGISTRY.histogram(
+    "geomesa_slo_latency_seconds",
+    "request latency per endpoint/lane (buckets carry trace exemplars)",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0))
+slo_requests = REGISTRY.counter("geomesa_slo_requests_total", "requests measured against an SLO")
+slo_bad = REGISTRY.counter(
+    "geomesa_slo_bad_total", "requests over their SLO latency threshold or failed 5xx")
+slo_burn = REGISTRY.gauge(
+    "geomesa_slo_burn_rate",
+    "error-budget burn rate per (slo, window); > 1 consumes budget faster than it accrues")
+flightrec_bundles = REGISTRY.counter(
+    "geomesa_flightrec_bundles_total", "flight-recorder postmortem bundles written, by reason")
+ledger_requests = REGISTRY.counter(
+    "geomesa_ledger_requests_total", "requests folded into the cost ledger")
+ledger_device_seconds = REGISTRY.counter(
+    "geomesa_ledger_device_seconds_total",
+    "fair-share device seconds attributed to ledgered requests")
+ledger_compile_seconds = REGISTRY.counter(
+    "geomesa_ledger_compile_seconds_total", "kernel build seconds ledgered requests blocked on")
+compile_events = REGISTRY.counter(
+    "geomesa_compile_events_total", "kernel builds (nvcc runs) observed by the compile ledger")
+compile_event_seconds = REGISTRY.counter(
+    "geomesa_compile_event_seconds_total",
+    "total kernel build seconds observed by the compile ledger")
+resilience_breaker_state = REGISTRY.gauge(
+    "geomesa_resilience_breaker_state",
+    "circuit-breaker state per domain (0=closed 1=half-open 2=open)")
+resilience_breaker_transitions = REGISTRY.counter(
+    "geomesa_resilience_breaker_transitions_total", "circuit-breaker state transitions (domain, to)")
+resilience_degraded = REGISTRY.counter(
+    "geomesa_resilience_degraded_total", "requests answered degraded, by (bounded) reason")
+results_batches = REGISTRY.counter(
+    "geomesa_results_batches_total",
+    "wire record batches / chunks emitted by the result plane (fmt)")
+results_bytes = REGISTRY.counter(
+    "geomesa_results_bytes_total", "response/export body bytes encoded by the result plane (fmt)")
+results_encode_seconds = REGISTRY.histogram(
+    "geomesa_results_encode_seconds",
+    "wire-format serialization time per response (socket write excluded)")
+results_write_seconds = REGISTRY.histogram(
+    "geomesa_results_write_seconds", "socket write time per response (serialization excluded)")

@@ -10,9 +10,15 @@ by one ``CompiledFilter.mask`` call, which launches the filter-scan kernel
 ``device_fn`` otherwise; one copy brings the mask back. Non-device
 predicates run as an exact numpy residual over the surviving candidates.
 
-OOM recovery by halving a run is the counterpart's. Its host-degrade rung
-(evaluating the predicate on the host rows after a failed launch, under
-``resilience.degrade``) is not in the port: a failed launch raises.
+OOM recovery by halving a run is the counterpart's. Its host-degrade
+rung is the counterpart's for a store on the CPU only: there a launch that
+fails (or an OOM too small to split) under ``resilience.degrade``
+evaluates the same predicate on the host rows and notes
+``device-launch-failed`` (or ``device-oom``) for the server's degradation
+collector. On the card the same faults raise, so no answer of a store on
+the card is computed on the host; the server's ladder falls from the
+resident rung to this, the store rung, which scans on the card. With the
+switch off, or on a FATAL fault, it raises on either device.
 """
 
 from __future__ import annotations
@@ -80,12 +86,23 @@ def run_query(built: BuiltIndex, plan: QueryPlan, device,
 _MAX_OOM_SPLITS = 8
 
 
+def _on_host(device) -> bool:
+    """Does ``device`` name the CPU? Only there may a failed run take the
+    host rung: on the card it raises."""
+    import torch
+
+    return torch.device(device).type == "cpu"
+
+
 def _scan_run(built, compiled, device, start: int, stop: int,
               depth: int = 0) -> np.ndarray:
     """One staged device launch over rows [start, stop) returning the
     fetched mask. A staging/device OOM (or the ``fail.stage.oom``
-    injection) recovers by HALVING the run and retrying each half; any
-    other failure, ``fail.device.launch`` among them, raises."""
+    injection) recovers by HALVING the run and retrying each half; on a
+    CPU ``device`` a failure that is not FATAL (``fail.device.launch``
+    among them) falls to the host rung under ``resilience.degrade``; the
+    rest raises, and on the card every failure that halving cannot
+    recover raises."""
     from geomesa_tpu_torch import ledger, resilience
     from geomesa_tpu_torch.failpoints import FailpointError, fail_point
     from geomesa_tpu_torch.tracing import span
@@ -124,6 +141,14 @@ def _scan_run(built, compiled, device, start: int, stop: int,
                 _scan_run(built, compiled, device, start, mid, depth + 1),
                 _scan_run(built, compiled, device, mid, stop, depth + 1),
             ])
+        if _on_host(device) and resilience.degrade_allowed() \
+                and resilience.classify(e) != resilience.FATAL:
+            # the device rung is unavailable: evaluate the same predicate
+            # on the host rows (exact, slower); the residual re-applies
+            # downstream and is a subset of it, so applying both is safe
+            resilience.note_degraded("device-oom" if oom else "device-launch-failed")
+            rows = built.batch.take(np.arange(start, stop))
+            return np.asarray(compiled.host_mask(rows), dtype=bool)
         raise
 
 

@@ -1,26 +1,34 @@
-"""Failure domains of the serving path: the launch watchdog's error, the
-device circuit breaker and the degradation collector.
+"""Failure-domain isolation and graceful degradation for the serving path.
 
-Counterpart of ``geomesa_tpu/resilience.py``, trimmed to what the device
-query scheduler uses: :class:`LaunchStuckError`, :func:`enabled`,
-:class:`CircuitBreaker` with the process-wide :func:`device_breaker`, and
-the per-request degradation collector that crosses to worker threads
-(:func:`collect_degraded`, :func:`capture_degraded`,
-:func:`attach_degraded`, :func:`note_degraded`), the file-system store's
-partition-scoped :class:`PartitionUnavailableError` and the jittered
-:func:`backoff_sleeps` of its read retries; for the streaming live
-layer, the part of the fault taxonomy that decides ``RETRYABLE``
-(:func:`classify`, reference line 138), the bounded retry
-:func:`retry_call` (``:206``), :func:`wal_breaker` (``:410``),
-:func:`degrade_allowed` (``:121``) and :func:`brownout` (``:588``), which
-reads the scheduler's ``queue_pressure``. The keyed partition breakers
-and the rest of the degradation ladder belong to the server, which the
-port does not have yet.
+Counterpart of ``geomesa_tpu/resilience.py``. Three pieces:
 
-The breaker is ``closed`` until ``resilience.breaker.failures`` failures
-in a row, then ``open`` (callers skip the domain) for
-``resilience.breaker.cooldown.s``, then ``half-open``: one probe goes
-through; its success closes the breaker, its failure opens it again.
+- **Fault taxonomy.** :func:`classify` maps an exception on the serving
+  path to ``RETRYABLE`` (transient: I/O hiccups, an injected
+  ``FailpointError``, a kernel launch that reported a CUDA error, the
+  counterpart's non-OOM ``XlaRuntimeError``: retry with jittered
+  backoff), ``DEGRADABLE`` (the work is lost but a cheaper rung can still
+  answer: an OOM, a stuck launch, a corrupt or unreachable partition) or
+  ``FATAL`` (bad requests, programming errors, and the flow-control
+  signals 429/504, which reach the client untouched).
+- **Circuit breakers.** :class:`CircuitBreaker` per domain: ``device``
+  (launch failures), ``cache`` (resident staging), ``wal`` (streaming
+  appends) and the keyed ``partition`` breakers (one per partition read).
+  A breaker is ``closed`` until ``resilience.breaker.failures`` failures
+  in a row, then ``open`` (callers take the degradation rung at once) for
+  ``resilience.breaker.cooldown.s``, then ``half-open``: one probe goes
+  through; its success closes the breaker, its failure opens it again.
+  An opening breaker asks the flight recorder for a bundle
+  (``slo.on_breaker_open``).
+- **Degradation accounting.** A layer that answers below the requested
+  rung calls :func:`note_degraded` with a reason of :data:`REASONS`; the
+  server installs a collector per request (:func:`collect_degraded`) and
+  stamps the reasons into the ``X-Degraded`` header and the audit event.
+  The collector crosses the scheduler's workers explicitly
+  (:func:`capture_degraded` / :func:`attach_degraded`).
+
+Everything is gated by ``resilience.enabled`` / ``resilience.degrade``,
+and :func:`brownout` reads the scheduler's ``queue_pressure``. The
+counterpart's runtime-checker observer seams are not in the port.
 """
 
 from __future__ import annotations
@@ -32,16 +40,21 @@ import time
 from contextlib import contextmanager
 
 __all__ = [
-    "FATAL", "RETRYABLE",
+    "DEGRADABLE", "FATAL", "REASONS", "RETRYABLE",
     "CircuitBreaker", "LaunchStuckError", "PartitionUnavailableError",
     "attach_degraded", "backoff_sleeps", "breaker", "brownout",
-    "capture_degraded", "classify", "collect_degraded", "degrade_allowed",
-    "device_breaker", "enabled", "is_oom", "note_degraded", "reset",
-    "retry_call", "wal_breaker",
+    "cache_breaker", "capture_degraded", "classify", "collect_degraded",
+    "current_degraded", "degrade_allowed", "device_breaker", "enabled",
+    "is_oom", "note_degraded", "open_partition_breakers", "partition_breaker",
+    "reset", "retry_call", "snapshot", "wal_breaker",
 ]
 
 RETRYABLE = "retryable"
+DEGRADABLE = "degradable"
 FATAL = "fatal"
+
+#: breaker-state gauge encoding (geomesa_resilience_breaker_state)
+_STATE_CODE = {"closed": 0, "half-open": 1, "open": 2}
 
 
 class LaunchStuckError(RuntimeError):
@@ -111,15 +124,28 @@ def is_oom(exc: BaseException) -> bool:
 
 
 def classify(exc: BaseException) -> str:
-    """The counterpart's fault taxonomy as far as the retry reads it:
-    ``RETRYABLE`` for transient I/O (an ``OSError`` other than a
-    ``FileNotFoundError`` or an OOM, an injected ``FailpointError`` among
-    them), ``FATAL`` for the rest. The scheduler's flow-control signals
-    (429, 504), bad requests and the counterpart's degradable faults
-    (stuck launches, OOMs, unreadable partitions) are never retried; the
-    degradation ladder that tells the last apart comes with the server."""
-    if isinstance(exc, OSError) and not isinstance(exc, FileNotFoundError) and not is_oom(exc):
-        return RETRYABLE
+    """Map a serving-path exception to its fault class (module docstring).
+    The flow-control signals (429 ``RejectedError``, 504
+    ``DeadlineExpired``) are FATAL on purpose: they are the backpressure
+    contract with the client, never retried or degraded away."""
+    from geomesa_tpu_torch.kernels import KernelLaunchError
+    from geomesa_tpu_torch.sched.scheduler import DeadlineExpired, RejectedError
+    from geomesa_tpu_torch.store.fs import PartitionCorruptError
+
+    if isinstance(exc, (RejectedError, DeadlineExpired)):
+        return FATAL
+    if isinstance(exc, (LaunchStuckError, PartitionUnavailableError)):
+        return DEGRADABLE
+    if is_oom(exc):
+        return DEGRADABLE
+    if isinstance(exc, PartitionCorruptError):
+        return DEGRADABLE
+    if isinstance(exc, FileNotFoundError):
+        return FATAL  # a real state (a collected generation): refresh, not retry
+    if isinstance(exc, OSError):
+        return RETRYABLE  # FailpointError among them: transient injection
+    if isinstance(exc, KernelLaunchError):
+        return RETRYABLE  # a transient device runtime fault (non-OOM)
     return FATAL
 
 
@@ -192,6 +218,13 @@ class CircuitBreaker:
         if to == "open":
             self.opens += 1
             self._opened_at = time.monotonic()
+        from geomesa_tpu_torch import metrics
+
+        metrics.resilience_breaker_transitions.inc(domain=self.domain, to=to)
+        if self.domain in ("device", "cache"):
+            # singleton domains publish their state; the keyed partition
+            # domain publishes open-breaker counts instead
+            metrics.resilience_breaker_state.set(_STATE_CODE[to], domain=self.domain)
 
     @property
     def state(self) -> str:
@@ -234,12 +267,24 @@ class CircuitBreaker:
                 self._probe_at = time.monotonic() - self.cooldown_s
 
     def record_failure(self) -> None:
+        opened = False
         with self._lock:
             self._consecutive += 1
             if self._state == "half-open":
                 self._transition_locked("open")
+                opened = True
             elif self._state == "closed" and self._consecutive >= self.failures:
                 self._transition_locked("open")
+                opened = True
+        if opened:
+            # the postmortem bundle outside the breaker lock (file I/O);
+            # rate limits and the enabled gates live in the recorder
+            try:
+                from geomesa_tpu_torch import slo
+
+                slo.on_breaker_open(self.domain)
+            except Exception:
+                pass
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -254,10 +299,13 @@ class CircuitBreaker:
 
 _breakers_lock = threading.Lock()
 _breakers: dict = {}
+#: keyed (per-partition) breakers kept at most this many; closed ones are
+#: evicted first, so an open breaker survives to its half-open
+_PARTITION_BREAKERS_MAX = 1024
 
 
 def breaker(domain: str) -> CircuitBreaker:
-    """The process-wide breaker of a domain."""
+    """The process-wide breaker of a singleton domain."""
     with _breakers_lock:
         b = _breakers.get(domain)
         if b is None:
@@ -269,11 +317,57 @@ def device_breaker() -> CircuitBreaker:
     return breaker("device")
 
 
+def cache_breaker() -> CircuitBreaker:
+    """The breaker of resident staging: an open one sends requests to the
+    store path without paying another staging attempt."""
+    return breaker("cache")
+
+
 def wal_breaker() -> CircuitBreaker:
     """The breaker of write-ahead-log I/O: while it is open, streaming
     appends fail fast (no ack is promised against a log that cannot take
     it)."""
     return breaker("wal")
+
+
+def partition_breaker(type_name: str, pid) -> CircuitBreaker:
+    """The keyed breaker guarding reads of ONE partition. The registry is
+    bounded: when full, the oldest closed keyed breaker is evicted (with
+    none closed, the oldest keyed one)."""
+    key = ("partition", type_name, pid)
+    with _breakers_lock:
+        b = _breakers.get(key)
+        if b is None:
+            keyed = [k for k in _breakers if isinstance(k, tuple)]
+            if len(keyed) >= _PARTITION_BREAKERS_MAX:
+                for k in keyed:
+                    if _breakers[k]._state == "closed":
+                        del _breakers[k]
+                        break
+                else:
+                    del _breakers[keyed[0]]
+            b = _breakers[key] = CircuitBreaker(f"partition:{type_name}:{pid}", domain="partition")
+        return b
+
+
+def open_partition_breakers() -> int:
+    with _breakers_lock:
+        keyed = [b for k, b in _breakers.items() if isinstance(k, tuple)]
+    return sum(1 for b in keyed if b.state != "closed")
+
+
+def snapshot() -> dict:
+    """Breaker states for ``/readyz``: the singleton domains always appear
+    (created closed on first ask), with the count of open partition
+    breakers."""
+    device_breaker()
+    cache_breaker()
+    wal_breaker()
+    with _breakers_lock:
+        singles = {k: b for k, b in _breakers.items() if isinstance(k, str)}
+    doc = {k: b.snapshot() for k, b in sorted(singles.items())}
+    doc["partition_open"] = open_partition_breakers()
+    return doc
 
 
 def brownout(scheduler) -> bool:
@@ -294,12 +388,26 @@ def brownout(scheduler) -> bool:
 
 def reset() -> None:
     """Drop every breaker and its state (test isolation)."""
+    from geomesa_tpu_torch import metrics
+
     with _breakers_lock:
         _breakers.clear()
+    for domain in ("device", "cache", "wal"):
+        metrics.resilience_breaker_state.set(0, domain=domain)
 
 
 # the per-request degradation collector; None outside a serving request
 _collector: contextvars.ContextVar = contextvars.ContextVar("geomesa_torch_degraded", default=None)
+
+
+#: the bounded reason enum: an unlisted reason still collects, but its
+#: metric counts it under "other"
+REASONS = frozenset({
+    "device-breaker-open", "device-launch-failed", "launch-stuck", "device-oom",
+    "resident-unavailable", "cache-breaker-open", "partition-unavailable",
+    "brownout-pushdown", "mesh-degraded", "ingest-degraded", "wal-replay-truncated",
+    "replica-lag", "replica-degraded", "reprovision-installing",
+})
 
 
 @contextmanager
@@ -316,10 +424,19 @@ def collect_degraded():
 
 def note_degraded(reason: str) -> None:
     """Record that the current request was answered below its requested
-    rung (a no-op outside a request)."""
+    rung: collected inside a request, counted by the metric always."""
+    from geomesa_tpu_torch import ledger, metrics
+
+    metrics.resilience_degraded.inc(reason=reason if reason in REASONS else "other")
+    ledger.charge("degraded", 1)
     reasons = _collector.get()
     if reasons is not None and reason not in reasons:
         reasons.append(reason)
+
+
+def current_degraded() -> "list[str]":
+    reasons = _collector.get()
+    return list(reasons) if reasons else []
 
 
 def capture_degraded():

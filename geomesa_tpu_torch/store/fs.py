@@ -33,12 +33,16 @@ partition (:class:`PartitionCorruptError`) while the rest keep serving.
 The ``fail.flush.*``/``fail.read.*`` failpoints are evaluated at the
 counterpart's steps.
 
+A partition whose read fails (retries spent, checksum bad, or its keyed
+circuit breaker open) is skipped by ``query`` when a request's
+degradation collector is installed, and the answer is stamped
+``partition-unavailable``; without a collector (a library or CLI caller),
+and in ``query_partitions``, it raises the typed, partition-scoped
+``resilience.PartitionUnavailableError``, as the counterpart does.
+
 Where the port differs: the ``mesh`` argument raises (the device build is
-ROADMAP item 7); a partition read that fails raises
-``resilience.PartitionUnavailableError`` whether or not a degradation
-collector is installed (the serving branch that skips the partition comes
-with the collector, ROADMAP item 5e); the out-of-core reader
-``_read_partition_prefetch`` comes with item 6.
+ROADMAP item 7); the out-of-core reader ``_read_partition_prefetch`` comes
+with item 6.
 """
 
 from __future__ import annotations
@@ -1120,22 +1124,52 @@ class FileSystemDataStore:
 
     def _read_partition_guarded(self, type_name: str, p: PartitionMeta, cache: bool = False,
                                 locked: bool = False):
-        """The scan paths' partition read: transient errors retry on the
+        """The scan paths' partition read (the counterpart's
+        ``_read_partition_degradable``): transient errors retry on the
         worker (``io.*`` backoff); a read whose retries are spent, or a
-        corrupt or quarantined partition, returns a :class:`_PartFailure`
-        (partition-scoped: siblings and the pipeline are untouched) for
-        the consumer to raise typed. ``locked`` takes the per-read lock
-        (query_partitions holds none across its yields)."""
+        corrupt or quarantined partition, records a failure on THIS
+        partition's circuit breaker and returns a :class:`_PartFailure`
+        (partition-scoped: siblings and the pipeline are untouched); an
+        open breaker short-circuits the read until its half-open probe.
+        ``locked`` takes the per-read lock (query_partitions holds none
+        across its yields). The breakers apply under
+        ``resilience.degrade``."""
+        from geomesa_tpu_torch import resilience
         from geomesa_tpu_torch.store.prefetch import _with_retries
 
         plain = self._read_partition if locked else self._read_partition_unlocked
+        br = None
+        if resilience.degrade_allowed():
+            # the breaker's key holds the root: two stores with one type
+            # name must not share failure state
+            br = resilience.partition_breaker(f"{self.root}:{type_name}", p.pid)
+            if not br.allow():
+                return _PartFailure(p, resilience.PartitionUnavailableError(
+                    type_name, p.pid, "circuit breaker open"))
         read = _with_retries(lambda pp: plain(type_name, pp, cache=cache))
         try:
-            return read(p)
+            batch = read(p)
         except FileNotFoundError:
             raise  # a real state (a collected generation): refresh, not degrade
         except (OSError, PartitionCorruptError) as e:
+            if br is not None:
+                br.record_failure()
             return _PartFailure(p, e)
+        if br is not None:
+            br.record_success()
+        return batch
+
+    @staticmethod
+    def _skip_part_failure(type_name: str, failure: _PartFailure) -> None:
+        """The serving branch of a failed partition read: note the
+        degradation (header and audit stamping, metric) and log the
+        skipped partition; the caller continues past it."""
+        from geomesa_tpu_torch import resilience
+
+        resilience.note_degraded("partition-unavailable")
+        _log.warning(
+            "dataset %r partition %d unavailable (%s) -- serving DEGRADED result without it",
+            type_name, failure.p.pid, failure.error)
 
     def scan_lock_held(self) -> bool:
         """True when THIS thread holds the store's exclusive lock: prefetch
@@ -1376,7 +1410,14 @@ class FileSystemDataStore:
                 if deadline and time.perf_counter() > deadline:
                     raise QueryTimeout(f"query on {type_name!r} exceeded {timeout_ms}ms")
                 if isinstance(batch, _PartFailure):
-                    raise _unavailable(type_name, batch) from batch.error
+                    from geomesa_tpu_torch import resilience
+
+                    if resilience.capture_degraded() is None:
+                        # no request collector to stamp: a library or CLI
+                        # caller gets the typed error, never a silent partial
+                        raise _unavailable(type_name, batch) from batch.error
+                    self._skip_part_failure(type_name, batch)
+                    continue
                 scanned += len(batch)
                 sub = run_query(self._local_index(ks, batch, p), inner_plan, device,
                                 defer_visibility=True)
@@ -1405,6 +1446,20 @@ class FileSystemDataStore:
         return self.plan(type_name, query).explain()
 
     # -- aggregation pushdown (partition format v2) ------------------------
+
+    def manifest_rows(self, type_name: str) -> int:
+        """Rows the manifest records (equal to the files' rows): the
+        pre-size hint of resident staging, read without opening a file."""
+        return int(sum(p.count for p in self._types[type_name].partitions))
+
+    def has_chunk_stats(self, type_name: str) -> bool:
+        """True when every partition of ``type_name`` carries v2 chunk
+        statistics, so the pushdown answers bbox+time shapes without row
+        scans (the server's brownout rung consults it)."""
+        st = self._types.get(type_name)
+        if st is None:
+            return False
+        return all(p.chunks is not None for p in list(st.partitions))
 
     def count(self, type_name: str, query=ast.Include) -> int:
         """Filtered count; bbox+time filters on a v2 store are answered

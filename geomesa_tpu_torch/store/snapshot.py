@@ -8,8 +8,8 @@ the generation it captured; until the pin is released or ages past
 ``snapshot.pin.ttl.s`` untouched, the store's sweep keeps those files even
 after a newer manifest supersedes them. Pin capture, the snapshot
 stream, a process's own active pins (which the TTL spares) and the
-download stages of a reprovision come with the server seam (ROADMAP
-item 5e).
+download stages of a reprovision come with the replication tier and its
+``/snapshot`` endpoint (ROADMAP item 5).
 """
 
 from __future__ import annotations

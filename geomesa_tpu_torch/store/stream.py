@@ -38,14 +38,14 @@ Where the port differs: a WAL payload is the batch in the port's
 columnar block format (``store/partfile.py``) behind a magic of its own,
 not an Arrow IPC stream (the card's host has no ``pyarrow``); a payload
 without that magic raises (ROADMAP section 3). The per-run scans defer
-visibility by ``run_query``'s argument, never by a query hint. Left out,
-each for the code that reads it (ROADMAP item 5): the replication tier
-(``apply_replicated``, ``replica_positions``, ``install_snapshot``,
-``ReplicationGapError``, ``retention_floor``), the pubsub matcher's feed
-(the seq listeners, ``add_retention_floor``), the server seam (the
-stall's flight-recorder bundle, ``streaming_enabled``, the compaction's
-ledger record), and ``has_chunk_stats``/``manifest_rows``, which the port's
-file-system store does not have.
+visibility by ``run_query``'s argument, never by a query hint. A stalled
+compactor (shed appends and no publish for ``stream.stall.s``) writes an
+``ingest-stall`` flight-recorder bundle; each compaction records a
+``_system`` entry in the cost ledger. Left out, each for the code that
+reads it (ROADMAP item 5): the replication tier (``apply_replicated``,
+``replica_positions``, ``install_snapshot``, ``ReplicationGapError``,
+``retention_floor``) and the pubsub matcher's feed (the seq listeners,
+``add_retention_floor``).
 """
 
 from __future__ import annotations
@@ -68,7 +68,8 @@ from geomesa_tpu_torch.spawn import spawn_thread
 from geomesa_tpu_torch.store import partfile
 from geomesa_tpu_torch.store.wal import WriteAheadLog
 
-__all__ = ["IngestBackpressureError", "StreamingStore", "WalUnavailableError"]
+__all__ = ["IngestBackpressureError", "StreamingStore", "WalUnavailableError",
+           "streaming_enabled"]
 
 _log = logging.getLogger(__name__)
 _retry_rng = random.Random()
@@ -76,6 +77,14 @@ _retry_rng = random.Random()
 #: leads every WAL payload the port writes: a batch in the partition-file
 #: block format (``store/partfile.py``)
 PAYLOAD_MAGIC = b"GMWALB\x00\x01"
+
+
+def streaming_enabled() -> bool:
+    """The ``stream.enabled`` switch the server reads when ``make_server``
+    is given no ``stream`` argument."""
+    from geomesa_tpu_torch.conf import sys_prop
+
+    return bool(sys_prop("stream.enabled"))
 
 
 class IngestBackpressureError(RejectedError):
@@ -203,13 +212,16 @@ class StreamingStore:
         max_gens = max(int(sys_prop("wal.max.generations")), 1)
         br = resilience.wal_breaker()
         with span("stream.append", type=type_name, rows=len(batch)):
-            shed = False
+            shed = None
             with ts.lock:
                 if len(ts.runs) >= max_gens and not self._can_coalesce(type_name, ts, batch):
                     # at the bound and a new run would be needed: shed
-                    # before any WAL byte lands, so nothing is acked
+                    # before any WAL byte lands, so nothing is acked; the
+                    # stall bundle fires after the lock is released (its
+                    # providers take it again)
                     metrics.stream_backpressure.inc()
-                    shed = True
+                    shed = {"type": type_name, "runs": len(ts.runs),
+                            "memtable_rows": sum(r.rows for r in ts.runs)}
                 else:
                     if not br.allow():
                         raise WalUnavailableError(
@@ -229,9 +241,10 @@ class StreamingStore:
                     ts.appended_rows += len(batch)
                     mem_rows = sum(r.rows for r in ts.runs)
                     nruns = len(ts.runs)
-            if shed:
+            if shed is not None:
+                stalled = self._note_stall(ts, shed)
                 self._kick()
-                raise IngestBackpressureError(self._retry_after(ts, self._stalled(ts)))
+                raise IngestBackpressureError(self._retry_after(ts, stalled))
             metrics.stream_appends.inc()
             metrics.stream_rows.inc(len(batch))
             metrics.stream_memtable_rows.set(mem_rows, type=type_name)
@@ -314,14 +327,29 @@ class StreamingStore:
         return min(max(est, 0.1), 30.0)
 
     @staticmethod
-    def _stalled(ts: _TypeStream) -> bool:
-        """The counterpart's stall verdict (``_note_stall``): no compaction
-        published for ``stream.stall.s``. Its flight-recorder bundle comes
-        with the server seam."""
+    def _note_stall(ts: _TypeStream, detail: dict) -> bool:
+        """Shed appends with a compactor that has not published for
+        ``stream.stall.s``: the stall verdict, with an ``ingest-stall``
+        flight-recorder bundle (rate-limited by the recorder). Called with
+        ``ts.lock`` released: the bundle's providers take it again."""
         from geomesa_tpu_torch.conf import sys_prop
 
         stall_s = float(sys_prop("stream.stall.s"))
-        return stall_s > 0 and time.monotonic() - ts.last_publish >= stall_s
+        if stall_s <= 0:
+            return False
+        age = time.monotonic() - ts.last_publish
+        if age < stall_s:
+            return False
+        try:
+            from geomesa_tpu_torch import slo
+
+            detail = dict(detail)
+            detail["seconds_since_publish"] = round(age, 3)
+            detail["wal"] = ts.wal.stats()
+            slo.FLIGHTREC.trigger("ingest-stall", detail=detail)
+        except Exception:  # the bundle is observability: the verdict stands
+            pass
+        return True
 
     # -- resident-index deltas ---------------------------------------------
 
@@ -454,6 +482,17 @@ class StreamingStore:
         if self._runs_snapshot(type_name):
             return None
         return self.store.stats_pushdown(type_name, query, stat_spec)
+
+    def has_chunk_stats(self, type_name: str) -> bool:
+        """False while live runs exist: the brownout rung must not promise
+        a pre-aggregated answer that misses the memtable."""
+        if self._runs_snapshot(type_name):
+            return False
+        return self.store.has_chunk_stats(type_name)
+
+    def manifest_rows(self, type_name: str) -> int:
+        return self.store.manifest_rows(type_name) + sum(
+            r.rows for r in self._runs_snapshot(type_name))
 
     # -- compaction --------------------------------------------------------
 
@@ -590,6 +629,18 @@ class StreamingStore:
         ts.last_compact_s = dur
         metrics.stream_compactions.inc()
         metrics.stream_compact_seconds.observe(dur)
+        from geomesa_tpu_torch import ledger
+
+        if ledger.enabled():
+            # background work lands on /stats/ledger under the _system
+            # tenant, never in the SLO engine (a compaction is not a
+            # serving-latency sample)
+            cost = ledger.RequestCost(tenant="_system", endpoint="other", lane="batch",
+                                      shape="compact")
+            cost.status = 200
+            cost.dur_s = dur
+            cost.charge("compact_seconds", dur)
+            ledger.LEDGER.record(cost)
 
     # -- recovery ----------------------------------------------------------
 

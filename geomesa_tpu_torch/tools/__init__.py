@@ -1,1 +1,3 @@
-"""Measurement tools for the port's kernels (run on a machine with a card)."""
+"""The port's command line (``python -m geomesa_tpu_torch.tools``: ``serve``,
+``load-driver``) and the measurement tools for its kernels (run on a
+machine with a card)."""

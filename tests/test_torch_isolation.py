@@ -198,6 +198,87 @@ def test_port_workload_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_SERVER_WORKLOAD = r"""
+import json, sys, tempfile, urllib.error, urllib.request
+import numpy as np
+from geomesa_tpu_torch.kernels import _build
+from geomesa_tpu_torch.server import serve_background
+from geomesa_tpu_torch.store.fs import FileSystemDataStore
+from geomesa_tpu_torch.store.memory import MemoryDataStore
+
+rng = np.random.default_rng(3)
+n = 600
+cols = {"name": rng.choice(["a", "b"], n), "count": rng.integers(0, 100, n),
+        "dtg": 1_577_836_800_000 + rng.integers(0, 5 * 86_400_000, n),
+        "geom": np.stack([rng.uniform(-50, 50, n), rng.uniform(-40, 40, n)], 1).astype(np.float32)}
+spec = "name:String,count:Int,dtg:Date,*geom:Point:srid=4326"
+fds = FileSystemDataStore(tempfile.mkdtemp(), partition_size=128, device="cpu")
+mds = MemoryDataStore(device="cpu")
+for ds in (fds, mds):
+    ds.create_schema("t", spec)
+    ds.write("t", cols)
+fds.flush("t")
+q = urllib.request.quote
+box = q("BBOX(geom, -10, -10, 30, 30)")
+
+
+def call(base, path, method="GET", body=None):
+    req = urllib.request.Request(base + path, method=method,
+                                 data=None if body is None else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+paths = ["/capabilities", f"/count/t?cql={box}", f"/count/t?cql={box}&loose=1",
+         f"/features/t?cql={box}&maxFeatures=5", f"/features/t?cql={box}&f=bin&track=name",
+         f"/features/t?f=arrow", f"/explain/t?cql={box}",
+         "/density/t?bbox=-50,-40,50,40&width=8&height=4", "/stats/t?stats=Count()",
+         "/knn/t?x=0&y=0&k=3", "/tube/t?track=0,0,1577836800000;5,5,1577900000000",
+         "/proximity/t?points=0,0&distance=5", "/refresh/t", "/metrics", "/healthz", "/readyz",
+         "/stats", "/stats/sched", "/stats/store", "/stats/mesh", "/stats/slo", "/stats/ledger",
+         "/stats/stream", "/stats/replica", "/stats/pubsub", "/debug/traces",
+         "/subscribe/t?id=1", "/wal/t", "/snapshot/t"]
+codes = {}
+for ds, kw in ((mds, {"resident": True, "sched": True}), (fds, {"resident": True, "stream": True})):
+    server, _ = serve_background(ds, **kw)
+    base = "http://%s:%d" % server.server_address[:2]
+    for p in paths:
+        codes[p] = call(base, p)[0]
+    if kw.get("stream"):
+        body = {"columns": {"name": ["a"], "count": [1], "dtg": [1_577_836_800_000],
+                            "geom": [[1.0, 1.0]]}, "fids": ["new"]}
+        assert call(base, "/append/t", "POST", body)[0] == 200
+    assert call(base, "/admin/shutdown", "POST", {})[0] == 200
+    server.server_close()
+assert [p for p, c in codes.items() if c >= 500 and c != 501] == [], codes
+assert codes["/features/t?f=arrow"] == 406 and codes["/wal/t"] == 501
+assert not _build._libs  # CPU tensors never build or load a kernel
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "geomesa_tpu" or m.startswith("geomesa_tpu.")
+             or m == "pyarrow" or m.startswith("pyarrow."))
+print("LOADED", bad)
+"""
+
+
+def test_server_workload_loads_no_jax():
+    """A ``serve_background`` session of every endpoint (memory and
+    file-system stores, resident, scheduled and live) in a child process
+    loads neither ``jax`` nor the JAX package."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GEOMESA_TPU_")}
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "2"
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVER_WORKLOAD], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|from\s+jaxlib\b"
     r"|import\s+geomesa_tpu\b(?!_torch)|from\s+geomesa_tpu(\.|\s)(?!_torch))"
@@ -221,6 +302,13 @@ def test_the_scan_covers_the_fs_store_modules():
     for rel in ("locking.py", "store/fs.py", "store/partfile.py", "store/partitions.py",
                 "store/chunkstats.py", "store/prefetch.py", "store/pushdown.py",
                 "store/snapshot.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+def test_the_scan_covers_the_server_modules():
+    for rel in ("server.py", "slo.py", "jobs.py", "export.py", "geom/geojson.py",
+                "results/negotiate.py", "results/columnar.py", "results/stream.py",
+                "tools/cli.py", "tools/__main__.py"):
         assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
 
 

@@ -16,10 +16,12 @@ runner stages float64 planes, the port float32, as the JAX package does on
 its TPU (ROADMAP section 3, Definitions). Inputs are made from numpy seeds
 at up to 2^14 rows in partitions of 2^10. Tolerance: equal.
 
-Failure handling differs by design: the port's runner halves a run on an
-OOM (``fail.stage.oom``) as the JAX package's does, but a failed launch
-(``fail.device.launch``) raises, where the JAX package degrades to the
-host (ROADMAP section 3).
+Failure handling: on the CPU the port's runner halves a run on an OOM
+(``fail.stage.oom``) and degrades a failed launch (``fail.device.launch``)
+to the host rung as the JAX package's does. On the card neither fault
+takes the host rung: both raise (ROADMAP section 3), which a store handed
+a CUDA device shows here, since the fault fires before anything reaches
+the card.
 """
 
 import numpy as np
@@ -248,19 +250,54 @@ def test_runs_merge_partitions_into_launches_of_at_most_eight(z3, monkeypatch):
     assert not any(kernels.LAUNCHES.values())  # the CPU runs the plain version
 
 
+def _degrade_pair(degrade: bool):
+    """Both packages' ``resilience.degrade`` switched the same way."""
+    from contextlib import ExitStack
+
+    from geomesa_tpu import conf as jconf
+    from geomesa_tpu_torch import conf
+
+    st = ExitStack()
+    st.enter_context(conf.prop_override("resilience.degrade", degrade))
+    st.enter_context(jconf.prop_override("resilience.degrade", degrade))
+    return st
+
+
+def _collected(resilience_mod, fn):
+    """``fn()`` under a degradation collector: (answer, reasons)."""
+    with resilience_mod.collect_degraded() as reasons:
+        out = fn()
+    return out, list(reasons)
+
+
 def test_device_launch_failure_raises_through_the_store(z3):
+    """A failed launch: under ``resilience.degrade`` both packages answer
+    from the host rung, stamped ``device-launch-failed``; with it off,
+    both raise."""
+    from geomesa_tpu import resilience as jres
+    from geomesa_tpu_torch import resilience
+
     tds, jds = z3
     f = f"{BOX} AND {DURING}"
     with failpoints.failpoint_override("fail.device.launch", "raise"):
-        with pytest.raises(failpoints.FailpointError, match="fail.device.launch"):
-            tds.query("t", f)
-    # the JAX package degrades to the host instead: its answer stands
+        got, reasons = _collected(resilience, lambda: tds.query("t", f))
     with jfp.failpoint_override("fail.device.launch", "raise"):
-        want = jds.query("t", f)
-    _same(tds.query("t", f), want)
+        want, jreasons = _collected(jres, lambda: jds.query("t", f))
+    _same(got, want)
+    assert reasons == jreasons == ["device-launch-failed"]
+    with _degrade_pair(False):
+        with failpoints.failpoint_override("fail.device.launch", "raise"):
+            with pytest.raises(failpoints.FailpointError, match="fail.device.launch"):
+                tds.query("t", f)
+        with jfp.failpoint_override("fail.device.launch", "raise"):
+            with pytest.raises(jfp.FailpointError, match="fail.device.launch"):
+                jds.query("t", f)
 
 
 def test_stage_oom_halves_the_run_and_answers_equal(z3):
+    from geomesa_tpu import resilience as jres
+    from geomesa_tpu_torch import resilience
+
     tds, jds = z3
     f = "count > 500"
     want = jds.query("t", f)
@@ -269,11 +306,41 @@ def test_stage_oom_halves_the_run_and_answers_equal(z3):
         got = tds.query("t", f)
     assert metrics.resilience_oom_recoveries.value() - before == 3
     _same(got, want)
-    # a run of one row cannot halve: the OOM raises
-    t1, _ = _pair(Z3_SPEC, _points(1, seed=8))
+    # a run of one row cannot halve: under resilience.degrade both packages
+    # answer it on the host, stamped device-oom; with it off, both raise
+    cols = _points(1, seed=8)
+    t1, j1 = _pair(Z3_SPEC, cols)
     with failpoints.failpoint_override("fail.stage.oom", "raise"):
-        with pytest.raises(failpoints.FailpointError):
+        got, reasons = _collected(resilience, lambda: t1.query("t", "count >= 0"))
+    with jfp.failpoint_override("fail.stage.oom", "raise"):
+        want, jreasons = _collected(jres, lambda: j1.query("t", "count >= 0"))
+    _same(got, want)
+    assert reasons == jreasons == ["device-oom"]
+    with _degrade_pair(False):
+        with failpoints.failpoint_override("fail.stage.oom", "raise"):
+            with pytest.raises(failpoints.FailpointError):
+                t1.query("t", "count >= 0")
+        with jfp.failpoint_override("fail.stage.oom", "raise"):
+            with pytest.raises(jfp.FailpointError):
+                j1.query("t", "count >= 0")
+
+
+@pytest.mark.parametrize("point", ["fail.device.launch", "fail.stage.oom"])
+def test_a_failed_run_on_the_card_raises_instead_of_taking_the_host_rung(point, monkeypatch):
+    """Under ``resilience.degrade``, a failed launch and an OOM on a run of
+    one row (which cannot halve) raise through a store on the card and
+    note no degradation: no answer of the card's store comes from the
+    host."""
+    import torch
+
+    from geomesa_tpu_torch import device, resilience
+
+    t1, _ = _pair(Z3_SPEC, _points(1, seed=8))
+    monkeypatch.setattr(device, "resolve_device", lambda d=None: torch.device("cuda:0"))
+    with failpoints.failpoint_override(point, "raise"), resilience.collect_degraded() as reasons:
+        with pytest.raises(failpoints.FailpointError, match=point):
             t1.query("t", "count >= 0")
+    assert list(reasons) == []
 
 
 def test_audit_events_equal_the_reference():
