@@ -224,6 +224,12 @@ Phases:
      refines, with no device_fn call; p50/p99 per call kind (cold and
      warm), partitions scanned, chunks read and pruned, the read and
      decode seconds beside the runner's stage, launch and device seconds;
+     then (the z3 type) the device trace: 4 warm store.query calls under a
+     sampled request trace with trace.device.dir set (run_device_trace):
+     one Chrome trace a surviving partition, each holding the one
+     gm_filter_scan kernel event of its filter_scan_mask launch (no CUDA
+     activity at all fails), the kernel's share of each traced block and
+     profiling.report() (query.scan, plan.scan_ranges);
   3k. (inside 3j, after the z3 type's checks) the streaming live layer
      over 3j's z3 type in place, its store object (2^26 rows, 64
      partitions, fsync on):
@@ -1161,8 +1167,8 @@ def check_density_viewports(dev, errs: Errs):
     engine against the plain version; then DeviceIndex.density and the
     store path of process.density on the card: an inverted viewport gives
     a zero grid and launches nothing, a zero-width one counts the rows on
-    the line (and the store path raises ZeroDivisionError for it, as the
-    counterpart's does)."""
+    the line, on the store path as on the resident one (the counterpart's
+    store path raises ZeroDivisionError there: ROADMAP section 3)."""
     import torch
 
     from geomesa_tpu_torch import kernels
@@ -1222,17 +1228,15 @@ def check_density_viewports(dev, errs: Errs):
                 if got.shape != (64, 32) or got.any():
                     raise AssertionError("store-path density over an inverted viewport is not zero")
             else:
-                try:
-                    density(store, "t", "INCLUDE", Envelope(*env), 32, 64, weight_attr=weight,
-                            device=dev)
-                except ZeroDivisionError:
-                    pass
-                else:
-                    raise AssertionError("store-path density over a zero-width viewport did not raise")
+                sgot = density(store, "t", "INCLUDE", Envelope(*env), 32, 64, weight_attr=weight,
+                               device=dev)
+                if not (same_grid(sgot, want, weight is not None) and same_grid(sgot, got, weight is not None)):
+                    raise AssertionError(f"store-path density over a zero-width viewport {weight}: grid != "
+                                         "numpy / the resident grid")
     del di
     log(f"density viewports: zero-width on every engine == plain; inverted and zero-width "
         f"through DeviceIndex.density == numpy (inverted launched nothing); store path "
-        f"zero / ZeroDivisionError")
+        f"zero / the resident grid")
 
 
 RAGGED = (0, 1, 1000, (1 << 20) + 17)
@@ -2703,6 +2707,105 @@ class FsCalls:
         return out
 
 
+TRACE_QUERIES = 4  # warm store.query calls under a sampled trace with trace.device.dir set
+#: Kineto's event categories of CUDA activity in a Chrome trace
+CUDA_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "cuda_runtime", "cuda_driver")
+
+
+def _trace_blocks(path: str) -> dict:
+    """One device_trace block's Chrome trace: its CUDA activity, its
+    gm_filter_scan kernel events and their time, and the block's wall time
+    (the first event's start to the last event's end)."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    cuda = [e for e in events if e.get("cat") in CUDA_CATS]
+    kern = [e for e in events if e.get("cat") == "kernel" and "gm_filter_scan" in e.get("name", "")]
+    t0 = min((e["ts"] for e in events), default=0.0)
+    t1 = max((e["ts"] + e.get("dur", 0.0) for e in events), default=0.0)
+    return {"cuda_events": len(cuda), "kernels": len(kern), "names": sorted({e["name"] for e in kern}),
+            "kernel_us": float(sum(e.get("dur", 0.0) for e in kern)), "wall_us": float(t1 - t0)}
+
+
+def run_device_trace(ds, name, queries, masks) -> dict:
+    """Phase 3j's device trace: TRACE_QUERIES warm store.query calls (the
+    ones whose plans keep the fewest partitions, so that each keeps a
+    handful of blocks) under a sampled request trace with trace.device.dir
+    set to a temporary directory. The runner wraps each partition's launch
+    in profiling.device_trace, so each query writes one Chrome trace a
+    surviving partition, named by the trace id. Every file must exist and
+    hold one CUDA kernel event whose name contains gm_filter_scan (a mask
+    launch is one kernel), so that the events equal the query's
+    filter_scan_mask launches; no CUDA activity at all fails the phase.
+    Prints the kernel's share of each block's wall time and the profiling
+    report of the traced queries (query.scan and plan.scan_ranges)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from geomesa_tpu_torch import kernels, profiling
+    from geomesa_tpu_torch.conf import prop_override
+    from geomesa_tpu_torch.tracing import TRACER
+
+    nparts = [(len(ds._pruned_parts(name, ds.plan(name, e))), i) for i, (e, _, _) in enumerate(queries)]
+    picks = [i for k, i in sorted(nparts) if k and masks[i].any()][:TRACE_QUERIES]
+    d = tempfile.mkdtemp(prefix="geomesa-trace-")
+    out = []
+    try:
+        profiling.reset()
+        with prop_override("trace.device.dir", d), prop_override("trace.sample", 1.0):
+            for i in picks:
+                ecql = queries[i][0]
+                kernels.reset_counts()
+                t0 = time.perf_counter()
+                with TRACER.trace(f"phase 3j trace {i}") as tr:
+                    res = ds.query(name, ecql)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                if not tr.sampled or len(res) != int(masks[i].sum()):
+                    raise AssertionError(f"phase 3j trace {ecql}: sampled {tr.sampled}, {len(res)} hits "
+                                         f"!= numpy {int(masks[i].sum())}")
+                launched = kernels.LAUNCHES["filter_scan_mask"]
+                files = sorted(f for f in os.listdir(d) if f.startswith(tr.trace_id + "-"))
+                blocks = [_trace_blocks(os.path.join(d, f)) for f in files]
+                if not any(b["cuda_events"] for b in blocks):
+                    log("phase 3j trace: torch.profiler recorded no CUDA activity on this host (no CUPTI "
+                        f"tracing): {len(files)} Chrome traces without a kernel event [{CARD}]")
+                    raise AssertionError("phase 3j: torch.profiler recorded no CUDA activity")
+                kern = sum(b["kernels"] for b in blocks)
+                if not files or len(files) != launched or kern != launched or \
+                        any(b["kernels"] != 1 for b in blocks):
+                    raise AssertionError(f"phase 3j trace {ecql}: {len(files)} trace files and {kern} "
+                                         f"gm_filter_scan kernel events for {launched} filter_scan_mask "
+                                         f"launches ({[b['kernels'] for b in blocks]} a file)")
+                k_us = sum(b["kernel_us"] for b in blocks)
+                b_us = sum(b["wall_us"] for b in blocks)
+                shares = [b["kernel_us"] / b["wall_us"] for b in blocks if b["wall_us"] > 0]
+                out.append({"query": i, "files": len(files), "kernel_events": kern,
+                            "names": sorted({n for b in blocks for n in b["names"]}),
+                            "kernel_ms": k_us / 1e3, "blocks_ms": b_us / 1e3, "query_ms": wall_ms,
+                            "share": k_us / b_us if b_us else None,
+                            "share_min": min(shares) if shares else None,
+                            "share_max": max(shares) if shares else None})
+                log(f"phase 3j trace {ecql}: {len(files)} Chrome traces ({d}/{tr.trace_id}-*.pt.trace.json), "
+                    f"{kern} gm_filter_scan kernel events == {launched} filter_scan_mask launches; kernel "
+                    f"{k_us / 1e3:.4f} ms of {b_us / 1e3:.3f} ms of traced blocks "
+                    f"({100 * k_us / b_us if b_us else 0:.3f}%; per block {min(shares):.5f}-{max(shares):.5f}), "
+                    f"the query {wall_ms:.3f} ms with the profiler on [{CARD}]")
+        timings = profiling.timings()
+        if "query.scan" not in timings or "plan.scan_ranges" not in timings:
+            raise AssertionError(f"phase 3j trace: profiling.report() lacks query.scan or "
+                                 f"plan.scan_ranges: {sorted(timings)}")
+        log("phase 3j trace: profiling.report() of the traced queries:")
+        for line in profiling.report().splitlines():
+            log("  " + line)
+        log(f"phase 3j trace: kernel names {out[0]['names']}")
+        return {"queries": out, "report": timings}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
     """Phase 3j, BASELINE config #1 via geomesa-fs: phase 3's 2^26 rows
     written through DataStoreFinder.get_data_store({"fs.path": ...}) into
@@ -2915,6 +3018,11 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
                 "verify_partitions_s": vp_s, "verify_chunk_stats_s": vc_s,
                 "refinements": n_refined, "calls": calls.report(name)}
             again = vsrc = None
+
+            if verified:  # the device trace on the z3 type (the scheme type repeats it)
+                t = time.time()
+                summary[name]["device_trace"] = run_device_trace(ds, name, queries, tmasks)
+                log(f"phase 3j {name}: the device trace in {time.time() - t:.1f} s [{CARD}]")
 
             # -- reopened under store.verify=always: cold, verified reads (the z3
             # type's; the scheme type would repeat them: a cut, PERF.md section 4)
@@ -3305,6 +3413,263 @@ SERVE_FEATURES = 50  # maxFeatures of the GeoJSON requests
 SERVE_KNN = [((2.3515625, 48.859375), 100), ((-73.96875, 40.78125), 500)]
 
 
+#: phase 3l's standing subscriptions on the z3 type, sub.max.per.type in all:
+#: bbox geofences of 0.01-2 degrees around the 64 city centres, dwithin
+#: circles of 1-50 km, bbox AND cql, and more bbox (the type carries no
+#: visibility labels, so none of them holds auths)
+PUSH_SUBS = (("bbox", 3072), ("dwithin", 512), ("bbox+cql", 384), ("bbox", 128))
+PUSH_CQL = "count > 500"
+PUSH_SSE = 4  # open SSE streams; one f=bin stream besides
+PUSH_RESUME_AT = 8  # events the dropped SSE stream reads before its Last-Event-ID reconnect
+PUSH_HEARTBEAT_S = 0.5  # sub.heartbeat.s while 3l's streams are open
+KM_PER_DEG = 111.32
+
+
+def push_docs(centers, seed) -> list:
+    """(kind, subscription body) of phase 3l's subscriptions, from a seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for kind, n in PUSH_SUBS:
+        for k in range(n):
+            cx, cy = centers[k % len(centers)] + rng.uniform(-0.5, 0.5, 2)
+            if kind == "dwithin":
+                out.append((kind, {"dwithin": {"x": float(cx), "y": float(cy),
+                                               "distance": float(rng.uniform(1, 50) / KM_PER_DEG)}}))
+                continue
+            w, h = rng.uniform(0.01, 2.0, 2)
+            doc = {"bbox": [float(cx - w / 2), float(cy - h / 2), float(cx + w / 2), float(cy + h / 2)]}
+            if kind == "bbox+cql":
+                doc["cql"] = PUSH_CQL
+            out.append((kind, doc))
+    return out
+
+
+def np_push_match(docs, x, y, cnt) -> dict:
+    """numpy's match of one append: subscription index -> the batch's rows
+    (ascending) for every subscription with a match. The coarse test is
+    the subscription's envelope (its bbox, or its circle's box, clipped to
+    the world) against each point, inclusive in float64, as the join
+    compares; then the exact residuals (the distance, the cql)."""
+    order = np.argsort(x, kind="stable")
+    xs = x[order]
+    out = {}
+    for i, (kind, doc) in enumerate(docs):
+        if kind == "dwithin":
+            d = doc["dwithin"]
+            cx, cy, r = d["x"], d["y"], d["distance"]
+            env = (max(-180.0, cx - r), max(-90.0, cy - r), min(180.0, cx + r), min(90.0, cy + r))
+        else:
+            b = doc["bbox"]
+            env = (max(-180.0, b[0]), max(-90.0, b[1]), min(180.0, b[2]), min(90.0, b[3]))
+        lo, hi = np.searchsorted(xs, env[0], "left"), np.searchsorted(xs, env[2], "right")
+        rows = order[lo:hi]
+        rows = rows[(y[rows] >= env[1]) & (y[rows] <= env[3])]
+        if kind == "dwithin":
+            rows = rows[np.hypot(np.abs(x[rows] - cx), np.abs(y[rows] - cy)) <= r]
+        elif kind == "bbox+cql":
+            rows = rows[cnt[rows] > 500]
+        if len(rows):
+            out[i] = np.sort(rows)
+    return out
+
+
+class _PushReader:
+    """One push stream read on a thread: SSE match events as (seq, fids,
+    receive time), or the raw BIN bytes. ``stop_after`` closes an SSE
+    stream after that many match events (the resume check's drop)."""
+
+    def __init__(self, url, headers=None, bin_bytes=None, stop_after=None):
+        import threading
+        import urllib.request
+
+        self.events, self.raw, self.ends, self.error = [], b"", [], None
+        self.bin_bytes, self.stop_after, self._stop = bin_bytes, stop_after, False
+        self._req = urllib.request.Request(url, headers=headers or {})
+        self.done = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="push-reader", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self._req, timeout=600) as resp:
+                self.ctype = resp.headers["Content-Type"]
+                buf = b""
+                while not self._stop:
+                    chunk = resp.read1(1 << 16)
+                    if not chunk:
+                        break
+                    t = time.perf_counter()
+                    if self.bin_bytes is not None:
+                        self.raw += chunk
+                        if len(self.raw) >= self.bin_bytes():
+                            break
+                        continue
+                    buf += chunk
+                    while b"\n\n" in buf:
+                        frame, buf = buf.split(b"\n\n", 1)
+                        self._frame(frame, t)
+                    if self.stop_after is not None and len(self.events) >= self.stop_after:
+                        break
+        except Exception as e:  # surfaced through .error
+            self.error = e
+        finally:
+            self.done.set()
+
+    def _frame(self, frame, t):
+        if b"event: end" in frame:
+            self.ends.append(frame)
+        elif b"event: match" in frame:
+            seq, fids = None, None
+            for ln in frame.split(b"\n"):
+                if ln.startswith(b"id: "):
+                    seq = int(ln[4:])
+                elif ln.startswith(b"data: "):
+                    doc = json.loads(ln[6:])
+                    fids = np.array([int(f["id"]) for f in doc["features"]], np.int64)
+                    if doc["seq"] != seq:
+                        raise AssertionError(f"an SSE event's body seq {doc['seq']} != its id {seq}")
+            self.events.append((seq, fids, t))
+
+    def stop(self, timeout=30.0):
+        self._stop = True
+        self.done.wait(timeout)
+
+
+def check_push_tier(base, name, get, hub, docs, ids, index, truth, want, streamed, bin_sub, bin_want,
+                    readers, sent, live_calls, launches0, faults0, app_fids) -> dict:
+    """Phase 3l's push-tier checks after the 16 appends: every fused match
+    (all 4,096 subscriptions) equal to numpy's, one fused join an append,
+    the layout on the card, no match fault; each open stream's events (and
+    the BIN bytes) equal to numpy's rows of the appends its subscription
+    matches, seqs strictly increasing; the dropped stream resumed by
+    Last-Event-ID exactly once through the WAL replay; f=arrow 406; one
+    cancel dropping out of /stats/pubsub. Returns the push figures."""
+    import urllib.request
+
+    from geomesa_tpu_torch import metrics
+
+    n_app = len(sent)
+    seq_of = [s_ for s_, _, _ in sent]
+    # every fused match of the appends, all subscriptions, against numpy
+    if len(live_calls) != n_app:
+        raise AssertionError(f"phase 3l push: {len(live_calls)} live matches for {n_app} appends")
+    pairs = 0
+    # the registry's order (the registering clients raced): the matcher
+    # answers in it
+    reg_pos = {sub.sub_id: p for p, sub in enumerate(hub.registry.for_type(name))}
+    for j, (_, fids, res) in enumerate(live_calls):
+        if not np.array_equal(fids, app_fids[j * LIVE_BATCH:(j + 1) * LIVE_BATCH]):
+            raise AssertionError(f"phase 3l push: live match {j} saw another batch")
+        got = {index[sub.sub_id]: rows for sub, rows in res}
+        pos = [reg_pos[sub.sub_id] for sub, _ in res]
+        if sorted(got) != sorted(truth[j]) or pos != sorted(pos) or \
+                any(not np.array_equal(rows, truth[j][k]) for k, rows in got.items()):
+            bad = sorted(set(got) ^ set(truth[j]))[:5] or \
+                [(k, docs[k], len(rows), len(truth[j][k])) for k, rows in got.items()
+                 if not np.array_equal(rows, truth[j][k])][:3]
+            raise AssertionError(f"phase 3l push: append {j}: the fused match of {len(got)} subscriptions "
+                                 f"!= numpy's {len(truth[j])} (differing subscriptions {bad}; in "
+                                 f"registration order: {pos == sorted(pos)})")
+        pairs += sum(len(r) for r in got.values())
+    launched = hub.matcher.launches - launches0
+    dev_ = hub.matcher.layout_device(name)
+    if launched != n_app or str(dev_) != "cuda:0" or hub.match_faults != faults0:
+        raise AssertionError(f"phase 3l push: {launched} fused joins for {n_app} appends, the layout on "
+                             f"{dev_}, {hub.match_faults - faults0} match faults")
+    # the streams
+    deadline = time.time() + 120
+    for r, k in zip(readers, streamed + [bin_sub]):
+        n_want = PUSH_RESUME_AT if r is readers[0] else len(want[k])
+        while (len(r.raw) < len(bin_want) if r.bin_bytes is not None else len(r.events) < n_want):
+            if time.time() > deadline or r.error is not None:
+                raise AssertionError(f"phase 3l push: a stream got {len(r.events)} events / {len(r.raw)} "
+                                     f"bytes of {n_want} ({r.error})")
+            time.sleep(0.05)
+    for r, k in zip(readers[:-1], streamed):
+        exp = [(seq_of[j], app_fids[j * LIVE_BATCH + rows]) for j, rows in want[k]]
+        got = r.events[:PUSH_RESUME_AT] if r is readers[0] else r.events
+        exp = exp[:len(got)]
+        if [s_ for s_, _, _ in got] != [s_ for s_, _ in exp] or \
+                any(not np.array_equal(np.sort(f), e) for (_, f, _), (_, e) in zip(got, exp)):
+            raise AssertionError(f"phase 3l push: subscription {k} ({docs[k][0]}): SSE events "
+                                 f"{[s_ for s_, _, _ in got]} != numpy's {[s_ for s_, _ in exp]}")
+    if readers[-1].raw[:len(bin_want)] != bin_want or readers[-1].ctype != "application/vnd.geomesa.bin":
+        raise AssertionError(f"phase 3l push: the f=bin stream's {len(readers[-1].raw)} bytes != numpy's "
+                             f"{len(bin_want)} ({readers[-1].ctype})")
+    for r in readers[1:]:
+        r.stop()
+    # first-event latency: the POST sent to the first SSE event of its seq
+    first = {}
+    for r in readers[:-1]:
+        for s_, _, t in r.events:
+            first[s_] = min(first.get(s_, t), t)
+    lat_first = [first[s_] - t_sent for s_, t_sent, _ in sent if s_ in first]
+    lat_ack = [t_ack - t_sent for _, t_sent, t_ack in sent]
+    match_s = [dt for dt, _, _ in live_calls]
+    # the resume: the first stream stopped after PUSH_RESUME_AT events
+    r0 = readers[0]
+    r0.stop()
+    last = r0.events[-1][0]
+    rest = [(seq_of[j], app_fids[j * LIVE_BATCH + rows]) for j, rows in want[streamed[0]]
+            if seq_of[j] > last]
+    replay0, l0 = metrics.pubsub_replay_records.value(), hub.matcher.launches
+    again = _PushReader(f"{base}/subscribe/{name}?id={ids[streamed[0]]}", headers={"Last-Event-ID": str(last)})
+    readers.append(again)
+    deadline = time.time() + 120
+    while len(again.events) < len(rest):
+        if time.time() > deadline or again.error is not None:
+            raise AssertionError(f"phase 3l push: the resumed stream got {len(again.events)} of "
+                                 f"{len(rest)} events ({again.error})")
+        time.sleep(0.05)
+    time.sleep(3 * PUSH_HEARTBEAT_S)  # a duplicate would arrive by now
+    again.stop()
+    replayed = int(metrics.pubsub_replay_records.value() - replay0)
+    union = [s_ for s_, _, _ in r0.events] + [s_ for s_, _, _ in again.events]
+    expect_all = [seq_of[j] for j, _ in want[streamed[0]]]
+    if union != expect_all or any(not np.array_equal(np.sort(f), e) for (_, f, _), (_, e) in
+                                  zip(again.events, rest)):
+        raise AssertionError(f"phase 3l push: resumed stream {union} != each matched append once "
+                             f"{expect_all}")
+    n_after = sum(1 for s_ in seq_of if s_ > last)
+    if replayed != n_after or hub.matcher.launches - l0 != n_after:
+        raise AssertionError(f"phase 3l push: the resume replayed {replayed} WAL records with "
+                             f"{hub.matcher.launches - l0} fused joins, not the {n_after} appends above "
+                             f"cursor {last}")
+    # arrow 406, a cancel
+    st, _, body = get(f"/subscribe/{name}?id={ids[streamed[1]]}&f=arrow")
+    gone = ids[7]
+    st2, _, body2 = get(f"/subscribe/{name}?id={gone}", method="DELETE")
+    stats = json.loads(get("/stats/pubsub")[2])
+    left = [d["id"] for d in stats["subscriptions"]]
+    if st != 406 or st2 != 200 or json.loads(body2) != {"cancelled": gone} or gone in left or \
+            len(left) != len(docs) - 1 or stats["match_faults"] or hub.registry.count(name) != len(docs) - 1:
+        raise AssertionError(f"phase 3l push: f=arrow {st}, DELETE {st2} {body2[:100]!r}, "
+                             f"{len(left)} subscriptions left, match faults {stats['match_faults']}")
+    hist = metrics.pubsub_match_seconds
+    out = {"subscriptions": len(docs), "appends": n_app, "fused_joins": launched, "pairs": pairs,
+           "layout_device": str(dev_), "replayed": replayed, "resume_cursor": last,
+           "match_p50_ms": pct(match_s, 50), "match_p99_ms": pct(match_s, 99),
+           "first_event_p50_ms": pct(lat_first, 50), "first_event_p99_ms": pct(lat_first, 99),
+           "ack_p50_ms": pct(lat_ack, 50), "ack_p99_ms": pct(lat_ack, 99),
+           "events": [len(r.events) for r in readers[:PUSH_SSE]], "bin_bytes": len(bin_want)}
+    log(f"phase 3l push: {n_app} appends x {len(docs):,} subscriptions: every fused match == numpy "
+        f"({pairs:,} pairs), {launched} fused joins (one an append) on a layout on {dev_}, no match "
+        f"fault; {PUSH_SSE} SSE streams' events ({out['events']}) and the f=bin stream's "
+        f"{len(bin_want):,} bytes == numpy, ids strictly increasing; a stream dropped after "
+        f"{PUSH_RESUME_AT} events and resumed by Last-Event-ID {last}: {replayed} WAL records replayed "
+        f"through the fused matcher, every matched append once; f=arrow 406; a DELETE leaves "
+        f"{len(left):,} [{CARD}]")
+    log(f"latency push match: p50 {out['match_p50_ms']:.3f} ms  p99 {out['match_p99_ms']:.3f} ms per "
+        f"append of {LIVE_BATCH:,} rows against {len(docs):,} subscriptions (pubsub_match_seconds: "
+        f"{hist.stats()['n']} observations, {hist.stats()['sum']:.4f} s in all) [{CARD}]")
+    log(f"latency push first event: p50 {out['first_event_p50_ms']:.3f} ms  p99 "
+        f"{out['first_event_p99_ms']:.3f} ms from POST /append sent to the first SSE event of its seq "
+        f"(the ack alone: p50 {out['ack_p50_ms']:.3f} ms  p99 {out['ack_p99_ms']:.3f} ms) [{CARD}]")
+    return out
+
+
 def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> dict:
     """Phase 3l: 3j/3k's root reopened (the z3 type: 2^26 rows, 3k's 2^20
     compacted rows and its 2^18 rows in the WAL) and served by
@@ -3314,8 +3679,14 @@ def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> 
     card. Every answer against numpy over the same float32 rows: the 32
     main queries through /count exact and loose=1; 8 GeoJSON /features
     with maxFeatures and 2 f=bin (byte-equal to the index's bin_export); 4
-    /density grids, 2 /stats, 2 /knn, 1 /explain; 16 POST /append batches
-    of 2^14 rows, each counted at once (delta refreshes, no restage); a
+    /density grids, 2 /stats, 2 /knn, 1 /explain; the push tier: 4,096
+    subscriptions (sub.max.per.type) registered over HTTP, 4 SSE streams
+    and one f=bin stream held open; 16 POST /append batches
+    of 2^14 rows, each counted at once (delta refreshes, no restage), each
+    matched against every subscription by one fused join on the card (the
+    matches of all 4,096 equal numpy's, the streams' events and BIN bytes
+    too), one SSE stream dropped after 8 events and resumed exactly once by
+    Last-Event-ID through the WAL replay, f=arrow 406, a cancel; a
     burst of 64 threads x 16 loose counts (fusion factor > 1 on
     /stats/sched) and one against sched.max.queue 2 (429s with
     Retry-After); fail.resident.launch over 8 requests (right answers from
@@ -3390,10 +3761,11 @@ def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> 
             into["valid"][k] += kernels.VALID_LAUNCHES[k]
 
     out = {"launches": {k: 0 for k in kernels.KERNEL_NAMES}, "valid": {k: 0 for k in kernels.KERNEL_NAMES}}
-    settings = [prop_override(k, v) for k, v in LIVE_SETTINGS]
+    settings = [prop_override(k, v) for k, v in LIVE_SETTINGS + (("sub.heartbeat.s", PUSH_HEARTBEAT_S),)]
     for cm in settings:
         cm.__enter__()
     server = None
+    readers = []
     try:
         store = DataStoreFinder.get_data_store({"fs.path": root})
         server, thread = serve_background(store, resident=True, sched=True, stream=True)
@@ -3534,15 +3906,100 @@ def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> 
             f"(all with the validity plane), density_count {counts['density_count']}")
         tally(out)
 
-        # -- 16 POST /append, each counted at once -----------------------------------
+        # -- the push tier: 4,096 subscriptions, 4 SSE streams and a BIN one -----------
+        kernels.reset_counts()
+        hub = server.pubsub
+        docs = push_docs(cols["_centers"], SEED + 31)
+        truth = [np_push_match(docs, app["geom"][j * LIVE_BATCH:(j + 1) * LIVE_BATCH, 0],
+                               app["geom"][j * LIVE_BATCH:(j + 1) * LIVE_BATCH, 1],
+                               app["count"][j * LIVE_BATCH:(j + 1) * LIVE_BATCH])
+                 for j in range(SERVE_APPENDS)]
+        ids: list = [None] * len(docs)
+        reg_errs: list = []
+
+        def register(k0):
+            for k in range(k0, len(docs), 16):
+                st, _, b = get(f"/subscribe/{name}?tenant=push{k % 16}", method="POST", body=docs[k][1],
+                               kind="subscribe")
+                if st != 200:
+                    reg_errs.append((k, st, b[:200]))
+                    return
+                ids[k] = json.loads(b)["id"]
+
+        t = time.time()
+        with ThreadPoolExecutor(max_workers=16) as pool:
+            list(pool.map(register, range(16)))
+        reg_s = time.time() - t
+        st, _, capped = get(f"/subscribe/{name}", method="POST", body={"bbox": [0, 0, 1, 1]})
+        if reg_errs or None in ids or hub.registry.count(name) != len(docs) or st != 400 or \
+                b"sub.max.per.type" not in capped:
+            raise AssertionError(f"phase 3l push: {len(reg_errs)} failed registrations {reg_errs[:2]}, "
+                                 f"{hub.registry.count(name)} registered; one more answered {st} {capped[:120]!r}")
+        index = {sid: k for k, sid in enumerate(ids)}
+
+        def area(k):
+            d = docs[k][1]
+            if "dwithin" in d:
+                return d["dwithin"]["distance"] ** 2
+            return (d["bbox"][2] - d["bbox"][0]) * (d["bbox"][3] - d["bbox"][1])
+
+        def largest(kind, start, stop, skip=()):
+            return max((k for k in range(start, stop) if docs[k][0] == kind and k not in skip), key=area)
+
+        n0, n1, n2 = PUSH_SUBS[0][1], PUSH_SUBS[0][1] + PUSH_SUBS[1][1], len(docs) - PUSH_SUBS[3][1]
+        streamed = [largest("bbox", 0, n0), largest("dwithin", n0, n1), largest("bbox+cql", n1, n2),
+                    largest("bbox", n2, len(docs))]
+        bin_sub = largest("bbox", 0, n0, skip=streamed)
+        want = {k: [(j, truth[j][k]) for j in range(SERVE_APPENDS) if k in truth[j]]
+                for k in streamed + [bin_sub]}
+        if len(want[streamed[0]]) <= PUSH_RESUME_AT or any(not want[k] for k in want):
+            raise AssertionError(f"phase 3l push: the streamed subscriptions match in "
+                                 f"{[len(w) for w in want.values()]} of {SERVE_APPENDS} appends")
+        bin_want = b"".join(np_bin(app["count"][j * LIVE_BATCH:(j + 1) * LIVE_BATCH],
+                                   app["dtg"][j * LIVE_BATCH:(j + 1) * LIVE_BATCH],
+                                   app["geom"][j * LIVE_BATCH:(j + 1) * LIVE_BATCH], rows)
+                            for j, rows in want[bin_sub])
+        readers = [_PushReader(f"{base}/subscribe/{name}?id={ids[k]}",
+                               stop_after=PUSH_RESUME_AT if r == 0 else None)
+                   for r, k in enumerate(streamed)]
+        readers.append(_PushReader(f"{base}/subscribe/{name}?id={ids[bin_sub]}&f=bin&track=count",
+                                   bin_bytes=lambda: len(bin_want)))
+
+        def connected():
+            with hub._lock:
+                return sum(len(c) for c in hub._conns.values())
+
+        deadline = time.time() + 60
+        while connected() < len(readers):
+            if time.time() > deadline:
+                raise AssertionError(f"phase 3l push: {connected()} of {len(readers)} streams connected")
+            time.sleep(0.05)
+        real_match, live_calls = hub.matcher.match, []
+
+        def spy(type_name, batch, sft):
+            t0 = time.perf_counter()
+            res = real_match(type_name, batch, sft)
+            live_calls.append((time.perf_counter() - t0, batch.fids.copy(), res))
+            return res
+
+        hub.matcher.match = spy
+        launches0, faults0 = hub.matcher.launches, hub.match_faults
+        log(f"phase 3l push: {len(docs):,} subscriptions registered over HTTP in {reg_s:.1f} s "
+            f"({', '.join(f'{n} {k}' for k, n in PUSH_SUBS)}; the next one refused at sub.max.per.type); "
+            f"{len(readers) - 1} SSE streams and 1 f=bin stream open [{CARD}]")
+
+        # -- 16 POST /append, each counted at once and matched -------------------------
         kernels.reset_counts()
         delta0 = metrics.stream_delta_refreshes.value(mode="delta")
         restages0 = di.restages
+        sent = []  # (seq, POST sent, ack received)
         for j in range(SERVE_APPENDS):
             a, b = j * LIVE_BATCH, (j + 1) * LIVE_BATCH
             body = {"columns": {"count": app["count"][a:b].tolist(), "dtg": app["dtg"][a:b].tolist(),
                                 "geom": app["geom"][a:b].tolist()}, "fids": app_fids[a:b].tolist()}
+            t_sent = time.perf_counter()
             st, h, ack = get(f"/append/{name}?tenant=smoke", method="POST", body=body, kind="append")
+            sent.append((json.loads(ack)["seq"] if st == 200 else None, t_sent, time.perf_counter()))
             if st != 200 or json.loads(ack)["acked"] != LIVE_BATCH:
                 raise AssertionError(f"phase 3l /append {j}: HTTP {st} {ack[:200]!r}")
             i = j % len(queries)
@@ -3557,6 +4014,9 @@ def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> 
         log(f"phase 3l: {SERVE_APPENDS} POST /append of {LIVE_BATCH:,} rows each visible at once to "
             f"/count (== numpy); {int(deltas)} refresh_delta 'delta', no restage")
         tally(out)
+        push = check_push_tier(base, name, get, hub, docs, ids, index, truth, want, streamed, bin_sub,
+                               bin_want, readers, sent, live_calls, launches0, faults0, app_fids)
+        hub.matcher.match = real_match
 
         # -- burst: fused loose counts --------------------------------------------------
         kernels.reset_counts()
@@ -3726,6 +4186,7 @@ def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> 
         log(f"phase 3l: POST /admin/shutdown drained; a reopen replayed {replayed:,} rows (3k's tail and "
             f"the {m_app:,} appended), {total:,} rows, query 0 == numpy")
         summary = {"rows": n + m_all + m_app, "card": CARD, "stage_s": stage_s, "burst_rps": burst_rps,
+                   "push": push,
                    "burst": SERVE_BURST, "shed_429": len(shed), "ladder": ladder,
                    "seconds": time.time() - t_phase,
                    "latency": {k: {"p50_ms": pct(v, 50), "p99_ms": pct(v, 99), "n": len(v)}
@@ -3736,6 +4197,8 @@ def run_server_path(dev, cols, queries, root, name, masks, base_loose, live) -> 
         log(json.dumps({"server": summary}))
         return out
     finally:
+        for r in readers:
+            r.stop(timeout=5.0)
         if server is not None:
             server.shutdown()
             server.server_close()

@@ -15,8 +15,9 @@ retries, degrade switch and brownout fraction (``resilience.*``), the
 spatial join engine's
 keys (``join.*``, reference lines 201-241, 351-385 and 526-541) and the
 BIN encoder's engine (``results.bin.engine``) and the server's keys
-(``trace.*``, ``slo.*``, ``ledger.*``, ``admin.token``,
-``http.keepalive.s``, ``mesh.*``, reference lines 433-566). Each key has a
+(``trace.*`` with ``trace.device.dir``, ``slo.*``, ``ledger.*``,
+``admin.token``, ``http.keepalive.s``, ``mesh.*``, reference lines
+433-566) and the push tier's (``sub.*``, lines 566-574). Each key has a
 default, an environment override (``GEOMESA_TPU_<NAME>`` with dots as
 underscores) and a programmatic override for tests (``set_prop`` /
 ``clear_prop`` or the ``prop_override`` context manager); the override wins
@@ -150,6 +151,10 @@ _DEFS = {
     # live layer's switch and append body bound, and the mesh switch
     "trace.sample": (1.0, float),
     "trace.slow_ms": (500.0, float),
+    # a directory: each sampled request's store-run launch is also
+    # recorded by torch.profiler into a Chrome trace there
+    # (profiling.device_trace); "" = off
+    "trace.device.dir": ("", str),
     "slo.enabled": (True, _parse_bool),
     "slo.interactive.objective": (0.999, float),
     "slo.interactive.threshold.ms": (500.0, float),
@@ -177,6 +182,15 @@ _DEFS = {
     # device or host
     "results.bin.engine": ("auto", _parse_choice(
         "results.bin.engine", ("auto", "device", "host"))),
+    # the continuous-query push tier (pubsub/): the SSE heartbeat cadence
+    # of an idle push stream, a connection's live event-queue bound (an
+    # overflow tears the stream down; the client resumes from its cursor),
+    # how long a disconnected subscriber's cursor keeps pinning the WAL,
+    # and the registry's bound per type
+    "sub.heartbeat.s": (15.0, float),
+    "sub.queue.events": (1024, int),
+    "sub.retain.s": (600.0, float),
+    "sub.max.per.type": (4096, int),
 }
 
 _overrides: dict = {}

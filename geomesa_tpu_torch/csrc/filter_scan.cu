@@ -448,9 +448,10 @@ __device__ __forceinline__ void store_mask(const P& p, const uint8_t* mk, long l
 // producer, fills the stages and sends the masks out. Stage s has a `full`
 // barrier (the producer's arrive and the copies' bytes complete a phase)
 // and an `empty` one (one arrive per consumer warp), so no block-wide
-// barrier stands between two tiles.
+// barrier stands between two tiles. The kernels carry the entry point's
+// gm_filter_scan prefix, so a profiler trace names them by it.
 template <bool VALID, bool MASK, int C>
-__global__ void __launch_bounds__(kBlock, 4) filter_scan_kernel(const Params<C> p) {
+__global__ void __launch_bounds__(kBlock, 4) gm_filter_scan_kernel(const Params<C> p) {
   extern __shared__ __align__(128) uint8_t sm[];
   uint64_t* full = reinterpret_cast<uint64_t*>(sm);
   uint64_t* empty = full + kMaxStages;
@@ -541,7 +542,7 @@ __global__ void __launch_bounds__(kBlock, 4) filter_scan_kernel(const Params<C> 
 }
 
 // One block: out[0] = the sum of the `blocks` partials that follow it.
-__global__ void __launch_bounds__(kThreads) filter_scan_sum(int* __restrict__ out, int blocks) {
+__global__ void __launch_bounds__(kThreads) gm_filter_scan_sum(int* __restrict__ out, int blocks) {
   __shared__ int warp_sums[kThreads / 32];
   int v = 0;
   for (int i = threadIdx.x; i < blocks; i += kThreads) v += out[1 + i];
@@ -563,7 +564,7 @@ constexpr int kNarrowCols = 8;
 
 template <bool VALID, bool MASK, int C>
 int launch(const Params<C>& p, int grid, size_t smem, void* out, int dev, cudaStream_t stream) {
-  auto kern = filter_scan_kernel<VALID, MASK, C>;
+  auto kern = gm_filter_scan_kernel<VALID, MASK, C>;
   const unsigned bit = 1u << (4 * (C != kNarrowCols) + 2 * VALID + MASK);
   cudaError_t e;
   if (!(ready[dev].load(std::memory_order_acquire) & bit)) {
@@ -575,7 +576,7 @@ int launch(const Params<C>& p, int grid, size_t smem, void* out, int dev, cudaSt
     ready[dev].fetch_or(bit, std::memory_order_acq_rel);
   }
   kern<<<grid, kBlock, smem, stream>>>(p);
-  if (!MASK) filter_scan_sum<<<1, kThreads, 0, stream>>>(static_cast<int*>(out), grid);
+  if (!MASK) gm_filter_scan_sum<<<1, kThreads, 0, stream>>>(static_cast<int*>(out), grid);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 Counterpart of ``geomesa_tpu/failpoints.py``, trimmed to the evaluation
 and arming helpers (reference lines 14-40 and 136-). The port evaluates
 (the WAL's and the compaction's at ``geomesa_tpu/store/wal.py:308``,
-``:362``, ``:385`` and ``store/stream.py:942``):
+``:362``, ``:385`` and ``store/stream.py:942``; the push tier's at
+``pubsub/matcher.py:101`` and ``server.py:1059``):
 
 - ``fail.sched.worker``  -- a scheduler worker about to execute a claimed
                             group; ``raise`` simulates a worker crash (its
@@ -32,6 +33,14 @@ and arming helpers (reference lines 14-40 and 136-). The port evaluates
 - ``fail.wal.replay``    -- replay is about to scan a WAL segment
 - ``fail.compact.publish`` -- a compaction published its generation and
                             dropped its runs; the WAL is not yet truncated
+- ``fail.sub.match``     -- the fused batch x subscriptions match is about
+                            to run for an acked append; a fault never
+                            un-acks the rows (the cursor replay re-derives
+                            the missed alerts)
+- ``fail.sub.deliver``   -- a matched alert event is about to be written to
+                            a push stream; a fault tears down that one
+                            connection and the client resumes from its
+                            cursor
 
 Activation: programmatic (``set_failpoint`` / ``failpoint_override``) or
 the ``GEOMESA_TPU_FAILPOINTS`` environment variable, a comma-separated

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.curves import zorder
+from geomesa_tpu_torch.curves.xz import norm01
 
 #: relative planning cost of touching one cell vs testing one candidate
 #: (fitted on the CPU harness: ~0.25us/cell of decomposition work vs
@@ -176,16 +177,71 @@ def _cell_runs(keys, lon, lat, envs, level: int):
     return starts, ends, cwin[nz], interior[nz]
 
 
+def _xz_point_codes(sfc, px, py):
+    """(window, code) pairs of every XZ2 cell whose enlarged extent holds
+    the point (px[j], py[j]): the cells a point window's XZ walk matches,
+    at every level (a point contains no enlarged cell, so the walk never
+    emits a whole subtree for one but refines to level g, where the
+    budget allows). Vectorized over the points: at level l the cell
+    columns k with k * 2^-l <= p <= k * 2^-l + 2 * 2^-l are floor(p 2^l)
+    and the one or two before it, the same dyadic compares the walk makes.
+    Since an element is stored at the cell that holds its lower-left
+    corner and lies inside that cell's enlarged extent, every element
+    that overlaps the point has one of these codes."""
+    xz = sfc._xz
+    nx = norm01(px, sfc.x_lo, sfc.x_hi)
+    ny = norm01(py, sfc.y_lo, sfc.y_hi)
+    steps = [xz._child_step(i) for i in range(xz.g)]
+    wins, codes = [], []
+    idx = np.arange(len(nx), dtype=np.int64)
+    for lv in range(xz.g + 1):
+        side = 1 << lv
+        w = 0.5**lv
+        cols = []
+        for v in (nx, ny):
+            k0 = np.floor(v * side).astype(np.int64)
+            ks = []
+            for k in (k0 - 2, k0 - 1, k0):
+                lo = k * w
+                ks.append((k, (k >= 0) & (k < side) & (lo <= v) & (v <= lo + 2 * w)))
+            cols.append(ks)
+        for kx, okx in cols[0]:
+            for ky, oky in cols[1]:
+                ok = okx & oky
+                if not ok.any():
+                    continue
+                cx, cy, j = kx[ok], ky[ok], idx[ok]
+                code = np.full(len(j), lv, np.int64)
+                for i in range(lv):
+                    bit = lv - 1 - i
+                    quad = ((cx >> bit) & 1) | (((cy >> bit) & 1) << 1)
+                    code += quad * steps[i]
+                wins.append(j)
+                codes.append(code)
+    if not wins:
+        e = np.empty(0, np.int64)
+        return e, e.copy()
+    return np.concatenate(wins), np.concatenate(codes)
+
+
 def _xz_runs(keys, sfc, envs, max_ranges: int):
     """Candidate runs for a non-point (XZ2) layout: per-window XZ code
     ranges (the durable index's query decomposition) merged against the
     sorted extent-curve keys. XZ candidates are envelope-overlap
     candidates — never interior — so every emitted pair still passes
-    the envelope-overlap refinement."""
+    the envelope-overlap refinement.
+
+    Where the port differs: a window that is a point (the push tier's
+    feature points against the subscription layout) takes the vectorized
+    cover of ``_xz_point_codes``, one code a run; the counterpart walks
+    each window in Python (its native library does it in C++), and the
+    walk of a point takes about a millisecond here. Both covers hold
+    every overlapping element, so the refined pairs are the same."""
     los: list = []
     his: list = []
     wins: list = []
-    for j in range(len(envs)):
+    point = (envs[:, 0] == envs[:, 2]) & (envs[:, 1] == envs[:, 3])
+    for j in np.nonzero(~point)[0]:
         a, b, c, d = envs[j]
         if a > c or b > d:
             continue
@@ -193,14 +249,24 @@ def _xz_runs(keys, sfc, envs, max_ranges: int):
             los.append(r.lower)
             his.append(r.upper + 1)  # inclusive code range -> exclusive
             wins.append(j)
-    if not los:
-        e = np.empty(0, np.int64)
-        return e, e.copy(), e.copy(), np.empty(0, bool)
-    lo = np.asarray(los, np.uint64)
-    hi = np.asarray(his, np.uint64)
-    starts = np.searchsorted(keys, lo).astype(np.int64)
-    ends = np.searchsorted(keys, hi).astype(np.int64)
-    return starts, ends, np.asarray(wins, np.int64), np.zeros(len(lo), bool)
+    starts = np.searchsorted(keys, np.asarray(los, np.uint64)).astype(np.int64)
+    ends = np.searchsorted(keys, np.asarray(his, np.uint64)).astype(np.int64)
+    win = np.asarray(wins, np.int64)
+    pj = np.nonzero(point)[0]
+    if len(pj) and len(keys):
+        pw, pc = _xz_point_codes(sfc, envs[pj, 0], envs[pj, 1])
+        # a point's cells that hold no element carry no candidate: drop them
+        # first (a lookup table over the keys' code span when it is small,
+        # as for the default precision's 22M codes)
+        span = int(keys[-1]) - int(keys[0])
+        hit = np.isin(pc, keys.astype(np.int64), kind="table" if span < (1 << 26) else None)
+        pw, pc = pw[hit], pc[hit].astype(np.uint64)
+        starts = np.concatenate([starts, np.searchsorted(keys, pc).astype(np.int64)])
+        ends = np.concatenate([ends, np.searchsorted(keys, pc + np.uint64(1)).astype(np.int64)])
+        win = np.concatenate([win, pj[pw]])
+        order = np.lexsort((starts, win))  # window-major, codes ascending
+        starts, ends, win = starts[order], ends[order], win[order]
+    return starts, ends, win, np.zeros(len(starts), bool)
 
 
 def _broadcast_runs(n: int, m: int):

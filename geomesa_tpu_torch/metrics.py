@@ -21,8 +21,9 @@ layer's appends, WAL, replay, memtable, backpressure and compaction
 (reference lines 484-546 and 679-694): traces and slow queries, the SLO
 engine's windows and burn rates, flight-recorder bundles, the cost
 ledger, the kernel builds the compile ledger counts, and the result
-plane's encode/write split. The counterpart's other families are left
-out.
+plane's encode/write split; and the continuous-query push tier's
+(``pubsub_*``, reference lines 796-840). The counterpart's other families
+are left out.
 """
 
 from __future__ import annotations
@@ -391,3 +392,33 @@ results_encode_seconds = REGISTRY.histogram(
     "wire-format serialization time per response (socket write excluded)")
 results_write_seconds = REGISTRY.histogram(
     "geomesa_results_write_seconds", "socket write time per response (serialization excluded)")
+
+# the continuous-query push tier (pubsub/): the registry's size, the fused
+# match a batch on the ingest path, delivery and replay volume, and the
+# teardown and heartbeat accounting of long-lived push streams
+pubsub_subscriptions = REGISTRY.gauge(
+    "geomesa_pubsub_subscriptions", "standing subscriptions currently armed in the registry")
+pubsub_match_batches = REGISTRY.counter(
+    "geomesa_pubsub_match_batches_total",
+    "acked append batches matched against the subscription layout "
+    "(one fused join launch each, regardless of subscription count)")
+pubsub_match_pairs = REGISTRY.counter(
+    "geomesa_pubsub_match_pairs_total",
+    "subscription×feature pairs that survived exact residual + visibility refinement")
+pubsub_match_seconds = REGISTRY.histogram(
+    "geomesa_pubsub_match_seconds", "fused batch×subscriptions match time per acked append batch")
+pubsub_events_delivered = REGISTRY.counter(
+    "geomesa_pubsub_events_delivered_total", "alert events written to connected push streams")
+pubsub_deliver_bytes = REGISTRY.counter(
+    "geomesa_pubsub_deliver_bytes_total", "push-stream body bytes written to subscribers")
+pubsub_replay_records = REGISTRY.counter(
+    "geomesa_pubsub_replay_records_total",
+    "WAL records re-matched below a resuming subscriber's cursor")
+pubsub_heartbeats = REGISTRY.counter(
+    "geomesa_pubsub_heartbeats_total", "SSE :keepalive comments written to idle push streams")
+pubsub_stream_overflows = REGISTRY.counter(
+    "geomesa_pubsub_stream_overflows_total",
+    "push streams torn down because their live event queue overflowed "
+    "(the client resumes exactly-once from its cursor)")
+pubsub_rearms = REGISTRY.counter(
+    "geomesa_pubsub_rearms_total", "matcher re-arms from the replicated registry (promotion/recovery)")

@@ -27,7 +27,7 @@ import torch
 
 from geomesa_tpu_torch.device import resolve_device
 from geomesa_tpu_torch.filter import ast
-from geomesa_tpu_torch.ops.density import corners, density_grid, inverted, viewport
+from geomesa_tpu_torch.ops.density import density_grid, inverted, viewport
 from geomesa_tpu_torch.query.plan import Query
 
 
@@ -64,10 +64,12 @@ def density(
     ``device`` (``cuda:0`` unless the caller passes ``"cpu"``) when
     ``use_device``.
 
-    Viewports without area answer as the counterpart's do: the resident
-    path as ``DeviceIndex.density`` says; on the store path an inverted
-    viewport gives a zero grid and one of zero width or height raises
-    ``ZeroDivisionError`` once there are rows to place."""
+    Viewports without area answer as the resident path does on every
+    path: an inverted viewport gives a zero grid, and one of zero width or
+    height counts the rows on its line in cell 0 of that axis
+    (``ops/density.py`` ``viewport(..., lines=True)``). The counterpart's
+    store path raises ``ZeroDivisionError`` there instead (ROADMAP section
+    3, reference faults the port does not copy)."""
     filt, auths = _split_query(query, auths)
     if isinstance(filt, str):
         from geomesa_tpu_torch.filter.ecql import parse_ecql
@@ -107,11 +109,6 @@ def density(
         if weight_attr
         else np.ones(len(batch))
     )
-    xmin, ymin, xmax, ymax = corners(envelope)
-    if xmax == xmin or ymax == ymin:
-        # the counterpart's store path divides by the extent in Python
-        # (``width / (xmax - xmin)``) on both of its paths
-        raise ZeroDivisionError(f"density viewport {(xmin, ymin, xmax, ymax)} has a zero extent")
     if inverted(envelope):
         return np.zeros((height, width), dtype=np.float32)  # no row inside
     if use_device:
@@ -121,8 +118,12 @@ def density(
 
 
 def _density_host(x, y, w, env, width, height) -> np.ndarray:
-    """numpy twin of ``_pixel_ids`` + scatter-add, in float64."""
-    xmin, ymin, xmax, ymax, sx, sy = viewport(env, width, height)
+    """numpy twin of ``_pixel_ids`` + scatter-add, in float64. An axis of
+    zero extent places the rows on its line in cell 0, as the resident
+    path does; an inverted viewport holds no row."""
+    if inverted(env):
+        return np.zeros((height, width), dtype=np.float32)
+    xmin, ymin, xmax, ymax, sx, sy = viewport(env, width, height, lines=True)
     px = np.clip(np.floor((x - xmin) * sx), 0, width - 1).astype(np.int32)
     py = np.clip(np.floor((y - ymin) * sy), 0, height - 1).astype(np.int32)
     inside = (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
@@ -138,4 +139,4 @@ def _density_device(x, y, w, env, width, height, device) -> np.ndarray:
     xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
     yt = torch.from_numpy(np.ascontiguousarray(y, np.float32)).to(device)
     wt = None if w is None else torch.from_numpy(np.ascontiguousarray(w, np.float32)).to(device)
-    return density_grid(xt, yt, env, width, height, weights=wt).cpu().numpy()
+    return density_grid(xt, yt, env, width, height, weights=wt, lines=True).cpu().numpy()

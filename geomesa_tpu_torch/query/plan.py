@@ -3,10 +3,9 @@
 Copy of ``geomesa_tpu/query/plan.py`` (ref: geomesa-index-api
 QueryPlanner.planQuery, FilterSplitter, StrategyDecider): ``Query``,
 ``QueryPlan`` with ``explain``, ``plan_query`` under the ``query.plan``
-span, the stat-based estimator, ``is_aggregate_shape``/
-``aggregate_bounds``, ``as_query`` and ``internal_query``. The
-counterpart's profiler scope around the range decomposition is left out
-(the port has no profiler; the span times the whole plan).
+span (the range decomposition also under the ``plan.scan_ranges``
+profile), the stat-based estimator, ``is_aggregate_shape``/
+``aggregate_bounds``, ``as_query`` and ``internal_query``.
 
 Planning steps: parse/normalize the filter; extract spatial + temporal +
 attribute bounds; score each available index (heuristic cost, ref
@@ -188,9 +187,12 @@ def _plan_query(
             else:
                 ranges = ks.ranges_for_values(bounds)
         else:
-            ranges = ks.scan_ranges(
-                geoms, intervals, max_ranges, data_interval=data_interval
-            )
+            from geomesa_tpu_torch.profiling import profile
+
+            with profile("plan.scan_ranges"):
+                ranges = ks.scan_ranges(
+                    geoms, intervals, max_ranges, data_interval=data_interval
+                )
     compiled = compile_filter(f, sft)
     plan = QueryPlan(
         sft=sft,

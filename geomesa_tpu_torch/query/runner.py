@@ -9,6 +9,10 @@ by one ``CompiledFilter.mask`` call, which launches the filter-scan kernel
 (``csrc/filter_scan.cu``) for a program its encoder accepts and the plain
 ``device_fn`` otherwise; one copy brings the mask back. Non-device
 predicates run as an exact numpy residual over the surviving candidates.
+A scan runs under the ``query.scan`` span and profile (``profiling.py``);
+with ``trace.device.dir`` set, a sampled request's run launches are also
+recorded by ``torch.profiler`` into Chrome traces there
+(``_device_trace_ctx``).
 
 OOM recovery by halving a run is the counterpart's. Its host-degrade
 rung is the counterpart's for a store on the CPU only: there a launch that
@@ -73,12 +77,35 @@ def run_query(built: BuiltIndex, plan: QueryPlan, device,
     file-system store's per-partition scans set it and apply the query's
     auths once, after the merge. It is an argument, never a query hint,
     so no caller-supplied query can switch visibility off."""
+    from geomesa_tpu_torch.profiling import profile
     from geomesa_tpu_torch.tracing import span
 
-    with span("query.scan") as sp:
+    with profile("query.scan"), span("query.scan") as sp:
         res = _run_query(built, plan, device, defer_visibility)
         sp.set(scanned=res.scanned, hits=len(res))
         return res
+
+
+def _device_trace_ctx():
+    """The ``trace.device.dir`` hook: a sampled request's store-run launch
+    is also recorded by ``torch.profiler`` into a Chrome trace in that
+    directory, named by the request's trace id, when the key names one.
+    The host-side trace says which launch was slow; the profiler's says
+    why (kernel times, copies)."""
+    from contextlib import nullcontext
+
+    from geomesa_tpu_torch.conf import sys_prop
+    from geomesa_tpu_torch.tracing import current_trace
+
+    log_dir = str(sys_prop("trace.device.dir") or "")
+    if not log_dir:
+        return nullcontext()
+    t = current_trace()
+    if t is None or not t.sampled:
+        return nullcontext()
+    from geomesa_tpu_torch.profiling import device_trace
+
+    return device_trace(log_dir, name=t.trace_id)
 
 
 #: OOM-recovery recursion bound: halving a run more times than this
@@ -109,7 +136,7 @@ def _scan_run(built, compiled, device, start: int, stop: int,
 
     try:
         t_stage = time.perf_counter()
-        with span("device.launch", rows=int(stop - start)):
+        with span("device.launch", rows=int(stop - start)), _device_trace_ctx():
             fail_point("fail.device.launch")
             fail_point("fail.stage.oom")
             cols = stage_columns(built.batch, compiled.device_cols, device, start, stop)

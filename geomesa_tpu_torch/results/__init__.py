@@ -10,6 +10,7 @@ from geomesa_tpu_torch.results.columnar import capped_batches, with_extra_column
 from geomesa_tpu_torch.results.negotiate import (
     CONTENT_TYPES,
     FORMATS,
+    PUSH_CONTENT_TYPES,
     negotiate_format,
 )
 from geomesa_tpu_torch.results.stream import bin_stream_chunks
@@ -17,6 +18,7 @@ from geomesa_tpu_torch.results.stream import bin_stream_chunks
 __all__ = [
     "CONTENT_TYPES",
     "FORMATS",
+    "PUSH_CONTENT_TYPES",
     "bin_engine",
     "bin_stream_chunks",
     "capped_batches",

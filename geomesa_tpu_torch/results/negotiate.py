@@ -24,6 +24,14 @@ CONTENT_TYPES = {
     "bin": "application/vnd.geomesa.bin",
 }
 
+#: Content-Type per format of the push plane (``GET /subscribe/<type>``):
+#: GeoJSON goes out as Server-Sent Events; Arrow answers 406 in the port
+PUSH_CONTENT_TYPES = {
+    "geojson": "text/event-stream",
+    "arrow": CONTENT_TYPES["arrow"],
+    "bin": CONTENT_TYPES["bin"],
+}
+
 #: ``f=`` spellings accepted per format (case-insensitive)
 _PARAM_ALIASES = {
     "geojson": "geojson",

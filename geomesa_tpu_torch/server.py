@@ -33,6 +33,15 @@ POST ``/append/<type>`` ingests into the streaming live layer (the WAL is
 the ack point; 413 past ``stream.append.max.bytes``, 429 + Retry-After at
 ``wal.max.generations``), and POST ``/admin/shutdown`` drains the server.
 
+The continuous-query push tier (``pubsub/``, whenever the live layer is
+on): POST ``/subscribe/<type>`` registers a standing query (bbox, cql,
+dwithin, auths), GET ``/subscribe/<type>?id=&from=&f=`` holds its push
+stream open (SSE or BIN; ``from=`` or ``Last-Event-ID`` resumes exactly
+once above an acked seq, 410 once the cursor's records compacted away),
+DELETE ``/subscribe/<type>?id=`` cancels it, ``/stats/pubsub`` reports
+the registry and the connections, and ``GET /wal/_pubsub?from=`` ships
+the registry's WAL.
+
 Every query request runs under a root trace (an inbound ``X-Request-Id``
 becomes the trace id and is echoed), a degradation collector (reasons go
 out in ``X-Degraded``) and a cost collector folded into the ledger and the
@@ -51,11 +60,10 @@ Where the port differs, each answer named in ROADMAP.md:
   Arrow's content type.
 - ``warm=True`` raises ``NotImplementedError`` (ROADMAP item 5b); lazy
   first-touch staging is the resident path.
-- ``replica=`` raises ``NotImplementedError``, and ``/wal/<type>`` and
-  ``/snapshot/<type>`` answer 501 (the replication item);
+- ``replica=`` raises ``NotImplementedError``, and ``/wal/<type>`` of a
+  data type and ``/snapshot/<type>`` answer 501 (the replication item);
   ``/stats/replica`` answers ``{"enabled": false}``.
-- ``/subscribe*`` answers 501 and ``/stats/pubsub`` ``{"enabled":
-  false}`` (item 5d's ``pubsub/``).
+- ``f=arrow`` on the push plane answers 406 as on every other endpoint.
 - The mesh switch counts ``torch.cuda.device_count()``: with one card,
   ``mesh=True`` serves single-card, as the counterpart does with one
   device; more than one card raises (``ShardedDeviceIndex``, item 7).
@@ -89,7 +97,6 @@ _ARROW_406 = (
     "Arrow IPC responses need pyarrow, which the port does not use "
     "(ROADMAP.md section 3): ask for f=geojson or f=bin"
 )
-_PUBSUB_LATER = "the continuous-query push tier (ROADMAP item 5d, pubsub/)"
 _REPLICA_LATER = "replication, /wal and /snapshot (ROADMAP item 5, the replication tier)"
 _WARMUP_LATER = "resident warmup (ROADMAP item 5b, warmup_plan and warmup)"
 _MESH_LATER = "mesh serving over more than one card (ROADMAP item 7, ShardedDeviceIndex)"
@@ -113,6 +120,7 @@ class _GeomesaHTTPServer(ThreadingHTTPServer):
     scheduler = None
     store = None  # wired by make_server (audit flush at drain)
     stream_layer = None  # StreamingStore, when the live layer is on
+    pubsub = None  # PubSubHub, when the push tier is on
     # the listen backlog: the stdlib's 5 drops connections under a burst of
     # concurrent clients, and their SYN retransmits (1 s, then 3 s) become
     # the latency tail; admission is the scheduler's job (429 +
@@ -127,6 +135,13 @@ class _GeomesaHTTPServer(ThreadingHTTPServer):
         self.draining.set()  # stop admission BEFORE finishing in-flight
         if self.scheduler is not None:
             self.scheduler.close(timeout=5.0)
+        if self.pubsub is not None:
+            # detach the matcher from the stream and wake every push
+            # connection before the live layer seals its WAL
+            try:
+                self.pubsub.close()
+            except Exception:  # a failing close must not stop the drain
+                pass
         if self.stream_layer is not None:
             # stop the compactor and seal the WAL; acked-but-uncompacted
             # rows stay durable in the log and replay on the next open
@@ -161,6 +176,7 @@ class _Handler(BaseHTTPRequestHandler):
     resident = False  # serve from device-pinned DeviceIndex caches
     scheduler = None  # QueryScheduler (admission + micro-batch fusion)
     stream = None  # StreamingStore live layer (None = batch-only)
+    pubsub = None  # PubSubHub continuous-query tier (needs the stream)
     _resident_cache: dict = {}  # per-server-class: type -> DeviceIndex
     _resident_lock = None  # per-server-class construction lock
 
@@ -703,11 +719,15 @@ class _Handler(BaseHTTPRequestHandler):
                 self.server.shutdown, name="admin-shutdown", context=False
             ).start()
             return
-        if parts[:1] == ["subscribe"]:
+        if len(parts) == 2 and parts[0] == "subscribe":
+            # subscription CRUD is control-plane traffic: untraced, like
+            # the ship endpoints
             self._trace = None
             self._degraded = None
             self._cost = None
-            return self._not_yet(_PUBSUB_LATER)
+            return self._run_safe(
+                lambda: self._subscribe_post(parts, q, body), parts, q
+            )
         if len(parts) != 2 or parts[0] != "append":
             self._trace = None
             self._degraded = None
@@ -782,16 +802,189 @@ class _Handler(BaseHTTPRequestHandler):
         doc = {"acked": int(res["rows"]), "seq": int(res["seq"])}
         self._json(200, doc)
 
+    # -- continuous queries (the pubsub push tier) -------------------------
+
+    def _pubsub_hub(self):
+        if self.pubsub is None:
+            raise ValueError(
+                "server is not running the continuous-query push tier "
+                "(needs the streaming live layer: stream.enabled / "
+                "serve --stream)"
+            )
+        return self.pubsub
+
+    def _subscribe_post(self, parts: list, q: dict, body: bytes) -> None:
+        """POST ``/subscribe/<type>``: register a standing continuous
+        query. Body: any of ``{"bbox": [...], "cql": "...", "dwithin":
+        {"x","y","distance"}, "auths": [...]}``. The response carries the
+        subscription id and its initial cursor (the data-WAL seq it is
+        armed from)."""
+        hub = self._pubsub_hub()
+        if self._draining():
+            return self._send(
+                503,
+                json.dumps({"error": "server is draining"}).encode("utf-8"),
+                "application/json",
+                headers=(("Retry-After", "1"),),
+            )
+        type_name = unquote(parts[1])
+        doc = json.loads(body.decode("utf-8")) if body else {}
+        tenant = q.get("tenant") or (
+            str(self.client_address[0]) if self.client_address else ""
+        )
+        auths = doc.get("auths")
+        if auths is None:
+            auths = self._auths(q)
+        self._json(200, hub.subscribe(type_name, doc, tenant=tenant, auths=auths))
+
     def do_DELETE(self) -> None:  # noqa: N802 (stdlib API)
-        """DELETE ``/subscribe/<type>?id=``: the push tier's cancel, not in
-        the port yet (501)."""
+        """DELETE ``/subscribe/<type>?id=<sub>``: cancel a standing
+        subscription."""
+        try:
+            url = urlparse(self.path)
+            parts = [p for p in url.path.split("/") if p]
+            q = {k: v[0] for k, v in parse_qs(url.query).items()}
+        except Exception as e:
+            self._trace = None
+            self._degraded = None
+            self._cost = None
+            return self._json(400, {"error": str(e)})
         self._trace = None
         self._degraded = None
         self._cost = None
-        parts = [p for p in urlparse(self.path).path.split("/") if p]
-        if parts[:1] == ["subscribe"]:
-            return self._not_yet(_PUBSUB_LATER)
-        return self._json(404, {"error": f"no such DELETE endpoint {self.path!r}"})
+        if len(parts) != 2 or parts[0] != "subscribe":
+            return self._json(
+                404, {"error": f"no such DELETE endpoint {url.path!r}"}
+            )
+        return self._run_safe(
+            lambda: self._subscribe_delete(parts, q), parts, q
+        )
+
+    def _subscribe_delete(self, parts: list, q: dict) -> None:
+        hub = self._pubsub_hub()
+        sub_id = q.get("id")
+        if not sub_id:
+            raise ValueError("DELETE /subscribe/<type> needs ?id=<sub>")
+        if not hub.cancel(sub_id):
+            raise KeyError(sub_id)
+        self._json(200, {"cancelled": sub_id})
+
+    def _subscribe_stream(self, type_name: str, q: dict) -> None:
+        """GET ``/subscribe/<type>?id=&from=&f=``: the long-lived push
+        stream. ``from`` (or the SSE ``Last-Event-ID`` header) is the
+        subscriber's acked seq watermark: delivery resumes exactly once
+        above it; omitted, it is the subscription's creation cursor.
+        geojson = SSE ``match`` events with ``:keepalive`` heartbeats, bin
+        = track records (resume with an explicit ``from=``); arrow answers
+        406 (ROADMAP section 3)."""
+        from geomesa_tpu_torch.conf import sys_prop
+        from geomesa_tpu_torch.pubsub import CursorGoneError
+        from geomesa_tpu_torch.pubsub.delivery import bin_push_chunks, sse_chunks
+        from geomesa_tpu_torch.results import PUSH_CONTENT_TYPES, negotiate_format
+
+        hub = self._pubsub_hub()
+        if self._draining():
+            return self._send(
+                503,
+                json.dumps({"error": "server is draining"}).encode("utf-8"),
+                "application/json",
+                headers=(("Retry-After", "1"),),
+            )
+        sub_id = q.get("id")
+        if not sub_id:
+            raise ValueError("GET /subscribe/<type> needs ?id=<sub>")
+        sub = hub.registry.get(sub_id)
+        if sub is None or sub.type_name != type_name:
+            raise KeyError(sub_id)
+        fmt = negotiate_format(q, self.headers.get("Accept"))
+        if fmt == "arrow":
+            raise _NotAcceptable(_ARROW_406)
+        frm = q.get("from")
+        if frm is None:
+            frm = self.headers.get("Last-Event-ID")
+        from_seq = int(frm) if frm is not None else int(sub.created_seq)
+        sft = self.store.get_schema(type_name)
+        try:
+            events = hub.events(
+                type_name, sub_id, from_seq,
+                float(sys_prop("sub.heartbeat.s")),
+            )
+        except CursorGoneError as e:
+            return self._json(410, {"error": str(e)})
+        # a push connection is idle on purpose between matches: exempt it
+        # from the keep-alive reap (heartbeats bound the detection of a
+        # dead peer instead) and never reuse the socket afterwards
+        self.connection.settimeout(None)
+        self.close_connection = True
+        if fmt == "bin":
+            track = q.get("track") or sft.attribute_names[0]
+            chunks = bin_push_chunks(events, track)
+        else:
+            chunks = sse_chunks(events, type_name, sub_id)
+        self._send_stream(
+            200, PUSH_CONTENT_TYPES[fmt], self._deliver_guard(chunks, sub), fmt,
+            headers=(("Cache-Control", "no-cache"),),
+        )
+
+    def _deliver_guard(self, chunks, sub):
+        """Per-chunk delivery wrapper: the ``fail.sub.deliver`` fault hook
+        and the byte accounting charged to the subscriber's tenant."""
+        from geomesa_tpu_torch import ledger, metrics
+        from geomesa_tpu_torch.failpoints import fail_point
+
+        sent = 0
+        try:
+            for piece in chunks:
+                fail_point("fail.sub.deliver")
+                sent += len(piece)
+                yield piece
+        finally:
+            if sent:
+                metrics.pubsub_deliver_bytes.inc(float(sent))
+                if ledger.enabled():
+                    cost = ledger.RequestCost(
+                        tenant=sub.tenant,
+                        endpoint="subscribe",
+                        lane="interactive",
+                        shape="push-stream",
+                    )
+                    cost.status = 200
+                    cost.charge("sub_deliver_bytes", float(sent))
+                    ledger.LEDGER.record(cost)
+
+    def _registry_ship(self, q: dict) -> None:
+        """``GET /wal/_pubsub?from=``: ship the subscription registry's WAL
+        in the segment framing (``store/wal.py`` ``pack_record``). The
+        registry log is never truncated, so there is no watermark and no
+        410: a reader can always catch up from any position."""
+        from geomesa_tpu_torch.store.wal import pack_record
+
+        hub = self._pubsub_hub()
+        wal = hub.registry.wal
+        frm = max(int(q.get("from", 0)), 0)
+        nxt = int(wal.next_seq)
+
+        def chunks():
+            buf = bytearray()
+            for seq, payload in wal.read_from(frm - 1):
+                if seq >= nxt:
+                    break
+                buf += pack_record(seq, payload)
+                if len(buf) >= (512 << 10):
+                    yield bytes(buf)
+                    buf.clear()
+            if buf:
+                yield bytes(buf)
+
+        self._send_stream(
+            200, "application/x-geomesa-wal", chunks(), "wal",
+            headers=(
+                ("X-Wal-Next-Seq", str(nxt)),
+                ("X-Wal-Watermark", "-1"),
+                ("X-Replica-Role", "leader"),
+                ("X-Replica-Epoch", "0"),
+            ),
+        )
 
     def _not_yet(self, what: str) -> None:
         """501 for a surface the port does not serve yet, naming the
@@ -972,11 +1165,31 @@ class _Handler(BaseHTTPRequestHandler):
         if parts == ["stats", "replica"]:
             return self._json(200, {"enabled": False})
         if parts == ["stats", "pubsub"]:
-            return self._json(200, {"enabled": False})
-        if parts[:1] == ["subscribe"]:
-            return self._not_yet(_PUBSUB_LATER)
+            return self._json(
+                200,
+                self.pubsub.stats()
+                if self.pubsub is not None
+                else {"enabled": False},
+            )
+        if len(parts) == 2 and parts[0] == "subscribe":
+            # the long-lived push stream (SSE / BIN)
+            return self._subscribe_stream(unquote(parts[1]), q)
         if parts == ["stats"]:
             return self._json(200, self._stats_index())
+        if parts[:1] == ["wal"] and len(parts) == 2:
+            from geomesa_tpu_torch.pubsub import REGISTRY_SHIP_NAME
+
+            if unquote(parts[1]) == REGISTRY_SHIP_NAME:
+                if self.stream is None:
+                    return self._json(
+                        400,
+                        {"error": "server is not running with the streaming "
+                                  "live layer (stream.enabled / serve --stream)"},
+                    )
+                # the subscription registry ships through the data ship's
+                # endpoint as a reserved pseudo-type (no schema, never
+                # truncated)
+                return self._registry_ship(q)
         if len(parts) == 2 and parts[0] in ("wal", "snapshot"):
             return self._not_yet(_REPLICA_LATER)
         if len(parts) == 2 and parts[0] in (
@@ -1025,6 +1238,8 @@ class _Handler(BaseHTTPRequestHandler):
         doc["ledger"] = LEDGER.snapshot()
         if self.stream is not None:
             doc["stream"] = self.stream.stream_stats()
+        if self.pubsub is not None:
+            doc["pubsub"] = self.pubsub.stats()
         return doc
 
     def _debug_traces(self, parts: list, q: dict) -> None:
@@ -1685,8 +1900,10 @@ def make_server(
     layer: every serving path reads the merged view, POST ``/append``
     acks at the WAL, and each acked batch folds into staged resident
     indexes as a delta. ``mesh`` serves single-card with one card (see
-    ``_mesh_serving_enabled``). ``replica`` raises
-    ``NotImplementedError`` (the replication item of ROADMAP)."""
+    ``_mesh_serving_enabled``). With the live layer on, the continuous-query
+    push tier (``pubsub.PubSubHub``) rides it: the WAL seq is the delivery
+    cursor. ``replica`` raises ``NotImplementedError`` (the replication
+    item of ROADMAP)."""
     import os as _os
 
     from geomesa_tpu_torch import ledger as _ledger
@@ -1733,6 +1950,14 @@ def make_server(
         else:
             stream_layer = StreamingStore(store, scheduler=scheduler)
             store = stream_layer
+    # the continuous-query push tier rides the live layer (the data WAL
+    # seq is the delivery cursor); the hub installs its own seq listener
+    # and retention floor into the stream
+    pubsub_hub = None
+    if stream_layer is not None:
+        from geomesa_tpu_torch.pubsub import PubSubHub
+
+        pubsub_hub = PubSubHub(stream_layer)
     from geomesa_tpu_torch.conf import sys_prop as _sys_prop
     from geomesa_tpu_torch.locking import checked_lock
 
@@ -1744,6 +1969,7 @@ def make_server(
             "resident": resident,
             "scheduler": scheduler,
             "stream": stream_layer,
+            "pubsub": pubsub_hub,
             "timeout": float(_sys_prop("http.keepalive.s")),
             "_resident_cache": {},
             # first-touch resident builds hold it across store reads and
@@ -1761,6 +1987,8 @@ def make_server(
         providers["store"] = store.store_stats
 
     providers["mesh"] = lambda: {"enabled": False, "types": {}}
+    if pubsub_hub is not None:
+        providers["pubsub"] = pubsub_hub.stats
     if stream_layer is not None:
         providers["stream"] = stream_layer.stream_stats
 
@@ -1793,6 +2021,7 @@ def make_server(
     server.scheduler = scheduler  # callers may inspect / shut down
     server.store = store  # the draining shutdown flushes its audit log
     server.stream_layer = stream_layer  # closed by the draining shutdown
+    server.pubsub = pubsub_hub  # closed (before the stream) at drain
     return server
 
 

@@ -14,7 +14,10 @@ bbox+time aggregate decomposes as
 Count and stats (Count/MinMax specs) are EXACT under this split. Density
 is exact in total mass and within coarse-cell tolerance in placement
 (interior cells prorate uniformly within a world-grid cell; boundary rows
-rasterize through ``process/density.py`` ``_density_host``).
+rasterize through ``process/density.py`` ``_density_host``). A viewport
+of zero width or height refines every chunk the plan keeps and places the
+rows on its line as the resident path does; the counterpart divides by
+the zero extent (ROADMAP section 3).
 
 Routing: the planner's ``QueryPlan.agg_bounds`` (None = structure chunk
 stats cannot decide: the row scan), the ``store.chunk.pushdown`` property
@@ -32,6 +35,7 @@ import numpy as np
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.api import BuiltIndex, PartitionMeta
 from geomesa_tpu_torch.index.keyspaces import keyspace_for
+from geomesa_tpu_torch.ops.density import corners
 from geomesa_tpu_torch.store import chunkstats as cks
 
 #: query hints that cannot change a pushdown answer -- anything else
@@ -211,6 +215,12 @@ def density_pushdown(
     envs, ivals = plan.agg_bounds
     st = store._types[type_name]
     ks = keyspace_for(st.sft, st.primary)
+    # a viewport of zero width or height counts the rows on its line (the
+    # resident rule, ``ops/density.py`` ``viewport(..., lines=True)``):
+    # the coarse cells cannot say which rows lie on a line, so every chunk
+    # the plan keeps refines at row level
+    xmin, ymin, xmax, ymax = corners(envelope)
+    line = xmax >= xmin and ymax >= ymin and (xmax == xmin or ymax == ymin)
     out = np.zeros((height, width), dtype=np.float32)
     coarse = None
     pre_rows = 0
@@ -224,7 +234,8 @@ def density_pushdown(
                 if klass[ci] == cks.DISJOINT:
                     continue
                 if (
-                    t_klass[ci] == cks.INTERIOR
+                    not line
+                    and t_klass[ci] == cks.INTERIOR
                     and (len(cs.cells[ci]) or not cs.rows[ci])
                     # a non-finite bbox means NaN coordinates polluted
                     # the chunk's cell histogram at build time: those

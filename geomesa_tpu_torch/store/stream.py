@@ -32,7 +32,11 @@ exclusive section, so a query never sees a row twice or not at all.
 Delta listeners (``add_delta_listener``) receive each acked batch outside
 the memtable lock: ``layer.add_delta_listener(lambda t, b:
 index.refresh_delta(b))`` keeps a ``StreamingDeviceIndex`` staged from the
-layer's merged view current without a restage.
+layer's merged view current without a restage. Seq listeners
+(``add_seq_listener``) receive the batch with its WAL seq, the push tier's
+delivery cursor (``pubsub/``), and retention floors
+(``add_retention_floor``) hold the WAL segments a subscriber's cursor
+still needs through a compaction.
 
 Where the port differs: a WAL payload is the batch in the port's
 columnar block format (``store/partfile.py``) behind a magic of its own,
@@ -41,11 +45,10 @@ without that magic raises (ROADMAP section 3). The per-run scans defer
 visibility by ``run_query``'s argument, never by a query hint. A stalled
 compactor (shed appends and no publish for ``stream.stall.s``) writes an
 ``ingest-stall`` flight-recorder bundle; each compaction records a
-``_system`` entry in the cost ledger. Left out, each for the code that
-reads it (ROADMAP item 5): the replication tier (``apply_replicated``,
-``replica_positions``, ``install_snapshot``, ``ReplicationGapError``,
-``retention_floor``) and the pubsub matcher's feed (the seq listeners,
-``add_retention_floor``).
+``_system`` entry in the cost ledger. Left out, for the code that reads
+it: the replication tier's follower side (``apply_replicated``,
+``replica_positions``, ``install_snapshot``, ``ReplicationGapError`` and
+the replicator's ``retention_floor``, ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -154,6 +157,11 @@ class StreamingStore:
         self._streams: "dict[str, _TypeStream]" = {}
         #: cb(type_name, batch) after each acked append
         self._listeners: list = []
+        #: cb(type_name, batch, seq) after each acked append (the push tier)
+        self._seq_listeners: list = []
+        #: fn(type_name) -> int | None: WAL retention floors; a compaction
+        #: truncates the WAL only up to the lowest of them
+        self._retention_floors: list = []
         # the first touch of a type opens its WAL (segment scan, torn-tail
         # truncation) under this lock: two appenders racing the open would
         # append one segment through two fds
@@ -253,6 +261,7 @@ class StreamingStore:
             # the resident refresh outside the memtable lock: device
             # staging must not serialize WAL appends
             self._notify_delta(type_name, batch)
+            self._notify_seq(type_name, batch, seq)
         if mem_rows >= int(sys_prop("stream.memtable.rows")):
             self._kick()
         return {"seq": int(seq), "rows": len(batch)}
@@ -363,6 +372,54 @@ class StreamingStore:
     def remove_delta_listener(self, cb) -> None:
         if cb in self._listeners:
             self._listeners.remove(cb)
+
+    def add_seq_listener(self, cb) -> None:
+        """``cb(type_name, batch, seq)`` after every acked append: the seq is
+        the continuous-query matcher's delivery cursor. A listener's fault
+        degrades like a delta listener's (``ingest-degraded``): the rows are
+        durable and queryable regardless, and subscribers recover the
+        alerts through the cursor replay."""
+        self._seq_listeners.append(cb)
+
+    def remove_seq_listener(self, cb) -> None:
+        if cb in self._seq_listeners:
+            self._seq_listeners.remove(cb)
+
+    def _notify_seq(self, type_name: str, batch, seq: int) -> None:
+        from geomesa_tpu_torch import resilience
+
+        for cb in list(self._seq_listeners):
+            try:
+                cb(type_name, batch, int(seq))
+            except Exception as e:
+                resilience.note_degraded("ingest-degraded")
+                _log.warning("dataset %r: seq listener failed at seq %d (%s) -- subscribers "
+                             "recover via cursor replay", type_name, seq, e)
+
+    def add_retention_floor(self, fn) -> None:
+        """Install a WAL retention floor (``fn(type_name) -> int | None``):
+        a compaction truncates the WAL up to the lowest floor, never past
+        its watermark."""
+        self._retention_floors.append(fn)
+
+    def remove_retention_floor(self, fn) -> None:
+        if fn in self._retention_floors:
+            self._retention_floors.remove(fn)
+
+    def _retention_seq(self, type_name: str, watermark: int) -> int:
+        """The WAL truncation bound of a compaction: its watermark, capped
+        by every installed retention floor (a subscriber's cursor must
+        outlive the compaction, or its resume answers 410). A failing floor
+        is skipped: that only retains more."""
+        bound = int(watermark)
+        for fn in list(self._retention_floors):
+            try:
+                floor = fn(type_name)
+            except Exception:  # a broken floor must not wedge compaction
+                continue
+            if floor is not None:
+                bound = min(bound, int(floor))
+        return bound
 
     def _notify_delta(self, type_name: str, batch) -> None:
         from geomesa_tpu_torch import resilience
@@ -622,7 +679,7 @@ class StreamingStore:
         metrics.stream_memtable_rows.set(mem_rows, type=type_name)
         metrics.stream_memtable_runs.set(nruns, type=type_name)
         fail_point("fail.compact.publish")
-        ts.wal.truncate_through(watermark)
+        ts.wal.truncate_through(self._retention_seq(type_name, watermark))
         dur = time.perf_counter() - t0
         ts.compactions += 1
         ts.last_publish = time.monotonic()

@@ -21,10 +21,12 @@ Record layout (little-endian), the counterpart's byte for byte:
 seq+length+payload, so a record can neither tear nor be misattributed to
 another offset.
 
-The ``fail.wal.append`` / ``fail.wal.rotate`` / ``fail.wal.replay``
-failpoints sit at the counterpart's steps. Left out: ``append_at``,
-``read_from``, ``pack_record`` and ``RecordParser``, whose only readers
-are the replication tier and the server (ROADMAP item 5).
+``read_from(after_seq)`` is the readonly cursor (the push tier's replay
+and the registry's ``/wal/_pubsub`` ship) and ``pack_record`` the framing
+of one record. The ``fail.wal.append`` / ``fail.wal.rotate`` /
+``fail.wal.replay`` failpoints sit at the counterpart's steps. Left out:
+``append_at`` and ``RecordParser``, whose only readers are the
+replication tier's follower side (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import zlib
 from geomesa_tpu_torch.failpoints import fail_point
 from geomesa_tpu_torch.locking import checked_lock
 
-__all__ = ["WriteAheadLog", "WalCorruption"]
+__all__ = ["WriteAheadLog", "WalCorruption", "pack_record"]
 
 _MAGIC = 0x474D5741  # "GMWA"
 _HEADER = struct.Struct("<IQII")  # magic, seq, length, crc
@@ -54,6 +56,13 @@ class WalCorruption(RuntimeError):
 def _crc(seq: int, payload: bytes) -> int:
     c = zlib.crc32(struct.pack("<QI", seq, len(payload)))
     return zlib.crc32(payload, c) & 0xFFFFFFFF
+
+
+def pack_record(seq: int, payload: bytes) -> bytes:
+    """One record in the on-disk framing, the counterpart's byte for byte:
+    the ship wire format is the segment format, so a reader verifies the
+    same checksum replay does."""
+    return _HEADER.pack(_MAGIC, seq, len(payload), _crc(seq, payload)) + payload
 
 
 def _fsync_dir(d: str) -> None:
@@ -211,7 +220,7 @@ class WriteAheadLog:
         ``seq == self._next_seq``); advances ``next_seq``."""
         from geomesa_tpu_torch import ledger, metrics, resilience
 
-        rec = _HEADER.pack(_MAGIC, seq, len(payload), _crc(seq, payload)) + payload
+        rec = pack_record(seq, payload)
 
         def _write():
             # inside the retry: an injected (or real) transient failure
@@ -295,17 +304,29 @@ class WriteAheadLog:
                 if seq > after_seq:
                     yield seq, payload
 
-    def first_seq(self) -> int:
-        """Lowest seq still on disk, or -1 when the log is empty. Reads
-        without mutating, as the counterpart's ``read_from`` cursor does: a
-        torn tail ends the walk, a segment removed mid-walk is skipped."""
+    def read_from(self, after_seq: int = -1):
+        """Readonly cursor: yield ``(seq, payload)`` for every durable
+        record with ``seq > after_seq``, in order, and never mutate,
+        whether this is the live appender or a readonly inspector. A torn
+        tail ends the stream (the next pass reads the retried copy); a
+        segment unlinked mid-walk by ``truncate_through`` is skipped (its
+        records are at or below the manifest watermark, which every reader
+        of this cursor already holds)."""
         segs = self.segments()
         for i, path in enumerate(segs):
             try:
-                for seq, _ in self._scan_one(path, truncate_tail=i == len(segs) - 1, mutate=False):
-                    return seq
+                for seq, payload in self._scan_one(path, truncate_tail=i == len(segs) - 1,
+                                                   mutate=False):
+                    if seq > after_seq:
+                        yield seq, payload
             except FileNotFoundError:
                 continue  # racing truncate_through
+
+    def first_seq(self) -> int:
+        """Lowest seq still on disk, or -1 when the log is empty (the first
+        record of :meth:`read_from`)."""
+        for seq, _ in self.read_from(-1):
+            return seq
         return -1
 
     def truncate_through(self, seq: int) -> int:

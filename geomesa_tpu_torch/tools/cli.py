@@ -1,15 +1,19 @@
-"""The port's command line: ``serve`` and ``load-driver``.
+"""The port's command line: ``serve``, ``load-driver`` and ``subs``.
 
 Counterpart of ``geomesa_tpu/tools/cli.py``, trimmed to the store opener
 ``_store`` (reference line 69), the scheduler and host-I/O flags
 (``_add_sched_flags``/``_sched_config``, ``_add_io_flags``/
-``_apply_io_flags``, lines 780-857), ``cmd_serve`` (line 858) and
-``cmd_load_driver`` (line 1181) in its single-endpoint mode. Every
-subcommand takes ``--device`` (default ``cuda``; ``cpu`` serves the plain
-versions on the host, as the tests do).
+``_apply_io_flags``, lines 780-857), ``cmd_serve`` (line 858),
+``cmd_load_driver`` (line 1181) in its single-endpoint mode with the
+mixed leg's synthetic appends and standing subscriptions (``--append-every``,
+``--append-rows``, ``--subscribe``, lines 925-946 and 1062-1150) and
+``cmd_subs`` (line 1544). Every subcommand takes ``--device`` (default
+``cuda``; ``cpu`` serves the plain versions on the host, as the tests do).
 
     python -m geomesa_tpu_torch.tools --root DIR serve --resident [--sched] [--stream]
-    python -m geomesa_tpu_torch.tools --root DIR load-driver -f NAME [-q CQL] [--loose]
+    python -m geomesa_tpu_torch.tools --root DIR load-driver -f NAME [-q CQL] [--loose] \
+        [--subscribe K --append-every N]
+    python -m geomesa_tpu_torch.tools subs --url URL [--id ID [--cancel]]
 
 Left out: ``serve``'s ``--warm`` (ROADMAP item 5b) and replication flags,
 ``load-driver --backends`` (the replication item), and every other
@@ -150,27 +154,123 @@ def _print_cost_table(title: str, table: dict):
         )
 
 
+def _synth_columns(attrs: list, n: int, rng) -> dict:
+    """Minimal append columns for an arbitrary schema (from /capabilities
+    attribute metadata): the load driver's write leg."""
+    cols = {}
+    for a in attrs:
+        t = a["type"].lower()
+        if "point" in t or "geometry" in t or "line" in t or "polygon" in t:
+            cols[a["name"]] = [[float(rng.uniform(-180, 180)), float(rng.uniform(-90, 90))]
+                               for _ in range(n)]
+        elif "string" in t:
+            cols[a["name"]] = [f"ld-{i}" for i in range(n)]
+        elif "date" in t:
+            cols[a["name"]] = [1_000_000 + i for i in range(n)]
+        elif "float" in t or "double" in t:
+            cols[a["name"]] = [float(rng.uniform(0, 100)) for _ in range(n)]
+        elif "bool" in t:
+            cols[a["name"]] = [True] * n
+        else:  # Int / Long / anything numeric-ish
+            cols[a["name"]] = [int(rng.integers(0, 100)) for _ in range(n)]
+    return cols
+
+
+def _hold_subscriptions(url: str, type_name: str, k: int, lock):
+    """``--subscribe K``: K standing world-bbox subscriptions, each under
+    its own ``sub<k>`` tenant (the ledger's matched-alert cost lands on the
+    subscriber), each read by a thread that counts its SSE match events.
+    Returns ``(finish, counts)``: ``finish()`` cancels them and joins the
+    readers."""
+    import threading
+    import urllib.request
+
+    from geomesa_tpu_torch.spawn import spawn_thread
+
+    subs = []
+    for i in range(k):
+        req = urllib.request.Request(
+            f"{url}/subscribe/{type_name}?tenant=sub{i}",
+            data=json.dumps({"bbox": [-180.0, -90.0, 180.0, 90.0]}).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            subs.append(json.loads(r.read()))
+    counts = [0] * k
+    stop = threading.Event()
+
+    def reader(i: int, sub: dict):
+        target = f"{url}/subscribe/{type_name}?id={sub['id']}&from={sub['cursor']}"
+        try:
+            with urllib.request.urlopen(target, timeout=300) as resp:
+                buf = b""
+                while not stop.is_set():
+                    chunk = resp.read1(1 << 16)
+                    if not chunk:
+                        break
+                    buf += chunk
+                    while b"\n\n" in buf:
+                        ev, buf = buf.split(b"\n\n", 1)
+                        if b"event: match" in ev:
+                            with lock:
+                                counts[i] += 1
+        except Exception:
+            pass  # a torn stream still reports its partial count
+
+    threads = [spawn_thread(reader, name=f"load-sub-{i}", args=(i, s), context=False)
+               for i, s in enumerate(subs)]
+    for t in threads:
+        t.start()
+
+    def finish():
+        # in-flight matches get a beat to deliver; then the cancels end
+        # each stream ("cancelled") and the readers drain
+        import time
+
+        time.sleep(0.5)
+        stop.set()
+        for s in subs:
+            try:
+                req = urllib.request.Request(f"{url}/subscribe/{type_name}?id={s['id']}",
+                                             method="DELETE")
+                urllib.request.urlopen(req, timeout=10).close()
+            except Exception:
+                pass
+        for t in threads:
+            t.join(timeout=5)
+
+    return finish, counts
+
+
 def cmd_load_driver(args):
     """Concurrent load driver: M threads x N requests against a serving
     endpoint (an already-running --url, or a self-served store with a
     scheduler), reporting throughput, latency percentiles, shed load
-    (429s) and the scheduler's fusion counters from /stats/sched."""
+    (429s) and the scheduler's fusion counters from /stats/sched. With
+    ``--append-every N`` every Nth request of a thread is a synthetic POST
+    /append of ``--append-rows`` rows, and ``--subscribe K`` holds K
+    standing push streams open through the load (the mixed appends,
+    subscriptions and reads leg); a self-served store then runs the live
+    layer."""
     import threading
     import time
     import urllib.error
     import urllib.request
     from urllib.parse import quote
 
+    import numpy as np
+
     from geomesa_tpu_torch.spawn import spawn_thread
 
     url, server = args.url, None
+    writes = bool(args.append_every or args.subscribe)
     if url is None:
         from geomesa_tpu_torch.server import serve_background
 
         _apply_io_flags(args)
         store = _store(args)
         args.sched = True  # self-serve always schedules
-        server, _ = serve_background(store, resident=args.resident, sched=_sched_config(args))
+        server, _ = serve_background(store, resident=args.resident, sched=_sched_config(args),
+                                     stream=True if writes else None)
         host, port = server.server_address[:2]
         url = f"http://{host}:{port}"
     try:
@@ -188,7 +288,33 @@ def cmd_load_driver(args):
                      f"({e.read().decode(errors='replace')[:200]})")
         lats: list = []
         shed = [0, 0]  # 429s, other errors
+        appends = {"attempted": 0, "acked_rows": 0, "shed": 0, "errors": 0}
         lock = threading.Lock()
+        attrs = None
+        if args.append_every:
+            with urllib.request.urlopen(f"{url}/capabilities", timeout=30) as r:
+                attrs = json.loads(r.read())["types"][args.feature_name]["attributes"]
+
+        def append(tid: int, rng, fid0: int) -> None:
+            n = args.append_rows
+            body = json.dumps({"columns": _synth_columns(attrs, n, rng),
+                               "fids": list(range(fid0, fid0 + n))}).encode()
+            with lock:
+                appends["attempted"] += 1
+            try:
+                req = urllib.request.Request(
+                    f"{url}/append/{args.feature_name}", data=body, method="POST",
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    out = json.loads(r.read())
+                with lock:
+                    appends["acked_rows"] += int(out.get("acked", 0))
+            except urllib.error.HTTPError as e:
+                with lock:
+                    appends["shed" if e.code in (429, 503) else "errors"] += 1
+            except Exception:
+                with lock:
+                    appends["errors"] += 1
 
         def worker(tid: int):
             # --tenants K spreads the load over K synthetic tenant ids for
@@ -196,7 +322,13 @@ def cmd_load_driver(args):
             t_url = target
             if args.tenants > 0:
                 t_url += f"&tenant=lt{tid % args.tenants}"
-            for _ in range(args.requests):
+            rng = np.random.default_rng(tid)
+            fid0 = 1_000_000_000 + tid * 1_000_000
+            for i in range(args.requests):
+                if args.append_every and i % args.append_every == 0:
+                    append(tid, rng, fid0)
+                    fid0 += args.append_rows
+                    continue
                 t0 = time.perf_counter()
                 try:
                     with urllib.request.urlopen(t_url, timeout=120) as r:
@@ -208,6 +340,9 @@ def cmd_load_driver(args):
                 with lock:
                     lats.append(time.perf_counter() - t0)
 
+        finish = None
+        if args.subscribe > 0:
+            finish, sub_counts = _hold_subscriptions(url, args.feature_name, args.subscribe, lock)
         threads = [spawn_thread(worker, name=f"loadmt-worker-{i}", args=(i,), context=False)
                    for i in range(args.threads)]
         t0 = time.perf_counter()
@@ -230,6 +365,14 @@ def cmd_load_driver(args):
             "p99_ms": (round(lats[min(len(lats) - 1, int(len(lats) * 0.99))] * 1e3, 2)
                        if lats else None),
         }
+        if args.append_every:
+            rep["appends"] = appends
+        if finish is not None:
+            finish()
+            with lock:
+                counts = list(sub_counts)
+            rep["pubsub"] = {"subscriptions": args.subscribe, "events_per_sub": counts,
+                             "total_events": sum(counts)}
         try:
             with urllib.request.urlopen(f"{url}/stats/sched", timeout=10) as r:
                 rep["sched"] = json.loads(r.read())
@@ -253,6 +396,67 @@ def cmd_load_driver(args):
         if server is not None:
             server.shutdown()  # drains and joins the scheduler too
             server.server_close()
+
+
+def _fetch_json(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        sys.exit(f"error: HTTP {e.code} ({e.read().decode(errors='replace')[:200]})")
+
+
+def cmd_subs(args):
+    """Operate on the continuous-query push tier of a running server: list
+    the standing subscriptions with their delivery-cursor lag, inspect one,
+    or cancel one (``--cancel``)."""
+    import urllib.request
+
+    base = args.url.rstrip("/")
+    if args.cancel:
+        if not args.id:
+            sys.exit("error: --cancel needs --id <subscription>")
+        doc = _fetch_json(f"{base}/stats/pubsub")
+        sub = next((s for s in doc.get("subscriptions", ()) if s["id"] == args.id), None)
+        if sub is None:
+            sys.exit(f"error: no subscription {args.id!r}")
+        req = urllib.request.Request(f"{base}/subscribe/{sub['type']}?id={args.id}",
+                                     method="DELETE")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            print(json.dumps(json.loads(r.read()), indent=2))
+        return
+    doc = _fetch_json(f"{base}/stats/pubsub")
+    if not doc.get("enabled", False):
+        print("(push tier disabled — the server runs without the streaming live layer)")
+        return
+    if args.id:
+        sub = next((s for s in doc.get("subscriptions", ()) if s["id"] == args.id), None)
+        if sub is None:
+            sys.exit(f"error: no subscription {args.id!r}")
+        print(json.dumps(sub, indent=2))
+        return
+    subs = doc.get("subscriptions", [])
+    print(f"subscriptions: {len(subs)}  connections: {doc.get('connections', 0)}  "
+          f"matched batches: {doc.get('matched_records', 0)}  "
+          f"fused launches: {doc.get('fused_launches', 0)}")
+    if not subs:
+        return
+    print(f"\n  {'id':<14}{'type':<16}{'tenant':<14}{'conns':>6}{'cursor':>10}{'lag':>8}  predicate")
+    for s in subs:
+        pred = []
+        if s.get("bbox"):
+            b = s["bbox"]
+            pred.append(f"bbox[{b[0]:g},{b[1]:g},{b[2]:g},{b[3]:g}]")
+        if s.get("dwithin"):
+            d = s["dwithin"]
+            pred.append(f"dwithin({d['x']:g},{d['y']:g},{d['distance']:g})")
+        if s.get("cql"):
+            pred.append(s["cql"][:40])
+        print(f"  {s['id']:<14}{s['type']:<16}{s['tenant']:<14}{s['connected']:>6}"
+              f"{s['cursor']:>10}{s['lag']:>8}  " + (" AND ".join(pred) or "-"))
 
 
 def main(argv=None) -> None:
@@ -300,8 +504,24 @@ def main(argv=None) -> None:
     sp.add_argument("--resident", action=argparse.BooleanOptionalAction, default=True,
                     help="self-serve in resident mode (--no-resident "
                     "load-tests the store path instead)")
+    sp.add_argument("--append-every", type=int, default=0,
+                    help="every Nth request per thread is a synthetic POST /append "
+                    "(0 = reads only)")
+    sp.add_argument("--append-rows", type=int, default=8, help="rows per synthetic append")
+    sp.add_argument("--subscribe", type=int, default=0,
+                    help="hold K standing subscriptions (SSE push streams) open through "
+                    "the load: the mixed appends+subscriptions+reads leg; per-subscriber "
+                    "match counts ride the report and matched-alert cost lands on the "
+                    "sub<k> tenants")
     _add_sched_flags(sp)
     _add_io_flags(sp)
+
+    sp = add("subs", cmd_subs)
+    sp.add_argument("--url", required=True,
+                    help="running server base URL (e.g. http://host:port)")
+    sp.add_argument("--id", help="inspect (or with --cancel, cancel) one subscription")
+    sp.add_argument("--cancel", action="store_true",
+                    help="cancel the subscription named by --id")
 
     args = p.parse_args(argv)
     if args.device == "cuda":

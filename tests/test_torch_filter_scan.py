@@ -384,12 +384,18 @@ def test_launch_records_stay_bounded_over_staged_runs(data, as_card):
 
     prog, ts = _bbox_during(data)
     refs = []
+    # every turn's planes stay alive until the loop ends: freed clones
+    # would let the allocator hand a later turn the same addresses, and a
+    # record keyed by the same address, dtype, shape and stride is rightly
+    # the same record
+    turns = []
     for _ in range(5 * filter_scan.RECORDS_PER_PROGRAM):
         staged = [t.clone() for t in ts]
         filter_scan._record(prog, staged, None)
+        turns.append(staged)
         refs += [weakref.ref(t) for t in staged]
         assert len(prog._records) <= filter_scan.RECORDS_PER_PROGRAM
-    del staged
+    del staged, turns
     gc.collect()
     assert len(prog._records) == filter_scan.RECORDS_PER_PROGRAM
     assert all(r() is None for r in refs)

@@ -6,7 +6,9 @@ resident index staged from it, the kNN, tube and proximity processes,
 and a BIN request, and the file-system store: writes, flushes under a
 partition scheme, queries, the pushdowns, a reopen with verification,
 and its streaming live layer: an append, a merged query, a reopen that
-replays the WAL and a compaction), none
+replays the WAL and a compaction, with a subscription matched in process
+and over HTTP, and a ``device_trace`` block around a traced store query),
+none
 of them loads ``pyarrow`` either, and entry points never fall back to the
 CPU on their own."""
 
@@ -176,6 +178,28 @@ relayer = StreamingStore(FileSystemDataStore(root, device="cpu"))
 assert relayer.count("t", q) == len(live)
 relayer.compact_now("t")
 assert not relayer._runs_snapshot("t") and relayer.count("t", q) == len(live)
+from geomesa_tpu_torch.pubsub import PubSubHub
+hub = PubSubHub(relayer)
+sub = hub.subscribe("t", {"bbox": [-10, -10, 30, 30], "cql": "count > 2"}, tenant="a", auths=None)
+relayer.append("t", {k: v[40:80] for k, v in cols.items() if k != VIS_COLUMN}, fids=np.arange(n + 40, n + 80))
+gen = hub.events("t", sub["id"], sub["cursor"], 0.05)
+ev = next(e for e in gen if e[0] == "match")
+gen.close()
+x2, y2, c2 = cols["geom"][40:80, 0], cols["geom"][40:80, 1], cols["count"][40:80]
+want = (x2 >= -10) & (x2 <= 30) & (y2 >= -10) & (y2 <= 30) & (c2 > 2)
+# one fused join for the acked append, one for the cursor's replay of it
+assert sorted(ev[2].fids) == sorted(n + 40 + np.nonzero(want)[0]) and hub.matcher.launches == 2
+hub.close()
+from geomesa_tpu_torch import profiling
+from geomesa_tpu_torch.tracing import TRACER
+t2 = cols["dtg"][40:80]
+fresh2 = (x2 >= -10) & (x2 <= 30) & (y2 >= -10) & (y2 <= 30) & (t2 >= 1_578_009_600_000) & (t2 <= 1_578_528_000_000)
+relayer.compact_now("t")  # the count scans partitions: store runs, so launches to trace
+with prop_override("trace.device.dir", root + "/_traces"), TRACER.trace("iso") as tr:
+    assert tr.sampled and relayer.count("t", q) == len(live) + int(fresh2.sum())
+import os
+assert [f for f in os.listdir(root + "/_traces") if f.startswith(tr.trace_id)]
+assert profiling.timings()["query.scan"]["count"] > 0
 relayer.close()
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
@@ -248,9 +272,18 @@ for ds, kw in ((mds, {"resident": True, "sched": True}), (fds, {"resident": True
     for p in paths:
         codes[p] = call(base, p)[0]
     if kw.get("stream"):
+        st, sub = call(base, "/subscribe/t", "POST", {"bbox": [0, 0, 2, 2]})
+        sub = json.loads(sub)
+        resp = urllib.request.urlopen(f"{base}/subscribe/t?id={sub['id']}", timeout=30)
         body = {"columns": {"name": ["a"], "count": [1], "dtg": [1_577_836_800_000],
                             "geom": [[1.0, 1.0]]}, "fids": ["new"]}
         assert call(base, "/append/t", "POST", body)[0] == 200
+        buf = b""
+        while b"event: match" not in buf:
+            buf += resp.read1(4096)
+        resp.close()
+        assert b'"id":"new"' in buf and call(base, f"/subscribe/t?id={sub['id']}", "DELETE")[0] == 200
+        assert call(base, "/wal/_pubsub")[0] == 200
     assert call(base, "/admin/shutdown", "POST", {})[0] == 200
     server.server_close()
 assert [p for p, c in codes.items() if c >= 500 and c != 501] == [], codes
@@ -314,6 +347,12 @@ def test_the_scan_covers_the_server_modules():
 
 def test_the_scan_covers_the_live_layer_modules():
     for rel in ("store/wal.py", "store/stream.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+def test_the_scan_covers_the_push_tier_and_profiling_modules():
+    for rel in ("pubsub/__init__.py", "pubsub/registry.py", "pubsub/matcher.py",
+                "pubsub/delivery.py", "profiling.py"):
         assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
 
 

@@ -551,3 +551,63 @@ def test_spatial_join_store_path_raises():
             call()
     with pytest.raises(ValueError, match="distance"):
         spatial_join(tstore, "t", tr, on="dwithin", device_index=tdi)
+
+
+def _point_windows(m, seed):
+    """Point windows: random, on dyadic grid lines of the XZ levels (in
+    normalized space), and on the world's edges and corners."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-12, -7], [12, 7], (m, 2))
+    grid = np.array([[-180 + 360 * k / 2 ** lv, -90 + 180 * j / 2 ** lv]
+                     for lv in (3, 7, 12) for k, j in ((2 ** lv // 2, 2 ** lv // 2),
+                                                       (2 ** lv // 2 + 1, 2 ** lv // 2 - 1))])
+    edges = np.array([[-180, -90], [180, 90], [-180, 90], [180, -90], [0, 0], [-180, 0]], float)
+    p = np.concatenate([pts, grid, edges])
+    return np.concatenate([p, p], axis=1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_point_windows_cover_the_cells_of_an_unbudgeted_walk(seed):
+    """The planner's vectorized cover of a point window holds exactly the
+    cells the XZ walk matches when its budget never binds: the same
+    candidate rows, so every envelope that overlaps the point."""
+    from geomesa_tpu_torch.join import planner as tplanner
+
+    cols = _polys(1500, 20 + seed)
+    env = np.asarray(FeatureBatch.from_columns(SimpleFeatureType.create("t", POLY_SPEC), cols)
+                     .bboxes("geom"), np.float64)
+    env = np.concatenate([env, [[-180, -90, -180, -90], [180, 90, 180, 90], [0, 0, 0, 0],
+                                [-181, -91, 181, 91]]])
+    jidx = build_envelope_layout(env, hist_bits=6)
+    wins = tplanner.clip_envs(_point_windows(300, seed))
+    starts, ends, w, interior = tplanner._xz_runs(jidx.keys, jidx.sfc, wins, 32)
+    assert not interior.any() and (np.diff(w) >= 0).all()
+    for j in range(len(wins)):
+        a, b, c, d = wins[j]
+        got = np.concatenate([np.arange(s, e) for s, e in zip(starts[w == j], ends[w == j])] or
+                             [np.empty(0, np.int64)])
+        walk = jidx.sfc.ranges(a, b, c, d, max_ranges=10 ** 9)
+        want = np.concatenate([np.arange(np.searchsorted(jidx.keys, np.uint64(r.lower)),
+                                         np.searchsorted(jidx.keys, np.uint64(r.upper + 1)))
+                               for r in walk] or [np.empty(0, np.int64)])
+        np.testing.assert_array_equal(np.sort(got), np.sort(want))
+        planes = jidx.planes
+        overlap = np.nonzero((planes["x0"] <= a) & (planes["x1"] >= a) & (planes["y0"] <= b)
+                             & (planes["y1"] >= b))[0]
+        assert np.isin(overlap, got).all()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_point_windows_join_as_the_reference(engine):
+    """Point windows against an envelope layout (the push tier's match):
+    the pairs equal the reference's, whose planner walks each window."""
+    cols = _polys(1200, 31)
+    jb, tb = _batches(cols, POLY_SPEC)
+    env = np.asarray(tb.bboxes("geom"), np.float64)
+    wins = _point_windows(500, 9)
+    want = JEngine(jidx=jengine.build_envelope_layout(env, hist_bits=6)).join(wins)
+    with prop_override("join.engine", engine):
+        got = JoinEngine(jidx=build_envelope_layout(env, hist_bits=6)).join(wins)
+    np.testing.assert_array_equal(got.rows, want.rows)
+    np.testing.assert_array_equal(got.wins, want.wins)
+    assert len(got.rows) > 500

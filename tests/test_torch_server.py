@@ -134,14 +134,23 @@ def test_arrow_answers_406_and_nothing_under_arrow_content_type(servers):
 
 
 def test_the_push_tier_and_replication_answer_501(servers):
-    purl, _, _ = servers
+    """The push tier answers as the reference's does (a memory store has no
+    live layer, so no push tier: 400 in both, ``tests/test_torch_pubsub_http.py``
+    drives it over the live layer); replication's ship endpoints answer
+    501, naming the replication item."""
+    purl, jurl, _ = servers
     for method, path in (("GET", "/subscribe/gdelt?id=x"), ("POST", "/subscribe/gdelt"),
-                         ("DELETE", "/subscribe/gdelt?id=x"), ("GET", "/wal/gdelt"),
-                         ("GET", "/snapshot/gdelt")):
-        status, _, body = fetch(purl, path, method=method, body={} if method == "POST" else None)
+                         ("DELETE", "/subscribe/gdelt?id=x")):
+        body = {} if method == "POST" else None
+        a, b = fetch(purl, path, method=method, body=body), fetch(jurl, path, method=method, body=body)
+        assert a[0] == b[0] == 400, path
+        assert json.loads(a[2]) == json.loads(b[2])
+        assert "push tier" in json.loads(a[2])["error"]
+    for method, path in (("GET", "/wal/gdelt"), ("GET", "/snapshot/gdelt")):
+        status, _, body = fetch(purl, path, method=method)
         assert status == 501, path
         err = json.loads(body)["error"]
-        assert "ROADMAP item" in err and ("pubsub" in err or "replication" in err)
+        assert "ROADMAP item" in err and "replication" in err
 
 
 def test_refresh_answers_as_the_reference(servers):

@@ -249,3 +249,56 @@ def test_fail_wal_append_retries_then_opens_the_breaker(tmp_path):
             jl.close()
             for mod in (resilience, jres):
                 mod.reset()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_record_equals_the_reference_byte_for_byte(seed):
+    from geomesa_tpu.store.wal import pack_record as jpack
+    from geomesa_tpu_torch.store.wal import pack_record
+
+    rng = np.random.default_rng(seed)
+    for p in _payloads(seed + 10, 12) + [b""]:
+        seq = int(rng.integers(0, 1 << 40))
+        assert pack_record(seq, p) == jpack(seq, p)
+
+
+@pytest.mark.parametrize("segment_bytes", [None, 1 << 12], ids=["one-segment", "rotating"])
+def test_read_from_equals_the_reference_and_the_segment_bytes(tmp_path, segment_bytes):
+    """``read_from`` yields the records above a seq, as the reference's does;
+    the packed records of a walk are the segment files' bytes."""
+    from geomesa_tpu_torch.store.wal import pack_record
+
+    t, j = _pair(tmp_path, segment_bytes=segment_bytes, fsync=False)
+    for p in _payloads(9):
+        t.append(p)
+        j.append(p)
+    for after in (-1, 0, 7, 38, 39, 100):
+        assert list(t.read_from(after)) == list(j.read_from(after))
+    assert b"".join(pack_record(s, p) for s, p in t.read_from(-1)) == \
+        b"".join(open(p, "rb").read() for p in t.segments())
+    assert t.truncate_through(20) == j.truncate_through(20)
+    assert list(t.read_from(-1)) == list(j.read_from(-1))
+    assert t.first_seq() == j.first_seq() == next(t.read_from(-1))[0]
+
+
+def test_read_from_never_mutates_and_stops_at_a_torn_tail(tmp_path):
+    """A torn tail ends the walk and stays on disk (the live appender owns
+    it), in both packages; a segment unlinked mid-walk is skipped."""
+    t, j = _pair(tmp_path, segment_bytes=1 << 12, fsync=False)
+    for w in (t, j):
+        for p in _payloads(11, 30):
+            w.append(p)
+        with open(w.segments()[-1], "ab") as fh:
+            fh.write(b"GMWA half a record")
+    sizes = [[os.path.getsize(p) for p in w.segments()] for w in (t, j)]
+    assert list(t.read_from(-1)) == list(j.read_from(-1))
+    assert len(list(t.read_from(-1))) == 30
+    assert [[os.path.getsize(p) for p in w.segments()] for w in (t, j)] == sizes
+    assert t.truncations == j.truncations == 0
+    for w in (t, j):
+        it = w.read_from(-1)
+        first = next(it)
+        os.unlink(w.segments()[1])  # a racing truncate_through
+        rest = list(it)
+        assert first[0] == 0 and rest and rest[-1][0] == 29
+    assert [s for s, _ in t.read_from(-1)] == [s for s, _ in j.read_from(-1)]
