@@ -266,6 +266,33 @@ Phases:
      (fail.resident.launch) and holds the store rung's answers, made by
      the filter scan on the card, to numpy. Prints each endpoint's p50/p99
      and the burst's requests/s (a {"server": ...} line);
+  3m. (inside 3i, then 3j) the SQL layer: 64 district polygons, one
+     around each of phase 3's city centres (rings of 16-64 vertices,
+     0.2-2 degrees across, 8 with a hole, 4 MultiPolygons, from a fixed
+     seed), written as a second type (name:String,*geom:Polygon) into 3i's
+     memory store; SpatialFrame over 3i's type with the Europe query, and
+     with select/sort/limit, whose collect (fids in order), count and
+     explain equal ds.query / ds.explain of the same Query and 3i's
+     answers; with_auths over 3i's labeled type under 3b's auth sets
+     against numpy and the verdict table; spatial_join of a one-day
+     DURING of 3i's type against the districts a BBOX keeps (REGIONS'
+     africa box: the seeded centres put none in the Europe box) with
+     within, intersects and dwithin 0.05, through the store path and
+     again with device_index set to the DeviceIndex 3i staged from the
+     store, both equal to a numpy point-in-polygon (and edge distance)
+     over the float64 columns; the envelope join of the day's rows
+     against the 64 districts' envelopes with no device_index, its pairs
+     by fid equal to the resident engine's; st_geoHash,
+     st_distanceSphere to a city centre and st_transform to 3857 and back
+     over the Europe batch, timed and checked (every geohash cell holds
+     its point, the haversine within rtol 1e-12, the round trip within
+     1e-9 degrees); then over 3j's z3 type, partitions() (one batch per
+     surviving partition with a hit), map_partitions(len, parallelism=4)
+     and count() against numpy. The launch counts equal one
+     filter_scan_mask per run every collect, count and pushdown plan
+     scans (per surviving partition on the fs store), plus one per
+     resident join's gate. Prints each call's time (a {"sql": ...} and a
+     {"sql_fs": ...} line);
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -2120,21 +2147,27 @@ def check_store_device(ds) -> None:
         raise AssertionError("phase 3i: the store does not scan on the card")
 
 
+def plan_runs(ds, type_name, plan) -> int:
+    """The mask launches a memory-store plan makes: one per contiguous run
+    of the partitions it keeps (none for a plan with no device
+    predicate)."""
+    from geomesa_tpu_torch.query.runner import _contiguous_runs
+
+    built = ds._state(type_name).indices.get(plan.index_name)
+    if built is None or not plan.compiled.device_cols:
+        return 0
+    return len(_contiguous_runs(built.prune(plan.ranges)))
+
+
 class StoreRuns:
-    """The mask launches the store path must make: one per contiguous run
-    of the partitions each plan keeps (none for a plan with no device
-    predicate), counted from each answer's own plan."""
+    """The mask launches the store path must make (``plan_runs``), counted
+    from each answer's own plan."""
 
     def __init__(self, ds):
         self.ds, self.runs, self.scanned, self.lat = ds, 0, [], {}
 
     def of(self, type_name, res, times: int = 1) -> int:
-        from geomesa_tpu_torch.query.runner import _contiguous_runs
-
-        plan = res.plan
-        built = self.ds._state(type_name).indices.get(plan.index_name)
-        n = 0 if built is None or not plan.compiled.device_cols else \
-            len(_contiguous_runs(built.prune(plan.ranges)))
+        n = plan_runs(self.ds, type_name, res.plan)
         self.runs += times * n
         self.scanned.append((n, res.scanned))
         return n
@@ -2354,8 +2387,6 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
         raise AssertionError("phase 3i: the DeviceIndex staged from the store != the store's counts")
     log(f"phase 3i: a DeviceIndex staged from the store in {stage_s:.1f} s; {len(queries)} exact "
         f"counts == the store's")
-    del sdi
-    torch.cuda.empty_cache()
 
     # -- phase 3b's labeled rows in the same store -----------------------------------
     t = time.time()
@@ -2381,8 +2412,12 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
         log(f"phase 3i labeled auths={auths}: {len(res)} rows == numpy and the verdict table")
     ll = read_launches("store path, labeled", {"filter_scan_mask": lruns.runs})
     log(f"phase 3i labeled: {STORE_LABELED:,} rows written and flushed in {lflush:.1f} s")
+    t = time.time()
+    sql = run_sql_path(ds, cols, queries, out[0][0], ores, sdi, lcols, lab)
+    log(f"phase 3m: the SQL layer over the memory store in {time.time() - t:.1f} s [{CARD}]")
     ds.remove_schema("labeled")
-    del lcols, data, lab
+    del lcols, data, lab, sdi
+    torch.cuda.empty_cache()
 
     answers = [(n, np.sort(res.batch.fids)) for n, _, res in out]
     ais = run_store_ais(dev)
@@ -2399,7 +2434,8 @@ def run_store_path(dev, cols, di3, queries, res3) -> dict:
     head = st.indices["z3"].batch.take(np.arange(STORE_RUN_ROWS[-1]))
     run_rows = {k: head.columns[k] for k in ("count", "dtg", "geom")}
     ds.remove_schema("gdelt")
-    launches = {k: launches[k] + sl[k] + ll[k] + ais["launches"][k] for k in launches}
+    launches = {k: launches[k] + sl[k] + ll[k] + sql["launches"][k] + ais["launches"][k]
+                for k in launches}
     return {"launches": launches, "run_rows": run_rows, "ecql": europe, "answers": answers}
 
 
@@ -2539,6 +2575,304 @@ def store_rows(dev, store, launches, errs: Errs) -> list:
             f"time {r['host_ms']:.4f} ms a call [{CARD}]")
         rows.append(r)
     return rows
+
+
+# -- phase 3m: the SQL layer (SpatialFrame, st_*, the store path of the join) ---
+
+SQL_DISTRICT_SPEC = "name:String,*geom:Polygon:srid=4326"
+#: the join's right filter: REGIONS' africa box. Phase 3's seeded city
+#: centres put none in the Europe box, and this one keeps 8 districts.
+SQL_RIGHT_BOX = (-18, -35, 52, 38)
+SQL_DAY = (T0 + 9 * DAY, T0 + 10 * DAY)  # the joins' one-day left filter
+SQL_DWITHIN = 0.05  # degrees
+SQL_JOINS = (("within", None), ("intersects", None), ("dwithin", SQL_DWITHIN))
+
+
+def _star_ring(rng, cx, cy, r, k) -> np.ndarray:
+    """A closed, simple star ring of k vertices: jittered-even angles, radii
+    r x U(0.8, 1), so the disc of radius 0.64 r lies inside it."""
+    th = (np.arange(k) + rng.uniform(-0.3, 0.3, k)) * (2 * np.pi / k)
+    rr = r * rng.uniform(0.8, 1.0, k)
+    ring = np.stack([cx + rr * np.cos(th), cy + rr * np.sin(th)], axis=1)
+    return np.concatenate([ring, ring[:1]])
+
+
+def district_geoms(centers, seed) -> list:
+    """One district a city centre: a star ring of 16-64 vertices, 0.2-2
+    degrees across; 8 of them with a hole (an 8-vertex star at a quarter
+    of the radius), 4 of the others MultiPolygons (the ring and a
+    12-vertex island beyond its radius)."""
+    from geomesa_tpu_torch.geom import MultiPolygon, Polygon
+
+    rng = np.random.default_rng(seed)
+    kind = np.zeros(len(centers), np.int64)
+    pick = rng.permutation(len(centers))
+    kind[pick[:8]], kind[pick[8:12]] = 1, 2
+    out = []
+    for (cx, cy), kd in zip(centers, kind):
+        r = rng.uniform(0.125, 1.0)  # 1.6 r to 2 r across
+        shell = _star_ring(rng, cx, cy, r, int(rng.integers(16, 65)))
+        if kd == 1:
+            out.append(Polygon(shell, (_star_ring(rng, cx, cy, 0.25 * r, 8)[::-1],)))
+        elif kd == 2:
+            a = rng.uniform(0, 2 * np.pi)
+            island = _star_ring(rng, cx + 1.5 * r * np.cos(a), cy + 1.5 * r * np.sin(a), 0.25 * r, 12)
+            out.append(MultiPolygon((Polygon(shell), Polygon(island))))
+        else:
+            out.append(Polygon(shell))
+    return out
+
+
+def np_in_geom(px, py, g) -> np.ndarray:
+    """numpy's even-odd containment of float64 points in a polygon (all its
+    rings' crossings together) or a MultiPolygon (any part)."""
+    parts = g.polygons if hasattr(g, "polygons") else (g,)
+    out = np.zeros(len(px), bool)
+    for p in parts:
+        odd = np.zeros(len(px), bool)
+        for ring in p.rings():
+            odd ^= np_even_odd(px, py, np.asarray(ring, np.float64))
+        out |= odd
+    return out
+
+
+def np_edge_dist(px, py, g) -> np.ndarray:
+    """numpy's least float64 distance of each point to the geometry's edges
+    (every ring of every part), by the clamped projection."""
+    parts = g.polygons if hasattr(g, "polygons") else (g,)
+    rings = [np.asarray(r, np.float64) for p in parts for r in p.rings()]
+    a = np.concatenate([r[:-1] for r in rings])
+    d = np.concatenate([r[1:] for r in rings]) - a
+    len2 = (d ** 2).sum(1)
+    best = np.full(len(px), np.inf)
+    for s in range(0, len(px), 1 << 12):
+        p = np.stack([px[s: s + (1 << 12)], py[s: s + (1 << 12)]], 1)[:, None, :]
+        t = np.clip(((p - a) * d).sum(-1) / np.where(len2 == 0, 1.0, len2), 0.0, 1.0)
+        best[s: s + (1 << 12)] = np.sqrt(((p - (a + t[..., None] * d)) ** 2).sum(-1).min(1))
+    return best
+
+
+def _join_pairs(res) -> set:
+    left, right, pairs = res
+    return set(zip(np.asarray(left.fids)[pairs[:, 0]].tolist(),
+                   np.asarray(right.fids)[pairs[:, 1]].tolist()))
+
+
+def run_sql_path(ds, cols, queries, n_europe, ores, sdi, lcols, lab) -> dict:
+    """Phase 3m over phase 3i's memory store (module docstring): frames
+    against ds.query / ds.explain of the same Query and phase 3i's answers
+    (``n_europe``: its Europe count; ``ores``: its sorted Query),
+    with_auths on the labeled type under VERDICTS, the three store-path
+    shapes of spatial_join against the resident index ``sdi`` and numpy,
+    and a few st_* calls over the Europe batch; the filter-scan masks
+    against the runs every plan scans."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.filter import ast
+    from geomesa_tpu_torch.filter.ecql import parse_ecql
+    from geomesa_tpu_torch.geom import Point, geohash
+    from geomesa_tpu_torch.process.join import spatial_join
+    from geomesa_tpu_torch.query.plan import Query
+    from geomesa_tpu_torch.sql import SpatialFrame, st_distanceSphere, st_geoHash, st_transform
+    from geomesa_tpu_torch.sql.frame import _extent
+
+    t_all = time.time()
+    europe, eb, ew = queries[0]
+    lat, steps = {}, {}
+
+    def timed(kind, fn):
+        t = time.perf_counter()
+        r = fn()
+        lat.setdefault(kind, []).append(time.perf_counter() - t)
+        return r
+
+    def step(name, t0):
+        steps[name] = time.time() - t0
+        return time.time()
+
+    t = time.time()
+    centers = cols["_centers"]
+    geoms = district_geoms(centers, SEED + 40)
+    ds.create_schema("districts", SQL_DISTRICT_SPEC)
+    ds.write("districts", {"name": np.array([f"d{i}" for i in range(len(geoms))], object),
+                           "geom": np.array(geoms, dtype=object)}, fids=np.arange(len(geoms)))
+    ds.stats("districts")
+    envs = np.array([[e.xmin, e.ymin, e.xmax, e.ymax] for e in (g.envelope for g in geoms)])
+    shells = [len(getattr(g, "polygons", (g,))[0].shell) - 1 for g in geoms]
+    log(f"phase 3m: {len(geoms)} districts ({sum(1 for g in geoms if hasattr(g, 'polygons'))} "
+        f"MultiPolygons, {sum(1 for g in geoms if getattr(g, 'holes', ()))} with a hole, shells of "
+        f"{min(shells)}-{max(shells)} vertices, {np.min(envs[:, 2] - envs[:, 0]):.2f}-"
+        f"{np.max(envs[:, 2] - envs[:, 0]):.2f} degrees across) written and flushed")
+    want_runs = 0
+
+    def planned(type_name, query, times=1) -> None:
+        nonlocal want_runs
+        want_runs += times * plan_runs(ds, type_name, ds.plan(type_name, query))
+
+    t = step("districts", t)
+    kernels.reset_counts()
+    # -- frames over phase 3i's type, against ds.query / ds.explain --------------
+    frame = SpatialFrame(ds, "gdelt").where(europe)
+    batch = timed("collect", frame.collect)
+    n = timed("count", frame.count)
+    text = frame.explain()
+    direct = ds.query("gdelt", frame._query())
+    planned("gdelt", frame._query(), times=3)
+    if not (n == len(batch) == len(direct) == n_europe
+            and np.array_equal(batch.fids, direct.batch.fids)
+            and text == ds.explain("gdelt", frame._query()) and "Chosen index: z3" in text):
+        raise AssertionError(f"phase 3m: the Europe frame {n}/{len(batch)} != ds.query "
+                             f"{len(direct)} / phase 3i's count {n_europe}, or its explain differs")
+    top = frame.select("count", "dtg").sort("count", True).limit(1000)
+    tb = timed("collect_sorted", top.collect)
+    planned("gdelt", top._query())
+    if not (np.array_equal(tb.fids, ores.batch.fids) and sorted(tb.columns) == ["count", "dtg"]
+            and all(np.array_equal(tb.columns[k], ores.batch.columns[k]) for k in ("count", "dtg"))):
+        raise AssertionError("phase 3m: select/sort/limit != phase 3i's Query with the same options")
+    t = step("frames", t)
+    # -- with_auths over the labeled type ---------------------------------------------
+    lx, ly = lcols["geom"][:, 0].astype(np.float32), lcols["geom"][:, 1].astype(np.float32)
+    lem = np_exact(lx, ly, lcols["dtg"], eb, ew)
+    for auths, verdict in VERDICTS.items():
+        lf = SpatialFrame(ds, "labeled").where(europe)
+        lf = lf.with_auths(*auths) if auths is not None else lf
+        got = timed("collect_auths", lf.collect)
+        planned("labeled", lf._query())
+        want = np.nonzero(lem & np.asarray(verdict)[lab])[0]
+        if not np.array_equal(np.sort(got.fids), want):
+            raise AssertionError(f"phase 3m with_auths{auths}: {len(got)} rows != numpy {len(want)}")
+    t = step("auths", t)
+    # -- joins: the store path and the resident index ---------------------------------
+    day_q = f"dtg DURING {_iso(SQL_DAY[0])}/{_iso(SQL_DAY[1])}"
+    right_q = "BBOX(geom, %s, %s, %s, %s)" % SQL_RIGHT_BOX
+    x64, y64, dtg = cols["geom"][:, 0], cols["geom"][:, 1], cols["dtg"]
+    drows = np.nonzero((dtg >= SQL_DAY[0]) & (dtg <= SQL_DAY[1]))[0]
+    dx, dy = x64[drows], y64[drows]
+    right_plan = Query(filter=parse_ecql(right_q))
+    joins = {}
+    resident_gates = 0
+    for on, d in SQL_JOINS:
+        kw = {"on": on, "distance": d, "left_filter": day_q, "right_filter": right_q}
+        store_res = timed(f"join {on} store", lambda: spatial_join(ds, "gdelt", "districts", **kw))
+        rb = store_res[1]
+        env = _extent(rb.columns["geom"])
+        pad = d or 0.0
+        left_q = SpatialFrame(ds, "gdelt").where(day_q).where(ast.BBox(
+            "geom", env[0] - pad, env[1] - pad, env[2] + pad, env[3] + pad))._query()
+        planned("districts", right_plan, times=2)  # the right side's collect on each path
+        planned("gdelt", left_q)
+        res_res = timed(f"join {on} resident", lambda: spatial_join(ds, "gdelt", "districts",
+                                                                   device_index=sdi, **kw))
+        resident_gates += 1  # the day's gate: one mask on the resident index
+        if not np.array_equal(rb.fids, res_res[1].fids):
+            raise AssertionError(f"phase 3m join {on}: the right sides differ")
+        want = set()
+        for j in np.asarray(rb.fids).tolist():
+            g, e = geoms[j], envs[j]
+            c = np.nonzero((dx >= e[0] - pad) & (dx <= e[2] + pad) & (dy >= e[1] - pad)
+                           & (dy <= e[3] + pad))[0]
+            hit = np_in_geom(dx[c], dy[c], g)
+            if on == "dwithin":
+                hit |= np_edge_dist(dx[c], dy[c], g) <= d
+            want.update((int(r), j) for r in drows[c[hit]])
+        got_s, got_r = _join_pairs(store_res), _join_pairs(res_res)
+        if not (got_s == got_r == want) or not want:
+            raise AssertionError(f"phase 3m join {on}: store path {len(got_s)} / resident {len(got_r)} "
+                                 f"pairs != numpy {len(want)}")
+        joins[on] = {"pairs": len(want), "right": len(rb), "left_scanned": len(store_res[0])}
+        log(f"phase 3m join {on}{'' if d is None else f' {d}'}: {len(want):,} pairs over {len(rb)} "
+            f"districts == the resident path == numpy; store path {1e3 * lat[f'join {on} store'][-1]:.1f} ms "
+            f"(left scan {len(store_res[0]):,} rows), resident {1e3 * lat[f'join {on} resident'][-1]:.1f} ms "
+            f"[{CARD}]")
+    t = step("joins", t)
+    # the envelope join without a device_index: 64 windows, the day's rows
+    store_env = timed("envelope store", lambda: spatial_join(ds, "gdelt", envs, left_filter=day_q))
+    res_env = timed("envelope resident", lambda: spatial_join(ds, "gdelt", envs, left_filter=day_q,
+                                                              device_index=sdi))
+    resident_gates += 1
+    day_batch = ds.query("gdelt", Query(filter=parse_ecql(day_q))).batch
+    planned("gdelt", Query(filter=parse_ecql(day_q)), times=2)
+    a = set(zip(np.asarray(day_batch.fids)[store_env.rows].tolist(), store_env.wins.tolist()))
+    b = set(zip(np.asarray(sdi._host_rows().fids)[res_env.rows].tolist(), res_env.wins.tolist()))
+    if a != b or not a:
+        raise AssertionError(f"phase 3m envelope join: {len(a)} pairs by fid != the resident engine's {len(b)}")
+    log(f"phase 3m envelope join, 64 windows, no index: {len(a):,} pairs == the resident engine's "
+        f"(engine {store_env.engine}, {store_env.strategy}); {1e3 * lat['envelope store'][0]:.1f} ms "
+        f"against {1e3 * lat['envelope resident'][0]:.1f} ms [{CARD}]")
+    t = step("envelope", t)
+    torch.cuda.synchronize()
+    launches = read_launches("the SQL layer (phase 3m)", {"filter_scan_mask": want_runs + resident_gates})
+    # -- st_* over the Europe batch ------------------------------------------------------
+    pts = batch.columns["geom"]
+    cx, cy = (float(v) for v in centers[0])
+    gh = timed("st_geoHash", lambda: st_geoHash(pts))
+    dist = timed("st_distanceSphere", lambda: st_distanceSphere(pts, Point(cx, cy)))
+    merc = timed("st_transform 3857", lambda: st_transform(pts, "EPSG:4326", "EPSG:3857"))
+    back = timed("st_transform 4326", lambda: st_transform(merc, "EPSG:3857", "EPSG:4326"))
+    lo = np.array([geohash.decode_bbox(h) for h in gh])
+    inside = (lo[:, 0, 0] <= pts[:, 0]) & (pts[:, 0] <= lo[:, 0, 1]) & (lo[:, 1, 0] <= pts[:, 1]) \
+        & (pts[:, 1] <= lo[:, 1, 1])
+    p1, p2 = np.radians(pts[:, 1]), np.radians(cy)
+    h = np.sin((p2 - p1) / 2) ** 2 + np.cos(p1) * np.cos(p2) * np.sin(np.radians(cx - pts[:, 0]) / 2) ** 2
+    hav = 2 * 6_371_008.8 * np.arcsin(np.sqrt(np.clip(h, 0, 1)))
+    err = float(np.abs(back - pts).max()) if len(pts) else 0.0
+    if not (inside.all() and len(gh) == len(pts) and np.allclose(dist, hav, rtol=1e-12, atol=0)
+            and err <= 1e-9):
+        raise AssertionError(f"phase 3m st_*: geohash cells {int(inside.sum())}/{len(pts)}, "
+                             f"distances, or the 3857 round trip (max error {err!r} degrees)")
+    log(f"phase 3m st_* over the Europe batch ({len(pts):,} points): st_geoHash "
+        f"{1e3 * lat['st_geoHash'][0]:.1f} ms (every cell holds its point), st_distanceSphere "
+        f"{1e3 * lat['st_distanceSphere'][0]:.3f} ms (== haversine, rtol 1e-12), st_transform to 3857 "
+        f"{1e3 * lat['st_transform 3857'][0]:.3f} ms and back {1e3 * lat['st_transform 4326'][0]:.3f} ms "
+        f"(max round-trip error {err!r} degrees) [{CARD}]")
+    step("st", t)
+    ds.remove_schema("districts")
+    summary = {"seconds": time.time() - t_all, "steps": steps, "joins": joins,
+               "latency_ms": {k: [1e3 * v for v in vs] for k, vs in lat.items()},
+               "filter_scan_mask": launches["filter_scan_mask"], "card": CARD}
+    log(json.dumps({"sql": summary}))
+    return {"launches": launches, "summary": summary}
+
+
+def run_sql_fs(ds, name, queries, masks) -> "tuple[dict, dict]":
+    """Phase 3m over phase 3j's z3 type: SpatialFrame.partitions (one
+    filtered batch per surviving partition that holds a hit),
+    map_partitions(len, parallelism=4) and count() for the Europe query,
+    against numpy; one filter-scan mask per surviving partition a call."""
+    import torch
+
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.sql import SpatialFrame
+
+    t = time.time()
+    europe = queries[0][0]
+    frame = SpatialFrame(ds, name).where(europe)
+    nparts = len(ds._pruned_parts(name, ds.plan(name, frame._query())))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    parts = list(frame.partitions())
+    parts_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lens = frame.map_partitions(len, parallelism=4)
+    map_s = time.perf_counter() - t0
+    n = frame.count()
+    torch.cuda.synchronize()
+    launches = read_launches(f"the SQL layer over the fs store {name} (phase 3m)",
+                             {"filter_scan_mask": 3 * nparts})
+    want = np.nonzero(masks[0])[0]
+    got = np.sort(np.concatenate([np.asarray(p.fids) for p in parts])) if parts else np.empty(0, np.int64)
+    if not (0 < len(parts) <= nparts and all(len(p) for p in parts) and lens == [len(p) for p in parts]
+            and sum(lens) == n == len(want) and np.array_equal(got, want)):
+        raise AssertionError(f"phase 3m fs {name}: {len(parts)} partitions of {nparts} surviving, "
+                             f"map_partitions {sum(lens)}, count {n}, numpy {len(want)}")
+    summary = {"partitions": len(parts), "surviving": nparts, "partitions_ms": 1e3 * parts_s,
+               "map_partitions_ms": 1e3 * map_s, "seconds": time.time() - t, "card": CARD}
+    log(f"phase 3m fs {name}: partitions() {len(parts)} batches of {nparts} surviving partitions in "
+        f"{1e3 * parts_s:.1f} ms, map_partitions(len, 4) {1e3 * map_s:.1f} ms, sum {sum(lens):,} == "
+        f"count() == numpy [{CARD}]")
+    log(json.dumps({"sql_fs": summary}))
+    return launches, summary
 
 
 # -- phase 3j: the file-system store (BASELINE config #1 via geomesa-fs) -------
@@ -3043,6 +3377,9 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
                 if counts != [o[1] for o in out]:
                     raise AssertionError(f"phase 3j {name}: the reopened, verified counts != the first")
                 summary[name]["verified"] = vcalls.report(name + " reopened")
+            if verified:  # phase 3m's partitioned frame (the scheme type would repeat it)
+                sql_launches, summary[name]["sql"] = run_sql_fs(ds, name, queries, tmasks)
+                totals["filter_scan_mask"] += sql_launches["filter_scan_mask"]
             if base_loose is not None and scheme is None:  # phase 3k wraps this type in place
                 t = time.time()
                 live = run_live_path(dev, cols, queries, ds, name, masks, base_loose)

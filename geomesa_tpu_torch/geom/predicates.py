@@ -84,11 +84,12 @@ def distance_segments(g) -> np.ndarray:
     return np.concatenate([va, va], axis=1)
 
 
-def pt_seg_dist2(pts: np.ndarray, segs: np.ndarray) -> np.ndarray:
-    """(n, m) squared distances of the points ``pts`` (n, 2) to the
-    segments ``segs`` (m, 4) [x0, y0, x1, y1], by the clamped projection.
-    Copy of ``pt_seg_project`` in ``geomesa_tpu/sql/functions.py``, trimmed
-    to the distance proximity search reads."""
+def pt_seg_project(pts: np.ndarray, segs: np.ndarray):
+    """Clamped projection of each point onto each segment. ``pts`` is
+    (n, 2), ``segs`` is (m, 4) as [x0, y0, x1, y1]. Returns ``(t, dist2)``
+    with shape (n, m): the clamped parameter along each segment and the
+    squared point-to-segment distance. Copy of ``pt_seg_project`` in
+    ``geomesa_tpu/sql/functions.py``."""
     p = pts[:, None, :]
     a = segs[None, :, 0:2]
     d = segs[None, :, 2:4] - a
@@ -96,7 +97,7 @@ def pt_seg_dist2(pts: np.ndarray, segs: np.ndarray) -> np.ndarray:
     t = ((p - a) * d).sum(-1) / np.where(len2 == 0, 1.0, len2)
     t = np.clip(np.where(len2 == 0, 0.0, t), 0.0, 1.0)
     near = a + t[..., None] * d
-    return ((p - near) ** 2).sum(-1)
+    return t, ((p - near) ** 2).sum(-1)
 
 
 def _expand_pairs(sa: np.ndarray, sb: np.ndarray):

@@ -15,7 +15,7 @@ import numpy as np
 
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.geom import Geometry, Point
-from geomesa_tpu_torch.geom.predicates import distance_segments, pt_seg_dist2
+from geomesa_tpu_torch.geom.predicates import distance_segments, pt_seg_project
 from geomesa_tpu_torch.process.knn import parse_base
 from geomesa_tpu_torch.query.plan import internal_query
 
@@ -75,6 +75,6 @@ def proximity_search(
     x, y = batch.point_coords(geom_field)
     segs = np.concatenate([distance_segments(g) for g in geoms], axis=0)
     # min distance from each candidate point to any input segment
-    dist = np.sqrt(pt_seg_dist2(np.stack([x, y], axis=1), segs).min(axis=1))
+    dist = np.sqrt(pt_seg_project(np.stack([x, y], axis=1), segs)[1].min(axis=1))
     keep = np.nonzero(dist <= distance_deg)[0]
     return batch.take(keep), dist[keep]

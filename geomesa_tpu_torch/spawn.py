@@ -87,8 +87,9 @@ def _carry(fn, ctx):
 class ContextPool:
     """The ``ThreadPoolExecutor`` drop-in: ``submit`` captures the
     submitting thread's context set per call and attach it around the
-    worker-side run; ``context=False`` builds a plain pool. Supports the
-    executor context-manager protocol; ``shutdown`` passes through."""
+    worker-side run (``map`` captures it once for all its items);
+    ``context=False`` builds a plain pool. Supports the executor
+    context-manager protocol; ``shutdown`` passes through."""
 
     __slots__ = ("_ex", "_context")
 
@@ -102,6 +103,12 @@ class ContextPool:
     def submit(self, fn, /, *args, **kwargs):
         ctx = RequestContext.capture() if self._context else None
         return self._ex.submit(_carry(fn, ctx), *args, **kwargs)
+
+    def map(self, fn, *iterables):
+        """Context-carrying ``Executor.map`` (captured once: map's items
+        all belong to the calling thread's current request)."""
+        ctx = RequestContext.capture() if self._context else None
+        return self._ex.map(_carry(fn, ctx), *iterables)
 
     def shutdown(self, wait: bool = True, cancel_futures: bool = False):
         self._ex.shutdown(wait=wait, cancel_futures=cancel_futures)

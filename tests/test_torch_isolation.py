@@ -7,10 +7,10 @@ and a BIN request, and the file-system store: writes, flushes under a
 partition scheme, queries, the pushdowns, a reopen with verification,
 and its streaming live layer: an append, a merged query, a reopen that
 replays the WAL and a compaction, with a subscription matched in process
-and over HTTP, and a ``device_trace`` block around a traced store query),
-none
-of them loads ``pyarrow`` either, and entry points never fall back to the
-CPU on their own."""
+and over HTTP, a ``device_trace`` block around a traced store query, and
+the SQL layer: a ``SpatialFrame`` collected and a store-path
+``spatial_join``), none of them loads ``pyarrow`` or ``pandas`` either,
+and entry points never fall back to the CPU on their own."""
 
 import os
 import re
@@ -201,11 +201,23 @@ import os
 assert [f for f in os.listdir(root + "/_traces") if f.startswith(tr.trace_id)]
 assert profiling.timings()["query.scan"]["count"] > 0
 relayer.close()
+from geomesa_tpu_torch import sql
+from geomesa_tpu_torch.sql import SpatialFrame
+frame = SpatialFrame(mds, "t").where(q).select("count", "dtg").sort("count", True)
+assert list(frame.collect().fids) == list(mds.query("t", frame._query()).batch.fids)
+assert frame.count() == di.count(q) and frame.explain() == mds.explain("t", frame._query())
+mds.create_schema("zones", "name:String,*geom:Polygon:srid=4326")
+mds.write("zones", {"name": ["z"], "geom": ["POLYGON((-10 -10, 30 -10, 30 30, -10 30, -10 -10))"]})
+left, right, jpairs = spatial_join(mds, "t", "zones", on="within", left_filter=q)
+assert len(jpairs) == di.count(q + " AND WITHIN(geom, POLYGON((-10 -10, 30 -10, 30 30, -10 30, -10 -10)))")
+cell = sql.st_geomFromGeoHash(sql.st_geoHash(sql.st_point(1.0, 2.0))).envelope
+assert cell.xmin <= 1.0 <= cell.xmax and cell.ymin <= 2.0 <= cell.ymax
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu.")
-             or m == "pyarrow" or m.startswith("pyarrow."))
+             or m == "pyarrow" or m.startswith("pyarrow.")
+             or m == "pandas" or m.startswith("pandas."))
 print("LOADED", bad)
 """
 
@@ -347,6 +359,12 @@ def test_the_scan_covers_the_server_modules():
 
 def test_the_scan_covers_the_live_layer_modules():
     for rel in ("store/wal.py", "store/stream.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+def test_the_scan_covers_the_sql_modules():
+    for rel in ("sql/__init__.py", "sql/functions.py", "sql/frame.py", "geom/clip.py",
+                "geom/geohash.py", "geom/wkb.py", "process/join.py"):
         assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
 
 

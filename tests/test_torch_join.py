@@ -540,15 +540,36 @@ def test_spatial_join_predicates_equal_the_reference(engine, left, right, on):
 
 
 def test_spatial_join_store_path_raises():
-    cols = _points(100, 95)
-    _, tstore, _, tdi = _store_pair(cols, PT_SPEC)
+    """The store-path shapes (an envelope join without a device_index, a
+    type name on the right, a FeatureBatch on the right without an index)
+    answer as the reference's, over memory stores; a dwithin join without a
+    distance still raises."""
+    from geomesa_tpu.store.memory import MemoryDataStore as JMemory
+    from geomesa_tpu_torch.store.memory import MemoryDataStore
+
+    cols = _points(600, 95)
     rspec, rcols = _right("polygons")
+    tstore, jstore = MemoryDataStore(device="cpu"), JMemory()
+    for ds in (tstore, jstore):
+        ds.create_schema("t", PT_SPEC)
+        ds.create_schema("other", rspec)
+        ds.write("t", cols)
+        ds.write("other", rcols)
     tr = FeatureBatch.from_columns(SimpleFeatureType.create("r", rspec), rcols)
-    for call in (lambda: spatial_join(tstore, "t", np.zeros((1, 4))),
-                 lambda: spatial_join(tstore, "t", "other", device_index=tdi),
-                 lambda: spatial_join(tstore, "t", tr)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    jr = JBatch.from_columns(JSFT.create("r", rspec), rcols)
+    envs = _windows(12, 96)
+    envs = np.concatenate([np.minimum(envs[:, :2], envs[:, 2:]), np.maximum(envs[:, :2], envs[:, 2:])], 1)
+    got, want = spatial_join(tstore, "t", envs), jspatial_join(jstore, "t", envs)
+    assert got.pairs > 0
+    np.testing.assert_array_equal(got.rows, want.rows)
+    np.testing.assert_array_equal(got.wins, want.wins)
+    for right, jright in (("other", "other"), (tr, jr)):
+        tl, _, tp = spatial_join(tstore, "t", right, on="within")
+        jl, _, jp = jspatial_join(jstore, "t", jright, on="within")
+        assert len(tp) > 0
+        np.testing.assert_array_equal(tp, jp)
+        np.testing.assert_array_equal(tl.fids, jl.fids)
+    _, _, _, tdi = _store_pair(cols, PT_SPEC)
     with pytest.raises(ValueError, match="distance"):
         spatial_join(tstore, "t", tr, on="dwithin", device_index=tdi)
 
