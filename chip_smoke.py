@@ -293,6 +293,35 @@ Phases:
      scans (per surviving partition on the fs store), plus one per
      resident join's gate. Prints each call's time (a {"sql": ...} and a
      {"sql_fs": ...} line);
+  3n. (after 3j-3l; its CLI part over 3j's z3 type runs inside 3j, before
+     3k appends) the resident warmup and the operator's CLI: warmup.run
+     over phase 3's dim-plane z3 and z2 indexes and 3c's interleaved z3
+     index (2^26 rows each, no restaging) with the full plan (the kNN
+     ladder to 64, the fused widths to 64): its signatures equal to the
+     reference's plan (WARM_LEGS), every leg done and none failed, the
+     launch counters showing gm_dimscan, gm_zscan, gm_filter_scan,
+     gm_density, gm_dimscan_batched and gm_zscan_batched, then each
+     index's DeviceIndex.warmup() (every base leg timed, no None), with no
+     kernel build and no new launch record
+     (each leg's seconds on a {"warmup_legs_s": ...} line); a fresh fs
+     root of phase 3's first 2^22 rows (a cut) served by `python -m
+     geomesa_tpu_torch.tools --root R serve --resident --stream --warm
+     --port 0` in a child process (gate ready: /readyz 503 "warming"
+     until the pass ends, the seconds to ready, /stats warmup warm with
+     no failed leg) and again without --warm, the first /count, /knn
+     and /density of each timed and held against numpy; the warmup
+     --url, trace, slo and ledger commands against the warm server
+     (warmup --url's figures equal /stats); count, explain and
+     stats-count with the Europe query over 3j's 2^26-row z3 type; stats,
+     stats-bounds, stats-top-k, stats-histogram --resident, stats-analyze
+     (--resident equal to the store path), fsck, get-sfts,
+     describe-schema, env and version over the 2^22 root against numpy
+     or the store; create-schema, keywords, delete-features -q, age-off
+     --dry-run and for real, reindex, repartition, compact and
+     remove-schema on a throwaway type of 2^18 rows, its count against
+     numpy after each; 4,096 rows through the GeoTools writer (WKT, Point
+     and (x, y) by turns), get_count against numpy, dispose (a
+     {"warmup_phase": ...} line);
   4. each kernel's time at the main path's shapes (CUDA events) beside its
      bound, its plain version's time and, for density, torch.bincount;
      the interleaved scan also at 29 day bins (rows with a "case" key);
@@ -3207,6 +3236,7 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
     pushdown._refine_batch = counted_refine
     summary, totals = {}, {k: 0 for k in kernels.KERNEL_NAMES}
     valid = {k: 0 for k in kernels.KERNEL_NAMES}
+    cli_s = 0.0
     try:
         for name, scheme in FS_TYPES:
             spec = GDELT_SPEC + (f";geomesa.fs.partition-scheme={scheme}" if scheme else "")
@@ -3377,6 +3407,11 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
                 if counts != [o[1] for o in out]:
                     raise AssertionError(f"phase 3j {name}: the reopened, verified counts != the first")
                 summary[name]["verified"] = vcalls.report(name + " reopened")
+            if verified:  # phase 3n's CLI over this type, before 3k appends to it
+                summary[name]["cli"] = run_cli_fs(root, name, queries[0][0], masks[0])
+                cli_s = summary[name]["cli"]["s"]
+                for k in totals:
+                    totals[k] += summary[name]["cli"]["launches"][k]
             if verified:  # phase 3m's partitioned frame (the scheme type would repeat it)
                 sql_launches, summary[name]["sql"] = run_sql_fs(ds, name, queries, tmasks)
                 totals["filter_scan_mask"] += sql_launches["filter_scan_mask"]
@@ -3400,7 +3435,7 @@ def run_fs_path(dev, cols, queries, mem, base_loose=None) -> dict:
     finally:
         pushdown._refine_batch = real_refine
         shutil.rmtree(root, ignore_errors=True)
-    return {"launches": totals, "valid": valid}
+    return {"launches": totals, "valid": valid, "cli_s": cli_s}
 
 
 # -- phase 3k: the streaming live layer over 3j's z3 type ----------------------
@@ -6620,6 +6655,520 @@ def run_join_path(dev) -> dict:
     return {"launches": launches, "di": di, "zones": zones, "summary": summary}
 
 
+# -- phase 3n: the resident warmup and the operator's CLI ----------------------
+
+#: the legs of one point index's full warmup plan (the kNN ladder up to
+#: compile.warmup.knn.kmax = 64, the fused ladder up to sched.max.fusion = 64):
+#: the reference's plan for the same schemas (tests/test_torch_warmup.py
+#: holds this list against the JAX package's warmup plan)
+WARM_LEGS = (
+    "count_loose_city", "count_exact_city", "count_loose_country", "count_exact_country",
+    "mask", "knn", *(f"knn:k={k}" for k in (1, 2, 4, 8, 16, 32, 64)),
+    "window_union", "window_pairs", "density", "stats",
+    *(f"fused_{op}:q={w}" for w in (1, 2, 4, 8, 16, 32, 64) for op in ("counts", "query")),
+)
+#: phase 3n's resident indexes: phase 3's dim-plane z3 and z2 and 3c's interleaved z3
+WARM_TYPES = ("gdelt", "gdelt_i", "points")
+
+
+def warm_signatures() -> list:
+    """The full plan's signatures over :data:`WARM_TYPES`, in plan order."""
+    return [f"{tn}:{leg}" for tn in sorted(WARM_TYPES) for leg in WARM_LEGS]
+
+
+WARM_ROWS = 1 << 22  # the servers' and the CLI's root: phase 3's first 2^22 rows (a cut, PERF.md section 4)
+WARM_SCRATCH = 1 << 18  # the throwaway type of the mutating commands: the next 2^18 rows
+WARM_WRITER = 4096  # rows through the GeoTools writer
+WARM_KNN = ((2.3515625, 48.859375), 100)
+WARM_CUT = "2020-01-31T00:00:00"  # age-off's cutoff: day 30
+#: the launch counters of each kernel family the warmup pass must reach
+WARM_FAMILIES = {
+    "gm_dimscan": ("dimscan_z3_count", "dimscan_z3_mask", "dimscan_z2_count", "dimscan_z2_mask"),
+    "gm_zscan": ("zscan_z3_count", "zscan_z3_mask"),
+    "gm_filter_scan": ("filter_scan_count", "filter_scan_mask"),
+    "gm_density": ("density_count",),
+    "gm_dimscan_batched": ("dimscan_batched_z3_count", "dimscan_batched_z3_mask",
+                           "dimscan_batched_z2_count", "dimscan_batched_z2_mask"),
+    "gm_zscan_batched": ("zscan_batched_z3_count", "zscan_batched_z3_mask"),
+}
+
+
+def cli(argv: list, tag: str) -> str:
+    """``python -m geomesa_tpu_torch.tools`` in process, stdout captured; a
+    command that exits (an error) fails the run."""
+    import io
+    from contextlib import redirect_stdout
+
+    from geomesa_tpu_torch.tools.cli import main as cli_main
+
+    buf = io.StringIO()
+    try:
+        with redirect_stdout(buf):
+            cli_main(argv)
+    except SystemExit as e:
+        raise AssertionError(f"phase 3n {tag}: {argv[2:] if argv[:1] == ['--root'] else argv} "
+                             f"exited with {e.code!r}") from None
+    return buf.getvalue()
+
+
+def run_cli_fs(root, name, europe, mask) -> dict:
+    """Phase 3n's CLI over 3j's z3 type (2^26 rows, before 3k appends to
+    it): ``count`` and ``stats-count`` with the Europe query against numpy,
+    ``explain`` against the store's own plan text."""
+    from geomesa_tpu_torch import kernels
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+
+    want = int(mask.sum())
+    t, secs = time.time(), {}
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    got = int(cli(["--root", root, "count", "-f", name, "-q", europe], "count"))
+    secs["count"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doc = json.loads(cli(["--root", root, "stats-count", "-f", name, "-q", europe], "stats-count"))
+    secs["stats-count"] = time.perf_counter() - t0
+    if got != want or doc != {"type": "count", "count": want}:
+        raise AssertionError(f"phase 3n count / stats-count on {name}: {got} / {doc} != numpy {want}")
+    t0 = time.perf_counter()
+    text = cli(["--root", root, "explain", "-f", name, "-q", europe], "explain")
+    secs["explain"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if text != FileSystemDataStore(root).explain(name, europe) + "\n" or "Chosen index: z3" not in text:
+        raise AssertionError(f"phase 3n explain on {name}: != the store's plan text")
+    if not launches["filter_scan_mask"] or any(v for k, v in launches.items() if k != "filter_scan_mask"):
+        raise AssertionError(f"phase 3n CLI on {name}: launches {launches}, not the store runs' masks")
+    log(f"phase 3n CLI over 3j's {name} ({want:,} hits): count, stats-count == numpy, explain == the "
+        f"store's; seconds {json.dumps({k: round(v, 4) for k, v in secs.items()})} "
+        f"({time.time() - t:.1f} s; {launches['filter_scan_mask']} filter_scan_mask launches) [{CARD}]")
+    return {"seconds": secs, "s": time.time() - t, "launches": launches}
+
+
+class _TimedLegs:
+    """A resident index whose warmup legs time themselves (the device work
+    synchronised inside the leg) and keep a failed leg's exception before
+    re-raising it into the pass, which counts it as failed."""
+
+    def __init__(self, di, tn, secs, errs):
+        self.di, self.tn, self.secs, self.errs = di, tn, secs, errs
+
+    def warmup_plan(self, **kw):
+        return [(sig, self._timed(sig, fn)) for sig, fn in self.di.warmup_plan(**kw)]
+
+    def _timed(self, sig, fn):
+        import torch
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except Exception as e:
+                self.errs[f"{self.tn}:{sig}"] = repr(e)
+                raise
+            finally:
+                self.secs[f"{self.tn}:{sig}"] = time.perf_counter() - t0
+
+        return run
+
+
+def _records(indexes) -> "tuple[int, int]":
+    """(filter-scan launch records, compiled filters) over the indexes."""
+    comp = [c for di in indexes.values() for c in di._compiled.values()]
+    return sum(len(c.program._records) for c in comp if c.program is not None), len(comp)
+
+
+def run_warm_indexes(indexes: dict) -> dict:
+    """The warmup at full size: ``warmup.run`` over phase 3's resident
+    2^26-row indexes (no restaging) with the full plan, then one more call
+    of each base leg through ``DeviceIndex.warmup()`` (the inline pass of
+    ``make_server(warm=True)`` with the background pass off), which must
+    time every base leg (no None: each index is a point schema), build no
+    kernel, compile no filter and add no launch record."""
+    import torch
+
+    from geomesa_tpu_torch import kernels, ledger, warmup
+    from geomesa_tpu_torch.kernels import _build
+
+    want = warm_signatures()
+    plan = [s for s, _ in warmup.plan(indexes, knn_kmax=64, fusion_max=64)]
+    if plan != want:
+        raise AssertionError(f"phase 3n: the plan's {len(plan)} signatures != the reference's {len(want)}")
+    secs, errs = {}, {}
+    warmup.reset()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t = time.perf_counter()
+    prog = warmup.run({tn: _TimedLegs(di, tn, secs, errs) for tn, di in indexes.items()},
+                      knn_kmax=64, fusion_max=64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    if errs or prog["failed"] or not prog["done"] == prog["signatures_total"] == len(want) \
+            or prog["state"] != "warm":
+        raise AssertionError(f"phase 3n: the warmup pass {prog}, failed legs {errs}")
+    missing = [f for f, ks in WARM_FAMILIES.items() if not sum(launches[k] for k in ks)]
+    if missing:
+        raise AssertionError(f"phase 3n: the warmup pass launched no {missing}: {launches}")
+    rec0 = _records(indexes)
+    built0 = (dict(_build._built_s), ledger.COMPILES.compiles, dict(_build._events))
+    kernels.reset_counts()
+    again, again_wall = {}, {}
+    base = [leg for leg in WARM_LEGS if ":" not in leg]
+    for tn, di in sorted(indexes.items()):
+        # the inline pass make_server(warm=True) runs when the background
+        # pass is off: it swallows a failed leg into None, which fails here
+        t0 = time.perf_counter()
+        legs = di.warmup()
+        torch.cuda.synchronize()
+        again_wall[tn] = time.perf_counter() - t0
+        if list(legs) != base or None in legs.values():
+            raise AssertionError(f"phase 3n: {tn}.warmup() gave {legs}, want every one of {base} timed")
+        again.update({f"{tn}:{sig}": v for sig, v in legs.items()})
+    if _records(indexes) != rec0:
+        raise AssertionError(f"phase 3n: the base legs again added launch records or filters: "
+                             f"{rec0} -> {_records(indexes)}")
+    if (dict(_build._built_s), ledger.COMPILES.compiles, dict(_build._events)) != built0:
+        raise AssertionError("phase 3n: the base legs again built or loaded a kernel library")
+    total = {k: launches[k] + kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES}
+    log(json.dumps({"warmup_legs_s": {k: round(v, 4) for k, v in secs.items()},
+                    "base_legs_again_s": {k: round(v, 4) for k, v in again.items()}, "card": CARD}))
+    log(f"phase 3n warmup: {prog['done']}/{prog['signatures_total']} legs over {sorted(indexes)} in "
+        f"{wall:.2f} s (progress {prog['seconds']} s; compiled {prog['compiled']}, from cache "
+        f"{prog['from_cache']}, failed 0); launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"the base legs again through DeviceIndex.warmup(): every leg timed, no build, no new "
+        f"launch record, {sum(again_wall.values()):.3f} s (first pass {sum(secs[k] for k in again):.3f} s) "
+        f"[{CARD}]")
+    return {"launches": total, "progress": prog, "wall_s": wall, "legs_s": secs, "again_s": again,
+            "again_wall_s": again_wall}
+
+
+def _http(base: str, path: str, method: str = "GET", body=None):
+    """(status, JSON document) of one request; HTTP errors answer alike."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, json.loads(e.read())
+
+
+def serve_once(root, name, warm: bool, europe, mask, x, y) -> dict:
+    """``python -m geomesa_tpu_torch.tools --root R serve --resident --stream
+    [--warm] --port 0`` in a child process (gate ``ready``): the seconds to
+    the serving line and to ``/readyz`` 200, whether ``warming`` held the
+    gate, the ``/stats`` warmup document and the first ``/count``,
+    ``/knn`` and ``/density`` requests, timed and checked against numpy.
+    With ``warm`` the CLI's server views run against it too."""
+    import os
+    import select
+    import tempfile
+    import urllib.request
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(here) + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["GEOMESA_TPU_COMPILE_WARMUP_GATE"] = "ready"
+    cmd = [sys.executable, "-m", "geomesa_tpu_torch.tools", "--root", root, "serve", "--resident",
+           "--stream", "--port", "0"] + (["--warm"] if warm else [])
+    tag = "warm" if warm else "cold"
+    err = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(here), env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    out = {"server": tag}
+    try:
+        if not select.select([proc.stdout], [], [], 300)[0]:
+            raise AssertionError(f"phase 3n {tag} server: no serving line in 300 s")
+        line = proc.stdout.readline()
+        out["serving_s"] = time.perf_counter() - t0
+        if not line.startswith("serving "):
+            err.seek(0)
+            raise AssertionError(f"phase 3n {tag} server: {line!r} {err.read()[-3000:]}")
+        base = line.split(" on ")[1].split()[0]
+        warming = 0
+        while True:
+            st, doc = _http(base, "/readyz")
+            if st == 200:
+                break
+            if st != 503 or not doc.get("warming") or doc.get("ready"):
+                raise AssertionError(f"phase 3n {tag} server /readyz: {st} {doc}")
+            warming += 1
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"phase 3n {tag} server: not ready in 300 s")
+            time.sleep(0.005)
+        out["ready_s"] = time.perf_counter() - t0
+        out["warming_polls"] = warming
+        st, stats = _http(base, "/stats")
+        w = stats["warmup"]
+        out["warmup"] = w
+        if warm and not (warming and w["state"] == "warm" and w["failed"] == 0
+                         and w["done"] == w["signatures_total"] == len(WARM_LEGS)):
+            raise AssertionError(f"phase 3n warm server: {warming} warming polls, /stats warmup {w}")
+        if not warm and (warming or w["state"] != "idle"):
+            raise AssertionError(f"phase 3n cold server: {warming} warming polls, /stats warmup {w}")
+        q = urllib.request.quote
+        first = {}
+        t1 = time.perf_counter()
+        st, doc = _http(base, f"/count/{name}?cql={q(europe)}")
+        first["count"] = time.perf_counter() - t1
+        if st != 200 or doc["count"] != int(mask.sum()):
+            raise AssertionError(f"phase 3n {tag} /count: {st} {doc} != numpy {int(mask.sum())}")
+        (px, py), k = WARM_KNN
+        t1 = time.perf_counter()
+        st, doc = _http(base, f"/knn/{name}?x={px}&y={py}&k={k}&maxRadius=2")
+        first["knn"] = time.perf_counter() - t1
+        rows_, d2 = np_knn(x, y, px, py, 2.0, k)
+        ids = np.array([int(f["id"]) for f in doc.get("features", ())], dtype=np.int64)
+        if st != 200 or not np.array_equal(ids, rows_):
+            raise AssertionError(f"phase 3n {tag} /knn: {st}, ids != the numpy oracle")
+        t1 = time.perf_counter()
+        st, doc = _http(base, f"/density/{name}?cql={q(europe)}&bbox={','.join(str(v) for v in EUROPE)}"
+                              f"&width=256&height=256")
+        first["density"] = time.perf_counter() - t1
+        if st != 200 or not same_grid(np.asarray(doc["counts"], np.float32),
+                                      np_density(x, y, mask, EUROPE, (256, 256)), False):
+            raise AssertionError(f"phase 3n {tag} /density: {st}, grid != numpy")
+        out["first_ms"] = {k: v * 1e3 for k, v in first.items()}
+        if warm:
+            views = {}
+            for view in ("warmup", "trace", "slo", "ledger"):
+                t1 = time.perf_counter()
+                views[view] = cli([view, "--url", base], view)
+                out[f"{view}_cli_s"] = time.perf_counter() - t1
+            st, stats = _http(base, "/stats")
+            w = stats["warmup"]
+            want = [f"state: {w['state']}",
+                    f"signatures: {w['done']}/{w['signatures_total']} (compiled {w['compiled']}, "
+                    f"from cache {w['from_cache']}, failed {w['failed']})"]
+            cc = stats["compile_cache"]
+            if views["warmup"].splitlines()[:2] != want or (
+                    f"entries={cc.get('entries', 0)} hits={cc.get('hits', 0)} misses={cc.get('misses', 0)}"
+                    not in views["warmup"]):
+                raise AssertionError(f"phase 3n warmup --url: {views['warmup']!r} != /stats {w} {cc}")
+            if "ledgered requests:" not in views["ledger"] or "_system" not in views["ledger"]:
+                raise AssertionError(f"phase 3n ledger --url: {views['ledger'][:400]!r}")
+            log("phase 3n warm server views: " + " | ".join(
+                f"{v}: {views[v].splitlines()[0] if views[v].strip() else '(empty)'}" for v in views))
+        st, doc = _http(base, "/admin/shutdown", method="POST", body={})
+        if st != 200 or proc.wait(timeout=120) != 0:
+            raise AssertionError(f"phase 3n {tag} server: shutdown {st} {doc}, exit {proc.poll()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        err.close()
+    log(f"phase 3n {tag} server: serving line {out['serving_s']:.2f} s, /readyz 200 at {out['ready_s']:.2f} s "
+        f"({out['warming_polls']} polls 503 warming), /stats warmup {json.dumps(out['warmup'])}, first "
+        f"requests ms {json.dumps({k: round(v, 3) for k, v in out['first_ms'].items()})} [{CARD}]")
+    return out
+
+
+def run_cli_root(root, name, cols2, query, mask2, fresh) -> dict:
+    """The CLI in process over the 2^22 root: read-only commands against
+    numpy or the store's own answers, then the mutating commands on a
+    throwaway type of ``fresh`` rows (its count against numpy after each)."""
+    import torch
+
+    from geomesa_tpu_torch import __version__
+    from geomesa_tpu_torch.process.statsproc import run_stats
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+
+    secs = {}
+
+    def run(argv, tag):
+        t0 = time.perf_counter()
+        out = cli(["--root", root, *argv], tag)
+        secs[tag] = time.perf_counter() - t0
+        return out
+
+    europe, eb, ew = query
+    n = len(cols2["count"])
+    x, y = cols2["geom"][:, 0].astype(np.float32), cols2["geom"][:, 1].astype(np.float32)
+    npst, npeu = np_stats(cols2, None), np_stats(cols2, mask2)
+    out = [json.loads(ln) for ln in run(["stats", "-f", name, "-s", STATS_SPEC, "-q", europe], "stats").splitlines()]
+    if out != npeu:
+        raise AssertionError(f"phase 3n stats: {out} != numpy {npeu}")
+    out = [ln.split(": ", 1) for ln in run(["stats-bounds", "-f", name], "stats-bounds").splitlines()]
+    bbox = [round(float(v), 6) for v in (x.min(), y.min(), x.max(), y.max())]
+    if [a for a, _ in out] != ["count", "dtg", "geom"] or json.loads(out[0][1]) != npst[1] or \
+            json.loads(out[1][1]) != npst[2] or out[2][1] != f"bbox {bbox}":
+        raise AssertionError(f"phase 3n stats-bounds: {out} != numpy")
+    store = FileSystemDataStore(root)
+    out = json.loads(run(["stats-top-k", "-f", name, "-a", "count", "-k", "5"], "stats-top-k"))
+    if out != run_stats(store, name, "INCLUDE", 'TopK("count",5)').stats[0].to_json():
+        raise AssertionError(f"phase 3n stats-top-k: {out} != the store's")
+    out = json.loads(run(["stats-histogram", "--resident", "-f", name, "-a", "count", "--bins", "20",
+                          "--min", "0", "--max", "1000"], "stats-histogram --resident"))
+    if out != npst[3]:
+        raise AssertionError(f"phase 3n stats-histogram --resident: {out} != numpy {npst[3]}")
+    res = run(["stats-analyze", "--resident", "-f", name], "stats-analyze --resident")
+    if res != run(["stats-analyze", "-f", name], "stats-analyze") or \
+            json.loads(res.splitlines()[0]) != npst[0] or \
+            json.loads(res.splitlines()[1].split(": ", 1)[1].split("; ")[0]) != npst[1]:
+        raise AssertionError(f"phase 3n stats-analyze --resident: {res[:300]!r} != the store path / numpy")
+    out = run(["fsck"], "fsck").splitlines()
+    nparts = len(store._types[name].partitions)
+    if out[0] != f"{name}: swept 0 orphan file(s), 0 bytes" or \
+            out[1] != f"  verified {nparts}/{nparts} partition file(s) ok" or "0 drift finding(s)" not in out[2]:
+        raise AssertionError(f"phase 3n fsck: {out}")
+    if run(["get-sfts"], "get-sfts").split() != [name]:
+        raise AssertionError("phase 3n get-sfts")
+    out = run(["describe-schema", "-f", name], "describe-schema").splitlines()
+    if out[:4] != [f"{name}:", "  count: Integer", "  dtg: Date  (default dtg)",
+                   "  geom: Point  (default geometry)"]:
+        raise AssertionError(f"phase 3n describe-schema: {out}")
+    out = run(["env"], "env")
+    dev_line = (f"torch {torch.__version__}: cuda: {torch.cuda.get_device_name(0)} "
+                f"({torch.cuda.device_count()} devices)")
+    if dev_line not in out.splitlines() or "  geomesa.compile.warmup.gate = ready" not in out or \
+            not out.rstrip().endswith(f"schemas:\n  {name}"):
+        raise AssertionError(f"phase 3n env: {out[-400:]!r}")
+    if run(["version"], "version") != f"geomesa-tpu {__version__}\n":
+        raise AssertionError("phase 3n version")
+
+    # -- the mutating commands on a throwaway type --------------------------
+    tn = "scratch"
+    fx, fy = fresh["geom"][:, 0].astype(np.float32), fresh["geom"][:, 1].astype(np.float32)
+    live = np.ones(len(fx), bool)
+
+    def held(tag):
+        got = int(run(["count", "-f", tn], f"count after {tag}"))
+        if got != int(live.sum()):
+            raise AssertionError(f"phase 3n {tag}: count {got} != numpy {int(live.sum())}")
+
+    if run(["create-schema", "-f", tn, "-s", GDELT_SPEC], "create-schema") != \
+            f"created schema '{tn}' with 3 attributes\n":
+        raise AssertionError("phase 3n create-schema")
+    live[:] = False
+    held("create-schema")
+    live[:] = True
+    st = FileSystemDataStore(root)
+    st.write(tn, {k: fresh[k] for k in ("count", "dtg", "geom")}, fids=fresh["fids"])
+    st.flush(tn)
+    held("the write")
+    if run(["keywords", "-f", tn, "-a", "smoke", "test"], "keywords add").split() != ["smoke", "test"] or \
+            run(["keywords", "-f", tn, "-r", "test"], "keywords remove").split() != ["smoke"]:
+        raise AssertionError("phase 3n keywords")
+    held("keywords")
+    m = live & np_exact(fx, fy, fresh["dtg"], eb, ew)
+    if run(["delete-features", "-f", tn, "-q", europe], "delete-features") != f"deleted {int(m.sum())} features\n":
+        raise AssertionError(f"phase 3n delete-features: != numpy {int(m.sum())}")
+    live &= ~m
+    held("delete-features")
+    from geomesa_tpu_torch.filter.ecql import parse_instant
+
+    old = live & (fresh["dtg"] < parse_instant(WARM_CUT))
+    if run(["age-off", "-f", tn, "--before", WARM_CUT, "--dry-run"], "age-off --dry-run") != \
+            f"would remove {int(old.sum())} features (dry run)\n":
+        raise AssertionError(f"phase 3n age-off --dry-run: != numpy {int(old.sum())}")
+    held("age-off --dry-run")
+    if run(["age-off", "-f", tn, "--before", WARM_CUT], "age-off") != f"removed {int(old.sum())} features\n":
+        raise AssertionError("phase 3n age-off")
+    live &= ~old
+    held("age-off")
+    for argv, tag in ((["reindex", "-f", tn, "--index", "z2"], "reindex"),
+                      (["repartition", "-f", tn, "--scheme", "daily"], "repartition"),
+                      (["compact", "-f", tn], "compact")):
+        run(argv, tag)
+        held(tag)
+    box = _bbox(EUROPE)
+    got = int(run(["count", "-f", tn, "-q", box], "count bbox"))
+    if got != int((live & np_exact(fx, fy, None, EUROPE)).sum()):
+        raise AssertionError(f"phase 3n: the reindexed, repartitioned type's bbox count {got} != numpy")
+    run(["remove-schema", "-f", tn], "remove-schema")
+    if run(["get-sfts"], "get-sfts after remove").split() != [name]:
+        raise AssertionError("phase 3n remove-schema")
+    log(f"phase 3n CLI over the {n:,}-row root: every command == numpy or the store; the throwaway type "
+        f"{len(fx):,} -> {int(live.sum()):,} rows; seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in secs.items()})} [{CARD}]")
+    return {"seconds": secs}
+
+
+def run_writer(root, name, x, y) -> dict:
+    """The GeoTools writer: 4,096 rows through
+    ``get_feature_writer_append`` (WKT, ``Point`` and ``(x, y)`` by turns,
+    integer fids after the type's), then ``get_count`` of the Europe box
+    against numpy over the old and the new rows, then ``dispose``."""
+    from geomesa_tpu_torch.api import DataStoreFinder
+    from geomesa_tpu_torch.geom import Point
+
+    rng = np.random.default_rng(SEED + 31)
+    wx = rng.uniform(-20, 40, WARM_WRITER).astype(np.float32)
+    wy = rng.uniform(30, 65, WARM_WRITER).astype(np.float32)
+    cnt = rng.integers(0, 1000, WARM_WRITER)
+    dtg = T0 + rng.integers(0, 60 * DAY, WARM_WRITER)
+    t = time.perf_counter()
+    ds = DataStoreFinder.get_data_store({"fs.path": root})
+    w = ds.get_feature_writer_append(name)
+    for i in range(WARM_WRITER):
+        px, py = float(wx[i]), float(wy[i])
+        g = (f"POINT ({px!r} {py!r})", Point(px, py), (px, py))[i % 3]
+        w.write({"count": int(cnt[i]), "dtg": int(dtg[i]), "geom": g}, fid=len(x) + i)
+    w.close()
+    write_s = time.perf_counter() - t
+    box = _bbox(EUROPE)
+    got = ds.get_feature_source(name).get_count(box)
+    want = int(np_exact(x, y, None, EUROPE).sum() + np_exact(wx, wy, None, EUROPE).sum())
+    ds.dispose()
+    if got != want:
+        raise AssertionError(f"phase 3n writer: get_count {got} != numpy {want}")
+    log(f"phase 3n writer: {WARM_WRITER:,} rows (WKT, Point, (x, y)) written and flushed in {write_s:.3f} s; "
+        f"get_count(Europe box) {got:,} == numpy [{CARD}]")
+    return {"write_s": write_s, "count": got}
+
+
+def run_warmup_path(cols, queries, indexes) -> dict:
+    """Phase 3n: the warmup over phase 3's resident indexes, the warm and
+    the cold server over a 2^22-row root, the CLI over that root, the
+    writer."""
+    import shutil
+    import tempfile
+
+    from geomesa_tpu_torch.store.fs import FileSystemDataStore
+
+    t = time.time()
+    warm = run_warm_indexes(indexes)
+    out = {"launches": warm["launches"], "warmup": {
+        "progress": warm["progress"], "wall_s": warm["wall_s"],
+        "legs_s_sum": sum(warm["legs_s"].values()), "again_s_sum": sum(warm["again_wall_s"].values())}}
+    n = WARM_ROWS
+    cols2 = {k: cols[k][:n] for k in ("count", "dtg", "geom")}
+    x, y = cols2["geom"][:, 0].astype(np.float32), cols2["geom"][:, 1].astype(np.float32)
+    europe, b, w = queries[0]
+    mask2 = np_exact(x, y, cols2["dtg"], b, w)
+    root = tempfile.mkdtemp(prefix="geomesa-3n-")
+    try:
+        t0 = time.perf_counter()
+        ds = FileSystemDataStore(root)
+        ds.create_schema("gdelt", GDELT_SPEC)
+        ds.write("gdelt", cols2, fids=np.arange(n))
+        ds.flush("gdelt")
+        del ds
+        out["root_write_s"] = time.perf_counter() - t0
+        log(f"phase 3n: {n:,} rows written to a fresh root in {out['root_write_s']:.2f} s")
+        out["servers"] = [serve_once(root, "gdelt", wm, europe, mask2, x, y) for wm in (True, False)]
+        wsrv, csrv = out["servers"]
+        log("phase 3n first requests ms, warm | cold: " + ", ".join(
+            f"{k} {wsrv['first_ms'][k]:.3f} | {csrv['first_ms'][k]:.3f}" for k in wsrv["first_ms"])
+            + f"; /readyz 200 at {wsrv['ready_s']:.2f} | {csrv['ready_s']:.2f} s [{CARD}]")
+        fresh = {k: cols[k][n: n + WARM_SCRATCH] for k in ("count", "dtg", "geom")}
+        fresh["fids"] = np.arange(n, n + WARM_SCRATCH)
+        out["cli"] = run_cli_root(root, "gdelt", cols2, queries[0], mask2, fresh)
+        out["writer"] = run_writer(root, "gdelt", x, y)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["s"] = time.time() - t
+    log(json.dumps({"warmup_phase": {k: v for k, v in out.items() if k != "launches"}, "card": CARD},
+                   default=float))
+    return out
+
+
 # -- phase 4: kernel timings --------------------------------------------------
 
 
@@ -7585,11 +8134,15 @@ def main() -> int:
     t = time.time()
     fs = run_fs_path(dev, cols, queries, store.pop("answers"), base_loose)
     log(f"phase 3j and 3k: the file-system store and its live layer in {time.time() - t:.1f} s")
+    t = time.time()
+    warm = run_warmup_path(cols, queries, {"gdelt": di3, "gdelt_i": inter["di3i"], "points": di2})
+    log(f"phase 3n: the warmup and the operator's CLI in {time.time() - t:.1f} s (with 3j's CLI "
+        f"{fs['cli_s']:.1f} s) [{CARD}]")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     launches = {k: main_launches[k] + dens_launches[k] + inter["launches"][k] + lab_launches[k]
                 + xz["launches"].get(k, 0) + ais["launches"].get(k, 0) + sched["launches"][k]
                 + stream["launches"][k] + join["launches"][k] + store["launches"][k]
-                + fs["launches"][k] for k in main_launches}
+                + fs["launches"][k] + warm["launches"][k] for k in main_launches}
     valid_launches = {k: stream["valid"][k] + fs["valid"][k] for k in stream["valid"]}
     missing = sorted(k for k in ("dimscan_z3_count", "dimscan_batched_z3_count", "zscan_z3_count",
                                  "zscan_batched_z3_count", "filter_scan_count")

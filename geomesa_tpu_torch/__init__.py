@@ -8,3 +8,6 @@ are hand-written CUDA kernels under ``csrc/``, each with a plain PyTorch
 version beside its wrapper. Entry points run on the card (``cuda:0``)
 unless the caller passes ``device="cpu"``.
 """
+
+#: the package version, the reference's (``geomesa_tpu/__init__.py:33``)
+__version__ = "0.1.0"

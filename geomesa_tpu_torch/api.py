@@ -11,6 +11,9 @@ user's parameter map flows unchanged:
 >>> ds.create_schema("gdelt", "count:Int,dtg:Date,*geom:Point:srid=4326")
 >>> source = ds.get_feature_source("gdelt")
 >>> source.get_count("BBOX(geom, -10, 35, 30, 60)")
+>>> with ds.get_feature_writer_append("gdelt") as w:
+...     w.write({"count": 1, "dtg": 0, "geom": "POINT (1 2)"})
+>>> ds.dispose()
 
 The memory and file-system (``fs.path``, with ``fs.encoding``) factories
 take an optional ``device`` parameter (``"cpu"`` to scan on the host;
@@ -187,6 +190,49 @@ class SimpleFeatureSource:
         return self.get_features(query).bounds()
 
 
+class FeatureWriter:
+    """FeatureWriterAppend analog (reference ``geomesa_tpu/api.py:248``):
+    rows buffer on the host and go to the store in one write, and one
+    flush where the store has one, on :meth:`close`."""
+
+    def __init__(self, store, type_name: str):
+        self._store = store
+        self.type_name = type_name
+        self.sft = store.get_schema(type_name)
+        self._rows: list = []
+        self._fids: list = []
+
+    def write(self, attributes: dict, fid=None) -> None:
+        if fid is None:
+            # unique across writer sessions, as the reference's generated
+            # feature ids are: a positional default would collide with (and
+            # upsert over) the rows of an earlier session
+            import uuid
+
+            fid = f"{self.type_name}.{uuid.uuid4().hex[:16]}"
+        self._rows.append(attributes)
+        self._fids.append(fid)
+
+    def close(self) -> None:
+        if not self._rows:
+            return
+        import numpy as np
+
+        # FeatureBatch.from_columns coerces a geometry column that mixes
+        # WKT strings, Point objects and (x, y) pairs row by row
+        cols = {a.name: [r[a.name] for r in self._rows] for a in self.sft.attributes}
+        self._store.write(self.type_name, cols, fids=np.asarray(self._fids, dtype=object))
+        if hasattr(self._store, "flush"):
+            self._store.flush(self.type_name)
+        self._rows, self._fids = [], []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 class DataStoreAdapter:
     """Wraps any store of the port with the GeoTools-shaped methods while
     delegating everything else to the native API."""
@@ -205,5 +251,13 @@ class DataStoreAdapter:
             raise KeyError(type_name)
         return SimpleFeatureSource(self._store, type_name)
 
+    def get_feature_writer_append(self, type_name: str) -> FeatureWriter:
+        return FeatureWriter(self._store, type_name)
+
     def create_schema(self, *a, **kw):
         return self._store.create_schema(*a, **kw)
+
+    def dispose(self) -> None:
+        close = getattr(self._store, "close", None)
+        if close is not None:
+            close()

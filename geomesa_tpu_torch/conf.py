@@ -17,7 +17,12 @@ keys (``join.*``, reference lines 201-241, 351-385 and 526-541) and the
 BIN encoder's engine (``results.bin.engine``) and the server's keys
 (``trace.*`` with ``trace.device.dir``, ``slo.*``, ``ledger.*``,
 ``admin.token``, ``http.keepalive.s``, ``mesh.*``, reference lines
-433-566) and the push tier's (``sub.*``, lines 566-574). Each key has a
+433-566), the push tier's (``sub.*``, lines 566-574) and the resident
+warmup's (``compile.warmup.*``, lines 120-133, 392 and 483-486). The
+reference's ``compile.bucket.*`` keys are left out: the port's
+``bucketing.py`` keeps the fixed power-of-two ladder, which is what those
+keys give under their defaults, so the warmup's kNN and fusion ladders are
+the reference's. Each key has a
 default, an environment override (``GEOMESA_TPU_<NAME>`` with dots as
 underscores) and a programmatic override for tests (``set_prop`` /
 ``clear_prop`` or the ``prop_override`` context manager); the override wins
@@ -191,6 +196,14 @@ _DEFS = {
     "sub.queue.events": (1024, int),
     "sub.retain.s": (600.0, float),
     "sub.max.per.type": (4096, int),
+    # the resident warmup (warmup.py): the master switch of the background
+    # pass that ``serve --resident --warm`` starts, /readyz while it runs
+    # ("ready" holds 503, "stamp" serves but stamps warming, "off" hides
+    # it), the legs run at once, and the kNN k-ladder's bound
+    "compile.warmup.enabled": (True, _parse_bool),
+    "compile.warmup.gate": ("ready", _parse_choice("compile.warmup.gate", ("ready", "stamp", "off"))),
+    "compile.warmup.threads": (2, int),
+    "compile.warmup.knn.kmax": (64, int),
 }
 
 _overrides: dict = {}

@@ -61,9 +61,11 @@ A resident index stages from any store of the port through
 host sketches (Cardinality, TopK, Frequency, Z3Histogram) of ``stats``
 observe the masked host rows.
 
-Not in the port yet; each raises ``NotImplementedError`` naming its
-ROADMAP item: sharded indexes and the AOT warmup (``warmup``,
-``warmup_plan``: item 5).
+The resident warmup (``warmup_plan``, ``warmup``) runs each kernel family
+once before traffic, as the counterpart does; on the card that pays the
+first use of each kernel library, the allocator's growth and the filter
+scan's launch records, not a compile. Sharded indexes are not in the port
+yet (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -109,6 +111,9 @@ Z_BIN, Z_HI, Z_LO = "__zbin", "__zhi", "__zlo"
 # outweighs the key scan's win)
 _LOOSE_MAX_BINS = 64
 _LOOSE_MAX_WORDS = 8192
+# hits one ``torch.nonzero`` of a fused query's demux returns at most
+# over a block of queries (int64 pairs: 256 MiB on the device)
+_FUSED_HIT_PAIRS = 1 << 24
 # reserved name of the visibility label-id plane: each row carries the id
 # of its label expression in a small vocabulary; a per-request auth table
 # gathers to a bool mask on the device
@@ -133,10 +138,6 @@ def _launch_faults() -> None:
 
     fail_point("fail.device.launch")
     fail_point("fail.resident.launch")
-
-
-def _later(item: str) -> str:
-    return f"not in the port yet: ROADMAP, port queue: {item}"
 
 
 def _stageable_planes(sft: SimpleFeatureType) -> list:
@@ -1153,13 +1154,40 @@ class DeviceIndex:
         """Batched sibling of :meth:`query`: one launch computes the (Q, n)
         hit matrix, then one host take per query demuxes the rows. Returns
         a list of FeatureBatch aligned with ``queries``, or None when the
-        group cannot fuse (see :meth:`fused_loose_counts`)."""
+        group cannot fuse (see :meth:`fused_loose_counts`). The counterpart
+        copies the whole matrix to the host (4 GiB at Q = 64 over 2^26
+        rows) for one ``np.nonzero`` a row; the port finds the hits on the
+        matrix's device instead (:meth:`_fused_hits`)."""
         m = self._fused_loose(queries, loose, want="mask")
         if m is None:
             return None
-        m = m.cpu().numpy()
         rows = self._host_rows()
-        return [rows.take(np.nonzero(r)[0]) for r in m]
+        return [rows.take(r) for r in self._fused_hits(m)]
+
+    @staticmethod
+    def _fused_hits(m, max_pairs: "int | None" = None) -> "list[np.ndarray]":
+        """Each row's ascending hit positions of the (Q, n) bool matrix
+        ``m``, as int64 host arrays. ``torch.nonzero`` runs over blocks of
+        ``max(1, max_pairs // n)`` rows (``max_pairs`` defaults to
+        ``_FUSED_HIT_PAIRS``), so one call returns at most ``max(max_pairs,
+        n)`` hits whatever the boxes' hit density: 16 bytes a hit of a
+        block, 8 of a lone row (at most 512 MiB at 2^26 rows), and only the
+        hits cross to the host. No row count is taken first: a sum over a
+        bool matrix casts it to int64, 8 bytes a cell."""
+        if max_pairs is None:
+            max_pairs = _FUSED_HIT_PAIRS
+        q, n = m.shape
+        step = max(1, max_pairs // max(n, 1))
+        out: list = []
+        for a in range(0, q, step):
+            if step == 1:
+                out.append(torch.nonzero(m[a]).view(-1).cpu().numpy())
+                continue
+            blk = m[a:a + step]
+            hits = torch.nonzero(blk).cpu().numpy()
+            cuts = np.searchsorted(hits[:, 0], np.arange(1, blk.shape[0]))
+            out += np.split(hits[:, 1], cuts)
+        return out
 
     def _fused_loose(self, queries, loose, want: str):
         """(Q,) int32 counts or the (Q, n) bool mask matrix of a fusable
@@ -1451,13 +1479,128 @@ class DeviceIndex:
         rec = np.frombuffer(data, dtype=DTYPE_24 if label_attr else DTYPE_16)
         return rec[np.argsort(rec["dtg"], kind="stable")].tobytes()
 
-    # -- later slices --------------------------------------------------------
+    # -- the resident warmup ------------------------------------------------
 
-    def warmup_plan(self, k: int = 10, density_px: int = 256, knn_kmax=None, fusion_max=None):
-        raise NotImplementedError(_later("item 5b, warmup_plan"))
+    def warmup_plan(
+        self,
+        k: int = 10,
+        density_px: int = 256,
+        knn_kmax: "int | None" = None,
+        fusion_max: "int | None" = None,
+    ) -> "list[tuple[str, object]]":
+        """The warmup plan: ``(signature, thunk)`` legs covering the kernel
+        families this index serves, which :mod:`geomesa_tpu_torch.warmup`
+        runs before a server lets traffic in (reference
+        ``geomesa_tpu/device_cache.py:1417-1529``). Base legs run the loose
+        and exact counts at two window scales (a city and a country box,
+        AND a DURING over the staged dates' whole interval, read from the
+        host rows once a plan where the counterpart reads it for every
+        box: 2^26 dates a read), then mask,
+        window union, window pairs, density and stats; ``knn_kmax`` adds
+        one kNN leg per rung of the k ladder (:func:`bucketing.ladder`) up
+        to it, and ``fusion_max`` one fused count and one fused query leg
+        per width rung (loose, as the scheduler fuses). Legs the schema or
+        staging cannot serve (kNN and density on a non-point schema; every
+        leg on an empty staging) are not planned. The centre is the first
+        point, else the first envelope's lower corner, else (0, 0).
+
+        On the card there is no jit cache to fill: a leg pays what a cold
+        process pays on its first request of that family -- the kernel
+        library's build or load (``kernels/_build.py``), the caching
+        allocator's first growth at the staged shapes, the filter scan's
+        launch records of each plane set and the batched scans' packing."""
+        from geomesa_tpu_torch.bucketing import ladder
+        from geomesa_tpu_torch.geom import Envelope
+
+        legs: list = []
+        geom = self.sft.geom_field
+        if geom is None or self._staged_len() == 0:
+            return legs
+        gx, gy = f"{geom}__x", f"{geom}__y"
+        is_point = gx in (self._cols or {})
+        if is_point:
+            cx = float(self._cols[gx][:1].cpu()[0])
+            cy = float(self._cols[gy][:1].cpu()[0])
+        elif f"{geom}__x0" in (self._cols or {}):
+            cx = float(self._cols[f"{geom}__x0"][:1].cpu()[0])
+            cy = float(self._cols[f"{geom}__y0"][:1].cpu()[0])
+        else:
+            cx = cy = 0.0
+        dtg = self.sft.dtg_field
+        span: list = []  # the staged dates' interval, read once a plan
+
+        def bbox(half):
+            f = ast.BBox(geom, cx - half, cy - half, cx + half, cy + half)
+            if dtg is not None:
+                if not span:
+                    col = self._host_rows().columns.get(dtg)
+                    span.append(None)
+                    if col is not None and len(col):
+                        ms = np.asarray(col).astype("datetime64[ms]")
+                        span[0] = (int(ms.min().astype(np.int64)), int(ms.max().astype(np.int64)))
+                if span[0] is not None:
+                    f = ast.And([f, ast.During(dtg, *span[0])])
+            return f
+
+        for name, half in (("city", 0.05), ("country", 5.0)):
+            q = bbox(half)
+            legs.append((f"count_loose_{name}", lambda q=q: self.count(q, loose=True)))
+            legs.append((f"count_exact_{name}", lambda q=q: self.count(q, loose=False)))
+        legs.append(("mask", lambda: self.mask(bbox(1.0))))
+        if is_point:
+            legs.append(("knn", lambda: self.knn(cx, cy, k)))
+            if knn_kmax is not None:
+                for kk in ladder(min(int(knn_kmax), max(self._staged_len(), 1))):
+                    legs.append((f"knn:k={kk}", lambda kk=kk: self.knn(cx, cy, kk)))
+        env1 = np.array([[cx - 0.5, cy - 0.5, cx + 0.5, cy + 0.5]], np.float64)
+        legs.append(("window_union", lambda: self.window_union_query(env1)))
+        legs.append(("window_pairs", lambda: self.window_pairs_query(env1)))
+        if is_point:
+            legs.append((
+                "density",
+                lambda: self.density(
+                    ast.Include, Envelope(cx - 5, cy - 5, cx + 5, cy + 5), density_px, density_px),
+            ))
+        legs.append(("stats", lambda: self.stats(ast.Include, "Count()")))
+        if fusion_max is not None:
+            # loose=True: the scheduler fuses loose requests only; without it
+            # (the reference's call) the legs read query.loose.bbox, which is
+            # off by default, and launch nothing (ROADMAP section 3)
+            q = bbox(0.05)
+            for w in ladder(max(int(fusion_max), 1)):
+                legs.append((f"fused_counts:q={w}",
+                             lambda q=q, w=w: self.fused_loose_counts([q] * w, loose=True)))
+                legs.append((f"fused_query:q={w}",
+                             lambda q=q, w=w: self.fused_loose_query([q] * w, loose=True)))
+        return legs
 
     def warmup(self, k: int = 10, density_px: int = 256) -> dict:
-        raise NotImplementedError(_later("item 5b, warmup"))
+        """Run the base :meth:`warmup_plan` legs inline, so the first real
+        request of each family pays no first-use cost (reference
+        ``geomesa_tpu/device_cache.py:1531-1565``). Returns ``{leg:
+        seconds}``; a leg that raised is warned about and maps to None (a
+        warmup never takes a server down: the first real request launches
+        the kernel again, and raises if it fails), and ``knn`` and
+        ``density`` map to None on a schema without points. The server's
+        background pass (:mod:`geomesa_tpu_torch.warmup`) runs the full
+        plan, with the kNN and fusion ladders, under the ``_system``
+        ledger tenant instead."""
+        import time as _time
+
+        out: dict = {}
+        for name, fn in self.warmup_plan(k=k, density_px=density_px):
+            t0 = _time.perf_counter()
+            try:
+                fn()
+                out[name] = round(_time.perf_counter() - t0, 3)
+            except Exception as e:  # warmup must never break serving
+                warnings.warn(f"warmup leg {name!r} failed: {e!r}")
+                out[name] = None
+        if "knn" not in out:
+            out["knn"] = None  # non-point schema: leg unavailable
+        if "density" not in out:
+            out["density"] = None
+        return out
 
 
 def _attach(live_store, listener):

@@ -2,7 +2,8 @@
 
 Copy of ``geomesa_tpu/features/batch.py``, trimmed to what the port uses:
 ``from_columns``, ``concat``, ``column``, ``point_coords``, ``bboxes``,
-``take``, ``__len__`` and the reserved visibility column. The counterpart's
+``take``, ``__len__`` and the reserved visibility column, with
+:func:`fids_in` (the stores' delete-by-id membership). The counterpart's
 ``to_arrow``/``from_arrow`` have theirs in ``store/partfile.py``, the
 file-system store's codec. Column conventions are
 the counterpart's:
@@ -196,3 +197,20 @@ def _coerce_date(vals) -> np.ndarray:
     if a.dtype == object or a.dtype.kind in "US":
         return np.array(a, dtype="datetime64[ms]").astype(np.int64)
     return a.astype(np.int64)
+
+
+def fids_in(col: np.ndarray, fids) -> np.ndarray:
+    """Which of the fid column ``col`` are among ``fids``, by ``==`` as the
+    counterpart's ``np.isin(col, np.asarray(list(fids), dtype=object))``
+    compares (a mixed int/str id list does not collapse to str), in linear
+    time: numpy's object-array membership compares every pair, and an
+    age-off of 2^16 rows took minutes that way (ROADMAP section 3). An
+    integer column takes numpy's integer membership with the integral
+    ids (a str never equals an int); any other column a set lookup a row."""
+    ids = list(fids)
+    if col.dtype.kind in "iu":
+        ints = [int(f) for f in ids if isinstance(f, (int, np.integer))
+                or (isinstance(f, (float, np.floating)) and float(f).is_integer())]
+        return np.isin(col, np.asarray(ints, dtype=np.int64))
+    want = set(ids)
+    return np.fromiter((f in want for f in col.tolist()), dtype=bool, count=len(col))

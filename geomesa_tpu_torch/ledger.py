@@ -21,7 +21,8 @@ Counterpart of ``geomesa_tpu/ledger.py``. Three pieces:
   :class:`CostLedger`: per-tenant and per-shape aggregates (bounded key
   spaces, overflow collapsing into ``"other"``) with latency buckets for
   p50/p99, and a top-K ring of the most expensive requests with their
-  trace ids (``/stats/ledger``).
+  trace ids (``/stats/ledger``). :func:`cost_from_trace` derives the same
+  fields offline from a captured trace (the CLI's ``trace`` command).
 
 The fold is gated by ``ledger.enabled``; the SLO engine reads the same
 collector under its own ``slo.enabled``.
@@ -49,6 +50,7 @@ __all__ = [
     "charge",
     "collect_cost",
     "compile_scope",
+    "cost_from_trace",
     "current_cost",
     "enabled",
     "finish_request",
@@ -586,3 +588,58 @@ def finish_request(cost: "RequestCost | None", trace=None) -> None:
             TRACER.retain(trace)
     except Exception:  # pragma: no cover - accounting must not break
         pass
+
+
+#: span name -> (seconds field, bytes attr -> bytes field); a kernel build
+#: is the port's compile (the counterpart's ``xla.compile`` span)
+_SPAN_COSTS = {
+    "store.read": ("read_seconds", ("bytes", "read_bytes")),
+    "store.decode": ("decode_seconds", None),
+    "store.stage": ("stage_seconds", None),
+    "kernel.build": ("compile_seconds", None),
+}
+
+
+def cost_from_trace(doc: dict) -> dict:
+    """The cost fields recoverable from one trace document's span tree
+    (``Trace.to_dict()`` form; reference ``geomesa_tpu/ledger.py:734``):
+    device launches and seconds from the ``sched.execute`` spans (split
+    fairly by their ``fused`` width), host read/decode/stage time and bytes
+    from the store spans, build time from the ``kernel.build`` spans, and
+    chunk read/prune counts from the ``store.read`` chunk attrs. The live
+    collector is authoritative; this is the offline view of a captured
+    trace."""
+    out: dict = {}
+
+    def add(field: str, amount: float) -> None:
+        if field in _MAX_FIELDS:
+            out[field] = max(out.get(field, 0.0), amount)
+        else:
+            out[field] = out.get(field, 0.0) + amount
+
+    def walk(sp: dict) -> None:
+        name = sp.get("name", "")
+        dur_s = (sp.get("dur_ms") or 0.0) / 1e3
+        attrs = sp.get("attrs") or {}
+        if name == "sched.execute":
+            width = max(int(attrs.get("fused", 1) or 1), 1)
+            add("device_launches", 1)
+            add("device_seconds", dur_s / width)
+            add("fusion_width", width)
+        elif name in _SPAN_COSTS:
+            sec_field, byte_map = _SPAN_COSTS[name]
+            add(sec_field, dur_s)
+            if byte_map is not None and byte_map[0] in attrs:
+                add(byte_map[1], float(attrs[byte_map[0]]))
+            if name == "store.read" and "chunks" in attrs:
+                read = float(attrs.get("chunks") or 0)
+                total = float(attrs.get("chunk_total") or read)
+                add("chunks_read", read)
+                add("chunks_pruned", max(total - read, 0.0))
+        for c in sp.get("children") or []:
+            walk(c)
+
+    root = doc.get("spans")
+    if root:
+        walk(root)
+    return {k: round(v, 6) for k, v in sorted(out.items())}

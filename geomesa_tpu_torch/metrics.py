@@ -21,8 +21,10 @@ layer's appends, WAL, replay, memtable, backpressure and compaction
 (reference lines 484-546 and 679-694): traces and slow queries, the SLO
 engine's windows and burn rates, flight-recorder bundles, the cost
 ledger, the kernel builds the compile ledger counts, and the result
-plane's encode/write split; and the continuous-query push tier's
-(``pubsub_*``, reference lines 796-840). The counterpart's other families
+plane's encode/write split; the continuous-query push tier's
+(``pubsub_*``, reference lines 796-840); and the resident warmup's
+progress gauge (``warmup_signatures``, reference lines 471-478). The
+counterpart's other families
 are left out.
 """
 
@@ -375,6 +377,14 @@ compile_events = REGISTRY.counter(
 compile_event_seconds = REGISTRY.counter(
     "geomesa_compile_event_seconds_total",
     "total kernel build seconds observed by the compile ledger")
+# the resident warmup (warmup.py): progress of the start-time pass over
+# the kernel families, by state label -- state="total" planned legs,
+# state="compiled" legs that saw a kernel build (an nvcc run),
+# state="from_cache" legs that found every library built, state="failed"
+# legs that raised (reference metrics.py:471-478)
+warmup_signatures = REGISTRY.gauge(
+    "geomesa_warmup_signatures",
+    "resident warmup legs by state (total/compiled/from_cache/failed)")
 resilience_breaker_state = REGISTRY.gauge(
     "geomesa_resilience_breaker_state",
     "circuit-breaker state per domain (0=closed 1=half-open 2=open)")

@@ -58,8 +58,6 @@ Where the port differs, each answer named in ROADMAP.md:
 - ``f=arrow`` (or an ``Accept`` that picks Arrow) answers 406: the card's
   host has no ``pyarrow`` (ROADMAP section 3). No body goes out under
   Arrow's content type.
-- ``warm=True`` raises ``NotImplementedError`` (ROADMAP item 5b); lazy
-  first-touch staging is the resident path.
 - ``replica=`` raises ``NotImplementedError``, and ``/wal/<type>`` of a
   data type and ``/snapshot/<type>`` answer 501 (the replication item);
   ``/stats/replica`` answers ``{"enabled": false}``.
@@ -98,13 +96,7 @@ _ARROW_406 = (
     "(ROADMAP.md section 3): ask for f=geojson or f=bin"
 )
 _REPLICA_LATER = "replication, /wal and /snapshot (ROADMAP item 5, the replication tier)"
-_WARMUP_LATER = "resident warmup (ROADMAP item 5b, warmup_plan and warmup)"
 _MESH_LATER = "mesh serving over more than one card (ROADMAP item 7, ShardedDeviceIndex)"
-#: the /stats warmup document of a server that started no warmup
-_WARMUP_IDLE = {
-    "state": "idle", "signatures_total": 0, "done": 0, "compiled": 0,
-    "from_cache": 0, "failed": 0, "seconds": 0.0,
-}
 
 
 class _GeomesaHTTPServer(ThreadingHTTPServer):
@@ -1088,7 +1080,8 @@ class _Handler(BaseHTTPRequestHandler):
         failure domain's breaker, the open (unhealthy) domains,
         scheduler queue pressure and any BURNING SLOs. A DEGRADED or
         burning instance is still READY (200) — it serves, just
-        lower-rung or over budget, and says so; only draining flips 503
+        lower-rung or over budget, and says so; only draining and (with
+        ``compile.warmup.gate=ready``) a warmup pass still running flip 503
         (nothing new should be routed here)."""
         from geomesa_tpu_torch import resilience, slo
 
@@ -1113,6 +1106,19 @@ class _Handler(BaseHTTPRequestHandler):
         if self.scheduler is not None:
             queued, max_queue = self.scheduler.queue_pressure()
             doc["sched"] = {"queued": queued, "max_queue": max_queue}
+        if getattr(self, "_warmup_started", False):
+            from geomesa_tpu_torch import warmup
+            from geomesa_tpu_torch.conf import sys_prop
+
+            gate = str(sys_prop("compile.warmup.gate"))
+            if gate != "off" and warmup.warming():
+                # the warmup pass over the kernel families still runs:
+                # gate="ready" holds readiness so a rolling restart never
+                # routes traffic at a cold process; gate="stamp" serves
+                # at once but says so
+                doc["warming"] = True
+                if gate == "ready":
+                    doc["ready"] = False
         self._json(200 if doc["ready"] else 503, doc)
 
     def _dispatch(self, url, parts: list, q: dict) -> None:
@@ -1219,15 +1225,15 @@ class _Handler(BaseHTTPRequestHandler):
     def _stats_index(self) -> dict:
         """``/stats``: one roll-up document — scheduler, store, mesh,
         SLO engine, cost ledger, the persistent compile cache
-        (its kernel builds: hit/miss) and the warmup document of a server
-        that started none, in a single scrape."""
-        from geomesa_tpu_torch import slo
+        (its kernel builds: hit/miss) and the warmup's progress in a single
+        scrape."""
+        from geomesa_tpu_torch import slo, warmup
         from geomesa_tpu_torch.kernels._build import compile_cache_stats
         from geomesa_tpu_torch.ledger import LEDGER
 
         doc: dict = {
             "compile_cache": compile_cache_stats(),
-            "warmup": dict(_WARMUP_IDLE),
+            "warmup": warmup.progress(),
         }
         if self.scheduler is not None:
             doc["sched"] = self.scheduler.snapshot()
@@ -1885,8 +1891,12 @@ def make_server(
     ephemeral port (see ``server.server_address``). ``resident=True``
     serves count/features/stats/density/kNN from device-resident
     ``StreamingDeviceIndex`` caches, staged lazily per type on first
-    access on the store's device. ``warm=True`` raises
-    ``NotImplementedError`` (ROADMAP item 5b).
+    access on the store's device. ``warm=True`` (resident only) stages
+    every type before the server is returned, then runs the warmup over
+    them (:mod:`geomesa_tpu_torch.warmup`): in the background under
+    ``compile.warmup.enabled``, with ``/readyz`` gated or stamped per
+    ``compile.warmup.gate``, else each index's ``warmup()`` inline. A type
+    that fails to stage is warned about and served lazily.
 
     ``sched`` enables the device query scheduler (admission control,
     micro-batch scan fusion, per-tenant fairness): ``True`` for the
@@ -1910,8 +1920,6 @@ def make_server(
     from geomesa_tpu_torch import slo as _slo
     from geomesa_tpu_torch.tracing import TRACER
 
-    if warm:
-        raise NotImplementedError(_WARMUP_LATER)
     if replica is not None:
         raise NotImplementedError(_REPLICA_LATER)
     _ledger.install()  # compile attribution: the kernel builds
@@ -1977,6 +1985,35 @@ def make_server(
             "_resident_lock": checked_lock("server.resident", blocking_ok=True),
         },
     )
+    if resident and warm:
+        import warnings
+
+        for tn in store.type_names:
+            # a type that fails to stage (a device OOM) must not keep the
+            # other types from serving: that type stages on first touch
+            try:
+                di = _make_resident_index(store, tn, streaming=stream_layer is not None)
+            except Exception as e:
+                warnings.warn(f"warm staging failed for {tn!r}: {e!r}")
+                continue
+            handler._resident_cache[tn] = di
+        # staging is synchronous (the resident cache is full when
+        # make_server returns); the warmup pass runs in a bounded
+        # background pool charged to the _system ledger tenant, with
+        # /readyz gating or stamping `warming` per compile.warmup.gate
+        if handler._resident_cache:
+            if bool(_sys_prop("compile.warmup.enabled")):
+                from geomesa_tpu_torch import warmup as _warmup
+
+                handler._warmup_started = True
+                _warmup.start(dict(handler._resident_cache))
+            else:
+                # the base legs run inline before traffic is accepted
+                for tn, di in handler._resident_cache.items():
+                    try:
+                        di.warmup()
+                    except Exception as e:  # pragma: no cover - warmup() catches its legs
+                        warnings.warn(f"warmup failed for {tn!r}: {e!r}")
     # flight recorder: bundles land next to the store's data (memory
     # stores have no root — the recorder keeps a directory a caller set);
     # sched/store/mesh/stream snapshots register as bundle providers

@@ -59,7 +59,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
+from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch, fids_in
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.api import BuiltIndex, PartitionMeta
@@ -995,8 +995,8 @@ class FileSystemDataStore:
             if not st.partitions:
                 return 0
             data = self._read_all(type_name)
-            # object dtype: a mixed int/str id list must not collapse to str
-            keep = ~np.isin(data.fids, np.asarray(list(fids), dtype=object))
+            # a mixed int/str id list must not collapse to str
+            keep = ~fids_in(data.fids, fids)
             removed = int((~keep).sum())
             if removed:
                 st.pending = [data.take(np.nonzero(keep)[0])]

@@ -16,7 +16,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from geomesa_tpu_torch.audit import observe_query
-from geomesa_tpu_torch.features.batch import FeatureBatch
+from geomesa_tpu_torch.features.batch import FeatureBatch, fids_in
 from geomesa_tpu_torch.features.sft import SimpleFeatureType
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.index.api import BuiltIndex
@@ -98,8 +98,8 @@ class MemoryDataStore:
         self._flush(st)
         if st.data is None:
             return 0
-        # object dtype: a mixed int/str id list must not collapse to all-str
-        keep = ~np.isin(st.data.fids, np.asarray(list(fids), dtype=object))
+        # a mixed int/str id list must not collapse to all-str
+        keep = ~fids_in(st.data.fids, fids)
         removed = int((~keep).sum())
         st.pending = [st.data.take(np.nonzero(keep)[0])]
         st.data = None

@@ -23,9 +23,10 @@ shared fused launch fanned out to every rider) attach afterwards with
 :func:`record_span`.
 
 Export: ``Trace.to_dict()`` is the ``/debug/traces/<id>`` JSON;
-``Trace.to_perfetto()`` is Chrome-trace/Perfetto JSON. The counterpart's
-pretty printer and coverage helper serve its ``trace`` CLI subcommand,
-which the port does not have.
+``Trace.to_perfetto()`` is Chrome-trace/Perfetto JSON. :func:`format_trace`
+(the pretty span tree) and :func:`coverage` (the share of the request's
+wall time its spans explain) serve the CLI's ``trace`` command (reference
+lines 451 and 502).
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ __all__ = [
     "current_span",
     "current_trace",
     "current_trace_id",
+    "format_trace",
+    "coverage",
 ]
 
 _current: contextvars.ContextVar = contextvars.ContextVar(
@@ -431,3 +434,73 @@ def record_span(parent, name: str, start_perf: float, dur_s: float, **attrs):
     if parent is None or parent is _NOOP:
         return None
     return parent.trace.add_finished(name, parent, start_perf, dur_s, attrs)
+
+
+# -- pretty printer (the CLI's trace command) --------------------------------
+
+
+def format_trace(doc: dict) -> str:
+    """Human-readable tree of a ``Trace.to_dict()`` document (also the
+    slow-query log's embedded form)."""
+    head = f"trace {doc.get('trace_id')}  {doc.get('name')}  {doc.get('duration_ms')}ms"
+    flags = [k for k in ("sampled", "slow") if doc.get(k)]
+    if flags:
+        head += f"  [{', '.join(flags)}]"
+    lines = [head]
+    total = doc.get("duration_ms") or 0.0
+    root = doc.get("spans")
+
+    def walk(sp: dict, prefix: str, last: bool) -> None:
+        branch = "`- " if last else "|- "
+        dur = sp.get("dur_ms")
+        pct = f" ({dur / total * 100:.0f}%)" if dur is not None and total else ""
+        attrs = sp.get("attrs") or {}
+        a = "  " + " ".join(f"{k}={v}" for k, v in attrs.items()) if attrs else ""
+        lines.append(
+            f"{prefix}{branch}{sp['name']:<28} "
+            f"{dur if dur is not None else '?':>9}ms{pct}"
+            f"  @{sp.get('thread', '')}{a}"
+        )
+        kids = sp.get("children") or []
+        ext = "   " if last else "|  "
+        for i, c in enumerate(kids):
+            walk(c, prefix + ext, i == len(kids) - 1)
+
+    if root:
+        lines.append(f"`- {root['name']:<28} {root.get('dur_ms')}ms  @{root.get('thread', '')}")
+        kids = root.get("children") or []
+        for i, c in enumerate(kids):
+            walk(c, "   ", i == len(kids) - 1)
+    else:
+        lines.append("(no spans recorded)")
+    return "\n".join(lines)
+
+
+def coverage(doc: dict) -> float:
+    """Fraction of the root span's wall time covered by the union of its
+    descendant spans' intervals."""
+    root = doc.get("spans")
+    if not root or not root.get("dur_ms"):
+        return 0.0
+    intervals: list = []
+
+    def walk(sp: dict) -> None:
+        for c in sp.get("children") or []:
+            if c.get("dur_ms") is not None:
+                intervals.append((c["start_ms"], c["start_ms"] + c["dur_ms"]))
+            walk(c)
+
+    walk(root)
+    if not intervals:
+        return 0.0
+    intervals.sort()
+    covered = 0.0
+    cur_lo, cur_hi = intervals[0]
+    for lo, hi in intervals[1:]:
+        if lo > cur_hi:
+            covered += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    covered += cur_hi - cur_lo
+    return min(1.0, covered / root["dur_ms"])

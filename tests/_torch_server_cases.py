@@ -23,9 +23,10 @@ from geomesa_tpu import ledger as jledger
 from geomesa_tpu import resilience as jres
 from geomesa_tpu import slo as jslo
 from geomesa_tpu import tracing as jtracing
+from geomesa_tpu import warmup as jwarmup
 from geomesa_tpu.server import serve_background as jserve
 from geomesa_tpu.store.memory import MemoryDataStore as JMemory
-from geomesa_tpu_torch import ledger, resilience, slo, tracing
+from geomesa_tpu_torch import ledger, resilience, slo, tracing, warmup
 from geomesa_tpu_torch.server import serve_background
 from geomesa_tpu_torch.store.memory import MemoryDataStore
 
@@ -42,7 +43,9 @@ def reset_singletons(flightrec_dir=None) -> None:
     """Both packages' process-wide serving state back to a fresh process:
     the cost and compile ledgers, the SLO engine, the flight recorder
     (pointed at ``flightrec_dir``), the trace ring and slow log, the
-    breakers."""
+    breakers, the warmup's progress document."""
+    for w in (warmup, jwarmup):
+        w.reset()
     for led, s, tr, res in ((ledger, slo, tracing, resilience), (jledger, jslo, jtracing, jres)):
         led.LEDGER.reset()
         led.COMPILES.reset()

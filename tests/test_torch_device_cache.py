@@ -191,6 +191,9 @@ def test_default_index_answers_loose_like_the_reference():
 
 
 def test_later_slices_raise():
+    """Named for the slices when each part below raised. A test whose check
+    changes keeps its name, so reports of runs line up; each part now
+    serves, and each is held to the JAX package's answer."""
     from geomesa_tpu_torch.features.sft import SimpleFeatureType
 
     sft = SimpleFeatureType.create("t", Z3_SPEC)
@@ -210,11 +213,11 @@ def test_later_slices_raise():
         assert di.stats("INCLUDE", spec).to_json() == jdi.stats("INCLUDE", spec).to_json()
     # the base index's refresh_delta restages and says so, as the reference's does
     assert di.refresh_delta(None) == "restage" and len(di) == 64
-    # entry points of later slices raise, naming their ROADMAP item
-    for call, item in ((lambda: di.warmup(), "item 5"),
-                       (lambda: di.warmup_plan(), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # the resident warmup is in the port now: the JAX package's legs, and
+    # warmup() answers every one of them (tests/test_torch_warmup.py)
+    assert [s for s, _ in di.warmup_plan()] == [s for s, _ in jdi.warmup_plan()]
+    got, want = di.warmup(), jdi.warmup()
+    assert {k: v is None for k, v in got.items()} == {k: v is None for k, v in want.items()}
     # the DE-9IM relations, non-point schemas, kNN, the fused loose paths,
     # window pairs and BIN output are in the port now: they answer as the
     # JAX package does

@@ -9,7 +9,8 @@ and its streaming live layer: an append, a merged query, a reopen that
 replays the WAL and a compaction, with a subscription matched in process
 and over HTTP, a ``device_trace`` block around a traced store query, and
 the SQL layer: a ``SpatialFrame`` collected and a store-path
-``spatial_join``), none of them loads ``pyarrow`` or ``pandas`` either,
+``spatial_join``; the resident warmup's full pass and ``warmup()``, and a
+GeoTools writer session; and the CLI's ``count``), none of them loads ``pyarrow`` or ``pandas`` either,
 and entry points never fall back to the CPU on their own."""
 
 import os
@@ -212,6 +213,14 @@ left, right, jpairs = spatial_join(mds, "t", "zones", on="within", left_filter=q
 assert len(jpairs) == di.count(q + " AND WITHIN(geom, POLYGON((-10 -10, 30 -10, 30 30, -10 30, -10 -10)))")
 cell = sql.st_geomFromGeoHash(sql.st_geoHash(sql.st_point(1.0, 2.0))).envelope
 assert cell.xmin <= 1.0 <= cell.xmax and cell.ymin <= 2.0 <= cell.ymax
+from geomesa_tpu_torch import warmup
+prog = warmup.run({"t": di, "inter": inter, "p": pdi}, knn_kmax=8, fusion_max=4)
+assert prog["state"] == "warm" and prog["failed"] == 0 and prog["done"] == prog["signatures_total"]
+assert di.warmup()["knn"] is not None and pdi.warmup()["knn"] is None
+with fds.get_feature_writer_append("t") as w:
+    w.write({"count": 1, "dtg": 1_578_009_600_000, "geom": "POINT (1 1)"}, fid=10**6)
+assert fds.get_feature_source("t").get_count("BBOX(geom, 0.5, 0.5, 1.5, 1.5)") >= 1
+fds.dispose()
 assert not _build._libs  # CPU tensors never build or load a kernel
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -365,6 +374,51 @@ def test_the_scan_covers_the_live_layer_modules():
 def test_the_scan_covers_the_sql_modules():
     for rel in ("sql/__init__.py", "sql/functions.py", "sql/frame.py", "geom/clip.py",
                 "geom/geohash.py", "geom/wkb.py", "process/join.py"):
+        assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
+
+
+_CLI_WORKLOAD = r"""
+import io, sys, tempfile
+from contextlib import redirect_stdout
+import numpy as np
+from geomesa_tpu_torch.store.fs import FileSystemDataStore
+from geomesa_tpu_torch.tools.cli import main
+root = tempfile.mkdtemp()
+ds = FileSystemDataStore(root, device="cpu")
+ds.create_schema("t", "count:Int,dtg:Date,*geom:Point:srid=4326")
+rng = np.random.default_rng(1)
+ds.write("t", {"count": rng.integers(0, 10, 200), "dtg": 1_577_836_800_000 + rng.integers(0, 10**8, 200),
+               "geom": rng.uniform(-50, 50, (200, 2))})
+ds.flush("t")
+buf = io.StringIO()
+with redirect_stdout(buf):
+    main(["--root", root, "--device", "cpu", "count", "-f", "t", "-q", "BBOX(geom, -10, -10, 30, 30)"])
+assert int(buf.getvalue()) == ds.count("t", "BBOX(geom, -10, -10, 30, 30)") > 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "geomesa_tpu" or m.startswith("geomesa_tpu.")
+             or m == "pyarrow" or m.startswith("pyarrow.")
+             or m == "pandas" or m.startswith("pandas."))
+print("LOADED", bad)
+"""
+
+
+def test_cli_count_loads_no_jax():
+    """The CLI's ``count --device cpu`` in a child process loads neither
+    ``jax`` nor the JAX package (nor ``pyarrow`` or ``pandas``)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GEOMESA_TPU_")}
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "2"
+    out = subprocess.run(
+        [sys.executable, "-c", _CLI_WORKLOAD], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_the_scan_covers_the_warmup_and_cli_modules():
+    for rel in ("warmup.py", "tools/cli.py", "api.py", "tracing.py", "ledger.py", "__init__.py"):
         assert f"geomesa_tpu_torch/{rel}" in SOURCES, rel
 
 

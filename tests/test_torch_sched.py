@@ -32,7 +32,7 @@ from geomesa_tpu.device_cache import DeviceIndex as JIndex
 from geomesa_tpu.features.batch import FeatureBatch as JBatch
 from geomesa_tpu.features.sft import SimpleFeatureType as JSFT
 from geomesa_tpu.store.direct import BatchStore as JStore
-from geomesa_tpu_torch import failpoints, kernels, ledger, metrics, resilience, tracing
+from geomesa_tpu_torch import device_cache, failpoints, kernels, ledger, metrics, resilience, tracing
 from geomesa_tpu_torch.conf import prop_override
 from geomesa_tpu_torch.device_cache import DeviceIndex
 from geomesa_tpu_torch.features.batch import VIS_COLUMN, FeatureBatch
@@ -154,6 +154,39 @@ def test_fused_matches_the_jax_package_and_serial(kind, q):
     for t, a, b in zip(qs, tb, jb):
         np.testing.assert_array_equal(a.fids, tdi.query(t, loose=True).fids)
         np.testing.assert_array_equal(np.sort(a.fids), np.sort(b.fids))
+
+
+@pytest.mark.parametrize("max_pairs", [1, 7000, 1 << 24])
+def test_fused_query_demux_over_bounded_runs_of_rows(kind, max_pairs, monkeypatch):
+    """The fused query's demux finds the hits in blocks of rows of at most
+    ``max_pairs`` cells (a row alone where a row holds more; 1,500-3,000
+    rows here, so 7,000 makes blocks of 2-4 rows): the fid sets equal the
+    JAX package's, whose demux copies the whole matrix to the host."""
+    name, jdi, tdi, tiles, tag = kind
+    monkeypatch.setattr(device_cache, "_FUSED_HIT_PAIRS", max_pairs)
+    qs = tiles[:8] + tiles[:1]
+    tb, jb = tdi.fused_loose_query(qs, loose=True), jdi.fused_loose_query(qs, loose=True)
+    assert len(tb) == len(jb) == len(qs)
+    for a, b in zip(tb, jb):
+        np.testing.assert_array_equal(np.sort(a.fids), np.sort(b.fids))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_hits_equal_each_rows_nonzero(seed):
+    """``DeviceIndex._fused_hits`` over random (Q, n) matrices with empty,
+    sparse and full rows, at budgets below a row, of one row and of
+    several rows: each row's ascending positions, as ``np.nonzero`` of the
+    row gives."""
+    rng = np.random.default_rng(seed)
+    q, n = int(rng.integers(0, 12)), int(rng.integers(0, 40))
+    dens = rng.choice([0.0, 0.05, 0.5, 1.0], size=(q, 1))
+    m = rng.random((q, n)) < dens
+    for max_pairs in (1, 3, n, 4 * n + 1):
+        got = DeviceIndex._fused_hits(torch.from_numpy(m), max_pairs=max(max_pairs, 1))
+        assert len(got) == q
+        for row, h in zip(m, got):
+            assert h.dtype == np.int64
+            np.testing.assert_array_equal(h, np.nonzero(row)[0])
 
 
 def test_mixed_r_buckets_in_one_group():

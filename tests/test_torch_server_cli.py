@@ -2,7 +2,8 @@
 processes on the CPU (``--device cpu``): ``load-driver`` self-serves a
 small file-system root and reports throughput, latency, shed load and the
 scheduler's counters; ``serve`` prints its address, answers, and drains
-on POST ``/admin/shutdown``; ``--warm`` is refused (ROADMAP item 5b).
+on POST ``/admin/shutdown``; ``serve --resident --warm`` holds ``/readyz``
+until its warmup pass ends.
 Every child is port code only and is given a timeout."""
 
 import json
@@ -91,5 +92,40 @@ def test_serve_answers_and_drains_on_admin_shutdown(fs_root):
 
 
 def test_warm_is_refused(fs_root):
-    out = _cli("--root", fs_root.root, "--device", "cpu", "serve", "--warm", timeout=60)
-    assert out.returncode != 0 and "item 5b" in out.stderr
+    """``serve --warm`` was refused while the warmup was not in the port
+    (the name is kept so reports of runs line up); now ``serve --resident
+    --warm`` stages the type, answers ``/readyz``
+    503 or 200 (never a ready server before the pass ends), and reports a
+    finished pass with no failed leg on ``/stats``."""
+    import time
+    import urllib.error
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "geomesa_tpu_torch.tools", "--root", fs_root.root, "--device",
+         "cpu", "serve", "--port", "0", "--resident", "--warm"],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving "), line + proc.stderr.read()[-2000:] if not line else line
+        base = line.split(" on ")[1].split()[0]
+        for _ in range(600):
+            try:
+                with urllib.request.urlopen(f"{base}/readyz", timeout=30) as r:
+                    ready = json.loads(r.read())
+                break
+            except urllib.error.HTTPError as e:
+                assert e.code == 503 and json.loads(e.read())["warming"]
+                time.sleep(0.05)
+        assert ready["ready"] and "warming" not in ready
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+            w = json.loads(r.read())["warmup"]
+        assert w["state"] == "warm" and w["failed"] == 0 and w["done"] == w["signatures_total"] > 0
+        req = urllib.request.Request(f"{base}/admin/shutdown", data=b"{}", method="POST")
+        urllib.request.urlopen(req, timeout=30).close()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
